@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                   # every phase, one card
+    python3 chip_smoke.py --phases kernels  # device, build + a subset
+
+Phases, in order (any failure exits non-zero and prints no result line;
+device and build always run):
+
+1. device   the card's name and power limit (nvidia-smi) and CUDA version;
+            TF32 off for f32 matmuls and convolutions.
+2. build    nvcc builds every kernel of src/repro_torch/csrc (one process
+            per source, all at once); prints the build seconds.
+3. kernels  each hand-written kernel against its plain PyTorch version on
+            the card, at OPT-6.7B's main-path shapes in f32 and bf16 plus
+            small edge cases (GLU, GQA, shifts, nvalid = 0, duplicate pads);
+            times the kernel, the plain version and one PyTorch library
+            call computing the same function (CUDA events, median of 25
+            runs after warm-up) and works out the card's bound.
+4. parity   f32 engine streams of tiny-opt and tiny-relu on the card
+            (kernels) equal the CPU streams (plain versions) token for token,
+            logprobs within 1e-5.
+5. serve    OPT-6.7B, 32 layers, bf16, random weights from a seed, served
+            through ContinuousBatchingEngine (chunked prefill, γ-window
+            reuse): 8 requests to completion; every kernel's launch count
+            on that run must be > 0. Then 8 more requests under
+            torch.profiler: device time by kernel, and the busy share of
+            that profiled run's wall time.
+
+The line before the last is the kernels JSON object; the last line is
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
+# f32: only the order of the f32 sums differs from the plain version
+TOL_F32 = 1e-5
+# bf16 inputs, f32 accumulation: products are exact, but bf16 roundings of
+# intermediates (h before the down-projection, p before P@V, the output)
+# can fall on either side when the f32 sums differ in their last bits
+TOL_BF16 = 1e-2
+PHASES = ("kernels", "parity", "serve")  # device and build always run
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# timing and checks
+
+
+def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median milliseconds of fn() on the card (CUDA events per run)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def compare(name: str, got, want, dtype) -> float:
+    """Max |got - want| over the outputs; fails beyond the dtype's
+    tolerance relative to max |want|."""
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    err, scale = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            fail(f"{name}: non-finite kernel output")
+        err = max(err, (g - w).abs().max().item() if g.numel() else 0.0)
+        scale = max(scale, w.abs().max().item() if w.numel() else 0.0)
+    if err > tol * max(scale, 1e-30):
+        fail(f"{name}: max|diff| {err:.3e} > {tol} x max|ref| {scale:.3e}")
+    log(f"  ok {name}: max|diff| {err:.3e} (max|ref| {scale:.3e}, tol {tol})")
+    return err
+
+
+def bound(n_bytes: float, flops: float, dtype) -> tuple:
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels
+
+
+def kernel_phase(dev) -> dict:
+    from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models.common import paged_gather
+    from repro_torch.predictor import predictors as preds
+
+    rng = np.random.RandomState(0)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    def tile_lists(tile_mask):
+        idx, nvalid = preds.pack_tile_indices(t(tile_mask, torch.bool),
+                                              tile_mask.shape[1])
+        return idx, nvalid
+
+    results = {}
+
+    # -- fused_sparse_ffn ---------------------------------------------------
+    def ffn_case(name, T, d, F, tile, dtype, *, glu, masked, activation="relu",
+                 shift=0.0, tile_mask=None, unit_p=0.5):
+        n_tiles = F // tile
+        x = t(rng.randn(T, d), dtype)
+        wg = t(rng.randn(d, F) / np.sqrt(d), dtype)
+        wu = t(rng.randn(d, F) / np.sqrt(d), dtype) if glu else None
+        wd = t(rng.randn(F, d) / np.sqrt(F), dtype)
+        if tile_mask is None:
+            tile_mask = np.ones((T, n_tiles), bool)
+        idx, nvalid = tile_lists(tile_mask)
+        mask = t(rng.rand(T, F) < unit_p, torch.bool) if masked else None
+        kw = dict(w_up=wu, unit_mask=mask, activation=activation, shift=shift,
+                  tile=tile)
+        got = kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw)
+        want = kfd.fused_sparse_ffn_plain(x, wg, wd, idx, nvalid, **kw)
+        torch.cuda.synchronize()
+        err = compare(f"fused_sparse_ffn {name}", got, want, dtype)
+        empty = nvalid == 0
+        if got[0][empty].abs().sum().item() or got[1][empty].abs().sum().item():
+            fail(f"fused_sparse_ffn {name}: an nvalid == 0 row is not zero")
+        return err, (x, wg, wu, wd, idx, nvalid, mask, kw)
+
+    # tiny edge rows: a full list; one tile padded with duplicates of it;
+    # nvalid == 0 (exact zeros); one tile at index 0
+    edges = np.array([[True, True], [False, True], [False, False],
+                      [True, False]])
+    for dtype in (torch.float32, torch.bfloat16):
+        for act, shift in (("relu", 0.0), ("gelu", 0.0), ("silu", 0.0),
+                           ("beta=8", 0.0), ("shifted_relu", 0.25),
+                           ("fatrelu:0.1", 0.0)):
+            for glu in (False, True):
+                for masked in (False, True):
+                    ffn_case(f"tiny {act} glu={glu} mask={masked} {dtype}",
+                             4, 64, 256, 128, dtype, glu=glu, masked=masked,
+                             activation=act, shift=shift, tile_mask=edges)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype], args = ffn_case(f"OPT-6.7B decode T=8 MLP+mask {dtype}",
+                                     8, 4096, 16384, 128, dtype, glu=False,
+                                     masked=True)
+    x, wg, wu, wd, idx, nvalid, mask, kw = args  # bf16, the main path's type
+    T, d, F = 8, 4096, 16384
+    nv = nvalid.cpu().numpy()
+    n_tiles_distinct = int(preds.covered_tiles(idx, nvalid, F // 128).any(0).sum())
+    w_bytes = n_tiles_distinct * 128 * d * 2 * 2  # gate + down tiles, bf16
+    io = T * d * 2 + T * F * 4 + idx.numel() * 4 + T * 4 + T * d * 4 + T * 128 * 128 * 4
+    flops = float(nv.sum()) * 128 * (2 * d + 2 * d)
+    b_ms, b_by = bound(w_bytes + io, flops, torch.bfloat16)
+    maskb = mask.to(torch.bfloat16)
+
+    def lib_ffn():  # dense chain at full density, the yardstick
+        return (torch.relu(x @ wg) * maskb) @ wd
+
+    results["fused_sparse_ffn"] = dict(
+        name="fused_sparse_ffn", route="cuda",
+        source="src/repro_torch/csrc/fused_sparse_ffn.cu",
+        replaces="src/repro/kernels/fused_decode.py:98",
+        max_abs_err=errs[torch.bfloat16],
+        ms=time_ms(lambda: kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw)),
+        plain_ms=time_ms(lambda: kfd.fused_sparse_ffn_plain(x, wg, wd, idx,
+                                                            nvalid, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib_ffn),
+        shape="T=8 d=4096 F=16384 tile=128 K=128 MLP+mask bf16",
+        max_abs_err_f32=errs[torch.float32])
+
+    # -- paged_window_attention ---------------------------------------------
+    def attn_case(name, b, W, kvp, g, hd, bs, nb, n_blocks, dtype, window=0):
+        q = t(rng.randn(b, W, kvp, g, hd), dtype)
+        kp = t(rng.randn(n_blocks, kvp, bs, hd), dtype)
+        vp = t(rng.randn(n_blocks, kvp, bs, hd), dtype)
+        # each slot owns distinct blocks; past its length the table pads
+        # with the scratch block 0, as the engine's tables do
+        perm = rng.permutation(np.arange(1, n_blocks))[: b * nb].reshape(b, nb)
+        end = rng.randint(W, nb * bs + 1, size=b)          # tokens written
+        table = np.where(np.arange(nb)[None, :] * bs < end[:, None], perm, 0)
+        pos = end[:, None] - W + np.arange(W)[None, :]
+        table, pos = t(table, torch.int32), t(pos, torch.int32)
+        got = kpa.paged_window_attention(q, kp, vp, table, pos, window=window)
+        want = kpa.paged_window_attention_plain(q, kp, vp, table, pos,
+                                                window=window)
+        torch.cuda.synchronize()
+        return compare(f"paged_window_attention {name}", [got], [want],
+                       dtype), (q, kp, vp, table, pos, end)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        attn_case(f"tiny GQA W=5 window=5 {dtype}", 3, 5, 2, 8, 16, 8, 4, 16,
+                  dtype, window=5)
+        attn_case(f"tiny GQA W=1 {dtype}", 3, 1, 2, 8, 16, 8, 4, 16, dtype)
+        attn_case(f"OPT-6.7B chunk W=16 {dtype}", 8, 16, 32, 1, 128, 16, 16,
+                  129, dtype)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype], args = attn_case(f"OPT-6.7B decode W=1 {dtype}", 8, 1, 32,
+                                      1, 128, 16, 16, 129, dtype)
+    q, kp, vp, table, pos, end = args
+    blocks_read = int(sum(-(-int(e) // 16) for e in end))
+    n_bytes = (blocks_read * 32 * 16 * 128 * 2 * 2 + q.numel() * 2 * 2
+               + table.numel() * 4 + pos.numel() * 4)
+    flops = float(sum(int(e) for e in end)) * 32 * 4 * 128
+    b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
+    kg, vg = paged_gather(kp, table), paged_gather(vp, table)
+    S = kg.shape[2]
+    am = (torch.arange(S, device=dev)[None, :] <= pos[:, :1]).view(8, 1, 1, S)
+    qh = q[:, 0].reshape(8, 32, 1, 128)
+
+    def lib_attn():  # SDPA over the gathered cache, the yardstick
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kg, vg, attn_mask=am)
+
+    results["paged_window_attention"] = dict(
+        name="paged_window_attention", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:87",
+        max_abs_err=errs[torch.bfloat16],
+        ms=time_ms(lambda: kpa.paged_window_attention(q, kp, vp, table, pos)),
+        plain_ms=time_ms(lambda: kpa.paged_window_attention_plain(
+            q, kp, vp, table, pos)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib_attn),
+        shape="b=8 W=1 kvp=32 g=1 hd=128 bs=16 nb=16 bf16",
+        max_abs_err_f32=errs[torch.float32])
+
+    # -- sparse_matmul_tokens -----------------------------------------------
+    def smm_case(name, T, F, D, tile, dtype, tile_mask, rows_per_list=1):
+        x = t(rng.randn(T, F) * (rng.rand(T, F) < 0.5), dtype)
+        w = t(rng.randn(F, D) / np.sqrt(F), dtype)
+        idx, nvalid = tile_lists(tile_mask)
+        idx = idx.repeat_interleave(rows_per_list, 0).contiguous()
+        nvalid = nvalid.repeat_interleave(rows_per_list).contiguous()
+        got = ksm.sparse_matmul_tokens(x, w, idx, nvalid, tile=tile)
+        want = ksm.sparse_matmul_tokens_plain(x, w, idx, nvalid, tile=tile)
+        torch.cuda.synchronize()
+        if got[nvalid == 0].abs().sum().item():
+            fail(f"sparse_matmul_tokens {name}: an nvalid == 0 row is not zero")
+        return compare(f"sparse_matmul_tokens {name}", [got], [want],
+                       dtype), (x, w, idx, nvalid)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        smm_case(f"tiny edges {dtype}", 4, 256, 64, 128, dtype, edges)
+        # 16 row groups x 64 column groups fill the grid: the whole list is
+        # one run, written to y with no run scratch
+        smm_case(f"one run T=256 D=4096 {dtype}", 256, 512, 4096, 128, dtype,
+                 rng.rand(256, 4) < 0.6)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[dtype], args = smm_case(
+            f"OPT-6.7B chunk 8x16 rows {dtype}", 128, 16384, 4096, 128, dtype,
+            rng.rand(8, 128) < 0.97, rows_per_list=16)
+    x, w, idx, nvalid = args
+    nv = nvalid.cpu().numpy()
+    distinct = int(preds.covered_tiles(idx, nvalid, 128).any(0).sum())
+    n_bytes = (x.numel() * 2 + distinct * 128 * 4096 * 2 + idx.numel() * 4
+               + nv.size * 4 + 128 * 4096 * 4)
+    flops = float(nv.sum()) * 128 * 4096 * 2
+    b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
+    results["sparse_matmul_tokens"] = dict(
+        name="sparse_matmul_tokens", route="cuda",
+        source="src/repro_torch/csrc/sparse_matmul_tokens.cu",
+        replaces="src/repro/kernels/sparse_matmul.py:125",
+        max_abs_err=errs[torch.bfloat16],
+        ms=time_ms(lambda: ksm.sparse_matmul_tokens(x, w, idx, nvalid)),
+        plain_ms=time_ms(lambda: ksm.sparse_matmul_tokens_plain(x, w, idx,
+                                                                nvalid)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
+        shape="T=128 (8 slots x 16) F=16384 D=4096 tile=128 K=128 bf16",
+        max_abs_err_f32=errs[torch.float32])
+    for r in results.values():
+        log("  kernel " + json.dumps(r))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: f32 engine parity, card vs CPU
+
+
+def serve_streams(cfg, params, device, prompts, chunk):
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    eng = ContinuousBatchingEngine(
+        cfg, params, EngineConfig(n_slots=4, block_size=8,
+                                  max_blocks_per_seq=6, prefill_chunk=chunk),
+        device=device)
+    uids = [eng.submit(p, 10, reuse_window=4) for p in prompts]
+    res = eng.run()
+    return ([res[u].tokens.tolist() for u in uids],
+            np.concatenate([res[u].logprobs for u in uids]), eng)
+
+
+def numpy_params(cfg, seed: int):
+    """Random f32 params drawn from a numpy seed, in the port's layout: each
+    weight leaf of ``init_params``'s tree is redrawn at its own scale, with
+    padded head slots kept at zero and constant leaves (norms) kept."""
+    from repro_torch.models import transformer as T
+
+    rng = np.random.RandomState(seed)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(v) for k, v in t.items()}
+        a = t.numpy()
+        if a.std() == 0:
+            return t
+        new = rng.standard_normal(a.shape) * a.std()
+        return torch.from_numpy(np.where(a == 0, 0.0, new).astype(np.float32))
+
+    return draw(T.init_params(cfg, device="cpu"))
+
+
+def parity_phase(dev) -> None:
+    from repro_torch.configs import get_config
+
+    for name in ("tiny-opt", "tiny-relu"):
+        cfg = get_config(name).replace(compute_dtype="float32")
+        p_cpu = numpy_params(cfg, seed=0)
+        p_dev = _to(p_cpu, dev)
+        prompts = [np.random.RandomState(s).randint(0, cfg.vocab_size, n)
+                   for s, n in ((1, 9), (2, 5), (3, 13), (4, 21), (5, 3))]
+        for chunk in (0, 4):
+            want, lp_want, _ = serve_streams(cfg, p_cpu, "cpu", prompts, chunk)
+            got, lp_got, eng = serve_streams(cfg, p_dev, dev, prompts, chunk)
+            if not eng.fast_kernels:
+                fail("engine on the card did not take the kernel path")
+            if got != want:
+                fail(f"{name} chunk={chunk}: card stream {got} != CPU {want}")
+            d = float(np.max(np.abs(lp_got - lp_want)))
+            if d > 1e-5:
+                fail(f"{name} chunk={chunk}: logprobs differ by {d:.3e}")
+            log(f"  ok parity {name} prefill_chunk={chunk}: "
+                f"{sum(map(len, got))} tokens identical, max|dlogprob| {d:.2e}")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: OPT-6.7B at full width
+
+
+def timed_steps(eng) -> dict:
+    """Step the engine until its work is done, timing each step on the host
+    clock with the card synchronised at both ends. Steps that ran a prefill
+    chunk (or admitted) count as prefill, the rest as decode."""
+    out = {"prefill": [], "decode": [], "decode_tokens": 0}
+    while eng.scheduler.has_work():
+        prefilling = bool(eng.scheduler.prefill_indices()) or bool(
+            len(eng.scheduler.queue))
+        n_active = len(eng.scheduler.active_indices())
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - a) * 1e3
+        if prefilling:
+            out["prefill"].append(ms)
+        else:
+            out["decode"].append(ms)
+            out["decode_tokens"] += n_active
+    return out
+
+
+def serve_phase(dev, counters) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    cfg = get_config("opt-6.7b").replace(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ContinuousBatchingEngine(
+        cfg, params, EngineConfig(n_slots=8, block_size=16,
+                                  max_blocks_per_seq=16, prefill_chunk=16),
+        device=dev)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(16, 65, size=8)
+    uids = [eng.submit(rng.randint(0, cfg.vocab_size, n), 16, reuse_window=4)
+            for n in lens]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    steps = timed_steps(eng)
+    launches = {c.__name__: c.launches for c in counters}
+    prefill_ms, decode_ms = steps["prefill"], steps["decode"]
+    res = eng.run()
+    for u in uids:
+        r = res[u]
+        if len(r.tokens) != 16:
+            fail(f"request {u} finished with {len(r.tokens)} tokens, not 16")
+        if not np.isfinite(r.logprobs).all():
+            fail(f"request {u} has non-finite logprobs")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    out = dict(model="opt-6.7b", layers=cfg.n_layers, dtype="bfloat16",
+               prompt_lens=lens.tolist(), max_new=16, n_slots=8,
+               param_init_s=init_s, prefill_steps=len(prefill_ms),
+               prefill_step_ms_median=float(np.median(prefill_ms)),
+               decode_steps=len(decode_ms),
+               decode_step_ms_median=float(np.median(decode_ms)),
+               decode_tokens_per_s=steps["decode_tokens"] / (sum(decode_ms) / 1e3),
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               weight_io_saved=eng.weight_io_saved(), launches=launches)
+    log("  serve " + json.dumps(out))
+    profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
+                                "decode": out["decode_step_ms_median"]})
+    return launches
+
+
+def profile_run(eng, cfg, dev, unprofiled: dict) -> None:
+    """A second batch of 8 requests through the same engine under
+    torch.profiler (device activity only): device time by kernel, and the
+    device's busy share of the wall time of THAT run — busy time is the
+    union of the device intervals the profiler recorded, wall time the
+    host clock around the same steps. The profiler slows the host, so this
+    share is a lower bound of the unprofiled run's; the profiled step
+    medians are printed beside the unprofiled ones (``unprofiled``) to show
+    by how much."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI start-up cost
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize(dev)
+    rng = np.random.RandomState(1)
+    for n in rng.randint(16, 65, size=8):
+        eng.submit(rng.randint(0, cfg.vocab_size, n), 16, reuse_window=4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps = timed_steps(eng)
+    wall_ms = sum(steps["prefill"]) + sum(steps["decode"])
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "device_time", None)
+            if t is None:
+                t = e.cuda_time
+            by_name[e.name] = by_name.get(e.name, 0.0) + t / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    busy = 0.0  # union of device intervals, ms
+    end = float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += (b - max(a, end)) / 1e3
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log("  profile " + json.dumps({
+        "steps": len(steps["prefill"]) + len(steps["decode"]),
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_busy_share": busy / wall_ms,
+        "kernel_time_sum_ms": sum(by_name.values()),
+        "prefill_step_ms_median": float(np.median(steps["prefill"])),
+        "decode_step_ms_median": float(np.median(steps["decode"])),
+        "unprofiled_prefill_step_ms_median": unprofiled["prefill"],
+        "unprofiled_decode_step_ms_median": unprofiled["decode"],
+        "top_kernels_ms": [[n[:80], ms] for n, ms in top]}))
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES}")
+    phases = ap.parse_args(argv).phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels import sparse_matmul as ksm
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log(f"[build] {rt.build():.1f} s")
+    results = {}
+    if "kernels" in phases:
+        log("[kernels]")
+        results = kernel_phase(dev)
+    if "parity" in phases:
+        log("[parity]")
+        parity_phase(dev)
+    counters = (kfd.fused_sparse_ffn, kpa.paged_window_attention,
+                ksm.sparse_matmul_tokens)
+    if "serve" in phases:
+        log("[serve]")
+        launches = serve_phase(dev, counters)
+        for r in results.values():
+            r["launches"] = launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = {"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}
+    log(card)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

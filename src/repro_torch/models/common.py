@@ -1,0 +1,366 @@
+"""Shared model components of the PyTorch port — the serving subset of the
+reference's ``models/common.py``.
+
+Layouts are the reference's, so tests compare like with like: attention
+queries in the per-group padded layout ``(b, s, kvp, g, hd)``, caches
+head-major, the paged pool ``(L, n_blocks, kvp, block_size, hd)``.
+
+Where the reference returns a new array (``pages.at[...].set``), the paged
+writes here update the pool IN PLACE (``index_put_`` through indexing
+assignment) and return the same tensor: a production pool fills most of the
+card and must never be copied per token.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+# ---------------------------------------------------------------------------
+# init helpers (torch.Generator; the numbers differ from jax.random's)
+
+
+def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
+               device) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(max(1, in_axis_size))
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+
+
+def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        var = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    # copied to the device once: a host-to-device copy per call would stall
+    # the stream every layer
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs_on(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs
+    angles = angles[..., None, :]  # broadcast over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# padding geometry
+
+TP = 16  # model-axis size of the reference's production mesh
+VOCAB_MULTIPLE = 2048
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class HeadGeometry:
+    """Padded GQA/MHA layout (the reference's ``HeadGeometry``): q heads are
+    padded to a multiple of TP in a per-group layout; MHA pads kv heads
+    alongside. Padded slots hold zero weights and are masked after
+    attention, so the math is exactly GQA."""
+
+    def __init__(self, n_heads: int, n_kv: int, head_dim: int, tp: int = TP):
+        self.n_heads = n_heads
+        self.head_dim = head_dim
+        self.hp = round_up(n_heads, tp)
+        if n_kv == n_heads:  # MHA: pad kv alongside q
+            self.kvp = self.hp
+            self.group = 1
+            self.real_per_group = 1
+        else:
+            if self.hp % n_kv:
+                raise ValueError(f"padded heads {self.hp} not divisible by "
+                                 f"{n_kv} kv heads")
+            self.kvp = n_kv
+            self.group = self.hp // n_kv
+            self.real_per_group = n_heads // n_kv
+        self.n_kv = n_kv
+
+    def q_slot_mask(self, device=None, dtype=torch.float32) -> torch.Tensor:
+        """(hp,) 1 for real q-head slots in the per-group padded layout,
+        made on ``device`` (no host-to-device copy in the step)."""
+        j = torch.arange(self.hp, device=device)
+        real = (j < self.n_heads) if self.group == 1 else (
+            j % self.group < self.real_per_group)
+        return real.to(dtype)
+
+    def q_slot_index(self) -> np.ndarray:
+        """Padded slot of each real head h = k*r + j -> k*g + j."""
+        h = np.arange(self.n_heads)
+        if self.group == 1:
+            return h
+        return (h // self.real_per_group) * self.group + h % self.real_per_group
+
+    def scatter_q(self, w_real: torch.Tensor, axis: int) -> torch.Tensor:
+        """Place a real-head-indexed tensor into the padded layout."""
+        shape = list(w_real.shape)
+        shape[axis] = self.hp
+        out = w_real.new_zeros(shape)
+        idx = torch.as_tensor(self.q_slot_index(), device=w_real.device)
+        out.index_copy_(axis, idx, w_real)
+        return out
+
+
+def padded_vocab(vocab: int) -> int:
+    return round_up(vocab, VOCAB_MULTIPLE)
+
+
+def vocab_logit_mask(vocab: int, vocab_p: int, device=None) -> torch.Tensor:
+    ar = torch.arange(vocab_p, device=device)
+    return torch.where(ar < vocab, 0.0, -1e9).float()
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for c in range(min(cap, n), 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0, q_chunk: int = 512,
+                    kv_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
+    """Exact attention as an online softmax over kv chunks, in plain torch
+    ops (the reference's ``common.flash_attention``, same chunking and
+    rounding placement: q scaled in its dtype, logits and PV accumulated in
+    f32). q (b, s, kvp, g, d); k/v (b, skv, kvp, d). Returns q's shape and
+    dtype."""
+    b, s, kvp, g, d = q.shape
+    skv = k.shape[1]
+    q_chunk = _largest_divisor_leq(s, min(q_chunk, s))
+    kv_chunk = _largest_divisor_leq(skv, min(kv_chunk, skv))
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        cq = q_chunk
+        qi = (q[:, q0:q0 + cq] * torch.tensor(scale, dtype=q.dtype, device=q.device)).float()
+        q_pos = q0 + q_offset + torch.arange(cq, device=q.device)
+        hi = min(skv, q0 + q_offset + cq) if causal else skv
+        lo = max(0, q0 + q_offset - window + 1) if window else 0
+        lo = (lo // kv_chunk) * kv_chunk
+        hi = min(skv, round_up(max(hi, lo + 1), kv_chunk))
+        m = torch.full((b, kvp, g, cq), -1e30, device=q.device)
+        l = torch.zeros((b, kvp, g, cq), device=q.device)
+        acc = torch.zeros((b, kvp, g, cq, d), device=q.device)
+        for b0 in range(lo, hi, kv_chunk):
+            kj = kf[:, b0:b0 + kv_chunk]
+            vj = vf[:, b0:b0 + kv_chunk]
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj)
+            kpos = b0 + torch.arange(kv_chunk, device=q.device)
+            mask = torch.ones((cq, kv_chunk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kpos[None, :] <= q_pos[:, None]
+            if window:
+                mask &= kpos[None, :] > q_pos[:, None] - window
+            logits = torch.where(mask, logits, -1e30)
+            mj = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - mj[..., None])
+            corr = torch.exp(m - mj)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype).float(), vj)
+            acc = acc * corr[..., None] + pv
+            m = mj
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4))  # (b, cq, kvp, g, d)
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def window_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """Grouped attention of a W-token window over a head-major cache,
+    causal within the window through ``pos``. q (b, W, kvp, g, d);
+    k/v_cache (b, kvp, S, d); pos (b, W). Rounding as the reference: q
+    scaled in its dtype, cast to the cache dtype, f32 accumulation, output
+    in q's dtype."""
+    b, W, kvp, g, d = q.shape
+    S = k_cache.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qs = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)).to(k_cache.dtype)
+    logits = torch.einsum("bqhgd,bhsd->bhgqs", qs.float(), k_cache.float())
+    ar = torch.arange(S, device=q.device)
+    valid = ar[None, None, :] <= pos[:, :, None]
+    if window:
+        valid &= ar[None, None, :] > pos[:, :, None] - window
+    logits = torch.where(valid[:, None, None], logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqs,bhsd->bqhgd", w.to(k_cache.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
+    """Single-step grouped attention — ``window_attention`` at W = 1.
+    q (b, kvp, g, d); pos (b,)."""
+    return window_attention(q[:, None], k_cache, v_cache, pos[:, None],
+                            window)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# paged (block-table) KV cache
+#
+# Block 0 is reserved as a scratch block: idle batch slots and block-table
+# padding point at it, so writes from inactive slots land harmlessly there.
+
+SCRATCH_BLOCK = 0
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
+    """Block pool (L, n_blocks, kvp, block_size, hd), head-major within a
+    block, zero-initialised."""
+    g = HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    shape = (cfg.n_layers, n_blocks, g.kvp, block_size, g.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_gather(pages_l: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One layer's pool (n_blocks, kvp, bs, hd) through the block table
+    (b, nb) -> per-request contiguous (b, kvp, nb*bs, hd)."""
+    b, nb = table.shape
+    _, kvp, bs, hd = pages_l.shape
+    gath = pages_l[table.long()]  # (b, nb, kvp, bs, hd)
+    return gath.permute(0, 2, 1, 3, 4).reshape(b, kvp, nb * bs, hd)
+
+
+def paged_write_window(pages: torch.Tensor, layer: int, table: torch.Tensor,
+                       pos: torch.Tensor, val: torch.Tensor, block_size: int,
+                       enable: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scatter a W-token window's K or V per request through the block
+    table, IN PLACE. pages (L, n_blocks, kvp, bs, hd); table (b, nb); pos
+    (b, W); val (b, W, kvp, hd); enable (b, W) bool — disabled tokens go to
+    the scratch block. Returns ``pages`` itself."""
+    nb = table.shape[1]
+    blk = torch.gather(table.long(), 1,
+                       torch.clamp(pos.long() // block_size, 0, nb - 1))
+    if enable is not None:
+        blk = torch.where(enable, blk, torch.full_like(blk, SCRATCH_BLOCK))
+    off = pos.long() % block_size
+    pages[layer][blk, :, off, :] = val.to(pages.dtype)
+    return pages
+
+
+def paged_write_token(pages, layer, table, pos, val, block_size: int):
+    """One token per request — ``paged_write_window`` at W = 1, in place.
+    pos (b,); val (b, kvp, hd)."""
+    return paged_write_window(pages, layer, table, pos[:, None], val[:, None],
+                              block_size)
+
+
+def paged_write_prefill(pages: torch.Tensor, kv: torch.Tensor,
+                        blocks: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Write a whole prompt's K or V into its blocks, IN PLACE. pages
+    (L, n_blocks, kvp, bs, hd); kv (L, s, kvp, hd); blocks (nb,) with
+    nb*bs >= s (the tail of the last block is zero-padded)."""
+    L, s, kvp, hd = kv.shape
+    nb = blocks.shape[0]
+    pad = nb * block_size - s
+    kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
+    tiles = kv.reshape(L, nb, block_size, kvp, hd).permute(0, 1, 3, 2, 4)
+    pages[:, blocks.long()] = tiles.to(pages.dtype)
+    return pages
+
+
+# ---------------------------------------------------------------------------
+# FFN gather tile
+
+
+def pick_group_tile(F: int, n_groups: int) -> int:
+    """Largest tile size dividing F/n_groups, aligned to 8 where possible,
+    with at least ~4 tiles per group."""
+    per = F // n_groups
+    cap = max(64, per // 4)
+    for t in range(cap, 7, -1):
+        if per % t == 0 and t % 8 == 0:
+            return t
+    for t in range(cap, 0, -1):
+        if per % t == 0:
+            return t
+    return per
+
+
+def ffn_gather_tile(cfg: ModelConfig) -> int:
+    """FFN weight-gather tile width: cfg.sparsity.tile_size when it divides
+    d_ff, else the aligned fallback (the reference's single source of truth
+    for the serving steps' tile lists and scores)."""
+    ts = cfg.sparsity.tile_size
+    return ts if cfg.d_ff % ts == 0 else pick_group_tile(cfg.d_ff, 1)
+
+
+def layer_params(params, i: int):
+    """Layer ``i`` of a parameter tree whose ``layers`` leaves are stacked on
+    a leading axis (views, no copies)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
+    return take(params["layers"])
+
+
+def rms_norm_headdim(scale: torch.Tensor, x: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMS-normalise the head_dim axis."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. Raises when CUDA is asked for and absent — the port never runs
+    on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run the plain PyTorch versions on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device

@@ -1,0 +1,35 @@
+"""Registry adapter for the dense decoder family: the paged-serving entry
+points its declared capabilities promise (batch-dict interface)."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as T
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     device="cuda"):
+    return cm.init_paged_cache(cfg, n_blocks, block_size, device=device)
+
+
+def model_prefill_paged(params, batch, cfg: ModelConfig, pages, blocks,
+                        block_size: int, true_len=None):
+    return T.prefill_paged(params, batch["tokens"], cfg, pages, blocks,
+                           block_size=block_size, true_len=true_len)
+
+
+def model_prefill_chunk_paged(params, batch, cfg: ModelConfig, pages, table,
+                              pos0, clen, ffn_masks, refresh,
+                              block_size: int, fast_kernels=None):
+    return T.prefill_chunk_paged(params, pages, table, batch["tokens"], pos0,
+                                 clen, cfg, ffn_masks, refresh,
+                                 block_size=block_size,
+                                 fast_kernels=fast_kernels)
+
+
+def model_decode_paged(params, pages, table, token, pos, cfg: ModelConfig,
+                       ffn_masks, refresh, block_size: int,
+                       fast_kernels=None):
+    return T.decode_step_paged(params, pages, table, token, pos, cfg,
+                               ffn_masks, refresh, block_size=block_size,
+                               fast_kernels=fast_kernels)

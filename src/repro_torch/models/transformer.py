@@ -1,0 +1,444 @@
+"""Dense decoder-only transformer family, in PyTorch — the serving subset
+of the reference's ``models/transformer.py``.
+
+Parameters are a dict tree with the reference's names and layouts
+(``wq (d, hp, hd)``, ``wo (hp, hd, d)``, ``wu (d, F)``, ``wd (F, d)``),
+per-layer leaves stacked on a leading axis, stored once in the compute
+dtype on the device. The reference keeps f32 masters and casts them at
+every call (``cast_params``); the values the model computes with are the
+same.
+
+Plain products (QKV, ``wo``, the dense up-projection, the logits) are
+``torch.matmul``. On CUDA tensors the serving steps run the three
+hand-written CUDA kernels the reference runs as Pallas kernels
+(``kernel_path`` says when):
+``paged_window_attention`` (decode and window attention),
+``fused_sparse_ffn`` (W = 1 decode FFN over the γ-window tile list) and
+``sparse_matmul_tokens`` (window-union down-projection of chunked prefill).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import activations as acts
+from repro_torch.kernels import fused_decode as kfd
+from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import sparse_matmul as ksm
+from repro_torch.kernels.fused_ffn import tile_activity, window_tile_activity
+from repro_torch.models import common as cm
+from repro_torch.models import serving_protocol as sp
+from repro_torch.predictor import predictors as preds
+
+Params = Dict
+
+
+def attn_geometry(cfg: ModelConfig) -> cm.HeadGeometry:
+    return cm.HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def require_dense_projections(cfg: ModelConfig) -> None:
+    """The port serves dense projections only: static tile capacities
+    below 1.0 (``maybe_sparse_matmul`` in the reference) are not ported."""
+    s = cfg.sparsity
+    if s.enabled and (s.input_tile_density < 1.0 or s.ffn_tile_density < 1.0):
+        raise NotImplementedError(
+            "static tile-capacity sparsity (input/ffn_tile_density < 1) is "
+            "not ported yet (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                dtype: Optional[torch.dtype] = None) -> Params:
+    """Random parameters made on ``device`` from a seeded torch.Generator,
+    with the reference's scaling (``dense_init`` 1/sqrt(fan_in),
+    ``embed_init`` 0.02) and head padding. Layer leaves are filled one layer
+    at a time so a full-width model never holds a second f32 copy."""
+    device = cm.resolve_device(device)
+    dtype = dtype or compute_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = attn_geometry(cfg)
+    d, hd, F, L = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers
+    vp = cm.padded_vocab(cfg.vocab_size)
+
+    def dense(shape, fan_in):
+        return cm.dense_init(gen, shape, fan_in, dtype, device)
+
+    def stacked(make):
+        first = make()
+        out = torch.empty((L,) + tuple(first.shape), dtype=dtype, device=device)
+        out[0] = first
+        for i in range(1, L):
+            out[i] = make()
+        return out
+
+    def kv_proj():
+        if g.kvp == g.n_kv:
+            return dense((d, g.kvp, hd), d)
+        w = torch.zeros((d, g.kvp, hd), dtype=dtype, device=device)
+        w[:, :g.n_kv] = dense((d, g.n_kv, hd), d)
+        return w
+
+    def norm(*lead):
+        p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+        if cfg.norm_kind == "layernorm":
+            p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+        return p
+
+    attn = {
+        "wq": stacked(lambda: g.scatter_q(dense((d, cfg.n_heads, hd), d), 1)),
+        "wk": stacked(kv_proj),
+        "wv": stacked(kv_proj),
+        "wo": stacked(lambda: g.scatter_q(
+            dense((cfg.n_heads, hd, d), cfg.n_heads * hd), 0)),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros((L, g.hp, hd), dtype=dtype, device=device)
+        attn["bk"] = torch.zeros((L, g.kvp, hd), dtype=dtype, device=device)
+        attn["bv"] = torch.zeros((L, g.kvp, hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
+        attn["k_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
+    ffn = {"wu": stacked(lambda: dense((d, F), d)),
+           "wd": stacked(lambda: dense((F, d), F))}
+    if cfg.ffn_kind == "glu":
+        ffn["wg"] = stacked(lambda: dense((d, F), d))
+    p = {
+        "embed": cm.embed_init(gen, (vp, d), dtype, device),
+        "layers": {"ln1": norm(L), "attn": attn, "ln2": norm(L), "ffn": ffn},
+        "final_norm": norm(),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = cm.embed_init(gen, (vp, d), dtype, device)
+    if not cfg.use_rope:
+        p["pos_embed"] = cm.embed_init(gen, (cfg.max_seq_len, d), dtype, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# blocks
+
+
+def _qkv(p, x, cfg: ModelConfig, positions):
+    """x (b, s, d) -> q (b, s, hp, hd), k/v (b, s, kvp, hd); RoPE applied."""
+    g = attn_geometry(cfg)
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    q = (x2 @ p["wq"].reshape(d, g.hp * g.head_dim)).reshape(b, s, g.hp, g.head_dim)
+    k = (x2 @ p["wk"].reshape(d, g.kvp * g.head_dim)).reshape(b, s, g.kvp, g.head_dim)
+    v = (x2 @ p["wv"].reshape(d, g.kvp * g.head_dim)).reshape(b, s, g.kvp, g.head_dim)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = cm.rms_norm_headdim(p["q_norm"], q)
+        k = cm.rms_norm_headdim(p["k_norm"], k)
+    if cfg.use_rope:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(p, o, cfg: ModelConfig):
+    """o (b, s, hp, hd) -> (b, s, d), padded head slots masked."""
+    g = attn_geometry(cfg)
+    b, s = o.shape[:2]
+    o = o * g.q_slot_mask(o.device, o.dtype)[None, None, :, None]
+    return o.reshape(b, s, g.hp * g.head_dim) @ p["wo"].reshape(
+        g.hp * g.head_dim, -1)
+
+
+def post_norm(x, cfg: ModelConfig):
+    """Relufication stage 2: ReLU after the normalization layer."""
+    return torch.relu(x) if cfg.post_norm_relu else x
+
+
+def _ffn_hidden(pf, x, cfg: ModelConfig):
+    """Dense hidden activation act(x @ Wg) [* (x @ Wu)]."""
+    act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
+    if cfg.ffn_kind == "glu":
+        return act_fn(x @ pf["wg"]) * (x @ pf["wu"])
+    return act_fn(x @ pf["wu"])
+
+
+def apply_attn_full(p, x, cfg: ModelConfig, positions):
+    """Full-sequence causal attention (prefill / forward). Returns
+    (out (b, s, d), (k, v) (b, s, kvp, hd) for the cache). GQA K/V are
+    replicated to 16 heads as the reference does."""
+    g = attn_geometry(cfg)
+    b, s = x.shape[:2]
+    q, k, v = _qkv(p, x, cfg, positions)
+    kv = (k, v)
+    r = 1 if g.kvp % cm.TP == 0 else cm.TP // g.kvp
+    if r > 1:
+        k = k.repeat_interleave(r, dim=2)
+        v = v.repeat_interleave(r, dim=2)
+    kv_eff = g.kvp * r
+    qg = q.reshape(b, s, kv_eff, g.hp // kv_eff, g.head_dim)
+    o = cm.flash_attention(qg, k, v, causal=True, window=cfg.sliding_window)
+    return _attn_out(p, o.reshape(b, s, g.hp, g.head_dim), cfg), kv
+
+
+def apply_block(p, x, cfg: ModelConfig, positions):
+    h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
+    a, kv = apply_attn_full(p["attn"], h, cfg, positions)
+    x = x + a
+    h = post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
+    b, s, d = h.shape
+    f = _ffn_hidden(p["ffn"], h.reshape(b * s, d), cfg) @ p["ffn"]["wd"]
+    return x + f.reshape(b, s, d), kv
+
+
+# ---------------------------------------------------------------------------
+# whole model
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig, positions):
+    x = params["embed"][tokens.long()].to(compute_dtype(cfg))
+    if not cfg.use_rope:
+        x = x + params["pos_embed"][positions.long()].to(x.dtype)
+    return x
+
+
+def logits_from(params, x, cfg: ModelConfig):
+    u = params.get("unembed", params["embed"])
+    out = x @ u.to(x.dtype).T
+    mask = cm.vocab_logit_mask(cfg.vocab_size, u.shape[0], device=x.device)
+    return out + mask.to(out.dtype)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
+            last_index: Optional[int] = None):
+    """Full-sequence forward. tokens (b, s) -> logits (b, s, vocab_p). With
+    ``return_kv``: (logits (b, 1, vocab_p) at ``last_index`` (default
+    s - 1), (k, v) each (L, b, s, kvp, hd))."""
+    require_dense_projections(cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = embed_tokens(params, tokens, cfg, positions)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = apply_block(cm.layer_params(params, i), x, cfg, positions)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    x = cm.apply_norm(params["final_norm"], x, cfg)
+    if return_kv:
+        li = s - 1 if last_index is None else int(last_index)
+        return (logits_from(params, x[:, li:li + 1], cfg),
+                (torch.stack(ks), torch.stack(vs)))
+    return logits_from(params, x, cfg)
+
+
+def prefill_paged(params, tokens, cfg: ModelConfig, pages, blocks, *,
+                  block_size: int, true_len: Optional[int] = None):
+    """Prefill one request's prompt into its pool blocks (in place).
+    tokens (1, s), zero-padded past ``true_len``; blocks (nb,) with
+    nb * block_size >= s. Returns (last-token logits (1, vocab_p), pages)."""
+    li = None if true_len is None else int(true_len) - 1
+    logits, (k, v) = forward(params, tokens, cfg, return_kv=True,
+                             last_index=li)
+    cm.paged_write_prefill(pages["k"], k[:, 0], blocks, block_size)
+    cm.paged_write_prefill(pages["v"], v[:, 0], blocks, block_size)
+    return logits[:, -1], pages
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serving: paged cache + per-request γ-window masks
+
+
+def kernel_path(fast_kernels: Optional[bool], x: torch.Tensor) -> bool:
+    """Whether a serving step takes the kernel path. On CUDA tensors it
+    always does, and ``fast_kernels=False`` raises: the plain versions never
+    run on the card. On the CPU it does only for ``fast_kernels=True`` (the
+    kernel path's tile lists with each wrapper's plain version)."""
+    if x.is_cuda:
+        if fast_kernels is False:
+            raise ValueError("fast_kernels=False on CUDA tensors: on the card "
+                             "the serving steps run the hand-written kernels")
+        return True
+    return bool(fast_kernels)
+
+
+def apply_attn_window_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
+                            pos, valid, *, layer: int, block_size: int,
+                            fast_kernels: Optional[bool] = None):
+    """W-token windowed attention against the paged pool. x (b, W, d); pos
+    (b, W) write positions; valid (b, W) — K/V of invalid tokens goes to
+    the scratch block; table (b, nb). Causal within the window. K/V are
+    written into the pool in place. Returns out (b, W, d)."""
+    fast_kernels = kernel_path(fast_kernels, x)
+    g = attn_geometry(cfg)
+    b, W, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, pos)
+    q = q.reshape(b, W, g.kvp, g.group, g.head_dim).contiguous()
+    cm.paged_write_window(k_pages, layer, table, pos, k, block_size, valid)
+    cm.paged_write_window(v_pages, layer, table, pos, v, block_size, valid)
+    kl, vl = k_pages[layer], v_pages[layer]
+    if fast_kernels:
+        o = kpa.paged_window_attention(q, kl, vl, table, pos,
+                                       window=cfg.sliding_window)
+    else:
+        o = cm.window_attention(q, cm.paged_gather(kl, table),
+                                cm.paged_gather(vl, table), pos,
+                                window=cfg.sliding_window)
+    return _attn_out(p, o.reshape(b, W, g.hp, g.head_dim), cfg)
+
+
+def apply_ffn_window(p, x, cfg: ModelConfig, *, mask, refresh, valid,
+                     fast_kernels: Optional[bool] = None):
+    """Decode FFN over a W-token window with per-request γ-window weight
+    reuse. x (b, W, d); mask (b, F) bool; refresh (b,) bool; valid (b, W).
+    Returns (out (b, W, d), act (b, F) window-union activity, scores
+    (b, F // tile), density (b,), union_density (b,)).
+
+    The kernel path (``kernel_path``) runs the down-projection through
+    ``sparse_matmul_tokens`` over each slot's window-union tile list."""
+    fast_kernels = kernel_path(fast_kernels, x)
+    b, W, d = x.shape
+    h = _ffn_hidden(p, x.reshape(b * W, d), cfg).reshape(b, W, -1)
+    eff = mask | refresh[:, None]
+    h = h * eff[:, None, :].to(h.dtype)
+    hv = h * valid[:, :, None].to(h.dtype)
+    act = (hv != 0).any(1)
+    tile = cm.ffn_gather_tile(cfg)
+    scores = window_tile_activity(hv, tile)
+    density = eff.float().mean(-1)
+    union_density = act.float().mean(-1)
+    if fast_kernels:
+        n_tiles = h.shape[-1] // tile
+        idx, nvalid = preds.pack_tile_indices(scores > 0, n_tiles)
+        out = ksm.sparse_matmul_tokens(
+            h.reshape(b * W, -1).to(p["wd"].dtype), p["wd"],
+            idx.repeat_interleave(W, 0), nvalid.repeat_interleave(W),
+            tile=tile).to(x.dtype)
+    else:
+        out = h.reshape(b * W, -1) @ p["wd"]
+    return out.reshape(b, W, d), act, scores, density, union_density
+
+
+def apply_block_window_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
+                             pos, valid, *, layer: int, block_size: int, mask,
+                             refresh, fast_kernels: Optional[bool] = None):
+    h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
+    x = x + apply_attn_window_paged(
+        p["attn"], h, cfg, k_pages, v_pages, table, pos, valid, layer=layer,
+        block_size=block_size, fast_kernels=fast_kernels)
+    h = post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
+    f, act, scores, density, udens = apply_ffn_window(
+        p["ffn"], h, cfg, mask=mask, refresh=refresh, valid=valid,
+        fast_kernels=fast_kernels)
+    return x + f, k_pages, v_pages, act, scores, density, udens
+
+
+def verify_window_paged(params, pages, table, tokens, pos0, wlen,
+                        cfg: ModelConfig, ffn_masks, refresh, *,
+                        block_size: int, fast_kernels: Optional[bool] = None):
+    """A W-token window per slot in one forward over the shared pool.
+    tokens (b, W); pos0 (b,) write position of tokens[:, 0]; wlen (b,)
+    valid window length (tokens past it write the scratch block);
+    ffn_masks (L, b, F) bool; refresh (b,). Returns (logits (b, W,
+    vocab_p), pages, new_masks (L, b, F), aux) with aux = (act, scores,
+    density, union_density) stacked over layers."""
+    require_dense_projections(cfg)
+
+    def layer_fn(pl_i, li, x, kp, vp, fm, pos, valid):
+        x, kp, vp, act, scores, density, udens = apply_block_window_paged(
+            pl_i, x, cfg, kp, vp, table, pos, valid, layer=li,
+            block_size=block_size, mask=fm, refresh=refresh,
+            fast_kernels=fast_kernels)
+        return x, kp, vp, (act, scores, density, udens)
+
+    return sp.window_step_core(params, pages, tokens, pos0, wlen, cfg,
+                               ffn_masks, refresh, layer_fn=layer_fn,
+                               embed_fn=embed_tokens, logits_fn=logits_from)
+
+
+def prefill_chunk_paged(params, pages, table, tokens, pos0, clen,
+                        cfg: ModelConfig, ffn_masks, refresh, *,
+                        block_size: int, fast_kernels: Optional[bool] = None):
+    """One fixed-shape chunk of paged prefill, batched over slots: a
+    W-token window step (``verify_window_paged``) whose tokens past clen
+    are scratch-routed. On a request's final chunk, logits[i, clen_i - 1]
+    seed its first generated token."""
+    return verify_window_paged(params, pages, table, tokens, pos0, clen,
+                               cfg, ffn_masks, refresh, block_size=block_size,
+                               fast_kernels=fast_kernels)
+
+
+def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
+                             pos, *, layer: int, block_size: int, mask,
+                             refresh, fast_kernels: Optional[bool] = None):
+    """Single-token decode block over the paged pool (kept apart from the
+    window block as the reference keeps it). On the kernel path
+    (``kernel_path``) the FFN runs through ``fused_sparse_ffn`` over the
+    γ-window mask's tile list, with the mask applied per unit inside the
+    kernel."""
+    fast_kernels = kernel_path(fast_kernels, x)
+    g = attn_geometry(cfg)
+    h = post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
+    q, k, v = _qkv(p["attn"], h[:, None, :], cfg, pos[:, None])
+    q = q.reshape(q.shape[0], g.kvp, g.group, g.head_dim).contiguous()
+    cm.paged_write_token(k_pages, layer, table, pos, k[:, 0], block_size)
+    cm.paged_write_token(v_pages, layer, table, pos, v[:, 0], block_size)
+    kl, vl = k_pages[layer], v_pages[layer]
+    if fast_kernels:
+        o = kpa.paged_decode_attention(q, kl, vl, table, pos,
+                                       window=cfg.sliding_window)
+    else:
+        o = cm.decode_attention(q, cm.paged_gather(kl, table),
+                                cm.paged_gather(vl, table), pos,
+                                window=cfg.sliding_window)
+    x = x + _attn_out(p["attn"], o.reshape(o.shape[0], 1, g.hp, g.head_dim),
+                      cfg)[:, 0]
+
+    h = post_norm(cm.apply_norm(p["ln2"], x[:, None], cfg)[:, 0], cfg)
+    pf = p["ffn"]
+    eff = mask | refresh[:, None]
+    tile = cm.ffn_gather_tile(cfg)
+    if fast_kernels:
+        n_tiles = cfg.d_ff // tile
+        idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(eff, tile),
+                                              n_tiles)
+        glu = cfg.ffn_kind == "glu"
+        f32, compact = kfd.fused_sparse_ffn(
+            h.contiguous(), pf["wg"] if glu else pf["wu"], pf["wd"], idx,
+            nvalid, w_up=pf["wu"] if glu else None, unit_mask=eff,
+            activation=cfg.activation, shift=cfg.sparsity.shift, tile=tile)
+        hh = kfd.scatter_compact(compact, idx, nvalid, n_tiles)
+        f = f32.to(h.dtype)
+    else:
+        hh = _ffn_hidden(pf, h, cfg) * eff.to(h.dtype)
+        f = hh @ pf["wd"]
+    act = hh != 0
+    scores = tile_activity(hh, tile)
+    density = eff.float().mean(-1)
+    return x + f, k_pages, v_pages, act, scores, density
+
+
+def decode_step_paged(params, pages, table, token, pos, cfg: ModelConfig,
+                      ffn_masks, refresh, *, block_size: int,
+                      fast_kernels: Optional[bool] = None):
+    """One continuous-batching decode step over the shared pool.
+    token/pos/refresh (b,); table (b, nb); ffn_masks (L, b, F) bool.
+    Returns (logits (b, vocab_p), pages, new_masks (L, b, F), aux) with
+    aux = (act (L, b, F), scores (L, b, F // tile), density (L, b))."""
+    require_dense_projections(cfg)
+
+    def layer_fn(pl_i, li, x, kp, vp, fm):
+        x, kp, vp, act, scores, density = apply_block_decode_paged(
+            pl_i, x, cfg, kp, vp, table, pos, layer=li, block_size=block_size,
+            mask=fm, refresh=refresh, fast_kernels=fast_kernels)
+        return x, kp, vp, (act, scores, density)
+
+    return sp.decode_step_core(params, pages, token, pos, cfg, ffn_masks,
+                               refresh, layer_fn=layer_fn,
+                               embed_fn=embed_tokens, logits_fn=logits_from)

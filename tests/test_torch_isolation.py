@@ -1,0 +1,119 @@
+"""The PyTorch port stands alone: nothing under src/repro_torch/, and not
+chip_smoke.py, imports jax or the JAX package ``repro``; the port serves
+with both made unimportable; and its entry points never fall back to the
+CPU when CUDA is absent."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+# one intra-op thread: the suite runs in parallel workers, and torch's
+# default of one thread per core would crowd out the other workers' tests
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_serves_with_jax_and_reference_unimportable():
+    prog = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+        cfg = get_config("tiny-opt").replace(compute_dtype="float32")
+        params = T.init_params(cfg, seed=0, device="cpu")
+        eng = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(n_slots=2, prefill_chunk=4),
+            device="cpu")
+        uids = [eng.submit(np.arange(1, n + 1), 4, reuse_window=2)
+                for n in (5, 9)]
+        res = eng.run()
+        assert all(len(res[u].tokens) == 4 for u in uids)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """No device given means CUDA; with none available the engine and the
+    model raise instead of running on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_config("tiny-opt").replace(compute_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatchingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_params(cfg)
+
+
+def test_plain_path_never_runs_on_cuda(monkeypatch):
+    """On the card the serving steps take the kernels: asking the engine or
+    a model step for the plain path there raises. On the CPU the plain path
+    is the default and the kernel path's structure is opt-in."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    card = SimpleNamespace(is_cuda=True)  # kernel_path reads only is_cuda
+    with pytest.raises(ValueError, match="fast_kernels=False on CUDA"):
+        T.kernel_path(False, card)
+    assert T.kernel_path(None, card) and T.kernel_path(True, card)
+    cpu = torch.zeros(1)
+    assert not T.kernel_path(None, cpu) and not T.kernel_path(False, cpu)
+    assert T.kernel_path(True, cpu)
+
+    cfg = get_config("tiny-opt").replace(compute_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="fast_kernels=False on CUDA"):
+        ContinuousBatchingEngine(cfg, params, EngineConfig(fast_kernels=False))
+
+
+def test_engine_rejects_params_on_another_device():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_config("tiny-opt").replace(compute_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    params["embed"] = params["embed"].to("meta")
+    with pytest.raises(ValueError, match="params must lie on cpu"):
+        ContinuousBatchingEngine(cfg, params, device="cpu")
