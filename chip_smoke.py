@@ -12,20 +12,28 @@ device and build always run):
 2. build    nvcc builds every kernel of src/repro_torch/csrc (one process
             per source, all at once); prints the build seconds.
 3. kernels  each hand-written kernel against its plain PyTorch version on
-            the card, at OPT-6.7B's main-path shapes in f32 and bf16 plus
-            small edge cases (GLU, GQA, shifts, nvalid = 0, duplicate pads);
-            times the kernel, the plain version and one PyTorch library
-            call computing the same function (CUDA events, median of 25
-            runs after warm-up) and works out the card's bound.
+            the card, at OPT-6.7B's path shapes in f32 and bf16 plus small
+            edge cases (GLU, GQA, shifts, nvalid = 0, duplicate pads, tied
+            scores, lists in score order); times the kernel, the plain
+            version and one PyTorch library call computing the same
+            function (CUDA events, median of 25 runs after warm-up) and
+            works out the card's bound. The unfused predictor pair
+            (sparse_up_matmul, sparse_matmul_tokens) is held against
+            fused_sparse_ffn on the same lists.
 4. parity   f32 engine streams of tiny-opt and tiny-relu on the card
             (kernels) equal the CPU streams (plain versions) token for token,
-            logprobs within 1e-5.
-5. serve    OPT-6.7B, 32 layers, bf16, random weights from a seed, served
-            through ContinuousBatchingEngine (chunked prefill, γ-window
-            reuse): 8 requests to completion; every kernel's launch count
-            on that run must be > 0. Then 8 more requests under
-            torch.profiler: device time by kernel, and the busy share of
-            that profiled run's wall time.
+            logprobs within 1e-5: plain mode, and predictor mode with a sign
+            predictor at recall 1.0; the fused and unfused predictor FFN
+            agree on the card.
+5. serve    OPT-6.7B, 32 layers, bf16, random weights from a seed, through
+            each path of the port with the launch counts set to 0 before
+            it and read after it (every kernel of the path must launch):
+            the engine in plain mode (chunked prefill, γ-window reuse) and
+            in predictor mode (sign predictor, bf16 probe), 8 requests
+            each, then 8 more through each engine under torch.profiler
+            (device time by kernel, and the busy share of that run's wall
+            time); the unfused predictor FFN on one layer for 8 tokens; and
+            ops.sparse_ffn_apply at T = 8 and 128, density 0.25.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -112,6 +120,8 @@ def bound(n_bytes: float, flops: float, dtype) -> tuple:
 
 def kernel_phase(dev) -> dict:
     from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import fused_ffn as kff
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import sparse_matmul as ksm
     from repro_torch.models.common import paged_gather
@@ -295,6 +305,168 @@ def kernel_phase(dev) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
         shape="T=128 (8 slots x 16) F=16384 D=4096 tile=128 K=128 bf16",
         max_abs_err_f32=errs[torch.float32])
+    # -- sparse_up_matmul ---------------------------------------------------
+    def up_case(name, T, d, F, tile, dtype, tile_mask):
+        x = t(rng.randn(T, d), dtype)
+        w = t(rng.randn(d, F) / np.sqrt(d), dtype)
+        idx, nvalid = tile_lists(tile_mask)
+        got = ksm.sparse_up_matmul(x, w, idx, nvalid, tile=tile)
+        want = ksm.sparse_up_matmul_plain(x, w, idx, nvalid, tile=tile)
+        torch.cuda.synchronize()
+        cov = preds.tiles_to_units(preds.covered_tiles(idx, nvalid, F // tile),
+                                   tile)
+        if got[~cov].abs().sum().item():
+            fail(f"sparse_up_matmul {name}: an unlisted tile is not zero")
+        return compare(f"sparse_up_matmul {name}", [got], [want],
+                       dtype), (x, w, idx, nvalid)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        up_case(f"tiny edges {dtype}", 4, 64, 256, 128, dtype, edges)
+        up_case(f"OPT-6.7B T=8 25% lists {dtype}", 8, 4096, 16384, 128, dtype,
+                rng.rand(8, 128) < 0.25)
+        errs[dtype], args = up_case(f"OPT-6.7B T=8 full lists {dtype}", 8,
+                                    4096, 16384, 128, dtype,
+                                    np.ones((8, 128), bool))
+    x, w, idx, nvalid = args
+    nv = nvalid.cpu().numpy()
+    distinct = int(preds.covered_tiles(idx, nvalid, 128).any(0).sum())
+    n_bytes = (x.numel() * 2 + distinct * 128 * 4096 * 2 + idx.numel() * 4
+               + nv.size * 4 + 8 * 16384 * 4)
+    b_ms, b_by = bound(n_bytes, float(nv.sum()) * 128 * 4096 * 2,
+                       torch.bfloat16)
+    results["sparse_up_matmul"] = dict(
+        name="sparse_up_matmul", route="cuda",
+        source="src/repro_torch/csrc/sparse_up_matmul.cu",
+        replaces="src/repro/kernels/sparse_matmul.py:177",
+        max_abs_err=errs[torch.bfloat16],
+        ms=time_ms(lambda: ksm.sparse_up_matmul(x, w, idx, nvalid)),
+        plain_ms=time_ms(lambda: ksm.sparse_up_matmul_plain(x, w, idx,
+                                                            nvalid)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
+        shape="T=8 d=4096 F=16384 tile=128 K=128 full lists bf16",
+        max_abs_err_f32=errs[torch.float32])
+    sparse_idx, sparse_nv = tile_lists(rng.rand(8, 128) < 0.25)
+    results["sparse_up_matmul"]["ms_25pct"] = time_ms(
+        lambda: ksm.sparse_up_matmul(x, w, sparse_idx, sparse_nv))
+
+    # the unfused pair (sparse_up_matmul, then sparse_matmul_tokens) against
+    # fused_sparse_ffn on the same lists: the same up-dots and the same
+    # gather, so the reference's contract is bit-equality
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = t(rng.randn(8, 4096), dtype)
+        wg = t(rng.randn(4096, 16384) / 64.0, dtype)
+        wd = t(rng.randn(16384, 4096) / 128.0, dtype)
+        for frac in (1.0, 0.25):
+            li, ln = tile_lists(rng.rand(8, 128) < frac)
+            yf, comp = kfd.fused_sparse_ffn(xx, wg, wd, li, ln, tile=128)
+            hf = kfd.scatter_compact(comp, li, ln, 128)
+            cov = preds.tiles_to_units(preds.covered_tiles(li, ln, 128), 128)
+            hu = torch.relu(ksm.sparse_up_matmul(xx, wg, li, ln)) * cov.float()
+            yu = ksm.sparse_matmul_tokens(hu.to(dtype), wd, li, ln)
+            torch.cuda.synchronize()
+            dh = (hf - hu).abs().max().item()
+            dy = (yf - yu).abs().max().item()
+            compare(f"unfused vs fused FFN, {frac:.0%} lists {dtype}",
+                    [hu, yu], [hf, yf], dtype)
+            log(f"  unfused vs fused {frac:.0%} {dtype}: bit-equal "
+                f"{dh == 0 and dy == 0} (max|dh| {dh:.3e}, max|dy| {dy:.3e})")
+            results["sparse_up_matmul"].setdefault("fused_unfused_max_diff", {})[
+                f"{frac:.2f} {dtype}"] = max(dh, dy)
+
+    # -- fused_up_relu ------------------------------------------------------
+    def relu_case(name, T, d, F, dtype, shift):
+        x = t(rng.randn(T, d), dtype)
+        wu = t(rng.randn(d, F) / np.sqrt(d), dtype)
+        got = kff.fused_up_relu(x, wu, shift)
+        want = kff.fused_up_relu_plain(x, wu, shift)
+        torch.cuda.synchronize()
+        if shift > 50 and (got[0].abs().sum().item() or got[1].abs().sum().item()):
+            fail(f"fused_up_relu {name}: an all-inactive case is not zero")
+        return compare(f"fused_up_relu {name}", got, want, dtype), (x, wu)
+
+    shapes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        relu_case(f"tiny {dtype}", 4, 64, 256, dtype, 0.0)
+        relu_case(f"tiny shift=0.25 {dtype}", 5, 64, 384, dtype, 0.25)
+        relu_case(f"tiny all-zero (tied scores) {dtype}", 3, 64, 256, dtype,
+                  100.0)
+        relu_case(f"T=40 shift=0.1 {dtype}", 40, 4096, 1024, dtype, 0.1)
+        for T in (8, 128):
+            shapes[T, dtype] = relu_case(f"OPT-6.7B T={T} {dtype}", T, 4096,
+                                         16384, dtype, 0.0)
+    relu_times = {}
+    for T in (8, 128):
+        err, (x, wu) = shapes[T, torch.bfloat16]
+        n_bytes = x.numel() * 2 + wu.numel() * 2 + T * 16384 * 4 + 128 * 4
+        b_ms, b_by = bound(n_bytes, 2.0 * T * 4096 * 16384, torch.bfloat16)
+        relu_times[T] = dict(
+            max_abs_err=err, ms=time_ms(lambda: kff.fused_up_relu(x, wu)),
+            plain_ms=time_ms(lambda: kff.fused_up_relu_plain(x, wu)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.relu(x @ wu - 0.0)),
+            f32_cuda_core_floor_ms=2.0 * T * 4096 * 16384
+            / PEAK_FLOPS[torch.float32] * 1e3)
+    results["fused_up_relu"] = dict(
+        name="fused_up_relu", route="cuda",
+        source="src/repro_torch/csrc/fused_up_relu.cu",
+        replaces="src/repro/kernels/fused_ffn.py:81",
+        **relu_times[128], shape="T=128 d=4096 F=16384 bf16",
+        max_abs_err_f32=shapes[128, torch.float32][0],
+        at_T8=relu_times[8])
+
+    # -- sparse_matmul (one list in score order) ----------------------------
+    def shared_case(name, T, F, D, dtype, idx, nvalid):
+        x = t(rng.randn(T, F) * (rng.rand(T, F) < 0.5), dtype)
+        w = t(rng.randn(F, D) / np.sqrt(F), dtype)
+        idx, nvalid = t(idx, torch.int32), t(nvalid, torch.int32).reshape(())
+        got = ksm.sparse_matmul(x, w, idx, nvalid)
+        want = ksm.sparse_matmul_plain(x, w, idx, nvalid)
+        torch.cuda.synchronize()
+        if int(nvalid) == 0 and got.abs().sum().item():
+            fail(f"sparse_matmul {name}: nvalid == 0 is not zero")
+        return compare(f"sparse_matmul {name}", [got], [want],
+                       dtype), (x, w, idx, nvalid)
+
+    order = rng.permutation(128)  # a score order: not ascending
+    for dtype in (torch.float32, torch.bfloat16):
+        shared_case(f"tiny [1, 0] {dtype}", 4, 256, 64, dtype, [1, 0], 2)
+        shared_case(f"tiny nvalid=0 {dtype}", 4, 256, 64, dtype, [1, 0], 0)
+        shared_case(f"tiny duplicate pads {dtype}", 4, 256, 64, dtype,
+                    [1, 1, 1], 1)
+        shared_case(f"OPT-6.7B T=128 K=32 nvalid=20 {dtype}", 128, 16384,
+                    4096, dtype, order[:32], 20)
+        errs[dtype], args = shared_case(
+            f"OPT-6.7B T=128 K=32 score order {dtype}", 128, 16384, 4096,
+            dtype, order[:32], 32)
+    x, w, idx, nvalid = args
+    nv = int(nvalid)
+    n_bytes = (128 * nv * 128 * 2 + nv * 128 * 4096 * 2 + idx.numel() * 4 + 4
+               + 128 * 4096 * 4)
+    b_ms, b_by = bound(n_bytes, 2.0 * 128 * nv * 128 * 4096, torch.bfloat16)
+    results["sparse_matmul"] = dict(
+        name="sparse_matmul", route="cuda",
+        source="src/repro_torch/csrc/sparse_matmul.cu",
+        replaces="src/repro/kernels/sparse_matmul.py:79",
+        max_abs_err=errs[torch.bfloat16],
+        ms=time_ms(lambda: ksm.sparse_matmul(x, w, idx, nvalid)),
+        plain_ms=time_ms(lambda: ksm.sparse_matmul_plain(x, w, idx, nvalid)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
+        shape="T=128 F=16384 D=4096 K=32 (density 0.25) score order bf16",
+        max_abs_err_f32=errs[torch.float32])
+
+    # select_tiles_static on the card: tied scores keep ascending order
+    sc = np.zeros(128, np.float32)
+    sc[[5, 9, 77]] = [2.0, 3.0, 2.0]
+    got_i, got_n = kops.select_tiles_static(t(sc), 0.25)
+    want_i, want_n = kops.select_tiles_static(torch.as_tensor(sc), 0.25)
+    if (got_i.cpu().tolist() != want_i.tolist()
+            or int(got_n) != int(want_n)):
+        fail(f"select_tiles_static on the card {got_i.tolist()} / "
+             f"{int(got_n)} != CPU {want_i.tolist()} / {int(want_n)}")
+    log(f"  ok select_tiles_static tied scores: {got_i.cpu().tolist()[:6]}..."
+        f" nvalid {int(got_n)}")
+
     for r in results.values():
         log("  kernel " + json.dumps(r))
     return results
@@ -304,11 +476,12 @@ def kernel_phase(dev) -> dict:
 # phase 4: f32 engine parity, card vs CPU
 
 
-def serve_streams(cfg, params, device, prompts, chunk):
+def serve_streams(cfg, params, device, prompts, chunk, predictor=None):
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     eng = ContinuousBatchingEngine(
         cfg, params, EngineConfig(n_slots=4, block_size=8,
-                                  max_blocks_per_seq=6, prefill_chunk=chunk),
+                                  max_blocks_per_seq=6, prefill_chunk=chunk,
+                                  predictor=predictor),
         device=device)
     uids = [eng.submit(p, 10, reuse_window=4) for p in prompts]
     res = eng.run()
@@ -337,7 +510,18 @@ def numpy_params(cfg, seed: int):
 
 
 def parity_phase(dev) -> None:
+    """f32 greedy streams, card (kernels) against CPU (plain versions),
+    token for token and logprobs within 1e-5: plain mode at whole-prompt
+    and chunked prefill, and predictor mode with a sign predictor
+    calibrated at recall 1.0 (f32 probe, tile 1: the reference tests'
+    exact row-skipping, a tile every kernel takes). The CPU engine runs
+    the predictor FFN's unfused lowering, the card the fused kernel. Then
+    both lowerings of one predicted FFN layer on the card."""
+    import dataclasses
+
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.predictor import calibrate
 
     for name in ("tiny-opt", "tiny-relu"):
         cfg = get_config(name).replace(compute_dtype="float32")
@@ -345,18 +529,58 @@ def parity_phase(dev) -> None:
         p_dev = _to(p_cpu, dev)
         prompts = [np.random.RandomState(s).randint(0, cfg.vocab_size, n)
                    for s, n in ((1, 9), (2, 5), (3, 13), (4, 21), (5, 3))]
-        for chunk in (0, 4):
-            want, lp_want, _ = serve_streams(cfg, p_cpu, "cpu", prompts, chunk)
-            got, lp_got, eng = serve_streams(cfg, p_dev, dev, prompts, chunk)
+        toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (4, 24))
+        pred_cpu = calibrate(p_cpu, cfg, {"tokens": torch.as_tensor(toks)},
+                             kind="sign", probe_dtype="float32",
+                             target_recall=1.0, tile=1)
+        pred_dev = dataclasses.replace(pred_cpu, params=_to(pred_cpu.params,
+                                                            dev))
+        for chunk, pc, pd in ((0, None, None), (4, None, None),
+                              (4, pred_cpu, pred_dev)):
+            mode = "predictor" if pc is not None else "plain"
+            want, lp_want, e_cpu = serve_streams(cfg, p_cpu, "cpu", prompts,
+                                                 chunk, pc)
+            got, lp_got, eng = serve_streams(cfg, p_dev, dev, prompts, chunk,
+                                             pd)
             if not eng.fast_kernels:
                 fail("engine on the card did not take the kernel path")
             if got != want:
-                fail(f"{name} chunk={chunk}: card stream {got} != CPU {want}")
+                fail(f"{name} {mode} chunk={chunk}: card stream {got} != "
+                     f"CPU {want}")
             d = float(np.max(np.abs(lp_got - lp_want)))
             if d > 1e-5:
-                fail(f"{name} chunk={chunk}: logprobs differ by {d:.3e}")
-            log(f"  ok parity {name} prefill_chunk={chunk}: "
-                f"{sum(map(len, got))} tokens identical, max|dlogprob| {d:.2e}")
+                fail(f"{name} {mode} chunk={chunk}: logprobs differ by {d:.3e}")
+            extra = ""
+            if pc is not None:
+                if eng.predictor_recall() != 1.0 or e_cpu.predictor_recall() != 1.0:
+                    fail(f"{name}: recall-1.0 predictor missed units")
+                if abs(eng.predictor_density() - e_cpu.predictor_density()) > 1e-9:
+                    fail(f"{name}: predictor density {eng.predictor_density()} "
+                         f"!= CPU {e_cpu.predictor_density()}")
+                extra = (f", predictor density {eng.predictor_density():.4f}"
+                         f" recall {eng.predictor_recall()}")
+            log(f"  ok parity {name} {mode} prefill_chunk={chunk}: "
+                f"{sum(map(len, got))} tokens identical, max|dlogprob| "
+                f"{d:.2e}{extra}")
+
+        rng = np.random.RandomState(4)
+        pf = {k: v[1] for k, v in p_dev["layers"]["ffn"].items()}
+        pred_l = {k: v[1] for k, v in pred_dev.params.items()}
+        h = torch.as_tensor(rng.randn(5, cfg.d_model), dtype=torch.float32,
+                            device=dev)
+        kw = dict(kind="sign", tile=1, k_tiles=cfg.d_ff,
+                  mask=torch.as_tensor(rng.rand(5, cfg.d_ff) < 0.3, device=dev),
+                  refresh=torch.tensor([True, False, False, True, False],
+                                       device=dev))
+        a = T._ffn_decode_predicted(pf, h, cfg, pred_l, fused=False, **kw)
+        b = T._ffn_decode_predicted(pf, h, cfg, pred_l, fused=True, **kw)
+        torch.cuda.synchronize()
+        df = (a[0] - b[0]).abs().max().item()
+        if df > TOL_F32 * b[0].abs().max().item() or not torch.equal(a[1], b[1]):
+            fail(f"{name}: fused and unfused predictor FFN differ "
+                 f"(max|df| {df:.3e})")
+        log(f"  ok fused vs unfused predictor FFN {name}: f bit-equal "
+            f"{df == 0}, act equal")
 
 
 def _to(tree, dev):
@@ -392,29 +616,32 @@ def timed_steps(eng) -> dict:
     return out
 
 
-def serve_phase(dev, counters) -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
-    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
-
-    cfg = get_config("opt-6.7b").replace(compute_dtype="bfloat16")
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device=dev)
+def counted(path: str, counters, expect, fn):
+    """Run one path of the port with every kernel's launch count set to 0
+    just before and read just after; fails unless each kernel in
+    ``expect`` launched. Returns (fn's result, {kernel: launches})."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eng = ContinuousBatchingEngine(
-        cfg, params, EngineConfig(n_slots=8, block_size=16,
-                                  max_blocks_per_seq=16, prefill_chunk=16),
-        device=dev)
-    rng = np.random.RandomState(0)
+    launches = {name: c.launches for name, c in counters.items()}
+    for name in expect:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+    log(f"  launches on the {path} path: {json.dumps(launches)}")
+    return out, launches
+
+
+def serve_run(eng, cfg, seed: int) -> dict:
+    """8 requests (prompts of 16 to 64 tokens, 16 new tokens each, γ = 4)
+    through ``eng`` to completion, with step timings and peak memory."""
+    dev = eng.device
+    rng = np.random.RandomState(seed)
     lens = rng.randint(16, 65, size=8)
     uids = [eng.submit(rng.randint(0, cfg.vocab_size, n), 16, reuse_window=4)
             for n in lens]
     torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters:
-        c.launches = 0
     steps = timed_steps(eng)
-    launches = {c.__name__: c.launches for c in counters}
     prefill_ms, decode_ms = steps["prefill"], steps["decode"]
     res = eng.run()
     for u in uids:
@@ -423,25 +650,143 @@ def serve_phase(dev, counters) -> dict:
             fail(f"request {u} finished with {len(r.tokens)} tokens, not 16")
         if not np.isfinite(r.logprobs).all():
             fail(f"request {u} has non-finite logprobs")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    out = dict(model="opt-6.7b", layers=cfg.n_layers, dtype="bfloat16",
-               prompt_lens=lens.tolist(), max_new=16, n_slots=8,
-               param_init_s=init_s, prefill_steps=len(prefill_ms),
-               prefill_step_ms_median=float(np.median(prefill_ms)),
-               decode_steps=len(decode_ms),
-               decode_step_ms_median=float(np.median(decode_ms)),
-               decode_tokens_per_s=steps["decode_tokens"] / (sum(decode_ms) / 1e3),
-               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-               weight_io_saved=eng.weight_io_saved(), launches=launches)
-    log("  serve " + json.dumps(out))
+    return dict(model="opt-6.7b", layers=cfg.n_layers, dtype="bfloat16",
+                prompt_lens=lens.tolist(), max_new=16, n_slots=8,
+                prefill_steps=len(prefill_ms),
+                prefill_step_ms_median=float(np.median(prefill_ms)),
+                decode_steps=len(decode_ms),
+                decode_step_ms_median=float(np.median(decode_ms)),
+                decode_tokens_per_s=steps["decode_tokens"] / (sum(decode_ms) / 1e3),
+                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                weight_io_saved=eng.weight_io_saved())
+
+
+def serve_phase(dev, counters) -> dict:
+    """Every path of the port at OPT-6.7B's full width, each counted on
+    its own: the plain engine, the predictor engine, the unfused predictor
+    FFN on one layer, and ops.sparse_ffn_apply. Returns the launches of
+    each kernel summed over the paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_ffn as kff
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import transformer as T
+    from repro_torch.predictor import sign_predictor
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    cfg = get_config("opt-6.7b").replace(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  params initialised in {time.perf_counter() - t0:.1f} s")
+    geom = dict(n_slots=8, block_size=16, max_blocks_per_seq=16,
+                prefill_chunk=16)
+    total = {name: 0 for name in counters}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # -- plain mode: chunked prefill, γ-window reuse ------------------------
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**geom),
+                                   device=dev)
+    out, launches = counted(
+        "plain serving", counters,
+        ("fused_sparse_ffn", "paged_window_attention", "sparse_matmul_tokens"),
+        lambda: serve_run(eng, cfg, seed=0))
+    add(launches)
+    log("  serve " + json.dumps(dict(out, mode="plain", launches=launches)))
     profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
-                                "decode": out["decode_step_ms_median"]})
-    return launches
+                                "decode": out["decode_step_ms_median"]},
+                "plain")
+    del eng
+
+    # -- predictor mode: the sign predictor at a bf16 probe ------------------
+    pred = sign_predictor(params, cfg, probe_dtype="bfloat16")
+    eng = ContinuousBatchingEngine(cfg, params,
+                                   EngineConfig(predictor=pred, **geom),
+                                   device=dev)
+    out, launches = counted(
+        "predictor serving", counters,
+        ("fused_sparse_ffn", "paged_window_attention", "sparse_matmul_tokens"),
+        lambda: serve_run(eng, cfg, seed=2))
+    add(launches)
+    out.update(mode="predictor", predictor=pred.describe(),
+               predictor_density=eng.predictor_density(),
+               predictor_recall=eng.predictor_recall(),
+               weight_io_bytes_per_step=eng.weight_io_bytes_per_step(),
+               launches=launches)
+    log("  serve " + json.dumps(out))
+    if eng.predictor_recall() != 1.0:
+        fail(f"sign predictor at the compute dtype missed units: recall "
+             f"{eng.predictor_recall()}")
+    profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
+                                "decode": out["decode_step_ms_median"]},
+                "predictor")
+    del eng
+
+    # -- the unfused predictor FFN on one full-width layer, 8 tokens ---------
+    rng = np.random.RandomState(3)
+    pf = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    pred_l = {k: v[0] for k, v in pred.params.items()}
+    h = torch.as_tensor(rng.randn(8, cfg.d_model), dtype=torch.bfloat16,
+                        device=dev)
+    mask = torch.as_tensor(rng.rand(8, cfg.d_ff) < 0.5, device=dev)
+    refresh = torch.tensor([True] * 4 + [False] * 4, device=dev)
+    kw = dict(kind="sign", tile=128, k_tiles=cfg.d_ff // 128, mask=mask,
+              refresh=refresh)
+    unfused, launches = counted(
+        "unfused predictor FFN", counters,
+        ("sparse_up_matmul", "sparse_matmul_tokens"),
+        lambda: T._ffn_decode_predicted(pf, h, cfg, pred_l, fused=False, **kw))
+    add(launches)
+    fused = T._ffn_decode_predicted(pf, h, cfg, pred_l, fused=True, **kw)
+    torch.cuda.synchronize()
+    df = (unfused[0].float() - fused[0].float()).abs().max().item()
+    same_act = torch.equal(unfused[1], fused[1])
+    if not same_act or df > TOL_BF16 * fused[0].float().abs().max().item():
+        fail(f"unfused vs fused predictor FFN: max|df| {df:.3e}, "
+             f"act equal {same_act}")
+    log("  unfused predictor FFN " + json.dumps(dict(
+        tokens=8, layer=0, max_abs_diff_f_vs_fused=df, act_equal=same_act,
+        bit_equal=bool(df == 0 and same_act),
+        tile_density=float(unfused[3].mean()),
+        unfused_ms=time_ms(lambda: T._ffn_decode_predicted(
+            pf, h, cfg, pred_l, fused=False, **kw), reps=10),
+        fused_ms=time_ms(lambda: T._ffn_decode_predicted(
+            pf, h, cfg, pred_l, fused=True, **kw), reps=10))))
+
+    # -- ops.sparse_ffn_apply at T = 8 and 128, density 0.25 ------------------
+    wu, wd = pf["wu"], pf["wd"]
+    xs = {T_: torch.as_tensor(rng.randn(T_, cfg.d_model), dtype=torch.bfloat16,
+                              device=dev) for T_ in (8, 128)}
+    outs, launches = counted(
+        "sparse_ffn_apply", counters, ("fused_up_relu", "sparse_matmul"),
+        lambda: {T_: kops.sparse_ffn_apply(x, wu, wd, density=0.25, device=dev)
+                 for T_, x in xs.items()})
+    add(launches)
+    for T_, (y, hk, idx, nvalid) in outs.items():
+        x = xs[T_]
+        # each step checked on the inputs it was given (an f32 rounding at
+        # the ReLU edge may move a score, and with it the tile list)
+        _, scores = kff.fused_up_relu(x, wu)
+        compare(f"sparse_ffn_apply T={T_} h", [hk],
+                [kff.fused_up_relu_plain(x, wu)[0]], torch.bfloat16)
+        want_i, want_n = kops.select_tiles_static(scores.cpu(), 0.25)
+        if idx.cpu().tolist() != want_i.tolist() or int(nvalid) != int(want_n):
+            fail(f"sparse_ffn_apply T={T_}: tile list differs from the "
+                 f"selection on the CPU")
+        compare(f"sparse_ffn_apply T={T_} y", [y],
+                [ksm.sparse_matmul_plain(hk.to(x.dtype), wd, idx, nvalid)],
+                torch.bfloat16)
+        log(f"  sparse_ffn_apply T={T_}: nvalid {int(nvalid)} of "
+            f"{idx.numel()} listed tiles, "
+            f"{time_ms(lambda: kops.sparse_ffn_apply(x, wu, wd, device=dev), reps=10):.4f} ms")
+    log(f"  launches summed over the paths: {json.dumps(total)}")
+    return total
 
 
-def profile_run(eng, cfg, dev, unprofiled: dict) -> None:
+def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
     """A second batch of 8 requests through the same engine under
     torch.profiler (device activity only): device time by kernel, and the
     device's busy share of the wall time of THAT run — busy time is the
@@ -478,6 +823,7 @@ def profile_run(eng, cfg, dev, unprofiled: dict) -> None:
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     log("  profile " + json.dumps({
+        "mode": mode,
         "steps": len(steps["prefill"]) + len(steps["decode"]),
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "device_busy_share": busy / wall_ms,
@@ -508,6 +854,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import fused_ffn as kff
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import runtime as rt
     from repro_torch.kernels import sparse_matmul as ksm
@@ -529,8 +876,12 @@ def main(argv=None) -> int:
     if "parity" in phases:
         log("[parity]")
         parity_phase(dev)
-    counters = (kfd.fused_sparse_ffn, kpa.paged_window_attention,
-                ksm.sparse_matmul_tokens)
+    counters = {"fused_sparse_ffn": kfd.fused_sparse_ffn,
+                "paged_window_attention": kpa.paged_window_attention,
+                "sparse_matmul_tokens": ksm.sparse_matmul_tokens,
+                "sparse_up_matmul": ksm.sparse_up_matmul,
+                "fused_up_relu": kff.fused_up_relu,
+                "sparse_matmul": ksm.sparse_matmul}
     if "serve" in phases:
         log("[serve]")
         launches = serve_phase(dev, counters)

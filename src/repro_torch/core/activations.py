@@ -6,8 +6,9 @@ beta≈1.7 approximates GELU, beta→inf is ReLU), tanh-approximate GELU, ReLU,
 the paper's shifted ReLU ``relu(x - b)`` and FATReLU thresholding.
 
 ``kernel_code`` maps a resolved activation onto the (enum, parameter) pair
-the CUDA FFN kernel applies in-kernel (csrc/fused_sparse_ffn.cu); the enum
-values there must match ``ACT_*`` here.
+the CUDA FFN kernels apply in-kernel (csrc/ffn_up.cuh); the enum values
+there must match ``ACT_*`` here. ``ACT_IDENTITY`` is the bare product of
+the ``sparse_up_matmul`` kernel.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import torch.nn.functional as F
 
 Act = Callable[[torch.Tensor], torch.Tensor]
 
-# enum shared with csrc/fused_sparse_ffn.cu
-ACT_RELU, ACT_GELU_TANH, ACT_GATED_SIGMOID, ACT_SHIFTED_RELU, ACT_FATRELU = range(5)
+# enum shared with csrc/ffn_up.cuh
+(ACT_RELU, ACT_GELU_TANH, ACT_GATED_SIGMOID, ACT_SHIFTED_RELU, ACT_FATRELU,
+ ACT_IDENTITY) = range(6)
 
 
 def relu(x):

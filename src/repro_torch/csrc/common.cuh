@@ -39,7 +39,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 //
 // x_tile(t, i) is row t's slice for list slot i: at x + t*x_row + idx*tile
 // for a (T, F) input, or at x + t*x_row + i*tile for a compact (T, K, tile)
-// one. The TPU kernel walked the list on a sequential grid axis with the
+// one. Row t's list is idx + t*idx_row with nvalid[t*nv_row]: per-row lists
+// (idx_row = K, nv_row = 1), or one list shared by every row (both 0, the
+// sparse_matmul kernel). Nothing assumes a list is sorted: slots are
+// summed in list order whatever tiles they name. The TPU kernel walked the list on a sequential grid axis with the
 // output resident; Hopper blocks run in no order, so the list is cut into
 // S consecutive runs of `run` slots (S = ceil(K / run), chosen by the
 // caller so the grid fills the card):
@@ -81,8 +84,8 @@ template <> struct Pair<__nv_bfloat16> {
 template <typename XT, typename WT>
 __global__ void __launch_bounds__(32 * GATHER_WARPS)
 gather_runs(const XT* __restrict__ x, long x_row, int compact, const WT* __restrict__ w,
-            const int* __restrict__ idx, const int* __restrict__ nvalid,
-            float* __restrict__ out, int T, int K, int run, int tile, int D) {
+            const int* __restrict__ idx, long idx_row, const int* __restrict__ nvalid,
+            int nv_row, float* __restrict__ out, int T, int K, int run, int tile, int D) {
   extern __shared__ float smem[];
   float* xs = smem;                          // [GATHER_ROWS][tile]
   float* part = smem + GATHER_ROWS * tile;   // [GATHER_WARPS][GATHER_ROWS][GATHER_COLS]
@@ -99,7 +102,8 @@ gather_runs(const XT* __restrict__ x, long x_row, int compact, const WT* __restr
   for (int i = s * run; i < i_end; ++i) {
     __syncthreads();  // the previous slot's s_tile and xs are consumed
     if (tid < GATHER_ROWS)
-      s_tile[tid] = (tid < nr && i < nvalid[r0 + tid]) ? idx[(long)(r0 + tid) * K + i] : -1;
+      s_tile[tid] = (tid < nr && i < nvalid[(long)(r0 + tid) * nv_row])
+                        ? idx[(long)(r0 + tid) * idx_row + i] : -1;
     __syncthreads();
     int common = -1;
     bool uniform = true;
@@ -178,9 +182,9 @@ __global__ void ordered_sum(const float* __restrict__ R, float* __restrict__ y, 
 // R may be NULL when K <= run (S == 1): the blocks then write y directly.
 template <typename XT, typename WT>
 static cudaError_t launch_tile_gather_rows(const XT* x, long x_row, int compact, const WT* w,
-                                           const int* idx, const int* nvalid, float* R,
-                                           float* y, int T, int K, int run, int tile, int D,
-                                           cudaStream_t stream) {
+                                           const int* idx, long idx_row, const int* nvalid,
+                                           int nv_row, float* R, float* y, int T, int K,
+                                           int run, int tile, int D, cudaStream_t stream) {
   if (T <= 0 || D <= 0) return cudaGetLastError();
   if (run < 1) return cudaErrorInvalidValue;
   const int S = K > 0 ? (K + run - 1) / run : 1;
@@ -195,7 +199,7 @@ static cudaError_t launch_tile_gather_rows(const XT* x, long x_row, int compact,
   }
   dim3 grid((T + GATHER_ROWS - 1) / GATHER_ROWS, S, (D + GATHER_COLS - 1) / GATHER_COLS);
   gather_runs<XT, WT><<<grid, dim3(32, GATHER_WARPS), smem, stream>>>(
-      x, x_row, compact, w, idx, nvalid, S > 1 ? R : y, T, K, run, tile, D);
+      x, x_row, compact, w, idx, idx_row, nvalid, nv_row, S > 1 ? R : y, T, K, run, tile, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
   ordered_sum<<<dim3(T, (D + 255) / 256), 256, 0, stream>>>(R, y, S, D);

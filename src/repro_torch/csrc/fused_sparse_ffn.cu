@@ -26,155 +26,7 @@
 // common case under γ-window reuse, where a refresh step lists every tile —
 // and fall back to one read per token otherwise. CUDA-core f32 FMAs; no
 // tensor cores yet.
-#include "common.cuh"
-
-// activation enum shared with core/activations.py (ACT_*)
-enum { ACT_RELU = 0, ACT_GELU_TANH = 1, ACT_GATED_SIGMOID = 2, ACT_SHIFTED_RELU = 3,
-       ACT_FATRELU = 4 };
-
-__device__ __forceinline__ float apply_act(float v, int act, float prm) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(v, 0.f);
-    case ACT_GELU_TANH: {
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
-    }
-    case ACT_GATED_SIGMOID:
-      return v / (1.f + expf(-prm * v));
-    case ACT_SHIFTED_RELU:
-      return fmaxf(v - prm, 0.f);
-    default:  // ACT_FATRELU
-      return v > prm ? v : 0.f;
-  }
-}
-
-#define UP_ROWS 8     // tokens per block
-#define UP_COLS 128   // tile columns per pass (one per thread)
-#define UP_GROUPS 4   // split the d rows of the product
-#define UP_XCH 256    // x rows staged in shared memory per chunk
-
-// grid (ceil(T / UP_ROWS), K); block (UP_COLS, UP_GROUPS). A block owns list
-// slot i of UP_ROWS tokens. When the active tokens name the same tile at
-// slot i (decode under a shared γ-window list), each weight element is read
-// once for all of them; otherwise each token reads its own tile column.
-// A token's arithmetic is the same either way. Dynamic shared memory:
-// x chunk + partial sums, (UP_ROWS * UP_XCH + 2 * UP_GROUPS * UP_ROWS * UP_COLS)
-// floats.
-template <typename T>
-__global__ void __launch_bounds__(UP_COLS * UP_GROUPS) ffn_up(const T* __restrict__ x, const T* __restrict__ wg,
-                       const T* __restrict__ wu, const float* __restrict__ mask,
-                       const int* __restrict__ idx, const int* __restrict__ nvalid,
-                       float* __restrict__ h, int Tn, int d, int F, int K, int tile, int act,
-                       float prm) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                 // [UP_ROWS][UP_XCH]
-  float* pg = xs + UP_ROWS * UP_XCH;                // [UP_GROUPS][UP_ROWS][UP_COLS]
-  float* pu = pg + UP_GROUPS * UP_ROWS * UP_COLS;   // [UP_GROUPS][UP_ROWS][UP_COLS]
-  __shared__ int s_tile[UP_ROWS];                   // token's tile at slot i, -1 if padded
-  const int r0 = blockIdx.x * UP_ROWS, i = blockIdx.y;
-  const int nr = min(UP_ROWS, Tn - r0);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * UP_COLS + tx, nthreads = UP_COLS * UP_GROUPS;
-  if (tid < UP_ROWS) {
-    const int r = r0 + tid;
-    s_tile[tid] = (tid < nr && i < nvalid[r]) ? idx[(long)r * K + i] : -1;
-  }
-  __syncthreads();
-  int common = -1;
-  bool uniform = true;
-  for (int r = 0; r < nr; ++r) {
-    const int ti = s_tile[r];
-    if (ti < 0) continue;
-    if (common < 0) common = ti;
-    else if (ti != common) uniform = false;
-  }
-  for (int c0 = 0; c0 < tile; c0 += UP_COLS) {
-    const int c = c0 + tx;
-    float g[UP_ROWS], u[UP_ROWS];
-#pragma unroll
-    for (int r = 0; r < UP_ROWS; ++r) g[r] = u[r] = 0.f;
-    for (int k0 = 0; k0 < d && common >= 0; k0 += UP_XCH) {
-      const int kn = min(UP_XCH, d - k0);
-      __syncthreads();  // previous chunk consumed
-      for (int e = tid; e < UP_ROWS * UP_XCH; e += nthreads) {
-        const int r = e / UP_XCH, k = e % UP_XCH;
-        xs[e] = (s_tile[r] >= 0 && k < kn) ? to_f32(x[(long)(r0 + r) * d + k0 + k]) : 0.f;
-      }
-      __syncthreads();
-      if (c < tile) {
-        if (uniform) {
-          const long col = (long)common * tile + c;
-#pragma unroll 4
-          for (int k = ty; k < kn; k += UP_GROUPS) {
-            const long off = (long)(k0 + k) * F + col;
-            const float gv = to_f32(wg[off]);
-            const float uv = wu != nullptr ? to_f32(wu[off]) : 0.f;
-#pragma unroll
-            for (int r = 0; r < UP_ROWS; ++r) {
-              g[r] += xs[r * UP_XCH + k] * gv;
-              u[r] += xs[r * UP_XCH + k] * uv;
-            }
-          }
-        } else {
-          for (int r = 0; r < nr; ++r) {
-            if (s_tile[r] < 0) continue;
-            const long col = (long)s_tile[r] * tile + c;
-            float gs = g[r], us = u[r];
-            for (int k = ty; k < kn; k += UP_GROUPS) {
-              const long off = (long)(k0 + k) * F + col;
-              gs += xs[r * UP_XCH + k] * to_f32(wg[off]);
-              if (wu != nullptr) us += xs[r * UP_XCH + k] * to_f32(wu[off]);
-            }
-            g[r] = gs;
-            u[r] = us;
-          }
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < UP_ROWS; ++r) {
-      pg[(ty * UP_ROWS + r) * UP_COLS + tx] = g[r];
-      pu[(ty * UP_ROWS + r) * UP_COLS + tx] = u[r];
-    }
-    __syncthreads();
-    for (int r = ty; r < nr && c < tile; r += UP_GROUPS) {
-      const int ti = s_tile[r];
-      float v = 0.f;  // padded slot: zeros in h_compact
-      if (ti >= 0) {
-        float sg = 0.f, su = 0.f;
-        for (int gi = 0; gi < UP_GROUPS; ++gi) {
-          sg += pg[(gi * UP_ROWS + r) * UP_COLS + tx];
-          su += pu[(gi * UP_ROWS + r) * UP_COLS + tx];
-        }
-        v = apply_act(sg, act, prm);
-        if (wu != nullptr) v *= su;
-        if (mask != nullptr) v *= mask[(long)(r0 + r) * F + (long)ti * tile + c];
-      }
-      h[((long)(r0 + r) * K + i) * tile + c] = v;
-    }
-    __syncthreads();  // partial sums read before the next column pass
-  }
-}
-
-template <typename T>
-static cudaError_t launch_up(const T* x, const T* wg, const T* wu, const float* mask,
-                             const int* idx, const int* nvalid, float* h, int Tn, int d,
-                             int F, int K, int tile, int act, float prm, cudaStream_t s) {
-  dim3 block(UP_COLS, UP_GROUPS);
-  dim3 grid((Tn + UP_ROWS - 1) / UP_ROWS, K);
-  size_t smem = (size_t)(UP_ROWS * UP_XCH + 2 * UP_GROUPS * UP_ROWS * UP_COLS) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ffn_up<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  if (Tn > 0 && K > 0)
-    ffn_up<T><<<grid, block, smem, s>>>(x, wg, wu, mask, idx, nvalid, h, Tn, d, F, K, tile, act,
-                                        prm);
-  return cudaGetLastError();
-}
+#include "ffn_up.cuh"
 
 // x (T, d); w_gate / w_up (d, F) (w_up may be NULL: plain MLP); wd (F, d_out),
 // d_out even; mask (T, F) f32 or NULL; idx (T, K) i32; nvalid (T,) i32;
@@ -197,16 +49,16 @@ extern "C" int fused_sparse_ffn(const void* x, const void* w_gate, const void* w
     e = launch_up((const float*)x, (const float*)w_gate, (const float*)w_up, m, ix, nv, hc, T,
                   d, F, K, tile, act, act_param, s);
     if (e != cudaSuccess) return (int)e;
-    e = launch_tile_gather_rows((const float*)hc, (long)K * tile, 1, (const float*)wd, ix, nv,
-                                (float*)scratch, (float*)y, T, K, run, tile, d_out, s);
+    e = launch_tile_gather_rows((const float*)hc, (long)K * tile, 1, (const float*)wd, ix, K, nv,
+                                1, (float*)scratch, (float*)y, T, K, run, tile, d_out, s);
   } else if (dtype == DT_BF16) {
     e = launch_up((const __nv_bfloat16*)x, (const __nv_bfloat16*)w_gate,
                   (const __nv_bfloat16*)w_up, m, ix, nv, hc, T, d, F, K, tile, act, act_param,
                   s);
     if (e != cudaSuccess) return (int)e;
     e = launch_tile_gather_rows((const float*)hc, (long)K * tile, 1,
-                                (const __nv_bfloat16*)wd, ix, nv, (float*)scratch, (float*)y, T,
-                                K, run, tile, d_out, s);
+                                (const __nv_bfloat16*)wd, ix, K, nv, 1, (float*)scratch,
+                                (float*)y, T, K, run, tile, d_out, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,236 @@
+// fused_up_relu: dense up-projection + shifted ReLU + tile-activity scores
+// for Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/fused_ffn.py:fused_up_relu (a
+// pallas_call over F blocks with x resident in VMEM):
+//
+//   h = max(x @ wu - shift, 0)                                (T, F) f32
+//   scores[j] = max over all T rows and the 128 lanes of tile j of |h|
+//
+// On the port's paths it is the first half of ops.sparse_ffn_apply, whose
+// scores pick the tiles of the gathered down-projection.
+//
+// What bounds it on the H100: at T = 8 the bytes of wu (134 MB in bf16 at
+// OPT-6.7B, 0.04 ms at 3.35 TB/s); at T = 128 the 2*T*d*F operations on
+// CUDA cores (17.2 GFLOP, 0.26 ms at 67 TFLOP/s f32). Tensor cores are not
+// used yet.
+//
+// Design. A block owns 64 output columns and 16*TM rows (TM = 1, 4 or 8 by
+// T), stages 32-row slices of x (transposed) and wu in shared memory, and
+// each thread accumulates a TM x 4 tile in f32 registers; the next slice is
+// loaded into registers while the current one is used. When the grid would
+// be too small to keep the card's memory busy (small T), the d axis is
+// split into S consecutive ranges: each block writes its raw partial sums
+// to a (S, T, F) scratch and a second launch adds them in range order. The
+// block (or the second launch) that finishes h applies the shift and the
+// ReLU and folds its values into the tile's score with an atomicMax on the
+// bit patterns of non-negative floats, whose order is the float order: the
+// max is exact whatever the order of the atomics.
+#include "common.cuh"
+
+#define UR_BN 64                      // output columns per block (16 threads x 4)
+#define UR_BK 32                      // rows of d staged per step
+#define UR_TX 16                      // threads across the columns
+#define UR_TY 16                      // threads across the rows
+#define UR_THREADS (UR_TX * UR_TY)
+#define UR_LANES 128                  // columns per activity score
+#define UR_FIN_ROWS 32                // rows per block of the finishing launch
+
+// 8 consecutive weight elements, kept raw in registers from the global load
+// until the shared-memory store (so the load is not waited for early)
+template <typename T> struct Raw8;
+template <> struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void store(float* s) const {
+    *reinterpret_cast<float4*>(s) = a;
+    *reinterpret_cast<float4*>(s + 4) = b;
+  }
+};
+template <> struct Raw8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void store(float* s) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+    *reinterpret_cast<float4*>(s) = make_float4(f0.x, f0.y, f1.x, f1.y);
+    *reinterpret_cast<float4*>(s + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
+  }
+};
+
+// fold a warp's score candidates into *dst (bit patterns of floats >= 0)
+__device__ __forceinline__ void max_to(unsigned* dst, unsigned v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0 && v) atomicMax(dst, v);
+}
+
+// grid (F / UR_BN, ceil(T / (UR_TY * TM)), S); block UR_THREADS. Block z owns
+// the d rows [z * kc, min(d, (z + 1) * kc)). part == NULL (S == 1): finish h
+// and the scores here; else write the raw sums to part (S, T, F).
+template <typename T, int TM>
+__global__ void __launch_bounds__(UR_THREADS)
+up_relu(const T* __restrict__ x, const T* __restrict__ wu, float* __restrict__ h,
+        float* __restrict__ part, unsigned* __restrict__ scores, int Tn, int d, int F, int kc,
+        float shift) {
+  constexpr int BM = UR_TY * TM;
+  constexpr int XS = BM + 4;                       // padded row of the transposed x slice
+  constexpr int XPT = BM * UR_BK / UR_THREADS;     // x elements each thread stages
+  __shared__ __align__(16) float xs[UR_BK * XS];   // xs[k][m] = x[r0 + m, k0 + k]
+  __shared__ __align__(16) float ws[UR_BK * UR_BN];
+  const int tid = threadIdx.x, tx = tid % UR_TX, ty = tid / UR_TX;
+  const int f0 = blockIdx.x * UR_BN, r0 = blockIdx.y * BM;
+  const int k_beg = blockIdx.z * kc, k_end = min(d, k_beg + kc);
+  const int wr = tid / (UR_BN / 8), wc = (tid % (UR_BN / 8)) * 8;  // this thread's 8 wu elements
+
+  Raw8<T> wreg;
+  T xreg[XPT];
+  auto load = [&](int k0) {
+    if (k0 + wr < k_end) wreg.load(wu + (long)(k0 + wr) * F + f0 + wc);
+    else wreg.zero();
+#pragma unroll
+    for (int j = 0; j < XPT; ++j) {
+      const int e = tid + j * UR_THREADS, m = e / UR_BK, k = k0 + e % UR_BK;
+      xreg[j] = (r0 + m < Tn && k < k_end) ? x[(long)(r0 + m) * d + k] : from_f32<T>(0.f);
+    }
+  };
+
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  if (k_beg < k_end) load(k_beg);
+  for (int k0 = k_beg; k0 < k_end; k0 += UR_BK) {
+    __syncthreads();  // the previous slice is consumed
+    wreg.store(ws + wr * UR_BN + wc);
+#pragma unroll
+    for (int j = 0; j < XPT; ++j) {
+      const int e = tid + j * UR_THREADS;
+      xs[(e % UR_BK) * XS + e / UR_BK] = to_f32(xreg[j]);
+    }
+    __syncthreads();
+    if (k0 + UR_BK < k_end) load(k0 + UR_BK);
+#pragma unroll
+    for (int k = 0; k < UR_BK; ++k) {
+      const float4 wv = *reinterpret_cast<const float4*>(ws + k * UR_BN + tx * 4);
+      float xv[TM];
+      if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < TM / 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + k * XS + ty * TM + 4 * q);
+          xv[4 * q] = v.x;
+          xv[4 * q + 1] = v.y;
+          xv[4 * q + 2] = v.z;
+          xv[4 * q + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) xv[i] = xs[k * XS + ty * TM + i];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        acc[i][0] += xv[i] * wv.x;
+        acc[i][1] += xv[i] * wv.y;
+        acc[i][2] += xv[i] * wv.z;
+        acc[i][3] += xv[i] * wv.w;
+      }
+    }
+  }
+
+  const int c = f0 + tx * 4;
+  if (part != nullptr) {  // a range of d: raw sums, finished by up_relu_finish
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = r0 + ty * TM + i;
+      if (r < Tn)
+        *reinterpret_cast<float4*>(part + ((long)blockIdx.z * Tn + r) * F + c) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    return;
+  }
+  unsigned mx = 0u;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty * TM + i;
+    if (r >= Tn) continue;
+    const float4 v = make_float4(fmaxf(acc[i][0] - shift, 0.f), fmaxf(acc[i][1] - shift, 0.f),
+                                 fmaxf(acc[i][2] - shift, 0.f), fmaxf(acc[i][3] - shift, 0.f));
+    *reinterpret_cast<float4*>(h + (long)r * F + c) = v;
+    mx = max(mx, max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
+                     max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w)))));
+  }
+  max_to(scores + f0 / UR_LANES, mx);
+}
+
+// h[t, c] = max(sum over z < S of part[z, t, c] (in order) - shift, 0), and
+// the scores. grid (F / UR_LANES, ceil(T / UR_FIN_ROWS)); block UR_LANES.
+__global__ void __launch_bounds__(UR_LANES)
+up_relu_finish(const float* __restrict__ part, float* __restrict__ h,
+               unsigned* __restrict__ scores, int Tn, int F, int S, float shift) {
+  const int c = blockIdx.x * UR_LANES + threadIdx.x;
+  const int rb = blockIdx.y * UR_FIN_ROWS, re = min(Tn, rb + UR_FIN_ROWS);
+  unsigned mx = 0u;
+  for (int r = rb; r < re; ++r) {
+    float acc = 0.f;
+    for (int z = 0; z < S; ++z) acc += part[((long)z * Tn + r) * F + c];
+    const float v = fmaxf(acc - shift, 0.f);
+    h[(long)r * F + c] = v;
+    mx = max(mx, __float_as_uint(fabsf(v)));
+  }
+  max_to(scores + blockIdx.x, mx);
+}
+
+template <typename T, int TM>
+static cudaError_t launch_tm(const T* x, const T* wu, float* h, float* part, unsigned* sc,
+                             int Tn, int d, int F, int S, int kc, float shift, cudaStream_t st) {
+  const dim3 grid(F / UR_BN, (Tn + UR_TY * TM - 1) / (UR_TY * TM), S);
+  up_relu<T, TM><<<grid, UR_THREADS, 0, st>>>(x, wu, h, part, sc, Tn, d, F, kc, shift);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_up_relu(const T* x, const T* wu, float* h, float* part, unsigned* sc,
+                                  int Tn, int d, int F, int S, int kc, int tm, float shift,
+                                  cudaStream_t st) {
+  cudaError_t e;
+  if (tm == 1) e = launch_tm<T, 1>(x, wu, h, part, sc, Tn, d, F, S, kc, shift, st);
+  else if (tm == 4) e = launch_tm<T, 4>(x, wu, h, part, sc, Tn, d, F, S, kc, shift, st);
+  else if (tm == 8) e = launch_tm<T, 8>(x, wu, h, part, sc, Tn, d, F, S, kc, shift, st);
+  else return cudaErrorInvalidValue;
+  if (e != cudaSuccess || part == nullptr) return e;
+  up_relu_finish<<<dim3(F / UR_LANES, (Tn + UR_FIN_ROWS - 1) / UR_FIN_ROWS), UR_LANES, 0, st>>>(
+      part, h, sc, Tn, F, S, shift);
+  return cudaGetLastError();
+}
+
+// x (T, d); wu (d, F), F a multiple of 128, 16-byte aligned; outputs h (T, F)
+// f32 and scores (F / 128,) f32 (zeroed here). tm: rows per thread (1, 4 or
+// 8); S ranges of kc rows of d (kernels/fused_ffn.py up_relu_plan), scratch
+// (S, T, F) f32 when S > 1, else NULL. x and wu share one dtype.
+extern "C" int fused_up_relu(const void* x, const void* wu, void* h, void* scores, void* scratch,
+                             int T, int d, int F, int tm, int S, int kc, float shift, int dtype,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned* sc = (unsigned*)scores;
+  if (F % UR_LANES || S < 1 || kc < 1 || (S > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(sc, 0, (size_t)(F / UR_LANES) * sizeof(unsigned), st);
+  if (e != cudaSuccess || T <= 0) return (int)e;
+  float* part = S > 1 ? (float*)scratch : nullptr;
+  if (dtype == DT_F32)
+    e = launch_up_relu((const float*)x, (const float*)wu, (float*)h, part, sc, T, d, F, S, kc,
+                       tm, shift, st);
+  else if (dtype == DT_BF16)
+    e = launch_up_relu((const __nv_bfloat16*)x, (const __nv_bfloat16*)wu, (float*)h, part, sc,
+                       T, d, F, S, kc, tm, shift, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)e;
+}

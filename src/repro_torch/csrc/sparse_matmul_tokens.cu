@@ -36,14 +36,14 @@ extern "C" int sparse_matmul_tokens(const void* x, const void* w, const void* id
   float* out = (float*)y;
   cudaError_t e;
   if (x_dtype == DT_F32 && w_dtype == DT_F32)
-    e = launch_tile_gather_rows((const float*)x, (long)F, 0, (const float*)w, ix, nv,
+    e = launch_tile_gather_rows((const float*)x, (long)F, 0, (const float*)w, ix, K, nv, 1,
                                 P, out, T, K, run, tile, D, s);
   else if (x_dtype == DT_BF16 && w_dtype == DT_BF16)
     e = launch_tile_gather_rows((const __nv_bfloat16*)x, (long)F, 0,
-                                (const __nv_bfloat16*)w, ix, nv, P, out, T, K, run, tile, D, s);
+                                (const __nv_bfloat16*)w, ix, K, nv, 1, P, out, T, K, run, tile, D, s);
   else if (x_dtype == DT_F32 && w_dtype == DT_BF16)
     e = launch_tile_gather_rows((const float*)x, (long)F, 0, (const __nv_bfloat16*)w, ix,
-                                nv, P, out, T, K, run, tile, D, s);
+                                K, nv, 1, P, out, T, K, run, tile, D, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)e;

@@ -1,11 +1,36 @@
-"""Tile-activity scores (plain torch; XLA functions in the reference's
-``kernels/fused_ffn.py``, not kernels). The reference's ``fused_up_relu*``
-Pallas kernels are not on this port's serving path yet (ROADMAP.md)."""
+"""Fused up-projection + (shifted) ReLU + tile-activity scores, and the
+tile-activity score functions.
+
+Kernel: ``csrc/fused_up_relu.cu`` (CUDA C++, sm_90a), the port of the TPU
+kernel ``src/repro/kernels/fused_ffn.py:fused_up_relu``: h = relu(x @ wu -
+shift) and the per-128-lane tile scores over all rows in one pass. Its
+source note says what bounds it on the H100 (wu's bytes at T = 8, the f32
+operations at T = 128) and how the scores stay exact without ordering the
+atomics.
+
+``tile_activity`` and ``window_tile_activity`` are plain torch (XLA
+functions in the reference, not kernels). The reference's
+``fused_up_relu_tokens`` and ``fused_up_relu_window`` kernels are not
+ported yet (ROADMAP.md, queue B).
+"""
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import runtime as rt
+
 TILE = 128
+
+# csrc/fused_up_relu.cu: columns per block, rows of d per staged slice,
+# threads across a block's rows, and the grid it aims for when it splits d
+UR_BN, UR_BK, UR_TY, UR_TARGET_BLOCKS = 64, 32, 16, 1024
+UR_MAX_SCRATCH = 64 * 2 ** 20
+
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def tile_activity(h: torch.Tensor, tile: int = TILE) -> torch.Tensor:
@@ -19,3 +44,58 @@ def window_tile_activity(h: torch.Tensor, tile: int = TILE) -> torch.Tensor:
     max |h| over the window tokens and the tile lanes."""
     B, W, F = h.shape
     return h.abs().reshape(B, W, F // tile, tile).amax(dim=(1, 3))
+
+
+def up_relu_plan(T: int, d: int, F: int) -> Tuple[int, int, int]:
+    """(tm, S, kc) for the kernel: tm rows per thread (a block covers
+    16 * tm rows); the d axis cut into S consecutive ranges of kc rows
+    (a multiple of the staged slice), as many as bring the grid to about
+    UR_TARGET_BLOCKS blocks, with at least 4 slices per range and the
+    (S, T, F) f32 partial-sum scratch under UR_MAX_SCRATCH bytes."""
+    tm = 1 if T <= 16 else 4 if T <= 64 else 8
+    blocks = (F // UR_BN) * -(-T // (UR_TY * tm))
+    S = max(1, min(-(-UR_TARGET_BLOCKS // blocks), d // (4 * UR_BK),
+                   UR_MAX_SCRATCH // max(1, T * F * 4)))
+    kc = -(-(-(-d // S)) // UR_BK) * UR_BK
+    return tm, -(-d // kc), kc
+
+
+def fused_up_relu_plain(x, wu, shift: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: the dense f32 product, shift, ReLU, and
+    the max over rows and tile lanes."""
+    h = torch.relu(x.float() @ wu.float() - shift)
+    T, F = h.shape
+    return h, h.abs().reshape(T, F // TILE, TILE).amax(dim=(0, 2))
+
+
+def fused_up_relu(x, wu, shift: float = 0.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (T, d), wu (d, F) -> (h (T, F) f32, scores (F // 128,) f32):
+    h = max(x @ wu - shift, 0), scores the max |h| over all T rows and each
+    tile's 128 lanes. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``fused_up_relu.launches`` counts them)."""
+    if rt.on_cpu(x, wu):
+        return fused_up_relu_plain(x, wu, shift)
+    T, d = x.shape
+    F = wu.shape[1]
+    rt.require(wu.shape[0] == d and F % TILE == 0,
+               f"x {tuple(x.shape)} / wu {tuple(wu.shape)}: F must be a "
+               f"multiple of {TILE}")
+    code = rt.dtype_code(x, wu)
+    rt.require_contiguous(x=x, wu=wu)
+    rt.require(wu.data_ptr() % 16 == 0, "wu must be 16-byte aligned")
+    tm, S, kc = up_relu_plan(T, d, F)
+    h = torch.empty((T, F), dtype=torch.float32, device=x.device)
+    scores = torch.empty((F // TILE,), dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((S, T, F), dtype=torch.float32, device=x.device)
+               if S > 1 else None)
+    fn = rt.entry("fused_up_relu", "fused_up_relu", _ARGS)
+    rc = fn(rt.ptr(x), rt.ptr(wu), rt.ptr(h), rt.ptr(scores), rt.ptr(scratch),
+            T, d, F, tm, S, kc, float(shift), code, rt.stream_ptr(x.device))
+    rt.check(rc, "fused_up_relu")
+    fused_up_relu.launches += 1
+    return h, scores
+
+
+fused_up_relu.launches = 0

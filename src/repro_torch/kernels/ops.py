@@ -1,0 +1,61 @@
+"""The sparse FFN hot path as one entry point (the reference's
+``kernels/ops.py``): fused up-projection + ReLU with tile scores
+(``fused_up_relu``), static top-k tile selection, then the gathered
+down-projection over the shared tile list (``sparse_matmul``).
+
+``sparse_ffn_apply`` runs on the card unless the caller passes
+``device="cpu"``, where each kernel wrapper takes its plain version.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.fused_ffn import TILE, fused_up_relu
+from repro_torch.kernels.sparse_matmul import sparse_matmul
+from repro_torch.models.common import resolve_device
+
+
+def select_tiles_static(scores: torch.Tensor, density: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k tile selection with static capacity k = ceil(density * n):
+    (n,) scores -> (idx (k,) int32 in score order, nvalid () int32 the
+    count of selected tiles with a score above 0). Equal scores keep
+    ascending tile order, as ``lax.top_k`` does in the reference: the zero
+    scores tie whenever k exceeds the active tiles, and ``torch.topk`` is
+    not stable, so this takes the first k of a stable descending sort."""
+    n = scores.shape[-1]
+    k = max(1, int(math.ceil(density * n)))
+    top, idx = torch.sort(scores, descending=True, stable=True)
+    top, idx = top[:k], idx[:k]
+    nvalid = (top > 0).sum().to(torch.int32)
+    return idx.to(torch.int32), nvalid
+
+
+def sparse_ffn_apply(x, wu, wd, *, density: float = 0.25, shift: float = 0.0,
+                     device="cuda"):
+    """Full sparse FFN hot path: h = relu(x @ wu - shift); y = h @ wd over
+    the top-ceil(density * F / 128) active tiles only, summed in score
+    order. x (T, d), wu (d, F), wd (F, D), moved to ``device``. Returns
+    (y (T, D) f32, h (T, F) f32, idx (k,) int32, nvalid () int32)."""
+    dev = resolve_device(device)
+    x, wu, wd = (t.to(dev) for t in (x, wu, wd))
+    h, scores = fused_up_relu(x, wu, shift)
+    idx, nvalid = select_tiles_static(scores, density)
+    y = sparse_matmul(h.to(x.dtype), wd, idx, nvalid, tile=TILE)
+    return y, h, idx, nvalid
+
+
+def flops_saved(F: int, D: int, T: int, density: float) -> dict:
+    """Analytic savings of the gathered down-projection (paper Fig. 1c)."""
+    dense = 2.0 * T * F * D
+    sparse = 2.0 * T * math.ceil(density * F / 128) * 128 * D
+    bytes_dense = F * D * 2
+    bytes_sparse = math.ceil(density * F / 128) * 128 * D * 2
+    return {"dense_flops": dense, "sparse_flops": sparse,
+            "flops_saving": 1 - sparse / dense,
+            "dense_weight_bytes": bytes_dense,
+            "sparse_weight_bytes": bytes_sparse,
+            "io_saving": 1 - bytes_sparse / bytes_dense}

@@ -3,7 +3,8 @@
 The counterpart of the reference's ``kernels/runtime.py``. Each
 ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc`` (all started
 together) into ``build/repro_torch/<name>-<hash>.so`` at the root of the
-checkout, keyed by the hash of the sources so an edit rebuilds, and loaded
+checkout, keyed by the hash of the source and the shared headers
+(``csrc/*.cuh``) so an edit rebuilds, and loaded
 as a plain-C library through ``ctypes``: pointers and the stream are passed
 as ``c_void_p``. Every C entry point returns ``cudaGetLastError()``;
 ``check`` raises when it is not 0.
@@ -28,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_sparse_ffn", "paged_attention", "sparse_matmul_tokens")
+SOURCES = ("fused_sparse_ffn", "paged_attention", "sparse_matmul_tokens",
+           "sparse_up_matmul", "fused_up_relu", "sparse_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -53,7 +55,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

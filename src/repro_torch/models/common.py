@@ -364,3 +364,19 @@ def resolve_device(device="cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+class StatsCollector:
+    """Activation capture during a forward (the subset of the reference's
+    ``StatsCollector`` the predictor calibration uses): ``add_raw`` records
+    only when the collector is active and built with ``raw=True``."""
+
+    def __init__(self, active: bool = False, raw: bool = False):
+        self.active = active
+        self.raw = active and raw
+        self.stats: Dict[str, torch.Tensor] = {}
+
+    def add_raw(self, name: str, x: torch.Tensor) -> None:
+        """Capture a full activation tensor (calibration runs only)."""
+        if self.raw:
+            self.stats[name] = x.detach()

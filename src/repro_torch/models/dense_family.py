@@ -7,6 +7,10 @@ from repro_torch.models import common as cm
 from repro_torch.models import transformer as T
 
 
+def model_forward(params, batch, cfg: ModelConfig, *, stats=None):
+    return T.forward(params, batch["tokens"], cfg, stats=stats)
+
+
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device="cuda"):
     return cm.init_paged_cache(cfg, n_blocks, block_size, device=device)
@@ -33,3 +37,17 @@ def model_decode_paged(params, pages, table, token, pos, cfg: ModelConfig,
     return T.decode_step_paged(params, pages, table, token, pos, cfg,
                                ffn_masks, refresh, block_size=block_size,
                                fast_kernels=fast_kernels)
+
+
+def model_decode_paged_predicted(params, pages, table, token, pos,
+                                 cfg: ModelConfig, ffn_masks, refresh,
+                                 pred_params, kind: str, tile: int,
+                                 k_tiles: int, block_size: int,
+                                 measure: bool = True, fast_kernels=None):
+    return T.decode_step_paged_predicted(params, pages, table, token, pos,
+                                         cfg, ffn_masks, refresh, pred_params,
+                                         kind=kind, tile=tile,
+                                         k_tiles=k_tiles,
+                                         block_size=block_size,
+                                         measure=measure,
+                                         fast_kernels=fast_kernels)

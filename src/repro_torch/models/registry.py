@@ -49,7 +49,8 @@ def _load_builtin(name: str) -> None:
     if name == "dense":
         from repro_torch.models import dense_family
         register_family("dense", dense_family,
-                        caps=("paged_decode", "chunked_prefill"))
+                        caps=("paged_decode", "chunked_prefill",
+                              "predictor"))
     elif name in _NOT_PORTED:
         _FAMILIES[name] = None
         _CAPS[name] = ServingCaps()

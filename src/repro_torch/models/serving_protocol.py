@@ -66,26 +66,36 @@ def refresh_union_masks(ffn_masks, act, refresh):
     return torch.where(refresh[None, :, None], act, ffn_masks)
 
 
-def _run_layers(params, pages, cfg, x, layer_fn: Callable, ffn_masks):
+def _layer_slice(tree, li: int):
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, li) for k, v in tree.items()}
+    return tree[li]
+
+
+def _run_layers(params, pages, cfg, x, layer_fn: Callable, ffn_masks,
+                extra_xs: Tuple = ()):
     kp, vp = pages["k"], pages["v"]
     auxs = []
     for li in range(cfg.n_layers):
+        extras = tuple(_layer_slice(e, li) for e in extra_xs)
         x, kp, vp, aux = layer_fn(cm.layer_params(params, li), li, x, kp, vp,
-                                  ffn_masks[li])
+                                  ffn_masks[li], *extras)
         auxs.append(aux)
     return x, {"k": kp, "v": vp}, tuple(torch.stack(a) for a in zip(*auxs))
 
 
 def decode_step_core(params, pages, token, pos, cfg, ffn_masks, refresh, *,
                      layer_fn: Callable, embed_fn: Callable,
-                     logits_fn: Callable):
+                     logits_fn: Callable, extra_xs: Tuple = ()):
     """Single-token paged decode. token/pos/refresh (b,); ffn_masks
-    (L, b, F). layer_fn(pl_i, li, x, k_pages, v_pages, ffn_mask) ->
-    (x, k_pages, v_pages, aux) with aux led by the (b, F) activity.
+    (L, b, F). layer_fn(pl_i, li, x, k_pages, v_pages, ffn_mask, *extras)
+    -> (x, k_pages, v_pages, aux) with aux led by the (b, F) activity;
+    extras are layer li's slices of the stacked trees in ``extra_xs``.
     Returns (logits (b, vocab_p), pages, new_masks (L, b, F), aux stacked
     over layers)."""
     x = embed_fn(params, token[:, None], cfg, pos[:, None])[:, 0]
-    x, pages, aux = _run_layers(params, pages, cfg, x, layer_fn, ffn_masks)
+    x, pages, aux = _run_layers(params, pages, cfg, x, layer_fn, ffn_masks,
+                                extra_xs)
     new_masks = refresh_union_masks(ffn_masks, aux[0], refresh)
     x = cm.apply_norm(params["final_norm"], x[:, None], cfg)[:, 0]
     return logits_fn(params, x, cfg), pages, new_masks, aux

@@ -13,8 +13,11 @@ Plain products (QKV, ``wo``, the dense up-projection, the logits) are
 hand-written CUDA kernels the reference runs as Pallas kernels
 (``kernel_path`` says when):
 ``paged_window_attention`` (decode and window attention),
-``fused_sparse_ffn`` (W = 1 decode FFN over the γ-window tile list) and
-``sparse_matmul_tokens`` (window-union down-projection of chunked prefill).
+``fused_sparse_ffn`` (W = 1 decode FFN over the γ-window tile list, and
+the predictor FFN) and ``sparse_matmul_tokens`` (window-union
+down-projection of chunked prefill). The predictor FFN's unfused lowering
+(``_ffn_decode_predicted(fused=False)``) runs ``sparse_up_matmul`` and
+``sparse_matmul_tokens`` instead of the fused kernel.
 """
 from __future__ import annotations
 
@@ -187,13 +190,17 @@ def apply_attn_full(p, x, cfg: ModelConfig, positions):
     return _attn_out(p, o.reshape(b, s, g.hp, g.head_dim), cfg), kv
 
 
-def apply_block(p, x, cfg: ModelConfig, positions):
+def apply_block(p, x, cfg: ModelConfig, positions,
+                stats: Optional[cm.StatsCollector] = None):
     h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
     a, kv = apply_attn_full(p["attn"], h, cfg, positions)
     x = x + a
     h = post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
     b, s, d = h.shape
-    f = _ffn_hidden(p["ffn"], h.reshape(b * s, d), cfg) @ p["ffn"]["wd"]
+    h = h.reshape(b * s, d)
+    if stats is not None:
+        stats.add_raw("ffn_x", h)  # predictor-calibration capture
+    f = _ffn_hidden(p["ffn"], h, cfg) @ p["ffn"]["wd"]
     return x + f.reshape(b, s, d), kv
 
 
@@ -216,17 +223,26 @@ def logits_from(params, x, cfg: ModelConfig):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
-            last_index: Optional[int] = None):
+            last_index: Optional[int] = None,
+            stats: Optional[cm.StatsCollector] = None):
     """Full-sequence forward. tokens (b, s) -> logits (b, s, vocab_p). With
     ``return_kv``: (logits (b, 1, vocab_p) at ``last_index`` (default
-    s - 1), (k, v) each (L, b, s, kvp, hd))."""
+    s - 1), (k, v) each (L, b, s, kvp, hd)). An active ``stats`` collects
+    each layer's sites under ``layer{i}/`` (with ``raw=True``: the FFN
+    input, ``layer{i}/ffn_x`` (b * s, d))."""
     require_dense_projections(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_tokens(params, tokens, cfg, positions)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = apply_block(cm.layer_params(params, i), x, cfg, positions)
+        sub = (cm.StatsCollector(True, raw=stats.raw)
+               if stats is not None and stats.active else None)
+        x, (k, v) = apply_block(cm.layer_params(params, i), x, cfg, positions,
+                                stats=sub)
+        if sub is not None:
+            for key, val in sub.stats.items():
+                stats.stats[f"layer{i}/{key}"] = val
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -374,14 +390,90 @@ def prefill_chunk_paged(params, pages, table, tokens, pos0, clen,
                                fast_kernels=fast_kernels)
 
 
+def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
+                          tile: int, k_tiles: int, mask, refresh,
+                          measure: bool = True, fused: bool):
+    """Predictor-gathered decode FFN (predictor serving mode): the activity
+    predictor names each token's active tiles BEFORE any FFN weight is read,
+    and the up- and down-projections run as tile-gathered products over
+    exactly those tiles.
+
+    h (B, d) post-norm FFN input; pred_l this layer's predictor params;
+    mask (B, F) / refresh (B,) the γ-window machinery: between refreshes the
+    window's units are composed INTO the predicted set.
+
+    ``fused`` picks the lowering (the reference picks it with
+    ``fast_kernels``): True runs ``fused_sparse_ffn`` over the lists; False
+    the unfused pair, ``sparse_up_matmul`` then the activation times the
+    covered mask, then ``sparse_matmul_tokens``. The two give the same
+    result bit for bit (same per-tile dots, same accumulation order). On
+    CUDA tensors both launch the CUDA kernels.
+
+    With ``measure`` a recall miss is counted: a dense gate pre-activation
+    (telemetry only, never fed to the residual stream) re-reads the gate
+    weight each step; measure=False returns zero counts.
+
+    Returns (f (B, d), act (B, F), scores (B, F // gather tile),
+             density (B,) fraction of weight tiles read (up AND down),
+             n_active (B,) int32, n_miss (B,) int32)."""
+    act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
+    glu = cfg.ffn_kind == "glu"
+    n_tiles = cfg.d_ff // tile
+    h = h.contiguous()
+    unit_pred = preds.predict_units(kind, pred_l, h)  # (B, F)
+    eff_units = unit_pred | (mask & ~refresh[:, None])
+    idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(eff_units, tile),
+                                          k_tiles)
+    cov_units = preds.tiles_to_units(preds.covered_tiles(idx, nvalid, n_tiles),
+                                     tile)
+    gate_w = pf["wg"] if glu else pf["wu"]
+    if fused:
+        # cov_units is all ones inside every gathered tile, so the kernel
+        # needs no unit mask; non-gathered tiles are exact zeros by omission
+        f32, compact = kfd.fused_sparse_ffn(
+            h, gate_w, pf["wd"], idx, nvalid, w_up=pf["wu"] if glu else None,
+            activation=cfg.activation, shift=cfg.sparsity.shift, tile=tile)
+        hh = kfd.scatter_compact(compact, idx, nvalid, n_tiles)
+        f = f32.to(h.dtype)
+    else:
+        pre = ksm.sparse_up_matmul(h, gate_w, idx, nvalid, tile=tile)
+        # the covered mask keeps skipped tiles exactly zero even where
+        # f(0) != 0 (a negative shifted-ReLU shift)
+        hh = act_fn(pre) * cov_units.to(pre.dtype)
+        if glu:
+            hh = hh * ksm.sparse_up_matmul(h, pf["wu"], idx, nvalid, tile=tile)
+        f = ksm.sparse_matmul_tokens(hh.to(pf["wd"].dtype), pf["wd"], idx,
+                                     nvalid, tile=tile).to(h.dtype)
+    act = hh != 0
+    scores = tile_activity(hh, cm.ffn_gather_tile(cfg))
+    density = nvalid.float() / n_tiles
+    if measure:
+        thr = acts.firing_threshold(cfg.activation, cfg.sparsity.shift)
+        true_act = (h @ gate_w).float() > thr  # telemetry only
+        n_active = true_act.sum(-1, dtype=torch.int32)
+        n_miss = (true_act & ~cov_units).sum(-1, dtype=torch.int32)
+    else:
+        n_active = torch.zeros(h.shape[0], dtype=torch.int32, device=h.device)
+        n_miss = torch.zeros_like(n_active)
+    return f, act, scores, density, n_active, n_miss
+
+
 def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
                              pos, *, layer: int, block_size: int, mask,
-                             refresh, fast_kernels: Optional[bool] = None):
+                             refresh, pred=None, pred_kind: Optional[str] = None,
+                             pred_tile: int = 128, k_tiles: int = 0,
+                             pred_measure: bool = True,
+                             fast_kernels: Optional[bool] = None):
     """Single-token decode block over the paged pool (kept apart from the
     window block as the reference keeps it). On the kernel path
     (``kernel_path``) the FFN runs through ``fused_sparse_ffn`` over the
     γ-window mask's tile list, with the mask applied per unit inside the
-    kernel."""
+    kernel.
+
+    ``pred`` (a per-layer predictor-param slice; None = off) switches the
+    FFN to the predictor-gathered path (``_ffn_decode_predicted``, fused on
+    the kernel path), which appends (n_active, n_miss) recall telemetry to
+    the return tuple."""
     fast_kernels = kernel_path(fast_kernels, x)
     g = attn_geometry(cfg)
     h = post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
@@ -401,6 +493,12 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
                       cfg)[:, 0]
 
     h = post_norm(cm.apply_norm(p["ln2"], x[:, None], cfg)[:, 0], cfg)
+    if pred is not None:
+        f, act, scores, density, n_active, n_miss = _ffn_decode_predicted(
+            p["ffn"], h, cfg, pred, kind=pred_kind, tile=pred_tile,
+            k_tiles=k_tiles, mask=mask, refresh=refresh, measure=pred_measure,
+            fused=fast_kernels)
+        return x + f, k_pages, v_pages, act, scores, density, n_active, n_miss
     pf = p["ffn"]
     eff = mask | refresh[:, None]
     tile = cm.ffn_gather_tile(cfg)
@@ -442,3 +540,35 @@ def decode_step_paged(params, pages, table, token, pos, cfg: ModelConfig,
     return sp.decode_step_core(params, pages, token, pos, cfg, ffn_masks,
                                refresh, layer_fn=layer_fn,
                                embed_fn=embed_tokens, logits_fn=logits_from)
+
+
+def decode_step_paged_predicted(params, pages, table, token, pos,
+                                cfg: ModelConfig, ffn_masks, refresh,
+                                pred_params, *, kind: str, tile: int,
+                                k_tiles: int, block_size: int,
+                                measure: bool = True,
+                                fast_kernels: Optional[bool] = None):
+    """Predictor-mode continuous-batching decode step: ``decode_step_paged``
+    with every layer's FFN tile-gathered over the predictor's per-token
+    mask (``_ffn_decode_predicted``). pred_params is the stacked (leading
+    layer axis) predictor dict; measure=False drops the recall probe.
+
+    Returns (logits (b, vocab_p), pages, new_masks (L, b, F), aux) with
+    aux = (act (L, b, F), scores (L, b, F // tile'), density (L, b) fraction
+    of FFN weight tiles read, n_active (L, b), n_miss (L, b) recall
+    telemetry; zeros when measure=False)."""
+    require_dense_projections(cfg)
+
+    def layer_fn(pl_i, li, x, kp, vp, fm, pred_l):
+        x, kp, vp, act, scores, density, n_act, n_miss = \
+            apply_block_decode_paged(
+                pl_i, x, cfg, kp, vp, table, pos, layer=li,
+                block_size=block_size, mask=fm, refresh=refresh, pred=pred_l,
+                pred_kind=kind, pred_tile=tile, k_tiles=k_tiles,
+                pred_measure=measure, fast_kernels=fast_kernels)
+        return x, kp, vp, (act, scores, density, n_act, n_miss)
+
+    return sp.decode_step_core(params, pages, token, pos, cfg, ffn_masks,
+                               refresh, layer_fn=layer_fn,
+                               embed_fn=embed_tokens, logits_fn=logits_from,
+                               extra_xs=(pred_params,))

@@ -1,22 +1,28 @@
 """Continuous-batching serving engine of the PyTorch port.
 
 ``ContinuousBatchingEngine(cfg, params, config=EngineConfig(...),
-device="cuda")`` is the reference's engine (``serving/engine.py``) for its
-plain greedy mode: requests are admitted and retired mid-decode by the
-copied numpy scheduler, K/V lives in a paged block pool shared by the slot
-batch, every step decodes one token per active slot with per-request
-γ-window FFN masks, and admission runs either as whole-prompt prefill
-(``prefill_chunk == 0``) or as one fixed-shape chunk per step. The shared
-prompt-prefix cache and SLO preemption come with the scheduler.
+device="cuda")`` is the reference's engine (``serving/engine.py``) for
+greedy requests in two of its serving modes: requests are admitted and
+retired mid-decode by the copied numpy scheduler, K/V lives in a paged
+block pool shared by the slot batch, and admission runs either as
+whole-prompt prefill (``prefill_chunk == 0``) or as one fixed-shape chunk
+per step. The shared prompt-prefix cache and SLO preemption come with the
+scheduler. Every step decodes one token per active slot:
+
+* plain mode, with per-request γ-window FFN masks;
+* predictor mode (``EngineConfig(predictor=...)``, a
+  ``repro_torch.predictor.Predictor`` on the engine's device): the
+  predictor names each token's active FFN tiles before any FFN weight is
+  read, and the step gathers only those tiles for the up- and
+  down-projections, with density and recall telemetry per step.
 
 PyTorch runs the step eagerly (no jit). ``fast_kernels`` follows the
 device: on CUDA the steps run the hand-written kernels (kernels/*.py) and
 ``fast_kernels=False`` raises; on the CPU they run the reference's frozen
 plain path, or with ``fast_kernels=True`` the kernel path's structure with
-each wrapper's plain version. Not ported
-yet, and raising NotImplementedError: speculative mode, predictor mode,
-``mesh=``, ``obs=``, ``track_sparsity`` and sampled (temperature > 0)
-requests.
+each wrapper's plain version. Not ported yet, and raising
+NotImplementedError: speculative mode, ``mesh=``, ``obs=``,
+``track_sparsity`` and sampled (temperature > 0) requests.
 """
 from __future__ import annotations
 
@@ -58,7 +64,6 @@ class ContinuousBatchingEngine:
             raise ValueError("fast_kernels=False on CUDA: on the card the "
                              "engine runs the hand-written kernels")
         for on, what in ((config.draft_cfg is not None, "speculative mode"),
-                         (config.predictor is not None, "predictor mode"),
                          (config.mesh is not None, "mesh= (sharded serving)"),
                          (config.obs is not None, "obs= (observability)"),
                          (config.track_sparsity, "track_sparsity")):
@@ -75,6 +80,19 @@ class ContinuousBatchingEngine:
         if off:
             raise ValueError(f"params must lie on {self.device}; found "
                              f"{sorted(set(map(str, off)))}")
+        self.predictor = predictor = config.predictor
+        self.predictor_telemetry = config.predictor_telemetry
+        if predictor is not None:
+            caps.require("predictor", cfg.family)
+            if predictor.n_tiles * predictor.tile != cfg.d_ff:
+                raise ValueError(
+                    f"predictor geometry {predictor.n_tiles}x"
+                    f"{predictor.tile} does not cover d_ff={cfg.d_ff}")
+            off = [t.device for t in predictor.params.values()
+                   if t.device != self.device]
+            if off:
+                raise ValueError(f"predictor params must lie on {self.device}; "
+                                 f"found {sorted(set(map(str, off)))}")
         self.config = config
         self.cfg = cfg
         self.params = params
@@ -97,9 +115,13 @@ class ContinuousBatchingEngine:
                                  dtype=torch.bool, device=self.device)
         self.t = 0
         self._uid = 0
-        # per-(active slot, step) FFN weight-read fraction (γ-window reuse)
+        # per-(active slot, step) FFN weight-read fraction: down-projection
+        # rows under γ-window reuse, gathered tiles in predictor mode
         self._dens_sum = 0.0
         self._dens_n = 0
+        # predictor-mode recall accounting (miss counts from the step)
+        self._pred_active = 0
+        self._pred_miss = 0
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -185,11 +207,40 @@ class ContinuousBatchingEngine:
         nxt, lp = greedy_head(logits, self.cfg.vocab_size)
         lp_np, dens_np = torch.stack([lp, density.mean(0)]).cpu().numpy()
         nxt_np = nxt.cpu().numpy()
-        sched.record_io(active, dens_np)
+        self._account(active, dens_np)
+        sched.record(nxt_np, lp_np)
+
+    @torch.inference_mode()
+    def _advance_pred(self, active) -> None:
+        """Predictor-mode decode: per-token predicted tile lists drive the
+        gathered up- and down-projections; density and recall telemetry
+        come back with the step."""
+        sched = self.scheduler
+        pred = self.predictor
+        tokens, pos, table, refresh = sched.batch_arrays()
+        logits, self.pages, self.masks, (_, _, density, n_act, n_miss) = \
+            self.fam.model_decode_paged_predicted(
+                self.params, self.pages, self._tensor(table),
+                self._tensor(tokens), self._tensor(pos), self.cfg, self.masks,
+                self._tensor(refresh), pred.params, pred.kind, pred.tile,
+                pred.k_tiles, self.block_size, self.predictor_telemetry,
+                fast_kernels=self.fast_kernels)
+        nxt, lp = greedy_head(logits, self.cfg.vocab_size)
+        lp_np, dens_np = torch.stack([lp, density.mean(0)]).cpu().numpy()
+        na, nm = torch.stack([n_act.sum(0), n_miss.sum(0)]).cpu().numpy()
+        nxt_np = nxt.cpu().numpy()
+        self._account(active, dens_np)
+        self._pred_active += int(sum(na[i] for i in active))
+        self._pred_miss += int(sum(nm[i] for i in active))
+        sched.record(nxt_np, lp_np, pred_density=dens_np, pred_active=na,
+                     pred_miss=nm)
+
+    def _account(self, active, dens_np) -> None:
+        """Per-(active slot, step) weight-read fraction."""
+        self.scheduler.record_io(active, dens_np)
         for i in active:
             self._dens_sum += float(dens_np[i])
             self._dens_n += 1
-        sched.record(nxt_np, lp_np)
 
     def step(self) -> bool:
         """Retire, admit, advance prefill (one chunk in chunked mode), then
@@ -197,7 +248,10 @@ class ContinuousBatchingEngine:
         prefilled = self._admit()
         active = self.scheduler.active_indices()
         if active:
-            self._advance(active)
+            if self.predictor is not None:
+                self._advance_pred(active)
+            else:
+                self._advance(active)
         elif not prefilled:
             return False
         self.t += 1
@@ -233,11 +287,53 @@ class ContinuousBatchingEngine:
 
     # -- metrics ------------------------------------------------------------
     def weight_io_saved(self) -> float:
-        """Fraction of FFN down-projection rows skipped by γ-window reuse,
-        averaged over (active slot, step); 0.0 before any decode step."""
+        """Fraction of FFN weight reads skipped, averaged over (active slot,
+        step); 0.0 before any decode step. Plain mode: down-projection rows
+        skipped by γ-window reuse. Predictor mode: up- AND down-projection
+        tiles the predictor never gathered (1 - mean predicted density)."""
         if not self._dens_n:
             return 0.0
         return 1.0 - self._dens_sum / self._dens_n
+
+    def _mode_ffn_bytes(self) -> int:
+        """Per-step FFN weight bytes per token, dense, in the serving mode's
+        skippable scope: every projection for predictor serving and on the
+        kernel path (the fused kernel gathers the γ-mask's tiles for the
+        up- and down-projections), the down-projection otherwise."""
+        cfg = self.cfg
+        itemsize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                               ).element_size()
+        proj = cfg.d_ff * cfg.d_model * itemsize * max(1, cfg.n_experts)
+        n_all = 3 if cfg.ffn_kind == "glu" else 2
+        if self.predictor is not None or self.fast_kernels:
+            return cfg.n_layers * n_all * proj
+        return cfg.n_layers * proj
+
+    def weight_io_bytes_per_step(self) -> float:
+        """Mean FFN weight bytes actually read per (active slot, step) over
+        the mode's skippable projections (``_mode_ffn_bytes``)."""
+        dens = 1.0 if not self._dens_n else self._dens_sum / self._dens_n
+        return dens * self._mode_ffn_bytes()
+
+    def predictor_density(self) -> Optional[float]:
+        """Mean fraction of FFN weight tiles gathered per (active slot,
+        step, layer) in predictor mode. None outside predictor mode or
+        before any decode step."""
+        if self.predictor is None or not self._dens_n:
+            return None
+        return self._dens_sum / self._dens_n
+
+    def predictor_recall(self) -> Optional[float]:
+        """Realized recall over every served token: 1 - (active units the
+        gathered tiles missed) / (active units). None when recall was never
+        measured: outside predictor mode, with ``predictor_telemetry=False``
+        (the step then reports zero counts) or before any decode step."""
+        if (self.predictor is None or not self.predictor_telemetry
+                or not self._dens_n):
+            return None
+        if not self._pred_active:
+            return 1.0  # measured: no unit fired, so none was missed
+        return 1.0 - self._pred_miss / self._pred_active
 
     def prefix_hit_rate(self) -> float:
         """Fraction of admitted prompt tokens served from the prefix cache."""

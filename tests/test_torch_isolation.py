@@ -65,6 +65,48 @@ def test_port_serves_with_jax_and_reference_unimportable():
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
 
 
+def test_predictor_mode_and_ops_run_with_jax_and_reference_unimportable(
+        tmp_path):
+    """Calibration, the checkpoint format, predictor-mode serving and
+    sparse_ffn_apply need nothing of JAX or the JAX package."""
+    prog = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.ops import sparse_ffn_apply
+        from repro_torch.models import transformer as T
+        from repro_torch.predictor import calibrate, load_predictor, save_predictor
+        from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+        cfg = get_config("tiny-relu").replace(compute_dtype="float32")
+        params = T.init_params(cfg, seed=0, device="cpu")
+        toks = torch.as_tensor(np.arange(48).reshape(2, 24) % cfg.vocab_size)
+        pred = calibrate(params, cfg, {{"tokens": toks}}, kind="lowrank",
+                         rank=4, target_recall=0.9, tile=1)
+        save_predictor(pred, {str(tmp_path)!r})
+        pred = load_predictor({str(tmp_path)!r}, device="cpu")
+        eng = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(n_slots=2, predictor=pred), device="cpu")
+        uids = [eng.submit(np.arange(1, n + 1), 4) for n in (5, 9)]
+        res = eng.run()
+        assert all(len(res[u].tokens) == 4 for u in uids)
+        assert 0.0 < eng.predictor_density() <= 1.0
+        y, h, idx, nvalid = sparse_ffn_apply(
+            torch.randn(3, 64), torch.randn(64, 256), torch.randn(256, 64),
+            device="cpu")
+        assert y.shape == (3, 64) and idx.shape == (1,)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """No device given means CUDA; with none available the engine and the
     model raise instead of running on the CPU."""
