@@ -11,29 +11,39 @@ device and build always run):
             TF32 off for f32 matmuls and convolutions.
 2. build    nvcc builds every kernel of src/repro_torch/csrc (one process
             per source, all at once); prints the build seconds.
-3. kernels  each hand-written kernel against its plain PyTorch version on
-            the card, at OPT-6.7B's path shapes in f32 and bf16 plus small
-            edge cases (GLU, GQA, shifts, nvalid = 0, duplicate pads, tied
-            scores, lists in score order); times the kernel, the plain
+3. kernels  each of the ten hand-written kernels against its plain PyTorch
+            version on the card, at the path shapes in f32 and bf16 (OPT-6.7B
+            layer 0's widths; Mixtral-8x22B layer 0's stacked experts with
+            its router's lists for the expert gathers) plus small edge cases
+            (GLU, GQA, shifts, nvalid = 0, duplicate pads, tied scores, lists
+            in score order, k_valid padding, windows straddling blocks, f32
+            blocks against bf16 weights); times the kernel, the plain
             version and one PyTorch library call computing the same
             function (CUDA events, median of 25 runs after warm-up) and
             works out the card's bound. The unfused predictor pair
             (sparse_up_matmul, sparse_matmul_tokens) is held against
-            fused_sparse_ffn on the same lists.
+            fused_sparse_ffn on the same lists, and the expert chain (up,
+            SiLU GLU, gates, down) against the per-expert dense product.
 4. parity   f32 engine streams of tiny-opt and tiny-relu on the card
             (kernels) equal the CPU streams (plain versions) token for token,
             logprobs within 1e-5: plain mode, and predictor mode with a sign
             predictor at recall 1.0; the fused and unfused predictor FFN
-            agree on the card.
-5. serve    OPT-6.7B, 32 layers, bf16, random weights from a seed, through
-            each path of the port with the launch counts set to 0 before
-            it and read after it (every kernel of the path must launch):
-            the engine in plain mode (chunked prefill, γ-window reuse) and
-            in predictor mode (sign predictor, bf16 probe), 8 requests
-            each, then 8 more through each engine under torch.profiler
-            (device time by kernel, and the busy share of that run's wall
-            time); the unfused predictor FFN on one layer for 8 tokens; and
-            ops.sparse_ffn_apply at T = 8 and 128, density 0.25.
+            agree on the card; tiny-moe (drop-free) in whole-prompt and
+            chunked mode.
+5. serve    each path of the port at full width, bf16, random weights from a
+            seed, with the launch counts set to 0 before it and read after it
+            (every kernel of the path must launch). OPT-6.7B, 32 layers: the
+            engine in plain mode (chunked prefill, γ-window reuse) and in
+            predictor mode (sign predictor, bf16 probe), 8 requests each,
+            then 8 more through each engine under torch.profiler (device
+            time by kernel, and the busy share of that run's wall time); the
+            unfused predictor FFN on one layer for 8 tokens;
+            ops.sparse_ffn_apply at T = 8 and 128, density 0.25; the
+            per-token and window score kernels on layer 0. Then, OPT-6.7B
+            freed, Mixtral-8x22B with 4 of its 56 layers: the engine in
+            plain mode with the same geometry and requests (and a profiled
+            batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
+            128.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -206,14 +216,15 @@ def kernel_phase(dev) -> dict:
         max_abs_err_f32=errs[torch.float32])
 
     # -- paged_window_attention ---------------------------------------------
-    def attn_case(name, b, W, kvp, g, hd, bs, nb, n_blocks, dtype, window=0):
+    def attn_case(name, b, W, kvp, g, hd, bs, nb, n_blocks, dtype, window=0,
+                  min_end=None):
         q = t(rng.randn(b, W, kvp, g, hd), dtype)
         kp = t(rng.randn(n_blocks, kvp, bs, hd), dtype)
         vp = t(rng.randn(n_blocks, kvp, bs, hd), dtype)
         # each slot owns distinct blocks; past its length the table pads
         # with the scratch block 0, as the engine's tables do
         perm = rng.permutation(np.arange(1, n_blocks))[: b * nb].reshape(b, nb)
-        end = rng.randint(W, nb * bs + 1, size=b)          # tokens written
+        end = rng.randint(min_end or W, nb * bs + 1, size=b)  # tokens written
         table = np.where(np.arange(nb)[None, :] * bs < end[:, None], perm, 0)
         pos = end[:, None] - W + np.arange(W)[None, :]
         table, pos = t(table, torch.int32), t(pos, torch.int32)
@@ -230,6 +241,16 @@ def kernel_phase(dev) -> dict:
         attn_case(f"tiny GQA W=1 {dtype}", 3, 1, 2, 8, 16, 8, 4, 16, dtype)
         attn_case(f"OPT-6.7B chunk W=16 {dtype}", 8, 16, 32, 1, 128, 16, 16,
                   129, dtype)
+        # Mixtral-8x22B's geometry on the MoE serve path: 8 kv heads x 6
+        # query heads, R = 96 rows per block at W = 16 (122 KB of shared
+        # memory); then its 4096-token sliding window over 4352 to 5120
+        # cached tokens, so the window masks and skips leading blocks
+        for W in (16, 1):
+            attn_case(f"Mixtral-8x22B W={W} {dtype}", 8, W, 8, 6, 128, 16, 16,
+                      129, dtype, window=4096)
+            attn_case(f"Mixtral-8x22B W={W} window=4096 masking {dtype}", 8,
+                      W, 8, 6, 128, 16, 320, 8 * 320 + 1, dtype, window=4096,
+                      min_end=4352)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         errs[dtype], args = attn_case(f"OPT-6.7B decode W=1 {dtype}", 8, 1, 32,
@@ -467,9 +488,239 @@ def kernel_phase(dev) -> dict:
     log(f"  ok select_tiles_static tied scores: {got_i.cpu().tolist()[:6]}..."
         f" nvalid {int(got_n)}")
 
+    results.update(score_kernel_rows(dev, rng))
+    results.update(expert_kernel_rows(dev, rng))
     for r in results.values():
         log("  kernel " + json.dumps(r))
     return results
+
+
+def score_kernel_rows(dev, rng, d: int = 4096, F: int = 16384) -> dict:
+    """fused_up_relu_tokens and fused_up_relu_window against their plain
+    versions: small edge cases (shifts, W = 1, windows whose rows straddle
+    row blocks and d ranges) and OPT-6.7B layer 0's wu shape (d = 4096,
+    F = 16384) at T = 8 and 128 tokens, windows of W = 4 and 16 over 8
+    slots. Returns their two rows of the kernels line (bf16 at T = 128 /
+    W = 16; the smaller shape beside it)."""
+    from repro_torch.kernels import fused_ffn as kff
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    kinds = {"fused_up_relu_tokens": (kff.fused_up_relu_tokens,
+                                      kff.fused_up_relu_tokens_plain),
+             "fused_up_relu_window": (kff.fused_up_relu_window,
+                                      kff.fused_up_relu_window_plain)}
+
+    def case(kind, name, shape, F, dtype, shift=0.0, wu=None):
+        fn, plain = kinds[kind]
+        x = t(rng.randn(*shape), dtype)
+        if wu is None:
+            wu = t(rng.randn(shape[-1], F) / np.sqrt(shape[-1]), dtype)
+        got, want = fn(x, wu, shift), plain(x, wu, shift)
+        torch.cuda.synchronize()
+        return compare(f"{kind} {name}", got, want, dtype), (x, wu)
+
+    big = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        case("fused_up_relu_tokens", f"tiny shift=0.25 {dtype}", (5, 64), 384,
+             dtype, 0.25)
+        case("fused_up_relu_tokens", f"T=40 d split {dtype}", (40, 4096), 1024,
+             dtype, 0.1)
+        case("fused_up_relu_window", f"tiny W=1 {dtype}", (4, 1, 64), 256,
+             dtype)
+        # 7-row windows straddle the 64-row blocks (in-block fold) and, at
+        # d = 4096, the d ranges (folded by the finishing launch)
+        case("fused_up_relu_window", f"B=3 W=7 shift=0.25 {dtype}", (3, 7, 64),
+             256, dtype, 0.25)
+        case("fused_up_relu_window", f"B=5 W=7 d split {dtype}", (5, 7, 4096),
+             1024, dtype)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        wu = (torch.randn(d, F, device=dev, generator=gen)
+              / np.sqrt(d)).to(dtype)
+        for T in (8, 128):
+            big["fused_up_relu_tokens", T, dtype] = case(
+                "fused_up_relu_tokens", f"OPT-6.7B T={T} {dtype}", (T, d), F,
+                dtype, wu=wu)
+        for W in (4, 16):
+            big["fused_up_relu_window", W, dtype] = case(
+                "fused_up_relu_window", f"OPT-6.7B B=8 W={W} {dtype}",
+                (8, W, d), F, dtype, wu=wu)
+
+    rows = {}
+    for kind, sizes, key in (("fused_up_relu_tokens", (128, 8), "T"),
+                             ("fused_up_relu_window", (16, 4), "W")):
+        fn, plain = kinds[kind]
+        timed = {}
+        for n in sizes:
+            err, (x, wu) = big[kind, n, torch.bfloat16]
+            T = x.numel() // d
+            n_groups = T if kind.endswith("tokens") else x.shape[0]
+            n_bytes = (x.numel() * 2 + wu.numel() * 2 + T * F * 4
+                       + n_groups * F // 128 * 4)
+            b_ms, b_by = bound(n_bytes, 2.0 * T * d * F, torch.bfloat16)
+            x2 = x.reshape(T, d)
+
+            def lib():  # the dense product, ReLU and the scores' amax
+                h = torch.relu(x2 @ wu - 0.0)
+                return h, h.reshape(n_groups, -1, F // 128, 128).amax(
+                    dim=(1, 3))
+
+            timed[n] = dict(
+                max_abs_err=err, ms=time_ms(lambda: fn(x, wu)),
+                plain_ms=time_ms(lambda: plain(x, wu)), bound_ms=b_ms,
+                bound_by=b_by, library_ms=time_ms(lib),
+                max_abs_err_f32=big[kind, n, torch.float32][0])
+        main, small = sizes
+        rows[kind] = dict(
+            name=kind, route="cuda",
+            source="src/repro_torch/csrc/fused_up_relu.cu",
+            replaces={"fused_up_relu_tokens": "src/repro/kernels/fused_ffn.py:111",
+                      "fused_up_relu_window": "src/repro/kernels/fused_ffn.py:145"}[kind],
+            **timed[main],
+            shape=(f"T=128 d={d} F={F} bf16" if key == "T"
+                   else f"B=8 W=16 d={d} F={F} bf16"),
+            **{f"at_{key}{small}": timed[small]})
+    return rows
+
+
+def dense_expert_chain(pm, x, cfg):
+    """The grouped-gather MoE FFN's function as per-expert dense f32
+    products (the reference test's check): for every expert, the tokens
+    whose kept assignments route to it, act(x @ Wg) * (x @ Wu) @ Wd, times
+    the assignment's gate, summed."""
+    from repro_torch.core import activations as acts
+    from repro_torch.models import moe
+
+    t = x.shape[0]
+    _, dispatch, _, (_, _, cap), (topi, topv) = moe._route(pm, x, cfg)
+    topi, topv = topi.reshape(t, -1), topv.reshape(t, -1)
+    kept = dispatch.reshape(t, cfg.n_experts, cap).any(-1).gather(1, topi)
+    act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
+    xf = x.float()
+    y = torch.zeros((t, cfg.d_model), dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_experts):
+        gate = (topv * (kept & (topi == e))).sum(1)  # (t,)
+        h = act_fn(xf @ pm["wg"][e].float()) * (xf @ pm["wu"][e].float())
+        y += gate[:, None] * (h @ pm["wd"][e].float())
+    return y
+
+
+def expert_kernel_rows(dev, rng, cfg=None) -> dict:
+    """expert_up_matmul and expert_down_matmul against their plain versions:
+    tiny edge cases (k_valid padding, a token with no live expert, the
+    three type pairs), then Mixtral-8x22B layer 0's stacked experts (E = 8,
+    d = 6144, F = 16384, tile 128, K = 256) made from a seed, with the
+    lists of that layer's own router on T = 8 and 128 tokens, in f32 and
+    bf16; the chain up -> SiLU GLU -> gates -> down against the per-expert
+    dense product at full width. Returns their two rows (T = 128, main
+    path's types: bf16 x and w for the up gather, f32 blocks with bf16 w
+    for the down gather)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import moe
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    # tiny edges: E = 4, d = 64, F = 256, tile 128 (tpe 2), k_valid padding
+    topi = np.stack([rng.permutation(4)[:2] for _ in range(6)])
+    kv = t([2, 2, 1, 0, 2, 1], torch.int32)
+    idx, nv = ksm.expert_tile_lists(t(topi, torch.int32), 2, kv)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = t(rng.randn(6, 64), dtype)
+        wu = t(rng.randn(4, 64, 256) / 8.0, dtype)
+        wd = t(rng.randn(4, 256, 64) / 16.0, dtype)
+        c = ksm.expert_up_matmul(x, wu, idx, nv)
+        compare(f"expert_up_matmul tiny k_valid {dtype}", [c],
+                [ksm.expert_up_matmul_plain(x, wu, idx, nv)], dtype)
+        if c[3].abs().sum().item():
+            fail("expert_up_matmul: a token with no live expert is not zero")
+        for cd in {torch.float32, dtype}:
+            cc = c.to(cd).contiguous()
+            # f32 blocks are multiplied unrounded: f32 tolerance even
+            # against bf16 weights
+            compare(f"expert_down_matmul tiny ({cd}, {dtype})",
+                    [ksm.expert_down_matmul(cc, wd, idx, nv)],
+                    [ksm.expert_down_matmul_plain(cc, wd, idx, nv)], cd)
+
+    cfg = cfg or get_config("mixtral-8x22b").replace(
+        n_layers=1, compute_dtype="bfloat16")
+    pm = {k: v[0] for k, v in moe.init_params(
+        cfg, seed=0, device=dev)["layers"]["moe"].items()}
+    E, d, F, tile = cfg.n_experts, cfg.d_model, cfg.d_ff, 128
+    tpe = F // tile
+    w32 = {k: pm[k].float() for k in ("wu", "wd")}
+    timed = {"expert_up_matmul": {}, "expert_down_matmul": {}}
+    for T in (8, 128):
+        x = t(rng.randn(T, d), torch.bfloat16)
+        _, _, _, _, (topi, _) = moe._route(pm, x, cfg)
+        idx, nv = ksm.expert_tile_lists(topi.reshape(T, -1), tpe)
+        K = idx.shape[1]
+        errs = {}
+        for dtype, w in ((torch.float32, w32), (torch.bfloat16, pm)):
+            xx = x.to(dtype)
+            c = ksm.expert_up_matmul(xx, w["wu"], idx, nv)
+            errs["up", dtype] = compare(
+                f"expert_up_matmul Mixtral-8x22B T={T} {dtype}", [c],
+                [ksm.expert_up_matmul_plain(xx, w["wu"], idx, nv)], dtype)
+            errs["down", dtype] = compare(
+                f"expert_down_matmul Mixtral-8x22B T={T} (f32, {dtype})",
+                [ksm.expert_down_matmul(c, w["wd"], idx, nv)],
+                [ksm.expert_down_matmul_plain(c, w["wd"], idx, nv)],
+                torch.float32)
+        cb = c.to(torch.bfloat16)
+        compare(f"expert_down_matmul Mixtral-8x22B T={T} (bf16, bf16)",
+                [ksm.expert_down_matmul(cb, pm["wd"], idx, nv)],
+                [ksm.expert_down_matmul_plain(cb, pm["wd"], idx, nv)],
+                torch.bfloat16)
+        compare(f"grouped-gather MoE FFN vs per-expert dense, Mixtral-8x22B "
+                f"T={T}", [moe.apply_moe_gathered(pm, x, cfg)],
+                [dense_expert_chain(pm, x, cfg)], torch.bfloat16)
+
+        live = torch.arange(K, device=dev)[None, :] < nv[:, None]
+        distinct = int(torch.unique(idx[live]).numel())
+        w_bytes = distinct * tile * d * 2
+        flops = 2.0 * float(nv.sum()) * tile * d
+        list_bytes = idx.numel() * 4 + T * 4
+        b_up = bound(T * d * 2 + w_bytes + list_bytes + T * K * tile * 4,
+                     flops, torch.bfloat16)
+        b_down = bound(T * K * tile * 4 + w_bytes + list_bytes + T * d * 4,
+                       flops, torch.bfloat16)
+        hd = torch.randn(T, E, F, device=dev, dtype=torch.bfloat16)
+        timed["expert_up_matmul"][T] = dict(
+            max_abs_err=errs["up", torch.bfloat16],
+            max_abs_err_f32=errs["up", torch.float32],
+            ms=time_ms(lambda: ksm.expert_up_matmul(x, pm["wu"], idx, nv)),
+            plain_ms=time_ms(lambda: ksm.expert_up_matmul_plain(
+                x, pm["wu"], idx, nv)),
+            bound_ms=b_up[0], bound_by=b_up[1],
+            library_ms=time_ms(lambda: torch.einsum("td,edf->tef", x,
+                                                    pm["wu"])),
+            distinct_tiles=distinct, K=K)
+        timed["expert_down_matmul"][T] = dict(
+            max_abs_err=errs["down", torch.bfloat16],
+            max_abs_err_f32=errs["down", torch.float32],
+            ms=time_ms(lambda: ksm.expert_down_matmul(c, pm["wd"], idx, nv)),
+            plain_ms=time_ms(lambda: ksm.expert_down_matmul_plain(
+                c, pm["wd"], idx, nv)),
+            bound_ms=b_down[0], bound_by=b_down[1],
+            library_ms=time_ms(lambda: torch.einsum("tef,efd->td", hd,
+                                                    pm["wd"])),
+            distinct_tiles=distinct, K=K)
+    rows = {}
+    K = cfg.top_k * tpe
+    for kind, line, shape in (
+            ("expert_up_matmul", 266, f"x bf16 (T, {d}), w bf16 ({E}, {d}, {F})"),
+            ("expert_down_matmul", 317,
+             f"compact f32 (T, {K}, {tile}), w bf16 ({E}, {F}, {d})")):
+        rows[kind] = dict(
+            name=kind, route="cuda", source=f"src/repro_torch/csrc/{kind}.cu",
+            replaces=f"src/repro/kernels/sparse_matmul.py:{line}",
+            **timed[kind][128],
+            shape=f"T=128 top-{cfg.top_k} of {E}, K={K}; {shape}",
+            at_T8=timed[kind][8])
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -491,9 +742,10 @@ def serve_streams(cfg, params, device, prompts, chunk, predictor=None):
 
 def numpy_params(cfg, seed: int):
     """Random f32 params drawn from a numpy seed, in the port's layout: each
-    weight leaf of ``init_params``'s tree is redrawn at its own scale, with
-    padded head slots kept at zero and constant leaves (norms) kept."""
-    from repro_torch.models import transformer as T
+    weight leaf of the family's ``init_params`` tree is redrawn at its own
+    scale, with padded head slots kept at zero and constant leaves (norms)
+    kept."""
+    from repro_torch.models import registry
 
     rng = np.random.RandomState(seed)
 
@@ -506,7 +758,7 @@ def numpy_params(cfg, seed: int):
         new = rng.standard_normal(a.shape) * a.std()
         return torch.from_numpy(np.where(a == 0, 0.0, new).astype(np.float32))
 
-    return draw(T.init_params(cfg, device="cpu"))
+    return draw(registry.get_family(cfg).init_params(cfg, device="cpu"))
 
 
 def parity_phase(dev) -> None:
@@ -582,6 +834,31 @@ def parity_phase(dev) -> None:
         log(f"  ok fused vs unfused predictor FFN {name}: f bit-equal "
             f"{df == 0}, act equal")
 
+    # tiny-moe (drop-free capacity): plain mode, whole-prompt and chunked
+    cfg = get_config("tiny-moe").replace(compute_dtype="float32")
+    p_cpu = numpy_params(cfg, seed=0)
+    p_dev = _to(p_cpu, dev)
+    prompts = [np.random.RandomState(s).randint(0, cfg.vocab_size, n)
+               for s, n in ((1, 9), (2, 5), (3, 13), (4, 21), (5, 3))]
+    for chunk in (0, 4):
+        want, lp_want, e_cpu = serve_streams(cfg, p_cpu, "cpu", prompts, chunk)
+        got, lp_got, eng = serve_streams(cfg, p_dev, dev, prompts, chunk)
+        if not eng.fast_kernels:
+            fail("MoE engine on the card did not take the kernel path")
+        if got != want:
+            fail(f"tiny-moe chunk={chunk}: card stream {got} != CPU {want}")
+        d = float(np.max(np.abs(lp_got - lp_want)))
+        if d > 1e-5:
+            fail(f"tiny-moe chunk={chunk}: logprobs differ by {d:.3e}")
+        if abs(eng.weight_io_bytes_per_step()
+               - e_cpu.weight_io_bytes_per_step()) > 1e-9 * e_cpu.weight_io_bytes_per_step():
+            fail(f"tiny-moe chunk={chunk}: weight I/O "
+                 f"{eng.weight_io_bytes_per_step()} != CPU "
+                 f"{e_cpu.weight_io_bytes_per_step()}")
+        log(f"  ok parity tiny-moe plain prefill_chunk={chunk}: "
+            f"{sum(map(len, got))} tokens identical, max|dlogprob| {d:.2e}, "
+            f"expert I/O fraction {eng.expert_io_fraction()}")
+
 
 def _to(tree, dev):
     if isinstance(tree, dict):
@@ -650,7 +927,7 @@ def serve_run(eng, cfg, seed: int) -> dict:
             fail(f"request {u} finished with {len(r.tokens)} tokens, not 16")
         if not np.isfinite(r.logprobs).all():
             fail(f"request {u} has non-finite logprobs")
-    return dict(model="opt-6.7b", layers=cfg.n_layers, dtype="bfloat16",
+    return dict(model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
                 prompt_lens=lens.tolist(), max_new=16, n_slots=8,
                 prefill_steps=len(prefill_ms),
                 prefill_step_ms_median=float(np.median(prefill_ms)),
@@ -662,10 +939,12 @@ def serve_run(eng, cfg, seed: int) -> dict:
 
 
 def serve_phase(dev, counters) -> dict:
-    """Every path of the port at OPT-6.7B's full width, each counted on
-    its own: the plain engine, the predictor engine, the unfused predictor
-    FFN on one layer, and ops.sparse_ffn_apply. Returns the launches of
-    each kernel summed over the paths."""
+    """Every path of the port at full width, each counted on its own: at
+    OPT-6.7B the plain engine, the predictor engine, the unfused predictor
+    FFN on one layer, ops.sparse_ffn_apply and the per-token / window score
+    kernels' entry points; then, with OPT-6.7B freed, the MoE paths at
+    Mixtral-8x22B (``moe_serve``). Returns the launches of each kernel
+    summed over the paths."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import fused_ffn as kff
     from repro_torch.kernels import ops as kops
@@ -782,8 +1061,84 @@ def serve_phase(dev, counters) -> dict:
         log(f"  sparse_ffn_apply T={T_}: nvalid {int(nvalid)} of "
             f"{idx.numel()} listed tiles, "
             f"{time_ms(lambda: kops.sparse_ffn_apply(x, wu, wd, device=dev), reps=10):.4f} ms")
+
+    # -- the per-token and window score kernels' entry points, layer 0's wu --
+    x8 = xs[8]
+    x_win = xs[128].reshape(8, 16, cfg.d_model)
+    outs, launches = counted(
+        "per-token / window scores", counters,
+        ("fused_up_relu_tokens", "fused_up_relu_window"),
+        lambda: (kff.fused_up_relu_tokens(x8, wu),
+                 kff.fused_up_relu_window(x_win, wu)))
+    add(launches)
+    compare("fused_up_relu_tokens entry point T=8", outs[0],
+            kff.fused_up_relu_tokens_plain(x8, wu), torch.bfloat16)
+    compare("fused_up_relu_window entry point B=8 W=16", outs[1],
+            kff.fused_up_relu_window_plain(x_win, wu), torch.bfloat16)
+    del params, pred, pf, pred_l, wu, wd, xs, x8, x_win, outs, unfused, fused
+    torch.cuda.empty_cache()
+
+    moe_serve(dev, counters, add)
     log(f"  launches summed over the paths: {json.dumps(total)}")
     return total
+
+
+def moe_serve(dev, counters, add, cfg=None) -> None:
+    """Mixtral-8x22B at full width (d = 6144, 48 / 8 heads x 128, 8 experts
+    top-2, d_ff = 16384, SiLU GLU, RMSNorm, RoPE, sliding window 4096), 4
+    of its 56 layers, bf16, random weights from a seed: the engine in plain
+    mode with the OPT-6.7B run's geometry and requests (its attention
+    through paged_window_attention), a profiled second batch, then the
+    grouped-gather MoE FFN on layer 0 at T = 8 and 128 tokens (the expert
+    gather kernels), held against the per-expert dense product."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    cfg = cfg or get_config("mixtral-8x22b").replace(
+        n_layers=4, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  Mixtral-8x22B (4 of 56 layers) initialised in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB on the card")
+    eng = ContinuousBatchingEngine(
+        cfg, params, EngineConfig(n_slots=8, block_size=16,
+                                  max_blocks_per_seq=16, prefill_chunk=16),
+        device=dev)
+    out, launches = counted("MoE serving", counters,
+                            ("paged_window_attention",),
+                            lambda: serve_run(eng, cfg, seed=4))
+    add(launches)
+    out.update(mode="moe plain", expert_io_fraction=eng.expert_io_fraction(),
+               weight_io_bytes_per_step=eng.weight_io_bytes_per_step(),
+               launches=launches)
+    log("  serve " + json.dumps(out))
+    profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
+                                "decode": out["decode_step_ms_median"]},
+                "moe plain")
+    del eng
+
+    rng = np.random.RandomState(5)
+    pm = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    xs = {T_: torch.as_tensor(rng.randn(T_, cfg.d_model), dtype=torch.bfloat16,
+                              device=dev) for T_ in (8, 128)}
+    outs, launches = counted(
+        "grouped-gather MoE FFN", counters,
+        ("expert_up_matmul", "expert_down_matmul"),
+        lambda: {T_: moe.apply_moe_gathered(pm, x, cfg) for T_, x in xs.items()})
+    add(launches)
+    for T_, y in outs.items():
+        x = xs[T_]
+        compare(f"grouped-gather MoE FFN T={T_} vs per-expert dense", [y],
+                [dense_expert_chain(pm, x, cfg)], torch.bfloat16)
+        log("  grouped-gather MoE FFN " + json.dumps(dict(
+            tokens=T_, layer=0,
+            gathered_ms=time_ms(lambda: moe.apply_moe_gathered(pm, x, cfg),
+                                reps=10),
+            dispatch_einsum_ms=time_ms(lambda: moe.apply_moe(pm, x, cfg),
+                                       reps=10))))
 
 
 def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
@@ -881,7 +1236,11 @@ def main(argv=None) -> int:
                 "sparse_matmul_tokens": ksm.sparse_matmul_tokens,
                 "sparse_up_matmul": ksm.sparse_up_matmul,
                 "fused_up_relu": kff.fused_up_relu,
-                "sparse_matmul": ksm.sparse_matmul}
+                "sparse_matmul": ksm.sparse_matmul,
+                "fused_up_relu_tokens": kff.fused_up_relu_tokens,
+                "fused_up_relu_window": kff.fused_up_relu_window,
+                "expert_up_matmul": ksm.expert_up_matmul,
+                "expert_down_matmul": ksm.expert_down_matmul}
     if "serve" in phases:
         log("[serve]")
         launches = serve_phase(dev, counters)

@@ -1,8 +1,9 @@
 """Config registry of the PyTorch port.
 
 ``get_config(name)`` returns a registered ``ModelConfig``. The port carries
-the dense configs it serves: ``tiny``, ``tiny-relu`` and ``tiny-opt``
-(configs/tiny.py) and the paper's dense models (configs/paper_models.py).
+the configs it serves: ``tiny``, ``tiny-relu``, ``tiny-opt`` and
+``tiny-moe`` (configs/tiny.py), the paper's dense models
+(configs/paper_models.py) and the MoE models (configs/moe_models.py).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import paper_models, tiny  # noqa: F401
+    from repro_torch.configs import moe_models, paper_models, tiny  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:

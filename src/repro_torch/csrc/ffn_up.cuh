@@ -7,6 +7,11 @@
 //
 // for list slots i < nvalid[t], zeros past it. sparse_up_matmul runs it with
 // ACT_IDENTITY, no Wu and no mask: the bare gathered product.
+//
+// The weights may be a stack of E (d, F) matrices (expert_up_matmul): a tile
+// id names tile (id % tpe) of matrix id / tpe, with tpe = F / tile tiles per
+// matrix. For one (d, F) matrix every id is below tpe and names its own
+// columns, so the dense callers pass tpe = F / tile and read what they did.
 #pragma once
 
 #include "common.cuh"
@@ -39,6 +44,11 @@ __device__ __forceinline__ float apply_act(float v, int act, float prm) {
 #define UP_GROUPS 4   // split the d rows of the product
 #define UP_XCH 256    // x rows staged in shared memory per chunk
 
+// offset of tile id ti's first column in a stack of (d, F) matrices
+__device__ __forceinline__ long tile_base(int ti, int tpe, int d, int F, int tile) {
+  return (long)(ti / tpe) * d * F + (long)(ti % tpe) * tile;
+}
+
 // grid (ceil(T / UP_ROWS), K); block (UP_COLS, UP_GROUPS). A block owns list
 // slot i of UP_ROWS tokens. When the active tokens name the same tile at
 // slot i (decode under a shared γ-window list), each weight element is read
@@ -50,8 +60,8 @@ template <typename T>
 __global__ void __launch_bounds__(UP_COLS * UP_GROUPS) ffn_up(const T* __restrict__ x, const T* __restrict__ wg,
                        const T* __restrict__ wu, const float* __restrict__ mask,
                        const int* __restrict__ idx, const int* __restrict__ nvalid,
-                       float* __restrict__ h, int Tn, int d, int F, int K, int tile, int act,
-                       float prm) {
+                       float* __restrict__ h, int Tn, int d, int F, int K, int tile, int tpe,
+                       int act, float prm) {
   extern __shared__ float smem[];
   float* xs = smem;                                 // [UP_ROWS][UP_XCH]
   float* pg = xs + UP_ROWS * UP_XCH;                // [UP_GROUPS][UP_ROWS][UP_COLS]
@@ -89,7 +99,7 @@ __global__ void __launch_bounds__(UP_COLS * UP_GROUPS) ffn_up(const T* __restric
       __syncthreads();
       if (c < tile) {
         if (uniform) {
-          const long col = (long)common * tile + c;
+          const long col = tile_base(common, tpe, d, F, tile) + c;
 #pragma unroll 4
           for (int k = ty; k < kn; k += UP_GROUPS) {
             const long off = (long)(k0 + k) * F + col;
@@ -104,7 +114,7 @@ __global__ void __launch_bounds__(UP_COLS * UP_GROUPS) ffn_up(const T* __restric
         } else {
           for (int r = 0; r < nr; ++r) {
             if (s_tile[r] < 0) continue;
-            const long col = (long)s_tile[r] * tile + c;
+            const long col = tile_base(s_tile[r], tpe, d, F, tile) + c;
             float gs = g[r], us = u[r];
             for (int k = ty; k < kn; k += UP_GROUPS) {
               const long off = (long)(k0 + k) * F + col;
@@ -146,7 +156,8 @@ __global__ void __launch_bounds__(UP_COLS * UP_GROUPS) ffn_up(const T* __restric
 template <typename T>
 static cudaError_t launch_up(const T* x, const T* wg, const T* wu, const float* mask,
                              const int* idx, const int* nvalid, float* h, int Tn, int d,
-                             int F, int K, int tile, int act, float prm, cudaStream_t s) {
+                             int F, int K, int tile, int tpe, int act, float prm,
+                             cudaStream_t s) {
   dim3 block(UP_COLS, UP_GROUPS);
   dim3 grid((Tn + UP_ROWS - 1) / UP_ROWS, K);
   size_t smem = (size_t)(UP_ROWS * UP_XCH + 2 * UP_GROUPS * UP_ROWS * UP_COLS) * sizeof(float);
@@ -155,8 +166,9 @@ static cudaError_t launch_up(const T* x, const T* wg, const T* wu, const float* 
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
+  if (tpe < 1) return cudaErrorInvalidValue;
   if (Tn > 0 && K > 0)
-    ffn_up<T><<<grid, block, smem, s>>>(x, wg, wu, mask, idx, nvalid, h, Tn, d, F, K, tile, act,
-                                        prm);
+    ffn_up<T><<<grid, block, smem, s>>>(x, wg, wu, mask, idx, nvalid, h, Tn, d, F, K, tile, tpe,
+                                        act, prm);
   return cudaGetLastError();
 }

@@ -47,14 +47,14 @@ extern "C" int fused_sparse_ffn(const void* x, const void* w_gate, const void* w
   cudaError_t e;
   if (dtype == DT_F32) {
     e = launch_up((const float*)x, (const float*)w_gate, (const float*)w_up, m, ix, nv, hc, T,
-                  d, F, K, tile, act, act_param, s);
+                  d, F, K, tile, F / tile, act, act_param, s);
     if (e != cudaSuccess) return (int)e;
     e = launch_tile_gather_rows((const float*)hc, (long)K * tile, 1, (const float*)wd, ix, K, nv,
                                 1, (float*)scratch, (float*)y, T, K, run, tile, d_out, s);
   } else if (dtype == DT_BF16) {
     e = launch_up((const __nv_bfloat16*)x, (const __nv_bfloat16*)w_gate,
-                  (const __nv_bfloat16*)w_up, m, ix, nv, hc, T, d, F, K, tile, act, act_param,
-                  s);
+                  (const __nv_bfloat16*)w_up, m, ix, nv, hc, T, d, F, K, tile, F / tile, act,
+                  act_param, s);
     if (e != cudaSuccess) return (int)e;
     e = launch_tile_gather_rows((const float*)hc, (long)K * tile, 1,
                                 (const __nv_bfloat16*)wd, ix, K, nv, 1, (float*)scratch,

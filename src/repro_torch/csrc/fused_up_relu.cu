@@ -1,14 +1,20 @@
-// fused_up_relu: dense up-projection + shifted ReLU + tile-activity scores
-// for Hopper (sm_90a).
+// fused_up_relu, fused_up_relu_tokens, fused_up_relu_window: dense
+// up-projection + shifted ReLU + tile-activity scores for Hopper (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/fused_ffn.py:fused_up_relu (a
-// pallas_call over F blocks with x resident in VMEM):
+// Replace the TPU kernels of src/repro/kernels/fused_ffn.py (pallas_calls
+// over F blocks with x resident in VMEM), which differ only in which rows
+// share a score:
 //
 //   h = max(x @ wu - shift, 0)                                (T, F) f32
-//   scores[j] = max over all T rows and the 128 lanes of tile j of |h|
+//   scores[g, j] = max over the rows of group g and the 128 lanes of tile j
+//                  of |h|, a group being G consecutive rows:
+//   fused_up_relu         G = T   one score row over all rows  (F / 128,)
+//   fused_up_relu_tokens  G = 1   a score row per token        (T, F / 128)
+//   fused_up_relu_window  G = W   a score row per slot's window (B, F / 128)
 //
-// On the port's paths it is the first half of ops.sparse_ffn_apply, whose
-// scores pick the tiles of the gathered down-projection.
+// On the port's paths fused_up_relu is the first half of ops.sparse_ffn_apply,
+// whose scores pick the tiles of the gathered down-projection; the per-token
+// and window variants are entry points of their own, as in the reference.
 //
 // What bounds it on the H100: at T = 8 the bytes of wu (134 MB in bf16 at
 // OPT-6.7B, 0.04 ms at 3.35 TB/s); at T = 128 the 2*T*d*F operations on
@@ -23,9 +29,11 @@
 // split into S consecutive ranges: each block writes its raw partial sums
 // to a (S, T, F) scratch and a second launch adds them in range order. The
 // block (or the second launch) that finishes h applies the shift and the
-// ReLU and folds its values into the tile's score with an atomicMax on the
-// bit patterns of non-negative floats, whose order is the float order: the
-// max is exact whatever the order of the atomics.
+// ReLU and folds its values into the score of the row's group with an
+// atomicMax on the bit patterns of non-negative floats, whose order is the
+// float order: the max is exact whatever the order of the atomics, also when
+// a group's rows fall in different blocks. With S > 1 only the finishing
+// launch folds, after the row's h is final.
 #include "common.cuh"
 
 #define UR_BN 64                      // output columns per block (16 threads x 4)
@@ -73,14 +81,22 @@ __device__ __forceinline__ void max_to(unsigned* dst, unsigned v) {
   if ((threadIdx.x & 31) == 0 && v) atomicMax(dst, v);
 }
 
+// the max over the 16 lanes of a half-warp (every lane of the warp calls it)
+__device__ __forceinline__ unsigned half_warp_max(unsigned v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // grid (F / UR_BN, ceil(T / (UR_TY * TM)), S); block UR_THREADS. Block z owns
 // the d rows [z * kc, min(d, (z + 1) * kc)). part == NULL (S == 1): finish h
-// and the scores here; else write the raw sums to part (S, T, F).
+// and the scores here; else write the raw sums to part (S, T, F). scores is
+// (ceil(T / G), F / UR_LANES), row r folding into score row r / G.
 template <typename T, int TM>
 __global__ void __launch_bounds__(UR_THREADS)
 up_relu(const T* __restrict__ x, const T* __restrict__ wu, float* __restrict__ h,
         float* __restrict__ part, unsigned* __restrict__ scores, int Tn, int d, int F, int kc,
-        float shift) {
+        int G, float shift) {
   constexpr int BM = UR_TY * TM;
   constexpr int XS = BM + 4;                       // padded row of the transposed x slice
   constexpr int XPT = BM * UR_BK / UR_THREADS;     // x elements each thread stages
@@ -155,82 +171,136 @@ up_relu(const T* __restrict__ x, const T* __restrict__ wu, float* __restrict__ h
     }
     return;
   }
+  // the 16 threads of a half-warp share their TM rows (one ty): each row's
+  // max is reduced over them, then lane tx == 0 folds consecutive rows of
+  // one group and makes one atomic per group
+  const long nsc = F / UR_LANES;
   unsigned mx = 0u;
+  int g_cur = -1;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = r0 + ty * TM + i;
-    if (r >= Tn) continue;
-    const float4 v = make_float4(fmaxf(acc[i][0] - shift, 0.f), fmaxf(acc[i][1] - shift, 0.f),
-                                 fmaxf(acc[i][2] - shift, 0.f), fmaxf(acc[i][3] - shift, 0.f));
-    *reinterpret_cast<float4*>(h + (long)r * F + c) = v;
-    mx = max(mx, max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
-                     max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w)))));
+    unsigned m = 0u;
+    if (r < Tn) {
+      const float4 v = make_float4(fmaxf(acc[i][0] - shift, 0.f), fmaxf(acc[i][1] - shift, 0.f),
+                                   fmaxf(acc[i][2] - shift, 0.f), fmaxf(acc[i][3] - shift, 0.f));
+      *reinterpret_cast<float4*>(h + (long)r * F + c) = v;
+      m = max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
+              max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w))));
+    }
+    m = half_warp_max(m);
+    if (tx == 0 && r < Tn) {
+      if (r / G != g_cur) {
+        if (mx) atomicMax(scores + g_cur * nsc + f0 / UR_LANES, mx);
+        mx = 0u;
+        g_cur = r / G;
+      }
+      mx = max(mx, m);
+    }
   }
-  max_to(scores + f0 / UR_LANES, mx);
+  if (tx == 0 && mx) atomicMax(scores + g_cur * nsc + f0 / UR_LANES, mx);
 }
 
 // h[t, c] = max(sum over z < S of part[z, t, c] (in order) - shift, 0), and
-// the scores. grid (F / UR_LANES, ceil(T / UR_FIN_ROWS)); block UR_LANES.
+// the scores of groups of G rows. grid (F / UR_LANES, ceil(T / UR_FIN_ROWS));
+// block UR_LANES. Every thread walks the same rows, so the group changes are
+// uniform across each warp.
 __global__ void __launch_bounds__(UR_LANES)
 up_relu_finish(const float* __restrict__ part, float* __restrict__ h,
-               unsigned* __restrict__ scores, int Tn, int F, int S, float shift) {
+               unsigned* __restrict__ scores, int Tn, int F, int S, int G, float shift) {
   const int c = blockIdx.x * UR_LANES + threadIdx.x;
   const int rb = blockIdx.y * UR_FIN_ROWS, re = min(Tn, rb + UR_FIN_ROWS);
+  const long nsc = F / UR_LANES;
   unsigned mx = 0u;
+  int g_cur = rb / G;
   for (int r = rb; r < re; ++r) {
+    if (r / G != g_cur) {
+      max_to(scores + g_cur * nsc + blockIdx.x, mx);
+      mx = 0u;
+      g_cur = r / G;
+    }
     float acc = 0.f;
     for (int z = 0; z < S; ++z) acc += part[((long)z * Tn + r) * F + c];
     const float v = fmaxf(acc - shift, 0.f);
     h[(long)r * F + c] = v;
     mx = max(mx, __float_as_uint(fabsf(v)));
   }
-  max_to(scores + blockIdx.x, mx);
+  max_to(scores + g_cur * nsc + blockIdx.x, mx);
 }
 
 template <typename T, int TM>
 static cudaError_t launch_tm(const T* x, const T* wu, float* h, float* part, unsigned* sc,
-                             int Tn, int d, int F, int S, int kc, float shift, cudaStream_t st) {
+                             int Tn, int d, int F, int S, int kc, int G, float shift,
+                             cudaStream_t st) {
   const dim3 grid(F / UR_BN, (Tn + UR_TY * TM - 1) / (UR_TY * TM), S);
-  up_relu<T, TM><<<grid, UR_THREADS, 0, st>>>(x, wu, h, part, sc, Tn, d, F, kc, shift);
+  up_relu<T, TM><<<grid, UR_THREADS, 0, st>>>(x, wu, h, part, sc, Tn, d, F, kc, G, shift);
   return cudaGetLastError();
 }
 
 template <typename T>
 static cudaError_t launch_up_relu(const T* x, const T* wu, float* h, float* part, unsigned* sc,
-                                  int Tn, int d, int F, int S, int kc, int tm, float shift,
-                                  cudaStream_t st) {
+                                  int Tn, int d, int F, int S, int kc, int tm, int G,
+                                  float shift, cudaStream_t st) {
   cudaError_t e;
-  if (tm == 1) e = launch_tm<T, 1>(x, wu, h, part, sc, Tn, d, F, S, kc, shift, st);
-  else if (tm == 4) e = launch_tm<T, 4>(x, wu, h, part, sc, Tn, d, F, S, kc, shift, st);
-  else if (tm == 8) e = launch_tm<T, 8>(x, wu, h, part, sc, Tn, d, F, S, kc, shift, st);
+  if (tm == 1) e = launch_tm<T, 1>(x, wu, h, part, sc, Tn, d, F, S, kc, G, shift, st);
+  else if (tm == 4) e = launch_tm<T, 4>(x, wu, h, part, sc, Tn, d, F, S, kc, G, shift, st);
+  else if (tm == 8) e = launch_tm<T, 8>(x, wu, h, part, sc, Tn, d, F, S, kc, G, shift, st);
   else return cudaErrorInvalidValue;
   if (e != cudaSuccess || part == nullptr) return e;
   up_relu_finish<<<dim3(F / UR_LANES, (Tn + UR_FIN_ROWS - 1) / UR_FIN_ROWS), UR_LANES, 0, st>>>(
-      part, h, sc, Tn, F, S, shift);
+      part, h, sc, Tn, F, S, G, shift);
   return cudaGetLastError();
 }
 
 // x (T, d); wu (d, F), F a multiple of 128, 16-byte aligned; outputs h (T, F)
-// f32 and scores (F / 128,) f32 (zeroed here). tm: rows per thread (1, 4 or
-// 8); S ranges of kc rows of d (kernels/fused_ffn.py up_relu_plan), scratch
-// (S, T, F) f32 when S > 1, else NULL. x and wu share one dtype.
-extern "C" int fused_up_relu(const void* x, const void* wu, void* h, void* scores, void* scratch,
-                             int T, int d, int F, int tm, int S, int kc, float shift, int dtype,
-                             void* stream) {
+// f32 and scores (n_groups, F / 128) f32, n_groups = ceil(T / G), zeroed here
+// (+0.0, below every folded value). tm: rows per thread (1, 4 or 8); S ranges
+// of kc rows of d (kernels/fused_ffn.py up_relu_plan), scratch (S, T, F) f32
+// when S > 1, else NULL. x and wu share one dtype.
+static int run_up_relu(const void* x, const void* wu, void* h, void* scores, void* scratch,
+                       int T, int d, int F, int tm, int S, int kc, int G, int n_groups,
+                       float shift, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   unsigned* sc = (unsigned*)scores;
-  if (F % UR_LANES || S < 1 || kc < 1 || (S > 1 && scratch == nullptr))
+  if (F % UR_LANES || S < 1 || kc < 1 || G < 1 || n_groups < 0 ||
+      (S > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(sc, 0, (size_t)(F / UR_LANES) * sizeof(unsigned), st);
+  const size_t n_scores = (size_t)n_groups * (F / UR_LANES);
+  cudaError_t e = cudaMemsetAsync(sc, 0, n_scores * sizeof(unsigned), st);
   if (e != cudaSuccess || T <= 0) return (int)e;
   float* part = S > 1 ? (float*)scratch : nullptr;
   if (dtype == DT_F32)
     e = launch_up_relu((const float*)x, (const float*)wu, (float*)h, part, sc, T, d, F, S, kc,
-                       tm, shift, st);
+                       tm, G, shift, st);
   else if (dtype == DT_BF16)
     e = launch_up_relu((const __nv_bfloat16*)x, (const __nv_bfloat16*)wu, (float*)h, part, sc,
-                       T, d, F, S, kc, tm, shift, st);
+                       T, d, F, S, kc, tm, G, shift, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)e;
+}
+
+// one score row over all T rows: scores (F / 128,)
+extern "C" int fused_up_relu(const void* x, const void* wu, void* h, void* scores, void* scratch,
+                             int T, int d, int F, int tm, int S, int kc, float shift, int dtype,
+                             void* stream) {
+  return run_up_relu(x, wu, h, scores, scratch, T, d, F, tm, S, kc, T > 0 ? T : 1, 1, shift,
+                     dtype, stream);
+}
+
+// a score row per token: scores (T, F / 128)
+extern "C" int fused_up_relu_tokens(const void* x, const void* wu, void* h, void* scores,
+                                    void* scratch, int T, int d, int F, int tm, int S, int kc,
+                                    float shift, int dtype, void* stream) {
+  return run_up_relu(x, wu, h, scores, scratch, T, d, F, tm, S, kc, 1, T, shift, dtype, stream);
+}
+
+// x (B * W, d) holding each slot's W window tokens in a row: a score row per
+// slot, the union over its W rows: scores (B, F / 128)
+extern "C" int fused_up_relu_window(const void* x, const void* wu, void* h, void* scores,
+                                    void* scratch, int T, int d, int F, int tm, int S, int kc,
+                                    int W, float shift, int dtype, void* stream) {
+  if (W < 1 || T % W) return (int)cudaErrorInvalidValue;
+  return run_up_relu(x, wu, h, scores, scratch, T, d, F, tm, S, kc, W, T / W, shift, dtype,
+                     stream);
 }

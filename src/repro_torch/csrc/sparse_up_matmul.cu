@@ -36,11 +36,11 @@ extern "C" int sparse_up_matmul(const void* x, const void* w, const void* idx,
   cudaError_t e;
   if (dtype == DT_F32)
     e = launch_up((const float*)x, (const float*)w, (const float*)nullptr, nullptr, ix, nv, out,
-                  T, d, F, K, tile, ACT_IDENTITY, 0.f, s);
+                  T, d, F, K, tile, F / tile, ACT_IDENTITY, 0.f, s);
   else if (dtype == DT_BF16)
     e = launch_up((const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
                   (const __nv_bfloat16*)nullptr, nullptr, ix, nv, out, T, d, F, K, tile,
-                  ACT_IDENTITY, 0.f, s);
+                  F / tile, ACT_IDENTITY, 0.f, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)e;

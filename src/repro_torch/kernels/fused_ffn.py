@@ -1,17 +1,23 @@
 """Fused up-projection + (shifted) ReLU + tile-activity scores, and the
 tile-activity score functions.
 
-Kernel: ``csrc/fused_up_relu.cu`` (CUDA C++, sm_90a), the port of the TPU
-kernel ``src/repro/kernels/fused_ffn.py:fused_up_relu``: h = relu(x @ wu -
-shift) and the per-128-lane tile scores over all rows in one pass. Its
-source note says what bounds it on the H100 (wu's bytes at T = 8, the f32
-operations at T = 128) and how the scores stay exact without ordering the
-atomics.
+Kernels: ``csrc/fused_up_relu.cu`` (CUDA C++, sm_90a), the ports of the three
+TPU kernels of ``src/repro/kernels/fused_ffn.py``. Each computes h =
+relu(x @ wu - shift) and per-128-lane tile scores in one pass; they differ
+only in which rows share a score:
+
+- ``fused_up_relu``: one score row, the max over all rows;
+- ``fused_up_relu_tokens``: a score row per token (continuous batching keeps
+  every request's activity its own);
+- ``fused_up_relu_window``: a score row per slot, the union over its W
+  window tokens (the selection input of a window's sparse down-projection).
+
+The source note says what bounds them on the H100 (wu's bytes at T = 8, the
+f32 operations at T = 128) and how the scores stay exact without ordering
+the atomics. Each wrapper has its own C entry point and launch counter.
 
 ``tile_activity`` and ``window_tile_activity`` are plain torch (XLA
-functions in the reference, not kernels). The reference's
-``fused_up_relu_tokens`` and ``fused_up_relu_window`` kernels are not
-ported yet (ROADMAP.md, queue B).
+functions in the reference, not kernels).
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ UR_MAX_SCRATCH = 64 * 2 ** 20
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_WIN_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def tile_activity(h: torch.Tensor, tile: int = TILE) -> torch.Tensor:
@@ -69,14 +77,11 @@ def fused_up_relu_plain(x, wu, shift: float = 0.0
     return h, h.abs().reshape(T, F // TILE, TILE).amax(dim=(0, 2))
 
 
-def fused_up_relu(x, wu, shift: float = 0.0
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (T, d), wu (d, F) -> (h (T, F) f32, scores (F // 128,) f32):
-    h = max(x @ wu - shift, 0), scores the max |h| over all T rows and each
-    tile's 128 lanes. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``fused_up_relu.launches`` counts them)."""
-    if rt.on_cpu(x, wu):
-        return fused_up_relu_plain(x, wu, shift)
+def _launch(entry: str, x, wu, shift: float, n_groups: int, *window
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one of the kernel's C entry points on x (T, d), wu (d, F):
+    returns (h (T, F) f32, scores (n_groups, F // 128) f32). ``window``
+    holds W for ``fused_up_relu_window``."""
     T, d = x.shape
     F = wu.shape[1]
     rt.require(wu.shape[0] == d and F % TILE == 0,
@@ -87,15 +92,83 @@ def fused_up_relu(x, wu, shift: float = 0.0
     rt.require(wu.data_ptr() % 16 == 0, "wu must be 16-byte aligned")
     tm, S, kc = up_relu_plan(T, d, F)
     h = torch.empty((T, F), dtype=torch.float32, device=x.device)
-    scores = torch.empty((F // TILE,), dtype=torch.float32, device=x.device)
+    scores = torch.empty((n_groups, F // TILE), dtype=torch.float32,
+                         device=x.device)
     scratch = (torch.empty((S, T, F), dtype=torch.float32, device=x.device)
                if S > 1 else None)
-    fn = rt.entry("fused_up_relu", "fused_up_relu", _ARGS)
+    fn = rt.entry("fused_up_relu", entry, _WIN_ARGS if window else _ARGS)
     rc = fn(rt.ptr(x), rt.ptr(wu), rt.ptr(h), rt.ptr(scores), rt.ptr(scratch),
-            T, d, F, tm, S, kc, float(shift), code, rt.stream_ptr(x.device))
+            T, d, F, tm, S, kc, *window, float(shift), code,
+            rt.stream_ptr(x.device))
     rt.check(rc, "fused_up_relu")
-    fused_up_relu.launches += 1
     return h, scores
 
 
+def fused_up_relu(x, wu, shift: float = 0.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (T, d), wu (d, F) -> (h (T, F) f32, scores (F // 128,) f32):
+    h = max(x @ wu - shift, 0), scores the max |h| over all T rows and each
+    tile's 128 lanes. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (``fused_up_relu.launches`` counts them)."""
+    if rt.on_cpu(x, wu):
+        return fused_up_relu_plain(x, wu, shift)
+    h, scores = _launch("fused_up_relu", x, wu, shift, 1)
+    fused_up_relu.launches += 1
+    return h, scores[0]
+
+
 fused_up_relu.launches = 0
+
+
+def fused_up_relu_tokens_plain(x, wu, shift: float = 0.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: the dense f32 product, shift, ReLU, and
+    each row's max over the tile lanes."""
+    h = torch.relu(x.float() @ wu.float() - shift)
+    return h, tile_activity(h)
+
+
+def fused_up_relu_tokens(x, wu, shift: float = 0.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token scores: x (T, d), wu (d, F) -> (h (T, F) f32, scores
+    (T, F // 128) f32), row t's score the max |h[t]| over each tile's 128
+    lanes. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (``fused_up_relu_tokens.launches`` counts them)."""
+    if rt.on_cpu(x, wu):
+        return fused_up_relu_tokens_plain(x, wu, shift)
+    h, scores = _launch("fused_up_relu_tokens", x, wu, shift, x.shape[0])
+    fused_up_relu_tokens.launches += 1
+    return h, scores
+
+
+fused_up_relu_tokens.launches = 0
+
+
+def fused_up_relu_window_plain(x, wu, shift: float = 0.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: the dense f32 product, shift, ReLU, and
+    each slot's max over its window rows and the tile lanes."""
+    B, W, d = x.shape
+    h = torch.relu(x.reshape(B * W, d).float() @ wu.float() - shift)
+    h = h.reshape(B, W, -1)
+    return h, window_tile_activity(h)
+
+
+def fused_up_relu_window(x, wu, shift: float = 0.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Window-union scores: x (B, W, d), wu (d, F) -> (h (B, W, F) f32,
+    scores (B, F // 128) f32), slot b's score the max |h[b]| over its W
+    window tokens and each tile's 128 lanes (``window_tile_activity(h)``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``fused_up_relu_window.launches`` counts them)."""
+    if rt.on_cpu(x, wu):
+        return fused_up_relu_window_plain(x, wu, shift)
+    B, W, d = x.shape
+    rt.require(W >= 1, f"x {tuple(x.shape)}: empty window")
+    h, scores = _launch("fused_up_relu_window", x.reshape(B * W, d), wu,
+                        shift, B, W)
+    fused_up_relu_window.launches += 1
+    return h.reshape(B, W, -1), scores
+
+
+fused_up_relu_window.launches = 0

@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_sparse_ffn", "paged_attention", "sparse_matmul_tokens",
-           "sparse_up_matmul", "fused_up_relu", "sparse_matmul")
+           "sparse_up_matmul", "fused_up_relu", "sparse_matmul",
+           "expert_up_matmul", "expert_down_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

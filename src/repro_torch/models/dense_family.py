@@ -7,6 +7,9 @@ from repro_torch.models import common as cm
 from repro_torch.models import transformer as T
 
 
+init_params = T.init_params
+
+
 def model_forward(params, batch, cfg: ModelConfig, *, stats=None):
     return T.forward(params, batch["tokens"], cfg, stats=stats)
 

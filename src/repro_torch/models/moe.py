@@ -1,0 +1,328 @@
+"""Top-k Mixture-of-Experts family (Mixtral-8x22B, Phi-3.5-MoE), in
+PyTorch — the serving subset of the reference's ``models/moe.py``.
+
+Grouped one-hot dispatch: t tokens are split into G groups of about
+``cfg.moe_group_size``; in each group an expert takes cap = ceil(tg *
+top_k * capacity_factor / E) tokens, assigned in priority order (every
+token's k = 0 choice before any k = 1 choice). The dispatch and the expert
+products are ``torch.einsum``, as the reference leaves them to XLA outside
+any Pallas kernel. On CUDA tensors the serving steps run attention through
+the ``paged_window_attention`` kernel (``transformer.kernel_path``), as the
+dense family does; the reference's MoE step uses the same math in XLA.
+
+``apply_moe_gathered`` is the grouped-gather lowering of the same FFN: the
+router's top-k lists each token's experts' weight tiles
+(``expert_tile_lists``), and the kernels ``expert_up_matmul`` and
+``expert_down_matmul`` read only the routed experts' tiles. It is an entry
+point of its own; the serving steps keep the dispatch einsums, as the
+reference's do.
+
+Exactness: under drop-free capacity (capacity_factor >= n_experts, so cap
+>= tg * top_k) every token's experts take it whatever tokens share the
+batch, and each expert slot holds an exact copy of one token's row. The
+engine's slot-batched, zero-padded windows then route every token as a
+batch of one would. With droppable capacity the paths stay correct, but a
+token may be dropped in one batch shape and not in another.
+
+Parameters follow the reference's tree: per layer ``ln1``, ``attn``,
+``ln2`` and ``moe`` = {``router`` (d, E), ``wu``/``wg`` (E, d, F), ``wd``
+(E, F, d)}, stacked on a leading layer axis.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as nnf
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import activations as acts
+from repro_torch.kernels import sparse_matmul as ksm
+from repro_torch.kernels.fused_ffn import window_tile_activity
+from repro_torch.models import common as cm
+from repro_torch.models import serving_protocol as sp
+from repro_torch.models import transformer as T
+
+
+def _init_moe(cfg: ModelConfig, stacked, dense):
+    d, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": stacked(lambda: dense((d, E), d)),
+         "wu": stacked(lambda: dense((E, d, F), d)),
+         "wd": stacked(lambda: dense((E, F, d), F))}
+    if cfg.ffn_kind == "glu":
+        p["wg"] = stacked(lambda: dense((E, d, F), d))
+    return "moe", p
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                dtype: Optional[torch.dtype] = None):
+    """Random parameters on ``device`` from a seeded torch.Generator, with
+    the reference's scaling; the experts stacked (E, d, F) / (E, F, d) and
+    the layers on a leading axis (``transformer.init_params``)."""
+    return T.init_params(cfg, seed=seed, device=device, dtype=dtype,
+                         ffn=_init_moe)
+
+
+# ---------------------------------------------------------------------------
+# routing
+
+
+def _route(p, x, cfg: ModelConfig):
+    """Top-k routing and grouped priority slot assignment for t tokens
+    x (t, d), as the reference's ``_route``: the router logits' softmax in
+    f32, the top k with ties to the lower expert index (``lax.top_k``; a
+    stable descending sort here, as ``torch.topk`` promises no order), the
+    gates renormalised over the k, then k = 0 claims capacity before k = 1.
+
+    Returns (xg (G, tg, d), dispatch (G, tg, E, cap) bool, combine
+    (G, tg, E, cap) f32, (G, tg, cap), (topi, topv) (G, tg, k))."""
+    t, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = max(1, t // cfg.moe_group_size)
+    while t % G:
+        G -= 1
+    tg = t // G
+    cap = max(1, int(-(-tg * k * cfg.capacity_factor // E)))
+
+    xg = x.reshape(G, tg, d)
+    logits = (xg @ p["router"]).float()
+    gates_all = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(gates_all, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    topv = topv / topv.sum(-1, keepdim=True)
+
+    dev = x.device
+    dispatch = torch.zeros((G, tg, E, cap), dtype=torch.bool, device=dev)
+    combine = torch.zeros((G, tg, E, cap), dtype=torch.float32, device=dev)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=dev)
+    for kk in range(k):
+        oh = nnf.one_hot(topi[..., kk], E)  # (G, tg, E)
+        pos = torch.cumsum(oh, 1) - oh + counts[:, None, :]  # slot index
+        ok = (pos < cap) & (oh > 0)
+        slot = nnf.one_hot(torch.where(ok, pos, cap), cap + 1)[..., :cap]
+        sel = slot.float() * oh[..., None]  # (G, tg, E, cap)
+        dispatch |= sel > 0
+        combine = combine + sel * topv[..., kk][..., None, None]
+        counts = counts + oh.sum(1)
+    return xg, dispatch, combine, (G, tg, cap), (topi, topv)
+
+
+def _expert_hidden(p, xe, cfg: ModelConfig):
+    """act(xe @ Wg) [* (xe @ Wu)] per expert slot: xe (G, E, cap, d)."""
+    act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
+    if cfg.ffn_kind == "glu":
+        return (act_fn(torch.einsum("gecd,edf->gecf", xe, p["wg"]))
+                * torch.einsum("gecd,edf->gecf", xe, p["wu"]))
+    return act_fn(torch.einsum("gecd,edf->gecf", xe, p["wu"]))
+
+
+def apply_moe(p, x, cfg: ModelConfig):
+    """x (t, d) -> (t, d): top-k routing with capacity, the experts'
+    FFNs on their slots, and the gate-weighted combine."""
+    xg, dispatch, combine, _, _ = _route(p, x, cfg)
+    dd = dispatch.to(x.dtype)
+    xe = torch.einsum("gtec,gtd->gecd", dd, xg)
+    ye = torch.einsum("gecf,efd->gecd", _expert_hidden(p, xe, cfg), p["wd"])
+    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+    return y.reshape(x.shape)
+
+
+def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """The grouped-gather lowering of ``apply_moe``: x (t, d) -> (t, d) in
+    x's dtype, the same function through the expert gather kernels.
+
+    ``_route`` decides the experts, gates and capacity drops. Each token's
+    kept assignments, in routing order, list their experts' tiles
+    (``expert_tile_lists`` with k_valid, tiles of ``ffn_gather_tile``);
+    ``expert_up_matmul`` gives the compact hidden blocks, the activation
+    and each assignment's gate apply in f32, and ``expert_down_matmul``
+    sums the blocks against the routed experts' down-projection rows (an
+    f32 compact, unrounded, against weights of any supported dtype). Only
+    routed experts' weight tiles are read.
+
+    It serves only as the expert gather kernels' entry point: no serving
+    step calls it, as the reference's steps call no expert kernel. Whether
+    the MoE step moves onto it waits on making those kernels fast (ROADMAP,
+    kernel speed)."""
+    t = x.shape[0]
+    tile = cm.ffn_gather_tile(cfg)
+    tpe = cfg.d_ff // tile
+    _, dispatch, _, (_, _, cap), (topi, topv) = _route(p, x, cfg)
+    topi, topv = topi.reshape(t, -1), topv.reshape(t, -1)
+    kept = dispatch.reshape(t, cfg.n_experts, cap).any(-1).gather(1, topi)
+    # kept assignments first, in routing order, so k_valid counts them
+    order = torch.sort((~kept).to(torch.int8), dim=1, stable=True).indices
+    topi = topi.gather(1, order)
+    gates = (topv * kept).gather(1, order)
+    idx, nvalid = ksm.expert_tile_lists(topi, tpe, kept.sum(1))
+    act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
+    xc = x.contiguous()
+    glu = cfg.ffn_kind == "glu"
+    h = act_fn(ksm.expert_up_matmul(xc, p["wg"] if glu else p["wu"], idx,
+                                    nvalid, tile=tile))
+    if glu:
+        h = h * ksm.expert_up_matmul(xc, p["wu"], idx, nvalid, tile=tile)
+    h = h * gates.repeat_interleave(tpe, 1)[:, :, None]
+    return ksm.expert_down_matmul(h.contiguous(), p["wd"], idx,
+                                  nvalid).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blocks and the whole model
+
+
+def apply_block(p, x, cfg: ModelConfig, positions,
+                stats: Optional[cm.StatsCollector] = None):
+    """Full-sequence block (``transformer.forward``'s layer function):
+    attention, then the MoE FFN over the b * s tokens. Returns (x, kv)."""
+    h = T.post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
+    a, kv = T.apply_attn_full(p["attn"], h, cfg, positions)
+    x = x + a
+    h = T.post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
+    b, s, d = h.shape
+    h = h.reshape(b * s, d)
+    if stats is not None:
+        stats.add_raw("ffn_x", h)
+    return x + apply_moe(p["moe"], h, cfg).reshape(b, s, d), kv
+
+
+def model_forward(params, batch, cfg: ModelConfig, *, stats=None):
+    return T.forward(params, batch["tokens"], cfg, stats=stats,
+                     block=apply_block)
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serving: the paged interface (capabilities
+# paged_decode + chunked_prefill)
+#
+# Router top-k is structured activation sparsity at expert granularity: a
+# token reads top_k / n_experts of the FFN weights before any within-expert
+# γ-window masking applies, so the density telemetry composes both (density
+# = expert fraction x within-expert effective density), and the engine's
+# ``weight_io_bytes_per_step`` (density x the dense bytes of all experts)
+# reports the activated-expert bytes.
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     device="cuda"):
+    return cm.init_paged_cache(cfg, n_blocks, block_size, device=device)
+
+
+def model_prefill_paged(params, batch, cfg: ModelConfig, pages, blocks,
+                        block_size: int, true_len=None):
+    """Whole-prompt prefill into freshly allocated pool blocks (the dense
+    family's contract). The zero padding to a block multiple routes safely
+    under drop-free capacity (module note)."""
+    return T.prefill_paged(params, batch["tokens"], cfg, pages, blocks,
+                           block_size=block_size, true_len=true_len,
+                           block=apply_block)
+
+
+def apply_moe_window(p, x, cfg: ModelConfig, *, mask, refresh, valid):
+    """Decode MoE FFN over a W-token window with per-request γ-window reuse,
+    batched over slots. x (b, W, d); mask (b, F) bool γ-window rows; refresh
+    (b,); valid (b, W) real window tokens.
+
+    Returns (out (b, W, d),
+             act (b, F) within-expert activity unioned over valid tokens,
+             scores (b, F // tile) window-union tile activity,
+             density (b,) mean per-token fraction of expert FFN weights read
+                 = routed-expert fraction x within-expert effective density,
+             union_density (b,) fraction of the (E, F) expert-unit grid in
+                 the window's read union)."""
+    b, W, d = x.shape
+    E, F = cfg.n_experts, cfg.d_ff
+    xg, dispatch, combine, (G, tg, _), _ = _route(p, x.reshape(b * W, d), cfg)
+    dd = dispatch.to(x.dtype)
+    xe = torch.einsum("gtec,gtd->gecd", dd, xg)
+    h = _expert_hidden(p, xe, cfg)
+
+    # γ-window gate in expert-slot space: each slot's row is an exact copy of
+    # its token's (drop-free), so gating here equals gating per token — and
+    # is x1.0 (bit-exact) under refresh
+    eff = mask | refresh[:, None]  # (b, F)
+    eff_tok = eff[:, None, :].expand(b, W, F).reshape(G, tg, F)
+    h = h * torch.einsum("gtec,gtf->gecf", dd, eff_tok.to(h.dtype))
+
+    ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+    out = out.reshape(b, W, d)
+
+    # telemetry: a token's within-expert activity unioned over its routed
+    # experts (the slot-level γ-mask is shared across experts)
+    ddf = dispatch.float()
+    act_tok = torch.einsum("gtec,gecf->gtf", ddf, (h != 0).float())
+    act_tok = (act_tok.reshape(b, W, F) > 0) & valid[:, :, None]
+    act = act_tok.any(1)
+    scores = window_tile_activity(act_tok.float(), cm.ffn_gather_tile(cfg))
+
+    texp = dispatch.any(3).reshape(b, W, E)  # each token's experts
+    efrac = texp.float().mean(-1)  # (b, W)
+    tok_density = efrac * eff.float().mean(-1)[:, None]
+    vf = valid.float()
+    density = (tok_density * vf).sum(1) / torch.clamp(vf.sum(1), min=1.0)
+    read = (texp[:, :, :, None] & eff[:, None, None, :]
+            & valid[:, :, None, None])  # (b, W, E, F)
+    union_density = read.any(1).float().mean((1, 2))
+    return out, act, scores, density, union_density
+
+
+def apply_block_window_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
+                             pos, valid, *, layer: int, block_size: int, mask,
+                             refresh, fast_kernels: Optional[bool] = None):
+    h = T.post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
+    x = x + T.apply_attn_window_paged(
+        p["attn"], h, cfg, k_pages, v_pages, table, pos, valid, layer=layer,
+        block_size=block_size, fast_kernels=fast_kernels)
+    h = T.post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
+    f, act, scores, density, udens = apply_moe_window(
+        p["moe"], h, cfg, mask=mask, refresh=refresh, valid=valid)
+    return x + f, k_pages, v_pages, act, scores, density, udens
+
+
+def model_verify_window_paged(params, pages, table, tokens, pos0, wlen,
+                              cfg: ModelConfig, ffn_masks, refresh,
+                              block_size: int,
+                              fast_kernels: Optional[bool] = None):
+    """A W-token window per slot over the shared pool (the dense family's
+    ``verify_window_paged`` contract; the aux densities are the
+    expert-weighted fractions of ``apply_moe_window``). On CUDA tensors the
+    attention runs the ``paged_window_attention`` kernel."""
+
+    def layer_fn(pl_i, li, x, kp, vp, fm, pos, valid):
+        x, kp, vp, act, scores, density, udens = apply_block_window_paged(
+            pl_i, x, cfg, kp, vp, table, pos, valid, layer=li,
+            block_size=block_size, mask=fm, refresh=refresh,
+            fast_kernels=fast_kernels)
+        return x, kp, vp, (act, scores, density, udens)
+
+    return sp.window_step_core(params, pages, tokens, pos0, wlen, cfg,
+                               ffn_masks, refresh, layer_fn=layer_fn,
+                               embed_fn=T.embed_tokens,
+                               logits_fn=T.logits_from)
+
+
+def model_prefill_chunk_paged(params, batch, cfg: ModelConfig, pages, table,
+                              pos0, clen, ffn_masks, refresh,
+                              block_size: int,
+                              fast_kernels: Optional[bool] = None):
+    """One fixed-shape prefill chunk is a window step: chunk tokens write
+    K/V at their own positions, tokens past clen go to the scratch block,
+    and the window's union activity seeds the warm γ-mask."""
+    return model_verify_window_paged(params, pages, table, batch["tokens"],
+                                     pos0, clen, cfg, ffn_masks, refresh,
+                                     block_size, fast_kernels=fast_kernels)
+
+
+def model_decode_paged(params, pages, table, token, pos, cfg: ModelConfig,
+                       ffn_masks, refresh, block_size: int,
+                       fast_kernels: Optional[bool] = None):
+    """Continuous-batching decode: the W = 1 window step, as in the
+    reference (the MoE family has no separate decode lowering). Returns
+    (logits (b, vocab_p), pages, new_masks, (act, scores, density))."""
+    logits, pages, new_masks, (act, scores, density, _) = \
+        model_verify_window_paged(params, pages, table, token[:, None], pos,
+                                  torch.ones_like(pos), cfg, ffn_masks,
+                                  refresh, block_size,
+                                  fast_kernels=fast_kernels)
+    return logits[:, 0], pages, new_masks, (act, scores, density)

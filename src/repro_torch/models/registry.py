@@ -1,10 +1,11 @@
 """Architecture-family registry of the port.
 
-Only the dense family is ported; it declares the paged-serving
-capabilities this slice serves. The reference's other families are known
-by name with an empty capability set, so serving one raises the uniform
-``ServingCaps.require`` error, and asking for its module raises
-NotImplementedError.
+The dense and MoE families are ported; each declares the paged-serving
+capabilities it serves (MoE, like the reference's, has no predictor mode;
+its ``spec_verify`` waits for speculative mode). The reference's other
+families are known by name with an empty capability set, so serving one
+raises the uniform ``ServingCaps.require`` error, and asking for its module
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.models.serving_protocol import ServingCaps, validate_caps
 
 _FAMILIES: Dict[str, Any] = {}
 _CAPS: Dict[str, ServingCaps] = {}
-_NOT_PORTED = ("moe", "mamba", "hybrid", "encdec", "vlm")
+_NOT_PORTED = ("mamba", "hybrid", "encdec", "vlm")
 
 
 def register_family(name: str, module, caps: Iterable[str] = ()) -> None:
@@ -51,6 +52,9 @@ def _load_builtin(name: str) -> None:
         register_family("dense", dense_family,
                         caps=("paged_decode", "chunked_prefill",
                               "predictor"))
+    elif name == "moe":
+        from repro_torch.models import moe
+        register_family("moe", moe, caps=("paged_decode", "chunked_prefill"))
     elif name in _NOT_PORTED:
         _FAMILIES[name] = None
         _CAPS[name] = ServingCaps()

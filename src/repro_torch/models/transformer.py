@@ -21,7 +21,7 @@ down-projection of chunked prefill). The predictor FFN's unfused lowering
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -61,11 +61,17 @@ def require_dense_projections(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                dtype: Optional[torch.dtype] = None) -> Params:
+                dtype: Optional[torch.dtype] = None,
+                ffn: Optional[Callable] = None) -> Params:
     """Random parameters made on ``device`` from a seeded torch.Generator,
     with the reference's scaling (``dense_init`` 1/sqrt(fan_in),
     ``embed_init`` 0.02) and head padding. Layer leaves are filled one layer
-    at a time so a full-width model never holds a second f32 copy."""
+    at a time so a full-width model never holds a second f32 copy.
+
+    ``ffn(cfg, stacked, dense)`` builds the layers' FFN subtree as
+    ``(name, tree)`` from two helpers: ``stacked(make)`` fills an (L, ...)
+    leaf one layer at a time, ``dense(shape, fan_in)`` draws one weight.
+    The default is the dense FFN under ``"ffn"``."""
     device = cm.resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -111,13 +117,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if cfg.qk_norm:
         attn["q_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
         attn["k_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
-    ffn = {"wu": stacked(lambda: dense((d, F), d)),
-           "wd": stacked(lambda: dense((F, d), F))}
-    if cfg.ffn_kind == "glu":
-        ffn["wg"] = stacked(lambda: dense((d, F), d))
+    ffn_name, ffn_tree = (ffn or _init_ffn)(cfg, stacked, dense)
     p = {
         "embed": cm.embed_init(gen, (vp, d), dtype, device),
-        "layers": {"ln1": norm(L), "attn": attn, "ln2": norm(L), "ffn": ffn},
+        "layers": {"ln1": norm(L), "attn": attn, "ln2": norm(L),
+                   ffn_name: ffn_tree},
         "final_norm": norm(),
     }
     if not cfg.tie_embeddings:
@@ -125,6 +129,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if not cfg.use_rope:
         p["pos_embed"] = cm.embed_init(gen, (cfg.max_seq_len, d), dtype, device)
     return p
+
+
+def _init_ffn(cfg: ModelConfig, stacked, dense):
+    d, F = cfg.d_model, cfg.d_ff
+    ffn = {"wu": stacked(lambda: dense((d, F), d)),
+           "wd": stacked(lambda: dense((F, d), F))}
+    if cfg.ffn_kind == "glu":
+        ffn["wg"] = stacked(lambda: dense((d, F), d))
+    return "ffn", ffn
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +237,16 @@ def logits_from(params, x, cfg: ModelConfig):
 
 def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
             last_index: Optional[int] = None,
-            stats: Optional[cm.StatsCollector] = None):
+            stats: Optional[cm.StatsCollector] = None,
+            block: Optional[Callable] = None):
     """Full-sequence forward. tokens (b, s) -> logits (b, s, vocab_p). With
     ``return_kv``: (logits (b, 1, vocab_p) at ``last_index`` (default
     s - 1), (k, v) each (L, b, s, kvp, hd)). An active ``stats`` collects
     each layer's sites under ``layer{i}/`` (with ``raw=True``: the FFN
-    input, ``layer{i}/ffn_x`` (b * s, d))."""
+    input, ``layer{i}/ffn_x`` (b * s, d)). ``block(p, x, cfg, positions,
+    stats)`` -> (x, (k, v)) is the layer function (the reference's
+    ``remat_block``), by default the dense ``apply_block``."""
+    block = block or apply_block
     require_dense_projections(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -238,8 +255,8 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     for i in range(cfg.n_layers):
         sub = (cm.StatsCollector(True, raw=stats.raw)
                if stats is not None and stats.active else None)
-        x, (k, v) = apply_block(cm.layer_params(params, i), x, cfg, positions,
-                                stats=sub)
+        x, (k, v) = block(cm.layer_params(params, i), x, cfg, positions,
+                          stats=sub)
         if sub is not None:
             for key, val in sub.stats.items():
                 stats.stats[f"layer{i}/{key}"] = val
@@ -255,13 +272,15 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
 
 
 def prefill_paged(params, tokens, cfg: ModelConfig, pages, blocks, *,
-                  block_size: int, true_len: Optional[int] = None):
+                  block_size: int, true_len: Optional[int] = None,
+                  block: Optional[Callable] = None):
     """Prefill one request's prompt into its pool blocks (in place).
     tokens (1, s), zero-padded past ``true_len``; blocks (nb,) with
-    nb * block_size >= s. Returns (last-token logits (1, vocab_p), pages)."""
+    nb * block_size >= s; ``block`` the layer function (``forward``).
+    Returns (last-token logits (1, vocab_p), pages)."""
     li = None if true_len is None else int(true_len) - 1
     logits, (k, v) = forward(params, tokens, cfg, return_kv=True,
-                             last_index=li)
+                             last_index=li, block=block)
     cm.paged_write_prefill(pages["k"], k[:, 0], blocks, block_size)
     cm.paged_write_prefill(pages["v"], v[:, 0], blocks, block_size)
     return logits[:, -1], pages

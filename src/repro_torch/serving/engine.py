@@ -16,16 +16,23 @@ scheduler. Every step decodes one token per active slot:
   read, and the step gathers only those tiles for the up- and
   down-projections, with density and recall telemetry per step.
 
+The model family comes from ``cfg.family`` (models/registry.py): dense, or
+MoE (plain mode only, as in the reference; routing to top_k of n_experts
+is itself activation sparsity, ``expert_io_fraction``).
+
 PyTorch runs the step eagerly (no jit). ``fast_kernels`` follows the
 device: on CUDA the steps run the hand-written kernels (kernels/*.py) and
 ``fast_kernels=False`` raises; on the CPU they run the reference's frozen
 plain path, or with ``fast_kernels=True`` the kernel path's structure with
-each wrapper's plain version. Not ported yet, and raising
+each wrapper's plain version. With an MoE config on the CPU,
+``fast_kernels=True`` warns and serves the plain path, as the reference
+does; on CUDA its steps run the attention kernel. Not ported yet, and raising
 NotImplementedError: speculative mode, ``mesh=``, ``obs=``,
 ``track_sparsity`` and sampled (temperature > 0) requests.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -99,6 +106,12 @@ class ContinuousBatchingEngine:
         self.fam = registry.get_family(cfg)
         self.fast_kernels = (self.device.type == "cuda"
                              or bool(config.fast_kernels))
+        if self.fast_kernels and cfg.n_experts and self.device.type == "cpu":
+            warnings.warn(
+                "fast_kernels is not wired for MoE serving on the CPU: the "
+                "MoE step has no fused FFN kernel path, so it runs the plain "
+                "path, as the reference engine does", stacklevel=2)
+            self.fast_kernels = False
         self.block_size = config.block_size
         self.prefill_chunk = config.prefill_chunk
         self.warm_masks = config.warm_masks
@@ -298,14 +311,20 @@ class ContinuousBatchingEngine:
     def _mode_ffn_bytes(self) -> int:
         """Per-step FFN weight bytes per token, dense, in the serving mode's
         skippable scope: every projection for predictor serving and on the
-        kernel path (the fused kernel gathers the γ-mask's tiles for the
-        up- and down-projections), the down-projection otherwise."""
+        dense family's kernel path (the fused kernel gathers the γ-mask's
+        tiles for the up- and down-projections), the down-projection
+        otherwise. MoE counts all experts: routing is part of the measured
+        density (expert fraction x within-expert density), so density x
+        this figure is the activated-expert bytes, as in the reference. Its
+        step has no fused FFN kernel, so its scope is the down-projection
+        on the card too."""
         cfg = self.cfg
         itemsize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                                ).element_size()
         proj = cfg.d_ff * cfg.d_model * itemsize * max(1, cfg.n_experts)
         n_all = 3 if cfg.ffn_kind == "glu" else 2
-        if self.predictor is not None or self.fast_kernels:
+        if self.predictor is not None or (self.fast_kernels
+                                          and not cfg.n_experts):
             return cfg.n_layers * n_all * proj
         return cfg.n_layers * proj
 
@@ -334,6 +353,14 @@ class ContinuousBatchingEngine:
         if not self._pred_active:
             return 1.0  # measured: no unit fired, so none was missed
         return 1.0 - self._pred_miss / self._pred_active
+
+    def expert_io_fraction(self) -> Optional[float]:
+        """Fraction of the expert FFN weights a token's routing activates,
+        top_k / n_experts; None for a family without experts. Exact under
+        drop-free capacity (a dropped assignment only reads less)."""
+        if not self.cfg.n_experts:
+            return None
+        return self.cfg.top_k / self.cfg.n_experts
 
     def prefix_hit_rate(self) -> float:
         """Fraction of admitted prompt tokens served from the prefix cache."""

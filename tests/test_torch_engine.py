@@ -198,6 +198,6 @@ def test_unported_modes_raise():
                dict(track_sparsity=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             ContinuousBatchingEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
-    moe = get_config("tiny-opt").replace(family="moe", n_experts=4)
+    mamba = get_config("tiny-opt").replace(family="mamba", ssm_state=8)
     with pytest.raises(ValueError, match="'paged_decode' serving capability"):
-        ContinuousBatchingEngine(moe, tp, EngineConfig(), device="cpu")
+        ContinuousBatchingEngine(mamba, tp, EngineConfig(), device="cpu")

@@ -107,6 +107,56 @@ def test_predictor_mode_and_ops_run_with_jax_and_reference_unimportable(
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
 
 
+def test_moe_serving_and_expert_gathers_run_with_jax_and_reference_unimportable():
+    """MoE serving (chunked, γ-window reuse), the grouped-gather MoE FFN
+    and the per-token / window score kernels' entry points need nothing of
+    JAX or the JAX package."""
+    prog = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import fused_ffn
+        from repro_torch.models import moe
+        from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+        cfg = get_config("tiny-moe").replace(compute_dtype="float32")
+        params = moe.init_params(cfg, seed=0, device="cpu")
+        eng = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(n_slots=2, prefill_chunk=4),
+            device="cpu")
+        uids = [eng.submit(np.arange(1, n + 1), 4, reuse_window=2)
+                for n in (5, 9)]
+        res = eng.run()
+        assert all(len(res[u].tokens) == 4 for u in uids)
+        assert eng.expert_io_fraction() == 0.5
+        pm = {k: v[0] for k, v in params["layers"]["moe"].items()}
+        x = torch.randn(6, cfg.d_model)
+        y = moe.apply_moe_gathered(pm, x, cfg)
+        assert torch.allclose(y, moe.apply_moe(pm, x, cfg), atol=1e-5)
+        h, s = fused_ffn.fused_up_relu_window(torch.randn(2, 3, 64),
+                                              torch.randn(64, 256))
+        assert h.shape == (2, 3, 256) and s.shape == (2, 2)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
+def test_moe_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe.init_params(get_config("tiny-moe"))
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """No device given means CUDA; with none available the engine and the
     model raise instead of running on the CPU."""
