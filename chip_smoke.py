@@ -20,10 +20,15 @@ device and build always run):
             blocks against bf16 weights); times the kernel, the plain
             version and one PyTorch library call computing the same
             function (CUDA events, median of 25 runs after warm-up) and
-            works out the card's bound. The unfused predictor pair
-            (sparse_up_matmul, sparse_matmul_tokens) is held against
-            fused_sparse_ffn on the same lists, and the expert chain (up,
-            SiLU GLU, gates, down) against the per-expert dense product.
+            works out the card's bound. The tile-grouped routine of kernels
+            3 and 10 (bf16 weights) also at 25% window lists, one row per
+            list, T = 4096, repeated tiles, all tokens on two experts and
+            k_valid drops; two calls must agree bit for bit and a third
+            runs under torch.cuda.set_sync_debug_mode("error"). The unfused
+            predictor pair (sparse_up_matmul, sparse_matmul_tokens) is held
+            against fused_sparse_ffn on the same lists, and the expert chain
+            (up, SiLU GLU, gates, down) against the per-expert dense
+            product.
 4. parity   f32 engine streams of tiny-opt and tiny-relu on the card
             (kernels) equal the CPU streams (plain versions) token for token,
             logprobs within 1e-5: plain mode, and predictor mode with a sign
@@ -116,6 +121,25 @@ def compare(name: str, got, want, dtype) -> float:
         fail(f"{name}: max|diff| {err:.3e} > {tol} x max|ref| {scale:.3e}")
     log(f"  ok {name}: max|diff| {err:.3e} (max|ref| {scale:.3e}, tol {tol})")
     return err
+
+
+def same_bits(name: str, fn) -> None:
+    """Two calls of fn give the same bits, and a third one runs under
+    torch.cuda.set_sync_debug_mode("error"): a device-to-host sync fails."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name}: two calls differ, max|diff| "
+             f"{(a - b).abs().max().item():.3e}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        fail(f"{name}: the call syncs the host ({e})")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"  ok {name}: two calls bit-identical, no host sync")
 
 
 def bound(n_bytes: float, flops: float, dtype) -> tuple:
@@ -308,13 +332,49 @@ def kernel_phase(dev) -> dict:
         errs[dtype], args = smm_case(
             f"OPT-6.7B chunk 8x16 rows {dtype}", 128, 16384, 4096, 128, dtype,
             rng.rand(8, 128) < 0.97, rows_per_list=16)
-    x, w, idx, nvalid = args
+    main_args = args
+    # the tile-grouped routine (bf16 weights): windows whose 25% lists
+    # differ; one row per list at T = 8; 16 slots x 256-token chunks;
+    # repeated tiles, pads repeating the first tile and unsorted lists
+    extra = {}
+    for name, T_, n_lists, p in (("T=128 8x16 rows 25% lists", 128, 8, 0.25),
+                                 ("T=8 one row per list", 8, 8, 0.97),
+                                 ("T=4096 16x256 rows", 4096, 16, 0.97)):
+        err, args = smm_case(f"OPT-6.7B {name} {torch.bfloat16}", T_, 16384,
+                             4096, 128, torch.bfloat16,
+                             rng.rand(n_lists, 128) < p,
+                             rows_per_list=T_ // n_lists)
+        extra[name] = (err, args)
+    rep_idx = [[1, 1, 0, 1], [3, 3, 3, 3], [2, 0, 2, 3], [0, 1, 2, 3]]
+    for dtype in (torch.float32, torch.bfloat16):
+        for xd in {torch.float32, dtype}:
+            xr = t(rng.randn(4, 512), xd)
+            wr = t(rng.randn(512, 64) / 16.0, dtype)
+            ir, nr = t(rep_idx, torch.int32), t([4, 1, 3, 0], torch.int32)
+            compare(f"sparse_matmul_tokens repeated tiles (x {xd}, w {dtype})",
+                    [ksm.sparse_matmul_tokens(xr, wr, ir, nr)],
+                    [ksm.sparse_matmul_tokens_plain(xr, wr, ir, nr)], dtype)
+    x, w, idx, nvalid = main_args
+    same_bits("sparse_matmul_tokens T=128", lambda: ksm.sparse_matmul_tokens(
+        x, w, idx, nvalid))
     nv = nvalid.cpu().numpy()
     distinct = int(preds.covered_tiles(idx, nvalid, 128).any(0).sum())
     n_bytes = (x.numel() * 2 + distinct * 128 * 4096 * 2 + idx.numel() * 4
                + nv.size * 4 + 128 * 4096 * 4)
     flops = float(nv.sum()) * 128 * 4096 * 2
     b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
+    at = {}
+    for name, (err, (xa, wa, ia, na)) in extra.items():
+        na_np = na.cpu().numpy()
+        da = int(preds.covered_tiles(ia, na, 128).any(0).sum())
+        ba = bound(xa.numel() * 2 + da * 128 * 4096 * 2 + ia.numel() * 4
+                   + na_np.size * 4 + xa.shape[0] * 4096 * 4,
+                   float(na_np.sum()) * 128 * 4096 * 2, torch.bfloat16)
+        at[name] = dict(max_abs_err=err, ms=time_ms(
+            lambda: ksm.sparse_matmul_tokens(xa, wa, ia, na)),
+            bound_ms=ba[0], bound_by=ba[1],
+            library_ms=time_ms(lambda: xa @ wa))
+    del extra
     results["sparse_matmul_tokens"] = dict(
         name="sparse_matmul_tokens", route="cuda",
         source="src/repro_torch/csrc/sparse_matmul_tokens.cu",
@@ -325,7 +385,8 @@ def kernel_phase(dev) -> dict:
                                                                 nvalid)),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
         shape="T=128 (8 slots x 16) F=16384 D=4096 tile=128 K=128 bf16",
-        max_abs_err_f32=errs[torch.float32])
+        max_abs_err_f32=errs[torch.float32],
+        **{f"at {k}": v for k, v in at.items()})
     # -- sparse_up_matmul ---------------------------------------------------
     def up_case(name, T, d, F, tile, dtype, tile_mask):
         x = t(rng.randn(T, d), dtype)
@@ -644,6 +705,18 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
                     [ksm.expert_down_matmul(cc, wd, idx, nv)],
                     [ksm.expert_down_matmul_plain(cc, wd, idx, nv)], cd)
 
+    # repeated tiles (tile 1 of token 0 twice, token 1's only tile 3 times),
+    # pads repeating the first tile, an unsorted list, nvalid == 0
+    ir = t([[1, 1, 0, 5], [3, 3, 3, 3], [7, 2, 6, 2], [4, 0, 4, 4]], torch.int32)
+    nr = t([4, 3, 3, 0], torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        wd = t(rng.randn(4, 256, 64) / 16.0, dtype)
+        for cd in {torch.float32, dtype}:
+            cc = t(rng.randn(4, 4, 128), cd)
+            compare(f"expert_down_matmul repeated tiles ({cd}, {dtype})",
+                    [ksm.expert_down_matmul(cc, wd, ir, nr)],
+                    [ksm.expert_down_matmul_plain(cc, wd, ir, nr)], cd)
+
     cfg = cfg or get_config("mixtral-8x22b").replace(
         n_layers=1, compute_dtype="bfloat16")
     pm = {k: v[0] for k, v in moe.init_params(
@@ -698,6 +771,7 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
             library_ms=time_ms(lambda: torch.einsum("td,edf->tef", x,
                                                     pm["wu"])),
             distinct_tiles=distinct, K=K)
+        idx_main, nv_main = idx, nv
         timed["expert_down_matmul"][T] = dict(
             max_abs_err=errs["down", torch.bfloat16],
             max_abs_err_f32=errs["down", torch.float32],
@@ -708,6 +782,23 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
             library_ms=time_ms(lambda: torch.einsum("tef,efd->td", hd,
                                                     pm["wd"])),
             distinct_tiles=distinct, K=K)
+    # at full width: every token routed to experts 0 and 1 (two runs of
+    # T / 64 chunks each), and capacity drops (k_valid of 0, 1 or 2)
+    T = 128
+    topi = t(np.stack([rng.permutation(2) for _ in range(T)]), torch.int32)
+    for name, kv in (("all tokens on experts 0, 1", None),
+                     ("k_valid drops", t(rng.randint(0, 3, T), torch.int32))):
+        if kv is not None:
+            topi = t(np.stack([rng.permutation(E)[:2] for _ in range(T)]),
+                     torch.int32)
+        idx, nv = ksm.expert_tile_lists(topi, tpe, kv)
+        for cd in (torch.float32, torch.bfloat16):
+            cc = t(rng.randn(T, idx.shape[1], tile) / 8.0, cd)
+            compare(f"expert_down_matmul Mixtral-8x22B {name} ({cd}, bf16)",
+                    [ksm.expert_down_matmul(cc, pm["wd"], idx, nv)],
+                    [ksm.expert_down_matmul_plain(cc, pm["wd"], idx, nv)], cd)
+    same_bits("expert_down_matmul T=128 (f32, bf16)",
+              lambda: ksm.expert_down_matmul(c, pm["wd"], idx_main, nv_main))
     rows = {}
     K = cfg.top_k * tpe
     for kind, line, shape in (

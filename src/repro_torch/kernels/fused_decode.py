@@ -30,9 +30,10 @@ def fused_sparse_ffn_plain(x, w_gate, wd, idx, nvalid, *, w_up=None,
                            shift: float = 0.0, tile: int = 128
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: dense f32 products over all units, then
-    the units of non-gathered tiles zeroed — the same function, since a
-    skipped tile contributes nothing and adding exact zeros changes no sum.
-    """
+    each unit's h weighted by the number of valid slots naming its tile —
+    the same function, since a skipped tile contributes nothing, adding
+    exact zeros changes no sum, and the kernel adds a tile's product once
+    per valid slot (a tile listed twice counts twice)."""
     T, d = x.shape
     F = w_gate.shape[1]
     K = idx.shape[1]
@@ -44,9 +45,8 @@ def fused_sparse_ffn_plain(x, w_gate, wd, idx, nvalid, *, w_up=None,
         h = h * (xf @ w_up.float())
     if unit_mask is not None:
         h = h * unit_mask.float()
-    cov = preds.tiles_to_units(preds.covered_tiles(idx, nvalid, n_tiles), tile)
-    h = torch.where(cov, h, 0.0)
-    y = h.to(wd.dtype).float() @ wd.float()
+    counts = preds.tiles_to_units(preds.tile_counts(idx, nvalid, n_tiles), tile)
+    y = (h.to(wd.dtype).float() * counts) @ wd.float()
     valid = torch.arange(K, device=x.device)[None, :] < nvalid[:, None]
     compact = torch.gather(h.view(T, n_tiles, tile), 1,
                            idx.long()[:, :, None].expand(T, K, tile))

@@ -160,9 +160,11 @@ def gather_runs(T: int, K: int, D: int, device) -> tuple:
     return run, scratch
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg) -> None:
+    """Raise ValueError(msg) unless cond; msg may be a callable that builds
+    the message, so a wrapper's hot path formats nothing."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def dtype_code(*tensors: torch.Tensor) -> int:

@@ -16,18 +16,27 @@ Kernels (CUDA C++, sm_90a), ports of the TPU kernels of
   torch, as in the reference); the up- and down-projection of the
   grouped-gather MoE FFN (``models/moe.py`` ``apply_moe_gathered``).
 
-The two down-projections share the row gather of ``csrc/common.cuh``:
-blocks of 16 rows walk consecutive runs of the tile list in list order, and
-a second launch sums the runs in order through a (T, S, D) f32 scratch that
-``runtime.gather_runs`` keeps under 9 MB; ``expert_down_matmul`` is the same
-gather over the stacked weight viewed as one (E * F, d) matrix.
-``sparse_up_matmul`` and ``expert_up_matmul`` share ``ffn_up``
-(``csrc/ffn_up.cuh``) with ``fused_sparse_ffn``. Each source note says what
-bounds the kernel on the H100.
+With bf16 weights, ``sparse_matmul_tokens`` and ``expert_down_matmul`` run
+the tile-grouped routine of ``csrc/tile_group.cuh``: the tile ids are cut
+into runs (one expert for ``expert_down_matmul``), the rows that name a run
+into chunks of 64 (``tile_group_plan`` is that chunking in plain torch),
+and a block reads each weight tile its chunk lists once, on tensor cores,
+with no host sync; a second launch sums each row's runs in ascending order
+through scratch kept under 32 MiB. With f32 weights they, like
+``sparse_matmul`` and the down-projection of ``fused_sparse_ffn``, run the
+CUDA-core row gather of ``csrc/common.cuh`` (blocks of 16 rows walk runs of
+list slots in list order; ``runtime.gather_runs`` keeps its scratch under
+9 MB). Every kernel adds one product per valid list slot, so a tile listed
+twice counts twice, as in the reference; the plain versions weight each
+tile by its count (``predictors.tile_counts``). ``sparse_up_matmul`` and
+``expert_up_matmul`` share ``ffn_up`` (``csrc/ffn_up.cuh``) with
+``fused_sparse_ffn``. Each source note says what bounds the kernel on the
+H100.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,38 +46,50 @@ from repro_torch.predictor import predictors as preds
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _UP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_DOWN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def sparse_matmul_tokens_plain(x, w, idx, nvalid, *, tile: int = 128
                                ) -> torch.Tensor:
-    """The plain PyTorch version: x with the units of non-listed tiles
-    zeroed, times w, in f32 — the same sum, as skipped tiles add exact
-    zeros."""
+    """The plain PyTorch version: x's units weighted by the number of valid
+    slots naming their tile (zero for non-listed tiles), times w, in f32 —
+    the same sum, as skipped tiles add exact zeros and a tile listed twice
+    adds its product twice."""
     T, F = x.shape
-    units = preds.tiles_to_units(preds.covered_tiles(idx, nvalid, F // tile),
-                                 tile)
-    xs = torch.where(units, x.to(w.dtype).float(), 0.0)
-    return xs @ w.float()
+    counts = preds.tiles_to_units(preds.tile_counts(idx, nvalid, F // tile),
+                                  tile)
+    return (x.to(w.dtype).float() * counts) @ w.float()
 
 
 def sparse_matmul_tokens(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     """Per-row tile gather: x (T, F), w (F, D), idx (T, K) int32 tile ids,
-    nvalid (T,) int32. Returns (T, D) f32: row t sums its own
-    idx[t, :nvalid[t]] tiles in list order. CPU tensors take the plain
-    version; CUDA tensors launch the kernel
-    (``sparse_matmul_tokens.launches`` counts them)."""
+    nvalid (T,) int32. Returns (T, D) f32: row t sums one product per valid
+    slot of its idx[t, :nvalid[t]] list. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (``sparse_matmul_tokens.launches`` counts
+    them): for bf16 weights the tile-grouped tensor-core routine, for f32
+    weights and x the CUDA-core row gather."""
     if rt.on_cpu(x, w, idx, nvalid):
         return sparse_matmul_tokens_plain(x, w, idx, nvalid, tile=tile)
     T, F = x.shape
     D = w.shape[1]
     K = idx.shape[1]
-    xc, wc = _check_gather(x, w, idx, nvalid, tile, (T, K), (T,))
+    _, wc = _check_gather(x, w, idx, nvalid, tile, (T, K), (T,))
     y = torch.empty((T, D), dtype=torch.float32, device=x.device)
-    run, scratch = rt.gather_runs(T, K, D, x.device)
-    fn = rt.entry("sparse_matmul_tokens", "sparse_matmul_tokens", _ARGS)
-    rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(scratch),
-            rt.ptr(y), T, F, D, K, run, tile, xc, wc, rt.stream_ptr(x.device))
+    if wc == rt.DTYPE_CODES[torch.float32]:
+        run, scratch = rt.gather_runs(T, K, D, x.device)
+        fn = rt.entry("sparse_matmul_tokens", "sparse_matmul_tokens",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid),
+                rt.ptr(scratch), rt.ptr(y), T, F, D, K, run, tile,
+                rt.stream_ptr(x.device))
+    else:
+        R = min(F // tile, TG_RMAX)
+        fn = rt.entry("sparse_matmul_tokens", "sparse_matmul_tokens_tc",
+                      _TC_ARGS + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        # an f32 x is rounded to bf16, as the reference's dot in the
+        # weights' dtype rounds it
+        rc = _tile_groups(fn, x.to(w.dtype), w, idx, nvalid, y,
+                          n_tiles=F // tile, run=R, tile=tile,
+                          ints=lambda T_, S: (T_, F, D, K, S, R, tile))
     rt.check(rc, "sparse_matmul_tokens")
     sparse_matmul_tokens.launches += 1
     return y
@@ -83,26 +104,115 @@ def _check_gather(x, w, idx, nvalid, tile: int, idx_shape, nv_shape):
     T, F = x.shape
     D = w.shape[1]
     rt.require(w.shape[0] == F and F % tile == 0 and D % 2 == 0,
-               f"x {tuple(x.shape)} / w {tuple(w.shape)} / tile {tile}")
-    rt.require(tuple(idx.shape) == idx_shape and tuple(nvalid.shape) == nv_shape,
-               f"idx {tuple(idx.shape)} / nvalid {tuple(nvalid.shape)}")
+               lambda: f"x {tuple(x.shape)} / w {tuple(w.shape)} / tile {tile}")
+    rt.require(idx.shape == idx_shape and nvalid.shape == nv_shape,
+               lambda: f"idx {tuple(idx.shape)} / nvalid {tuple(nvalid.shape)}")
     rt.require(idx.dtype == torch.int32 and nvalid.dtype == torch.int32,
                "idx and nvalid must be int32")
     xc, wc = rt.DTYPE_CODES.get(x.dtype), rt.DTYPE_CODES.get(w.dtype)
-    rt.require(xc is not None and wc is not None and (xc == wc or xc == 0),
-               f"dtypes x {x.dtype} / w {w.dtype} not supported")
+    rt.require(xc is not None and wc is not None
+               and (xc == wc or xc == rt.DTYPE_CODES[torch.float32]),
+               lambda: f"dtypes x {x.dtype} / w {w.dtype} not supported")
     rt.require_contiguous(x=x, w=w, idx=idx, nvalid=nvalid)
     return xc, wc
 
 
+# ---------------------------------------------------------------------------
+# the tile-grouped tensor-core routine (csrc/tile_group.cuh)
+
+# its chunk size, longest run and most runs, and the bound on its scratch
+TG_M, TG_RMAX, TG_MAX_RUNS = 64, 128, 64
+TG_SCRATCH_BYTES = 32 << 20
+_TC_ARGS = [ctypes.c_void_p] * 7  # a, w, idx, nvalid, mask, P, y
+
+
+class TilePlan(NamedTuple):
+    """The chunks of the tile-grouped routine: mask (T,) int64, bit s set
+    when a valid slot of row t names a tile of run s; chunk_rows (n_runs *
+    ceil(T / chunk), chunk) int32, chunk s * ceil(T / chunk) + c holding
+    the rows of run s ranked c * chunk .. in ascending order, -1 past
+    them."""
+    mask: torch.Tensor
+    chunk_rows: torch.Tensor
+
+
+def tile_group_plan(idx, nvalid, run: int, n_runs: int,
+                    chunk: int = TG_M) -> TilePlan:
+    """The plain version of the routine's chunking (``row_runs`` and the
+    blocks' row ranking in csrc/tile_group.cuh), in exact torch integer ops:
+    tile ids are cut into ``n_runs`` runs of ``run`` consecutive ids; row t
+    has a (row, run) pair in run s when one of its valid slots names a tile
+    of s. The pairs of a run, rows ascending, are cut into chunks of at most
+    ``chunk``; the launch grid holds ceil(T / chunk) chunks a run (the upper
+    bound), so it needs no count from the device."""
+    T, K = idx.shape
+    dev = idx.device
+    live = torch.arange(K, device=dev)[None, :] < nvalid[:, None]
+    runs = torch.where(live, idx.long() // run, n_runs)
+    pres = torch.zeros((T, n_runs + 1), dtype=torch.bool, device=dev)
+    pres = pres.scatter_(1, runs, True)[:, :n_runs]                # (T, S)
+    bits = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        n_runs, device=dev)
+    mask = (pres.long() * bits).sum(1)
+    cpr = -(-T // chunk)
+    rank = torch.cumsum(pres, 0) - 1                               # (T, S)
+    dump = n_runs * cpr * chunk
+    pos = torch.where(pres, torch.arange(n_runs, device=dev) * cpr * chunk
+                      + rank, dump)
+    rows = torch.arange(T, dtype=torch.int32, device=dev)[:, None].expand(T, n_runs)
+    chunk_rows = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
+    chunk_rows.scatter_(0, pos.reshape(-1), rows.reshape(-1))
+    return TilePlan(mask, chunk_rows[:dump].view(n_runs * cpr, chunk))
+
+
+def tile_group_slab_rows(D: int, n_runs: int):
+    """Rows per launch of the tile-grouped routine: with more than one run
+    a slab's scratch, its pair partials (rows x n_runs x D f32) and runs
+    mask (rows x 8 bytes), stays under TG_SCRATCH_BYTES. None with one run
+    (no scratch: the blocks write y)."""
+    if n_runs == 1:
+        return None
+    return max(1, TG_SCRATCH_BYTES // (n_runs * D * 4 + 8))
+
+
+def _tile_groups(fn, a, w, idx, nvalid, y, *, n_tiles: int, run: int,
+                 tile: int, ints) -> int:
+    """Launch a ``*_tc`` entry point (csrc/tile_group.cuh) over the rows of
+    a / idx / nvalid / y; ``ints(T, n_runs)`` gives its integer arguments.
+    Rows go in slabs whose scratch (the runs mask and the pair partials)
+    stays under TG_SCRATCH_BYTES. Returns the first non-zero CUDA error
+    code, else 0."""
+    T, K = idx.shape
+    D = y.shape[1]
+    n_runs = -(-n_tiles // run)
+    rt.require(tile % 16 == 0 and D % 8 == 0 and n_runs <= TG_MAX_RUNS,
+               lambda: f"the tensor-core gather takes tile % 16 == 0, D % 8 == "
+                       f"0 and at most {TG_MAX_RUNS} runs of {run} tiles; got "
+                       f"tile {tile}, D {D}, {n_runs} runs")
+    stream = rt.stream_ptr(y.device)
+    if n_runs == 1:  # no scratch: one launch over every row
+        return fn(rt.ptr(a), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), None, None,
+                  rt.ptr(y), *ints(T, 1), stream)
+    slab = tile_group_slab_rows(D, n_runs)
+    for r0 in range(0, T, slab):
+        r1 = min(T, r0 + slab)
+        mask = torch.empty(r1 - r0, dtype=torch.int64, device=y.device)
+        P = torch.empty((n_runs * (r1 - r0), D), dtype=torch.float32,
+                        device=y.device)
+        rc = fn(rt.ptr(a[r0:r1]), rt.ptr(w), rt.ptr(idx[r0:r1]),
+                rt.ptr(nvalid[r0:r1]), rt.ptr(mask), rt.ptr(P),
+                rt.ptr(y[r0:r1]), *ints(r1 - r0, n_runs), stream)
+        if rc:
+            return rc
+    return 0
+
+
 def sparse_matmul_plain(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
-    """The plain PyTorch version of ``sparse_matmul``: x with the units of
-    non-listed tiles zeroed, times w, in f32."""
+    """The plain PyTorch version of ``sparse_matmul``: x's units weighted by
+    the number of valid slots naming their tile, times w, in f32."""
     n_tiles = x.shape[1] // tile
-    tiles = preds.covered_tiles(idx.reshape(1, -1), nvalid.reshape(1), n_tiles)
-    xs = torch.where(preds.tiles_to_units(tiles, tile),
-                     x.to(w.dtype).float(), 0.0)
-    return xs @ w.float()
+    counts = preds.tile_counts(idx.reshape(1, -1), nvalid.reshape(1), n_tiles)
+    return (x.to(w.dtype).float() * preds.tiles_to_units(counts, tile)) @ w.float()
 
 
 def sparse_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
@@ -132,10 +242,12 @@ sparse_matmul.launches = 0
 def sparse_up_matmul_plain(x, w, idx, nvalid, *, tile: int = 128
                            ) -> torch.Tensor:
     """The plain PyTorch version of ``sparse_up_matmul``: the dense f32
-    product with the columns of non-listed tiles zeroed."""
-    cov = preds.tiles_to_units(
-        preds.covered_tiles(idx, nvalid, w.shape[1] // tile), tile)
-    return torch.where(cov, x.float() @ w.float(), 0.0)
+    product with each column weighted by the number of valid slots naming
+    its tile (zero for non-listed tiles; the kernel's blocks are
+    scatter-added, so a tile listed twice reads twice its product)."""
+    counts = preds.tiles_to_units(
+        preds.tile_counts(idx, nvalid, w.shape[1] // tile), tile)
+    return (x.float() @ w.float()) * counts
 
 
 def sparse_up_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
@@ -274,10 +386,13 @@ def expert_down_matmul(compact, w, idx, nvalid) -> torch.Tensor:
     ``expert_up_matmul``'s layout (after the activation and the routing
     gates), w (E, F, d) stacked expert weights, idx/nvalid as there.
     Returns (T, d) f32: token t sums block i @ w[e, ft * tile: (ft + 1) *
-    tile, :] over its nvalid[t] live blocks, in list order. Types (compact,
-    w): (f32, f32), (bf16, bf16), or (f32, bf16) with compact unrounded.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``expert_down_matmul.launches`` counts them)."""
+    tile, :] over its nvalid[t] live blocks. Types (compact, w): (f32, f32),
+    (bf16, bf16), or (f32, bf16) with compact unrounded. CPU tensors take
+    the plain version; CUDA tensors launch the kernel
+    (``expert_down_matmul.launches`` counts them): for bf16 weights the
+    tile-grouped tensor-core routine with one run per expert (a token's
+    experts summed in ascending expert id), for f32 the CUDA-core row
+    gather (list order)."""
     if rt.on_cpu(compact, w, idx, nvalid):
         return expert_down_matmul_plain(compact, w, idx, nvalid)
     T, K, tile = compact.shape
@@ -289,14 +404,24 @@ def expert_down_matmul(compact, w, idx, nvalid) -> torch.Tensor:
                "idx and nvalid must be int32")
     rt.require((compact.dtype, w.dtype) in _DOWN_DTYPES,
                f"dtypes compact {compact.dtype} / w {w.dtype} not supported")
-    cc, wc = rt.DTYPE_CODES[compact.dtype], rt.DTYPE_CODES[w.dtype]
     rt.require_contiguous(compact=compact, w=w, idx=idx, nvalid=nvalid)
     y = torch.empty((T, d), dtype=torch.float32, device=compact.device)
-    run, scratch = rt.gather_runs(T, K, d, compact.device)
-    fn = rt.entry("expert_down_matmul", "expert_down_matmul", _DOWN_ARGS)
-    rc = fn(rt.ptr(compact), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid),
-            rt.ptr(scratch), rt.ptr(y), T, K, tile, d, run, cc, wc,
-            rt.stream_ptr(compact.device))
+    if w.dtype == torch.float32:
+        run, scratch = rt.gather_runs(T, K, d, compact.device)
+        fn = rt.entry("expert_down_matmul", "expert_down_matmul",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        rc = fn(rt.ptr(compact), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid),
+                rt.ptr(scratch), rt.ptr(y), T, K, tile, d, run,
+                rt.stream_ptr(compact.device))
+    else:
+        tpe = F // tile
+        R = min(tpe, TG_RMAX)
+        cc = rt.DTYPE_CODES[compact.dtype]
+        fn = rt.entry("expert_down_matmul", "expert_down_matmul_tc",
+                      _TC_ARGS + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        rc = _tile_groups(fn, compact, w, idx, nvalid, y, n_tiles=E * tpe,
+                          run=R, tile=tile,
+                          ints=lambda T_, S: (T_, K, tile, d, S, R, cc, E * F))
     rt.check(rc, "expert_down_matmul")
     expert_down_matmul.launches += 1
     return y

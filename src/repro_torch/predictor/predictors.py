@@ -150,6 +150,17 @@ def pack_tile_indices(tile_mask: torch.Tensor, k: int, n_groups: int = 1
     return idx.to(torch.int32), nvalid
 
 
+def tile_counts(idx: torch.Tensor, nvalid: torch.Tensor,
+                n_tiles: int) -> torch.Tensor:
+    """(T, k), (T,) -> (T, n_tiles) int32: how many valid slots of each row
+    name each tile. The list-driven kernels add one product per valid slot,
+    so a tile a row lists twice counts twice."""
+    T, k = idx.shape
+    valid = torch.arange(k, device=idx.device)[None, :] < nvalid[:, None]
+    out = torch.zeros((T, n_tiles), dtype=torch.int32, device=idx.device)
+    return out.scatter_add_(1, idx.long(), valid.to(torch.int32))
+
+
 def covered_tiles(idx: torch.Tensor, nvalid: torch.Tensor,
                   n_tiles: int) -> torch.Tensor:
     """Invert packing: (T, k), (T,) -> (T, n_tiles) bool tiles gathered."""

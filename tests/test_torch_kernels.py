@@ -218,6 +218,205 @@ def test_sparse_matmul_tokens_matches_pallas(p):
 
 
 # ---------------------------------------------------------------------------
+# repeated tiles: every valid slot counts, as in the Pallas kernels
+
+_LISTS = {  # (idx (2, 4), nvalid (2,)) over 4 tiles
+    "repeated valid": ([[1, 1, 2, 0], [3, 0, 0, 0]], [3, 1]),
+    "pads repeat the first tile": ([[2, 2, 2, 2], [1, 3, 1, 1]], [1, 2]),
+    "unsorted": ([[3, 0, 2, 1], [2, 3, 1, 0]], [4, 3]),
+}
+
+
+@pytest.mark.parametrize("case", list(_LISTS))
+@pytest.mark.parametrize("kernel", ["sparse_matmul_tokens", "sparse_matmul",
+                                    "fused_sparse_ffn", "sparse_up_matmul"])
+def test_plain_versions_add_a_repeated_tile_once_per_slot(kernel, case):
+    """The four plain versions equal the Pallas kernels on lists whose valid
+    entries repeat a tile (the kernels add one product per valid slot),
+    whose pads repeat the first tile, or that are not sorted."""
+    rng = np.random.RandomState(7)
+    tile, d, F = 128, 64, 512
+    idx, nv = (np.asarray(a, np.int32) for a in _LISTS[case])
+    ji, ti = _both(idx)
+    jn, tn = _both(nv)
+    if kernel in ("sparse_matmul_tokens", "sparse_matmul"):
+        jx, tx = _both(rng.randn(2, F).astype(np.float32))
+        jw, tw = _both((rng.randn(F, d) / np.sqrt(F)).astype(np.float32))
+        if kernel == "sparse_matmul":
+            ji, ti, jn, tn = ji[0], ti[0], jn[0], tn[0]
+        want = getattr(jsm, kernel)(jx, jw, ji, jn, tile=tile)
+        got = getattr(tsm, kernel)(tx, tw, ti, tn, tile=tile)
+    elif kernel == "sparse_up_matmul":
+        jx, tx = _both(rng.randn(2, d).astype(np.float32))
+        jw, tw = _both((rng.randn(d, F) / np.sqrt(d)).astype(np.float32))
+        want = jsm.sparse_up_matmul(jx, jw, ji, jn, tile=tile)
+        got = tsm.sparse_up_matmul(tx, tw, ti, tn, tile=tile)
+    else:
+        x, wg, wu, wd, _, _, _ = _ffn_case(T=2, seed=8)
+        jy, jh = jfd.fused_sparse_ffn(*map(jnp.asarray, (x, wg, wd)), ji, jn,
+                                      w_up=jnp.asarray(wu), tile=tile)
+        ty, th = tfd.fused_sparse_ffn(*map(torch.as_tensor, (x, wg, wd)), ti,
+                                      tn, w_up=torch.as_tensor(wu), tile=tile)
+        _close(th, jh)
+        want, got = jy, ty
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the tile-grouped tensor-core routine's plan, walked in plain torch
+
+
+def bf16_terms(v, n: int):
+    """The routine's split of an f32 A operand into n bf16 terms: each term
+    is the remainder so far rounded to bf16 (csrc/tile_group.cuh
+    tg_afrag_f32), returned as f32 tensors."""
+    out, r = [], v.float()
+    for _ in range(n):
+        h = r.to(torch.bfloat16).float()
+        out.append(h)
+        r = r - h
+    return out
+
+
+def walk_tile_groups(a, w, idx, nvalid, *, tile: int, run: int,
+                     compact: bool, terms=None, chunk: int = tsm.TG_M):
+    """csrc/tile_group.cuh in plain torch: per chunk of the plan (rows
+    c * chunk .. with one run), the union of the tiles its rows name in
+    ascending id, each walked once per repeat (a row's A slice zeroed where
+    it names the tile no more often, its (rep+1)-th slot's block in compact
+    mode), f32 partials per (run, row), then each row's partials summed in
+    ascending run order. A is rounded to w's dtype (terms None) or split
+    into ``terms`` bf16 terms."""
+    T, K = idx.shape
+    D = w.shape[-1]
+    w2 = w.reshape(-1, D).float()
+    n_tiles = w2.shape[0] // tile
+    n_runs = -(-n_tiles // run)
+    if n_runs == 1:
+        chunks = [(0, list(range(r0, min(T, r0 + chunk))))
+                  for r0 in range(0, T, chunk)]
+    else:
+        plan = tsm.tile_group_plan(idx, nvalid, run, n_runs, chunk)
+        cpr = plan.chunk_rows.shape[0] // n_runs
+        chunks = [(c // cpr, [t for t in plan.chunk_rows[c].tolist() if t >= 0])
+                  for c in range(plan.chunk_rows.shape[0])]
+    P = torch.zeros((n_runs, T, D))
+    for s, rows in chunks:
+        if not rows:
+            continue
+        tiles = range(s * run, min((s + 1) * run, n_tiles))
+        slots = [{ti: [i for i in range(int(nvalid[t])) if int(idx[t, i]) == ti]
+                  for ti in tiles} for t in rows]
+        acc = torch.zeros((len(rows), D))
+        for ti in tiles:  # ascending; tiles no row names add nothing
+            for rep in range(max(len(sl[ti]) for sl in slots)):
+                A = torch.zeros((len(rows), tile))
+                for m, t in enumerate(rows):
+                    if len(slots[m][ti]) > rep:
+                        A[m] = (a[t, slots[m][ti][rep]] if compact
+                                else a[t, ti * tile:(ti + 1) * tile]).float()
+                parts = ([A.to(w.dtype).float()] if terms is None
+                         else bf16_terms(A, terms))
+                for part in reversed(parts):  # smallest term first
+                    acc += part @ w2[ti * tile:(ti + 1) * tile]
+        P[s, rows] = acc
+    return P.sum(0) if n_runs > 1 else P[0]
+
+
+def _random_lists(rng, T, K, n_tiles, *, unsorted=True, repeats=True):
+    idx = np.stack([rng.permutation(n_tiles)[:K] if K <= n_tiles
+                    else rng.randint(0, n_tiles, K) for _ in range(T)])
+    if not unsorted:
+        idx = np.sort(idx, 1)
+    if repeats:
+        idx[1::3, 1] = idx[1::3, 0]  # a tile listed twice among valid slots
+    nv = rng.randint(0, K + 1, T)
+    nv[0] = 0
+    idx = np.where(np.arange(K)[None, :] < nv[:, None], idx, idx[:, :1])
+    return idx.astype(np.int32), nv.astype(np.int32)
+
+
+@pytest.mark.parametrize("T,K,n_tiles,run,chunk", [
+    (7, 4, 8, 8, 64), (7, 4, 8, 2, 64), (40, 6, 12, 4, 16), (5, 3, 9, 4, 2),
+    (33, 16, 128, 128, 16), (4096, 16, 128, 32, 64)])
+def test_tile_group_plan_covers_each_valid_slot_once(T, K, n_tiles, run, chunk):
+    """Every (row, run) named by a valid slot is exactly one pair of one
+    chunk of that run; a run's chunks hold its rows in ascending order, at
+    most ``chunk`` each; the runs mask has the same pairs; rows with
+    nvalid == 0 have none."""
+    rng = np.random.RandomState(T + K)
+    idx, nv = _random_lists(rng, T, K, n_tiles)
+    n_runs = -(-n_tiles // run)
+    plan = tsm.tile_group_plan(torch.as_tensor(idx), torch.as_tensor(nv), run,
+                               n_runs, chunk)
+    cpr = -(-T // chunk)
+    assert plan.mask.dtype == torch.int64 and plan.chunk_rows.dtype == torch.int32
+    assert plan.chunk_rows.shape == (n_runs * cpr, chunk)
+    want = [(s, t) for s in range(n_runs) for t in range(T)
+            if s in {int(i) // run for i in idx[t, :nv[t]]}]
+    got = []
+    for c, rows in enumerate(plan.chunk_rows.tolist()):
+        live = [t for t in rows if t >= 0]
+        assert rows[:len(live)] == live  # the pairs first, then -1
+        got += [(c // cpr, t) for t in live]
+    assert got == want  # each pair once, in (run, row) order
+    for t in range(T):
+        bits = {s for s in range(n_runs) if (int(plan.mask[t]) >> s) & 1}
+        assert bits == {int(i) // run for i in idx[t, :nv[t]]}
+
+
+@pytest.mark.parametrize("T,K,D,n_tiles,run", [
+    (8, 128, 4096, 128, 128), (128, 128, 4096, 128, 128),
+    (4096, 128, 4096, 128, 128), (4096, 256, 4096, 128, 32),
+    (8, 256, 6144, 1024, 128), (128, 256, 6144, 1024, 128),
+    (4096, 256, 6144, 1024, 128), (4096, 2, 65536, 1024, 128),
+    (4096, 256, 6144, 8192, 128)])
+def test_tile_group_scratch_stays_bounded(T, K, D, n_tiles, run):
+    """One run needs no scratch (the blocks write y); otherwise each slab's
+    pair partials (rows x runs x D f32, sized by the upper bound) and runs
+    mask stay under TG_SCRATCH_BYTES up to T = 4096 (16 slots x 256-token
+    chunks), and the plan's chunks cover every pair."""
+    n_runs = -(-n_tiles // run)
+    if n_runs == 1:
+        assert tsm.tile_group_slab_rows(D, n_runs) is None
+        return
+    rows = min(T, tsm.tile_group_slab_rows(D, n_runs))
+    assert rows * (n_runs * D * 4 + 8) <= tsm.TG_SCRATCH_BYTES
+    idx = ((torch.arange(K)[None, :] * run + torch.arange(rows)[:, None])
+           % n_tiles).to(torch.int32)  # slot i in run i mod n_runs
+    plan = tsm.tile_group_plan(idx, torch.full((rows,), K, dtype=torch.int32),
+                               run, n_runs)
+    n_pairs = int((plan.chunk_rows >= 0).sum())
+    assert n_pairs == rows * min(K, n_runs)  # every row meets min(K, runs) runs
+
+
+@pytest.mark.parametrize("case", ["one run", "four runs", "repeats unsorted",
+                                  "chunks of 2"])
+def test_tile_group_walk_matches_plain_and_pallas(case):
+    """The plain walk of the routine (chunks, unions, zeroed rows, repeats,
+    ordered sum) equals sparse_matmul_tokens' plain version and the Pallas
+    kernel at f32, with nvalid == 0 rows, repeated tiles and unsorted
+    lists."""
+    rng = np.random.RandomState(len(case))
+    T, K, tile, D = 9, 5, 16, 24
+    n_tiles = 8
+    run, chunk = {"one run": (8, 64), "four runs": (2, 64),
+                  "repeats unsorted": (4, 64), "chunks of 2": (2, 2)}[case]
+    idx, nv = _random_lists(rng, T, K, n_tiles,
+                            unsorted=case != "one run",
+                            repeats=case == "repeats unsorted")
+    x = (rng.randn(T, n_tiles * tile)).astype(np.float32)
+    w = (rng.randn(n_tiles * tile, D) / 8).astype(np.float32)
+    tx, tw, ti, tn = map(torch.as_tensor, (x, w, idx, nv))
+    got = walk_tile_groups(tx, tw, ti, tn, tile=tile, run=run, compact=False,
+                           chunk=chunk)
+    _close(got, tsm.sparse_matmul_tokens_plain(tx, tw, ti, tn, tile=tile))
+    _close(got, jsm.sparse_matmul_tokens(*map(jnp.asarray, (x, w, idx, nv)),
+                                         tile=tile))
+    assert not got[nv == 0].any()
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 
 
@@ -277,6 +476,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         tpa.paged_window_attention(*args, window=5),
         tpa.paged_window_attention_plain(*args, window=5), **TOL)
     xs = c(np.random.RandomState(0).randn(4, 512).astype(np.float32))
-    torch.testing.assert_close(
-        tsm.sparse_matmul_tokens(xs, c(wd), idx, nv, tile=tile),
-        tsm.sparse_matmul_tokens_plain(xs, c(wd), idx, nv, tile=tile), **TOL)
+    # f32 weights: the CUDA-core gather; bf16: the tile-grouped tensor-core
+    # routine (x rounded to bf16 by both, so only the f32 sums' order differs)
+    for w in (c(wd), c(wd).bfloat16()):
+        torch.testing.assert_close(
+            tsm.sparse_matmul_tokens(xs, w, idx, nv, tile=tile),
+            tsm.sparse_matmul_tokens_plain(xs, w, idx, nv, tile=tile), **TOL)
