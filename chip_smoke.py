@@ -17,14 +17,20 @@ device and build always run):
             its router's lists for the expert gathers) plus small edge cases
             (GLU, GQA, shifts, nvalid = 0, duplicate pads, tied scores, lists
             in score order, k_valid padding, windows straddling blocks, f32
-            blocks against bf16 weights); times the kernel, the plain
-            version and one PyTorch library call computing the same
-            function (CUDA events, median of 25 runs after warm-up) and
-            works out the card's bound. The tile-grouped routine of kernels
-            3 and 10 (bf16 weights) also at 25% window lists, one row per
-            list, T = 4096, repeated tiles, all tokens on two experts and
-            k_valid drops; two calls must agree bit for bit and a third
-            runs under torch.cuda.set_sync_debug_mode("error"). The unfused
+            blocks against bf16 weights, f32 x against bf16 weights at the
+            f32 tolerance); times the kernel per call (CUDA events, median of
+            25 runs after warm-up: host time included) and on the card (one
+            call captured in a CUDA graph and replayed), the plain version,
+            and one PyTorch library call computing the same function (both
+            ways), and works out the card's bound. The tile-grouped routine
+            of kernels 3 and 10 (bf16 weights) also at 25% window lists, one
+            row per list, T = 4096, repeated tiles, all tokens on two experts
+            and k_valid drops; the up-projection routine of kernels 4, 6, 7
+            and 8 (bf16) at repeated and padded tiles, 25% and full lists,
+            one row, T = 4096 and all-inactive shifts (f32 also with d split
+            over blocks at small T);
+            for both, two calls must agree bit for bit and a third runs
+            under torch.cuda.set_sync_debug_mode("error"). The unfused
             predictor pair (sparse_up_matmul, sparse_matmul_tokens) is held
             against fused_sparse_ffn on the same lists, and the expert chain
             (up, SiLU GLU, gates, down) against the per-expert dense
@@ -104,6 +110,51 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+_SIDE_STREAM = []  # device_ms's stream, made at first use
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one fn() call: the call captured once in a
+    CUDA graph and replayed reps times between two CUDA events, so the
+    host's time between the launches, which a call of a few small kernels
+    can spend more of than the card, is left out (the graph's own launch
+    gaps stay in). fn must not sync the host. Every call warms up and
+    captures on one side stream: torch keeps a cuBLAS workspace for each
+    stream a product ran on, which would otherwise add to the peak memory
+    of the serve phase."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def timings(fn, plain=None, lib=None) -> dict:
+    """The kernel's time per call (time_ms: host included) and on the card
+    (device_ms); the plain version's time; the library call's, both ways."""
+    out = dict(ms=time_ms(fn), device_ms=device_ms(fn))
+    if plain is not None:
+        out["plain_ms"] = time_ms(plain)
+    if lib is not None:
+        out.update(library_ms=time_ms(lib), library_device_ms=device_ms(lib))
+    return out
 
 
 def compare(name: str, got, want, dtype) -> float:
@@ -232,10 +283,10 @@ def kernel_phase(dev) -> dict:
         source="src/repro_torch/csrc/fused_sparse_ffn.cu",
         replaces="src/repro/kernels/fused_decode.py:98",
         max_abs_err=errs[torch.bfloat16],
-        ms=time_ms(lambda: kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw)),
-        plain_ms=time_ms(lambda: kfd.fused_sparse_ffn_plain(x, wg, wd, idx,
-                                                            nvalid, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib_ffn),
+        **timings(lambda: kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw),
+                  lambda: kfd.fused_sparse_ffn_plain(x, wg, wd, idx, nvalid,
+                                                     **kw), lib_ffn),
+        bound_ms=b_ms, bound_by=b_by,
         shape="T=8 d=4096 F=16384 tile=128 K=128 MLP+mask bf16",
         max_abs_err_f32=errs[torch.float32])
 
@@ -299,10 +350,10 @@ def kernel_phase(dev) -> dict:
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:87",
         max_abs_err=errs[torch.bfloat16],
-        ms=time_ms(lambda: kpa.paged_window_attention(q, kp, vp, table, pos)),
-        plain_ms=time_ms(lambda: kpa.paged_window_attention_plain(
-            q, kp, vp, table, pos)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib_attn),
+        **timings(lambda: kpa.paged_window_attention(q, kp, vp, table, pos),
+                  lambda: kpa.paged_window_attention_plain(q, kp, vp, table,
+                                                           pos), lib_attn),
+        bound_ms=b_ms, bound_by=b_by,
         shape="b=8 W=1 kvp=32 g=1 hd=128 bs=16 nb=16 bf16",
         max_abs_err_f32=errs[torch.float32])
 
@@ -345,6 +396,8 @@ def kernel_phase(dev) -> dict:
                              rng.rand(n_lists, 128) < p,
                              rows_per_list=T_ // n_lists)
         extra[name] = (err, args)
+    # an f32 x is multiplied unrounded whatever the weights' type (three
+    # bf16 terms against bf16 weights), so it is held at the f32 tolerance
     rep_idx = [[1, 1, 0, 1], [3, 3, 3, 3], [2, 0, 2, 3], [0, 1, 2, 3]]
     for dtype in (torch.float32, torch.bfloat16):
         for xd in {torch.float32, dtype}:
@@ -353,8 +406,12 @@ def kernel_phase(dev) -> dict:
             ir, nr = t(rep_idx, torch.int32), t([4, 1, 3, 0], torch.int32)
             compare(f"sparse_matmul_tokens repeated tiles (x {xd}, w {dtype})",
                     [ksm.sparse_matmul_tokens(xr, wr, ir, nr)],
-                    [ksm.sparse_matmul_tokens_plain(xr, wr, ir, nr)], dtype)
+                    [ksm.sparse_matmul_tokens_plain(xr, wr, ir, nr)], xd)
     x, w, idx, nvalid = main_args
+    xf = x.float()
+    compare("sparse_matmul_tokens OPT-6.7B chunk 8x16 rows (x f32, w bf16)",
+            [ksm.sparse_matmul_tokens(xf, w, idx, nvalid)],
+            [ksm.sparse_matmul_tokens_plain(xf, w, idx, nvalid)], torch.float32)
     same_bits("sparse_matmul_tokens T=128", lambda: ksm.sparse_matmul_tokens(
         x, w, idx, nvalid))
     nv = nvalid.cpu().numpy()
@@ -370,28 +427,28 @@ def kernel_phase(dev) -> dict:
         ba = bound(xa.numel() * 2 + da * 128 * 4096 * 2 + ia.numel() * 4
                    + na_np.size * 4 + xa.shape[0] * 4096 * 4,
                    float(na_np.sum()) * 128 * 4096 * 2, torch.bfloat16)
-        at[name] = dict(max_abs_err=err, ms=time_ms(
-            lambda: ksm.sparse_matmul_tokens(xa, wa, ia, na)),
-            bound_ms=ba[0], bound_by=ba[1],
-            library_ms=time_ms(lambda: xa @ wa))
+        at[name] = dict(max_abs_err=err, **timings(
+            lambda: ksm.sparse_matmul_tokens(xa, wa, ia, na),
+            lib=lambda: xa @ wa), bound_ms=ba[0], bound_by=ba[1])
     del extra
     results["sparse_matmul_tokens"] = dict(
         name="sparse_matmul_tokens", route="cuda",
         source="src/repro_torch/csrc/sparse_matmul_tokens.cu",
         replaces="src/repro/kernels/sparse_matmul.py:125",
         max_abs_err=errs[torch.bfloat16],
-        ms=time_ms(lambda: ksm.sparse_matmul_tokens(x, w, idx, nvalid)),
-        plain_ms=time_ms(lambda: ksm.sparse_matmul_tokens_plain(x, w, idx,
-                                                                nvalid)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
+        **timings(lambda: ksm.sparse_matmul_tokens(x, w, idx, nvalid),
+                  lambda: ksm.sparse_matmul_tokens_plain(x, w, idx, nvalid),
+                  lambda: x @ w),
+        bound_ms=b_ms, bound_by=b_by,
         shape="T=128 (8 slots x 16) F=16384 D=4096 tile=128 K=128 bf16",
         max_abs_err_f32=errs[torch.float32],
         **{f"at {k}": v for k, v in at.items()})
     # -- sparse_up_matmul ---------------------------------------------------
-    def up_case(name, T, d, F, tile, dtype, tile_mask):
+    def up_case(name, T, d, F, tile, dtype, tile_mask=None, lists=None):
         x = t(rng.randn(T, d), dtype)
         w = t(rng.randn(d, F) / np.sqrt(d), dtype)
-        idx, nvalid = tile_lists(tile_mask)
+        idx, nvalid = (tile_lists(tile_mask) if lists is None else
+                       (t(lists[0], torch.int32), t(lists[1], torch.int32)))
         got = ksm.sparse_up_matmul(x, w, idx, nvalid, tile=tile)
         want = ksm.sparse_up_matmul_plain(x, w, idx, nvalid, tile=tile)
         torch.cuda.synchronize()
@@ -402,39 +459,69 @@ def kernel_phase(dev) -> dict:
         return compare(f"sparse_up_matmul {name}", [got], [want],
                        dtype), (x, w, idx, nvalid)
 
+    def up_bound(x, w, idx, nvalid):
+        """bytes: x, the listed tiles of w once, the lists, and the (T, F)
+        f32 result written once; the listed slots' operations"""
+        T_, d_ = x.shape
+        nv_ = nvalid.cpu().numpy()
+        distinct_ = int(preds.covered_tiles(idx, nvalid, 128).any(0).sum())
+        return bound(x.numel() * 2 + distinct_ * 128 * d_ * 2 + idx.numel() * 4
+                     + nv_.size * 4 + T_ * w.shape[1] * 4,
+                     float(nv_.sum()) * 128 * d_ * 2, torch.bfloat16)
+
+    # repeated valid tiles, pads repeating the first tile, unsorted lists,
+    # nvalid == 0 (bf16 at tile 128: the tensor-core routine; bf16 at tile
+    # 64 and f32: ffn_up)
+    rep_lists = ([[1, 1, 0, 1], [3, 3, 3, 3], [2, 0, 2, 3], [0, 1, 2, 3]],
+                 [4, 1, 3, 0])
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         up_case(f"tiny edges {dtype}", 4, 64, 256, 128, dtype, edges)
+        up_case(f"repeated tiles {dtype}", 4, 64, 512, 128, dtype,
+                lists=rep_lists)
         up_case(f"OPT-6.7B T=8 25% lists {dtype}", 8, 4096, 16384, 128, dtype,
                 rng.rand(8, 128) < 0.25)
         errs[dtype], args = up_case(f"OPT-6.7B T=8 full lists {dtype}", 8,
                                     4096, 16384, 128, dtype,
                                     np.ones((8, 128), bool))
+    up_case("tile 64 repeated tiles bf16", 4, 64, 512, 64, torch.bfloat16,
+            lists=rep_lists)
+    up_extra = {}
+    for name, T_, p in (("T=8 25% lists", 8, 0.25),
+                        ("T=1 one row", 1, 0.97),
+                        ("T=128 25% lists", 128, 0.25),
+                        ("T=4096 97% lists", 4096, 0.97)):
+        up_extra[name] = up_case(f"OPT-6.7B {name} {torch.bfloat16}", T_, 4096,
+                                 16384, 128, torch.bfloat16,
+                                 rng.rand(T_, 128) < p)
     x, w, idx, nvalid = args
-    nv = nvalid.cpu().numpy()
-    distinct = int(preds.covered_tiles(idx, nvalid, 128).any(0).sum())
-    n_bytes = (x.numel() * 2 + distinct * 128 * 4096 * 2 + idx.numel() * 4
-               + nv.size * 4 + 8 * 16384 * 4)
-    b_ms, b_by = bound(n_bytes, float(nv.sum()) * 128 * 4096 * 2,
-                       torch.bfloat16)
+    same_bits("sparse_up_matmul T=8 full lists",
+              lambda: ksm.sparse_up_matmul(x, w, idx, nvalid))
+    b_ms, b_by = up_bound(x, w, idx, nvalid)
+    up_at = {}
+    for name, (err, (xa, wa, ia, na)) in up_extra.items():
+        ba = up_bound(xa, wa, ia, na)
+        up_at[name] = dict(max_abs_err=err, **timings(
+            lambda: ksm.sparse_up_matmul(xa, wa, ia, na), lib=lambda: xa @ wa),
+            bound_ms=ba[0], bound_by=ba[1])
+    del up_extra
     results["sparse_up_matmul"] = dict(
         name="sparse_up_matmul", route="cuda",
         source="src/repro_torch/csrc/sparse_up_matmul.cu",
         replaces="src/repro/kernels/sparse_matmul.py:177",
         max_abs_err=errs[torch.bfloat16],
-        ms=time_ms(lambda: ksm.sparse_up_matmul(x, w, idx, nvalid)),
-        plain_ms=time_ms(lambda: ksm.sparse_up_matmul_plain(x, w, idx,
-                                                            nvalid)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
+        **timings(lambda: ksm.sparse_up_matmul(x, w, idx, nvalid),
+                  lambda: ksm.sparse_up_matmul_plain(x, w, idx, nvalid),
+                  lambda: x @ w),
+        bound_ms=b_ms, bound_by=b_by,
         shape="T=8 d=4096 F=16384 tile=128 K=128 full lists bf16",
-        max_abs_err_f32=errs[torch.float32])
-    sparse_idx, sparse_nv = tile_lists(rng.rand(8, 128) < 0.25)
-    results["sparse_up_matmul"]["ms_25pct"] = time_ms(
-        lambda: ksm.sparse_up_matmul(x, w, sparse_idx, sparse_nv))
+        max_abs_err_f32=errs[torch.float32],
+        **{f"at {k}": v for k, v in up_at.items()})
 
     # the unfused pair (sparse_up_matmul, then sparse_matmul_tokens) against
-    # fused_sparse_ffn on the same lists: the same up-dots and the same
-    # gather, so the reference's contract is bit-equality
+    # fused_sparse_ffn on the same lists: in f32 the same up-dots and the
+    # same gather, so bit-equality; in bf16 both halves of the pair run the
+    # tensor-core routines, which sum in another order: TOL_BF16
     for dtype in (torch.float32, torch.bfloat16):
         xx = t(rng.randn(8, 4096), dtype)
         wg = t(rng.randn(4096, 16384) / 64.0, dtype)
@@ -467,6 +554,9 @@ def kernel_phase(dev) -> dict:
             fail(f"fused_up_relu {name}: an all-inactive case is not zero")
         return compare(f"fused_up_relu {name}", got, want, dtype), (x, wu)
 
+    # bf16 runs the tensor-core routine, every block over all of d; f32 runs
+    # the CUDA-core kernel, which splits d over blocks at small T (T = 8 and
+    # 40 here) and sums the ranges in a second launch
     shapes = {}
     for dtype in (torch.float32, torch.bfloat16):
         relu_case(f"tiny {dtype}", 4, 64, 256, dtype, 0.0)
@@ -477,25 +567,32 @@ def kernel_phase(dev) -> dict:
         for T in (8, 128):
             shapes[T, dtype] = relu_case(f"OPT-6.7B T={T} {dtype}", T, 4096,
                                          16384, dtype, 0.0)
-    relu_times = {}
     for T in (8, 128):
+        relu_case(f"OPT-6.7B T={T} all-zero shift=100 bf16", T, 4096, 16384,
+                  torch.bfloat16, 100.0)
+    shapes[4096, torch.bfloat16] = relu_case("OPT-6.7B T=4096 bf16", 4096,
+                                             4096, 16384, torch.bfloat16, 0.0)
+    relu_times = {}
+    for T in (8, 128, 4096):
         err, (x, wu) = shapes[T, torch.bfloat16]
+        same_bits(f"fused_up_relu T={T}", lambda: torch.cat(
+            [v.reshape(-1) for v in kff.fused_up_relu(x, wu)]))
         n_bytes = x.numel() * 2 + wu.numel() * 2 + T * 16384 * 4 + 128 * 4
         b_ms, b_by = bound(n_bytes, 2.0 * T * 4096 * 16384, torch.bfloat16)
         relu_times[T] = dict(
-            max_abs_err=err, ms=time_ms(lambda: kff.fused_up_relu(x, wu)),
-            plain_ms=time_ms(lambda: kff.fused_up_relu_plain(x, wu)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: torch.relu(x @ wu - 0.0)),
-            f32_cuda_core_floor_ms=2.0 * T * 4096 * 16384
-            / PEAK_FLOPS[torch.float32] * 1e3)
+            max_abs_err=err,
+            **timings(lambda: kff.fused_up_relu(x, wu),
+                      lambda: kff.fused_up_relu_plain(x, wu),
+                      lambda: torch.relu(x @ wu - 0.0)),
+            bound_ms=b_ms, bound_by=b_by)
+    del shapes[4096, torch.bfloat16]
     results["fused_up_relu"] = dict(
         name="fused_up_relu", route="cuda",
         source="src/repro_torch/csrc/fused_up_relu.cu",
         replaces="src/repro/kernels/fused_ffn.py:81",
         **relu_times[128], shape="T=128 d=4096 F=16384 bf16",
         max_abs_err_f32=shapes[128, torch.float32][0],
-        at_T8=relu_times[8])
+        at_T8=relu_times[8], at_T4096=relu_times[4096])
 
     # -- sparse_matmul (one list in score order) ----------------------------
     def shared_case(name, T, F, D, dtype, idx, nvalid):
@@ -522,6 +619,15 @@ def kernel_phase(dev) -> dict:
             f"OPT-6.7B T=128 K=32 score order {dtype}", 128, 16384, 4096,
             dtype, order[:32], 32)
     x, w, idx, nvalid = args
+    # an f32 x against bf16 weights is multiplied unrounded: f32 tolerance
+    for name, xf, wb, ib, nb in (
+            ("tiny duplicate pads", t(rng.randn(4, 256)),
+             t(rng.randn(256, 64) / 16.0, torch.bfloat16),
+             t([1, 1, 1], torch.int32), t(1, torch.int32)),
+            ("OPT-6.7B T=128 K=32 score order", x.float(), w, idx, nvalid)):
+        compare(f"sparse_matmul {name} (x f32, w bf16)",
+                [ksm.sparse_matmul(xf, wb, ib, nb)],
+                [ksm.sparse_matmul_plain(xf, wb, ib, nb)], torch.float32)
     nv = int(nvalid)
     n_bytes = (128 * nv * 128 * 2 + nv * 128 * 4096 * 2 + idx.numel() * 4 + 4
                + 128 * 4096 * 4)
@@ -531,9 +637,10 @@ def kernel_phase(dev) -> dict:
         source="src/repro_torch/csrc/sparse_matmul.cu",
         replaces="src/repro/kernels/sparse_matmul.py:79",
         max_abs_err=errs[torch.bfloat16],
-        ms=time_ms(lambda: ksm.sparse_matmul(x, w, idx, nvalid)),
-        plain_ms=time_ms(lambda: ksm.sparse_matmul_plain(x, w, idx, nvalid)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: x @ w),
+        **timings(lambda: ksm.sparse_matmul(x, w, idx, nvalid),
+                  lambda: ksm.sparse_matmul_plain(x, w, idx, nvalid),
+                  lambda: x @ w),
+        bound_ms=b_ms, bound_by=b_by,
         shape="T=128 F=16384 D=4096 K=32 (density 0.25) score order bf16",
         max_abs_err_f32=errs[torch.float32])
 
@@ -559,10 +666,11 @@ def kernel_phase(dev) -> dict:
 def score_kernel_rows(dev, rng, d: int = 4096, F: int = 16384) -> dict:
     """fused_up_relu_tokens and fused_up_relu_window against their plain
     versions: small edge cases (shifts, W = 1, windows whose rows straddle
-    row blocks and d ranges) and OPT-6.7B layer 0's wu shape (d = 4096,
-    F = 16384) at T = 8 and 128 tokens, windows of W = 4 and 16 over 8
-    slots. Returns their two rows of the kernels line (bf16 at T = 128 /
-    W = 16; the smaller shape beside it)."""
+    row blocks and d ranges, an all-inactive shift) and OPT-6.7B layer 0's
+    wu shape (d = 4096, F = 16384) at T = 8 and 128 tokens, windows of W = 4
+    and 16 over 8 slots; two calls bit-identical and no host sync. Returns
+    their two rows of the kernels line (bf16 at T = 128 / W = 16; the
+    smaller shape beside it)."""
     from repro_torch.kernels import fused_ffn as kff
 
     def t(a, dtype):
@@ -586,16 +694,25 @@ def score_kernel_rows(dev, rng, d: int = 4096, F: int = 16384) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         case("fused_up_relu_tokens", f"tiny shift=0.25 {dtype}", (5, 64), 384,
              dtype, 0.25)
-        case("fused_up_relu_tokens", f"T=40 d split {dtype}", (40, 4096), 1024,
+        # at d = 4096 the f32 kernel cuts d into ranges, summed and folded by
+        # its finishing launch; bf16 blocks cover all of d
+        case("fused_up_relu_tokens", f"T=40 d=4096 {dtype}", (40, 4096), 1024,
              dtype, 0.1)
         case("fused_up_relu_window", f"tiny W=1 {dtype}", (4, 1, 64), 256,
              dtype)
         # 7-row windows straddle the 64-row blocks (in-block fold) and, at
-        # d = 4096, the d ranges (folded by the finishing launch)
+        # d = 4096 in f32, the d ranges
         case("fused_up_relu_window", f"B=3 W=7 shift=0.25 {dtype}", (3, 7, 64),
              256, dtype, 0.25)
-        case("fused_up_relu_window", f"B=5 W=7 d split {dtype}", (5, 7, 4096),
+        case("fused_up_relu_window", f"B=5 W=7 d=4096 {dtype}", (5, 7, 4096),
              1024, dtype)
+        for kind, shape in (("fused_up_relu_tokens", (8, d)),
+                            ("fused_up_relu_window", (8, 4, d))):
+            _, (xz, wz) = case(kind, f"all-zero shift=100 {dtype}", shape, F,
+                               dtype, 100.0)
+            out = kinds[kind][0](xz, wz, 100.0)
+            if out[0].abs().sum().item() or out[1].abs().sum().item():
+                fail(f"{kind}: an all-inactive case is not zero")
         gen = torch.Generator(device=dev).manual_seed(1)
         wu = (torch.randn(d, F, device=dev, generator=gen)
               / np.sqrt(d)).to(dtype)
@@ -627,10 +744,13 @@ def score_kernel_rows(dev, rng, d: int = 4096, F: int = 16384) -> dict:
                 return h, h.reshape(n_groups, -1, F // 128, 128).amax(
                     dim=(1, 3))
 
+            same_bits(f"{kind} {key}={n}", lambda: torch.cat(
+                [v.reshape(-1) for v in fn(x, wu)]))
+
             timed[n] = dict(
-                max_abs_err=err, ms=time_ms(lambda: fn(x, wu)),
-                plain_ms=time_ms(lambda: plain(x, wu)), bound_ms=b_ms,
-                bound_by=b_by, library_ms=time_ms(lib),
+                max_abs_err=err,
+                **timings(lambda: fn(x, wu), lambda: plain(x, wu), lib),
+                bound_ms=b_ms, bound_by=b_by,
                 max_abs_err_f32=big[kind, n, torch.float32][0])
         main, small = sizes
         rows[kind] = dict(
@@ -764,23 +884,20 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
         timed["expert_up_matmul"][T] = dict(
             max_abs_err=errs["up", torch.bfloat16],
             max_abs_err_f32=errs["up", torch.float32],
-            ms=time_ms(lambda: ksm.expert_up_matmul(x, pm["wu"], idx, nv)),
-            plain_ms=time_ms(lambda: ksm.expert_up_matmul_plain(
-                x, pm["wu"], idx, nv)),
+            **timings(lambda: ksm.expert_up_matmul(x, pm["wu"], idx, nv),
+                      lambda: ksm.expert_up_matmul_plain(x, pm["wu"], idx, nv),
+                      lambda: torch.einsum("td,edf->tef", x, pm["wu"])),
             bound_ms=b_up[0], bound_by=b_up[1],
-            library_ms=time_ms(lambda: torch.einsum("td,edf->tef", x,
-                                                    pm["wu"])),
             distinct_tiles=distinct, K=K)
         idx_main, nv_main = idx, nv
         timed["expert_down_matmul"][T] = dict(
             max_abs_err=errs["down", torch.bfloat16],
             max_abs_err_f32=errs["down", torch.float32],
-            ms=time_ms(lambda: ksm.expert_down_matmul(c, pm["wd"], idx, nv)),
-            plain_ms=time_ms(lambda: ksm.expert_down_matmul_plain(
-                c, pm["wd"], idx, nv)),
+            **timings(lambda: ksm.expert_down_matmul(c, pm["wd"], idx, nv),
+                      lambda: ksm.expert_down_matmul_plain(c, pm["wd"], idx,
+                                                           nv),
+                      lambda: torch.einsum("tef,efd->td", hd, pm["wd"])),
             bound_ms=b_down[0], bound_by=b_down[1],
-            library_ms=time_ms(lambda: torch.einsum("tef,efd->td", hd,
-                                                    pm["wd"])),
             distinct_tiles=distinct, K=K)
     # at full width: every token routed to experts 0 and 1 (two runs of
     # T / 64 chunks each), and capacity drops (k_valid of 0, 1 or 2)

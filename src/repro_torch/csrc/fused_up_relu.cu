@@ -16,25 +16,36 @@
 // whose scores pick the tiles of the gathered down-projection; the per-token
 // and window variants are entry points of their own, as in the reference.
 //
-// What bounds it on the H100: at T = 8 the bytes of wu (134 MB in bf16 at
-// OPT-6.7B, 0.04 ms at 3.35 TB/s); at T = 128 the 2*T*d*F operations on
-// CUDA cores (17.2 GFLOP, 0.26 ms at 67 TFLOP/s f32). Tensor cores are not
-// used yet.
+// What bounds it on the H100: the bytes of wu (134 MB in bf16 at OPT-6.7B,
+// 0.040 ms at 3.35 TB/s). Its 2*T*d*F operations (17.2 GFLOP at T = 128)
+// take 0.017 ms on bf16 tensor cores but 0.26 ms on f32 CUDA cores, which
+// is what held the first design (up_relu below, on CUDA cores for both
+// types) at 0.62 ms.
 //
-// Design. A block owns 64 output columns and 16*TM rows (TM = 1, 4 or 8 by
-// T), stages 32-row slices of x (transposed) and wu in shared memory, and
-// each thread accumulates a TM x 4 tile in f32 registers; the next slice is
-// loaded into registers while the current one is used. When the grid would
-// be too small to keep the card's memory busy (small T), the d axis is
-// split into S consecutive ranges: each block writes its raw partial sums
-// to a (S, T, F) scratch and a second launch adds them in range order. The
-// block (or the second launch) that finishes h applies the shift and the
-// ReLU and folds its values into the score of the row's group with an
-// atomicMax on the bit patterns of non-negative floats, whose order is the
-// float order: the max is exact whatever the order of the atomics, also when
-// a group's rows fall in different blocks. With S > 1 only the finishing
-// launch folds, after the row's h is final.
-#include "common.cuh"
+// Two routines, chosen by the type:
+// - bf16: up_tiles (up_tiles.cuh) on tensor cores. A block owns one
+//   128-column tile of wu (one score column) for 64 consecutive rows,
+//   streams the tile and the rows through TMA boxes into an mbarrier ring
+//   and multiplies with wgmma; its epilogue stores h and folds the tile's
+//   scores. Every block covers all of d, at any T (up_tiles.cuh, "Small T").
+// - f32 (the parity path, where engine streams must equal the CPU's and no
+//   time is claimed): up_relu on CUDA cores. A block owns 64 output columns
+//   and 16*TM rows (TM = 1, 4 or 8 by T), stages 32-row slices of x
+//   (transposed) and wu in shared memory, and each thread accumulates a TM
+//   x 4 tile in f32 registers; the next slice is loaded into registers while
+//   the current one is used. When the grid would be too small to keep the
+//   card's memory busy (small T), the d axis is split into S consecutive
+//   ranges (kernels/fused_ffn.py up_relu_plan).
+//
+// With S ranges (f32) each block writes its raw partial sums to a (S, T, F)
+// scratch and up_relu_finish adds them in range order. The block (or the
+// finishing launch) that finishes h applies the shift and the ReLU and
+// folds its values into the score of the row's group with an atomicMax on
+// the bit patterns of non-negative floats, whose order is the float order:
+// the max is exact whatever the order of the atomics, also when a group's
+// rows fall in different blocks. With S > 1 only the finishing launch
+// folds, after the row's h is final.
+#include "up_tiles.cuh"
 
 #define UR_BN 64                      // output columns per block (16 threads x 4)
 #define UR_BK 32                      // rows of d staged per step
@@ -45,7 +56,8 @@
 #define UR_FIN_ROWS 32                // rows per block of the finishing launch
 
 // 8 consecutive weight elements, kept raw in registers from the global load
-// until the shared-memory store (so the load is not waited for early)
+// until the shared-memory store (so the load is not waited for early); f32
+// only (bf16 runs up_tiles)
 template <typename T> struct Raw8;
 template <> struct Raw8<float> {
   float4 a, b;
@@ -59,21 +71,6 @@ template <> struct Raw8<float> {
     *reinterpret_cast<float4*>(s + 4) = b;
   }
 };
-template <> struct Raw8<__nv_bfloat16> {
-  uint4 u;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    u = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ void store(float* s) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    *reinterpret_cast<float4*>(s) = make_float4(f0.x, f0.y, f1.x, f1.y);
-    *reinterpret_cast<float4*>(s + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
-  }
-};
-
 // fold a warp's score candidates into *dst (bit patterns of floats >= 0)
 __device__ __forceinline__ void max_to(unsigned* dst, unsigned v) {
 #pragma unroll
@@ -254,9 +251,10 @@ static cudaError_t launch_up_relu(const T* x, const T* wu, float* h, float* part
 
 // x (T, d); wu (d, F), F a multiple of 128, 16-byte aligned; outputs h (T, F)
 // f32 and scores (n_groups, F / 128) f32, n_groups = ceil(T / G), zeroed here
-// (+0.0, below every folded value). tm: rows per thread (1, 4 or 8); S ranges
-// of kc rows of d (kernels/fused_ffn.py up_relu_plan), scratch (S, T, F) f32
-// when S > 1, else NULL. x and wu share one dtype.
+// (+0.0, below every folded value). x and wu share one dtype. f32: tm rows
+// per thread (1, 4 or 8), S ranges of kc rows of d (kernels/fused_ffn.py
+// up_relu_plan), scratch (S, T, F) f32 when S > 1, else NULL. bf16: x
+// 16-byte aligned, d % 8 == 0; tm, S, kc and scratch unused.
 static int run_up_relu(const void* x, const void* wu, void* h, void* scores, void* scratch,
                        int T, int d, int F, int tm, int S, int kc, int G, int n_groups,
                        float shift, int dtype, void* stream) {
@@ -269,14 +267,18 @@ static int run_up_relu(const void* x, const void* wu, void* h, void* scores, voi
   cudaError_t e = cudaMemsetAsync(sc, 0, n_scores * sizeof(unsigned), st);
   if (e != cudaSuccess || T <= 0) return (int)e;
   float* part = S > 1 ? (float*)scratch : nullptr;
-  if (dtype == DT_F32)
+  if (dtype == DT_F32) {
     e = launch_up_relu((const float*)x, (const float*)wu, (float*)h, part, sc, T, d, F, S, kc,
                        tm, G, shift, st);
-  else if (dtype == DT_BF16)
-    e = launch_up_relu((const __nv_bfloat16*)x, (const __nv_bfloat16*)wu, (float*)h, part, sc,
-                       T, d, F, S, kc, tm, G, shift, st);
-  else
+  } else if (dtype == DT_BF16) {
+    UtArgs a = {};
+    a.x = (const __nv_bfloat16*)x;
+    a.T = T, a.d = d, a.F = F;
+    a.h = (float*)h, a.scores = sc, a.G = G, a.shift = shift;
+    e = launch_up_tiles(a, (const __nv_bfloat16*)wu, st);
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return (int)e;
 }
 

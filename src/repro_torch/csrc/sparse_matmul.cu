@@ -22,7 +22,7 @@
 
 // x (T, F); w (F, D), D even; idx (K,) i32; nvalid (1,) i32; scratch
 // (T, ceil(K / run), D) f32, or NULL when run >= K -> y (T, D) f32. x is f32
-// or w's dtype.
+// (multiplied unrounded) or w's dtype.
 extern "C" int sparse_matmul(const void* x, const void* w, const void* idx, const void* nvalid,
                              void* scratch, void* y, int T, int F, int D, int K, int run,
                              int tile, int x_dtype, int w_dtype, void* stream) {
@@ -38,9 +38,10 @@ extern "C" int sparse_matmul(const void* x, const void* w, const void* idx, cons
   else if (x_dtype == DT_BF16 && w_dtype == DT_BF16)
     e = launch_tile_gather_rows((const __nv_bfloat16*)x, (long)F, 0, (const __nv_bfloat16*)w,
                                 ix, 0L, nv, 0, P, out, T, K, run, tile, D, s);
-  else if (x_dtype == DT_F32 && w_dtype == DT_BF16)
-    e = launch_tile_gather_rows((const float*)x, (long)F, 0, (const __nv_bfloat16*)w, ix, 0L,
-                                nv, 0, P, out, T, K, run, tile, D, s);
+  else if (x_dtype == DT_F32 && w_dtype == DT_BF16)  // x unrounded, as the promoted dot
+    e = launch_tile_gather_rows<float, __nv_bfloat16, false>(
+        (const float*)x, (long)F, 0, (const __nv_bfloat16*)w, ix, 0L, nv, 0, P, out, T, K, run,
+        tile, D, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)e;

@@ -18,7 +18,8 @@
 // f32 CUDA cores but 0.017 ms on bf16 tensor cores.
 //
 // Two routines, chosen by the weights' dtype:
-// - bf16 weights: tile_groups (tile_group.cuh) on tensor cores. At d_ff /
+// - bf16 weights: tile_groups (tile_group.cuh) on tensor cores, an f32 x
+//   split into three bf16 terms (not rounded). At d_ff /
 //   tile <= 128 tiles every tile id is one run, so chunks are 64 consecutive
 //   rows: a block reads each tile that any of its 64 rows lists once, for
 //   all of them (at the serve shape, 8 windows x 16 rows, four windows
@@ -43,16 +44,26 @@ extern "C" int sparse_matmul_tokens(const void* x, const void* w, const void* id
                                       (cudaStream_t)stream);
 }
 
-// bf16 x (T, F) and w (F, D), D % 8 == 0, tile % 16 == 0; idx (T, K), nvalid
-// (T,) i32; runs of R tile ids, n_runs = ceil(F / tile / R) <= 64. With one
-// run mask and P may be NULL; else mask (T,) u64 and P (n_runs * T, D) f32
-// are scratch -> y (T, D) f32.
+// x (T, F) bf16, or f32 (multiplied unrounded, as three bf16 terms), and
+// bf16 w (F, D), D % 8 == 0, tile % 16 == 0; idx (T, K), nvalid (T,) i32;
+// runs of R tile ids, n_runs = ceil(F / tile / R) <= 64. With one run mask
+// and P may be NULL; else mask (T,) u64 and P (n_runs * T, D) f32 are
+// scratch -> y (T, D) f32.
 extern "C" int sparse_matmul_tokens_tc(const void* x, const void* w, const void* idx,
                                        const void* nvalid, void* mask, void* P, void* y, int T,
                                        int F, int D, int K, int n_runs, int R, int tile,
-                                       void* stream) {
-  return (int)launch_tile_groups<__nv_bfloat16, 64>(
-      (const __nv_bfloat16*)x, (long)F, 0, (const __nv_bfloat16*)w, (long)F, (const int*)idx, K,
-      (const int*)nvalid, n_runs, (unsigned long long*)mask, (float*)P, (float*)y, T, R, tile,
-      D, (cudaStream_t)stream);
+                                       int x_dtype, void* stream) {
+  const __nv_bfloat16* wb = (const __nv_bfloat16*)w;
+  const int* ix = (const int*)idx;
+  const int* nv = (const int*)nvalid;
+  unsigned long long* m = (unsigned long long*)mask;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == DT_F32)
+    return (int)launch_tile_groups<float, 64>((const float*)x, (long)F, 0, wb, (long)F, ix, K, nv,
+                                              n_runs, m, (float*)P, (float*)y, T, R, tile, D, s);
+  if (x_dtype == DT_BF16)
+    return (int)launch_tile_groups<__nv_bfloat16, 64>((const __nv_bfloat16*)x, (long)F, 0, wb,
+                                                      (long)F, ix, K, nv, n_runs, m, (float*)P,
+                                                      (float*)y, T, R, tile, D, s);
+  return (int)cudaErrorInvalidValue;
 }

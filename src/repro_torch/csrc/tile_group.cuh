@@ -48,14 +48,13 @@
 // 3. run_sum (more than one run): y[t] = row t's pair partials P[s * T + t]
 //    summed in ascending run order, f32; a row with no run gets zeros.
 //
-// Operands: A is x rounded to bf16 (the wrapper casts an f32 x, as the
-// reference's dot in the weights' dtype rounds it) or bf16 already; then the
+// Operands: a bf16 A (x or compact blocks) is multiplied as it is; then the
 // operands equal the reference's and only the order of the f32 sum differs.
-// f32 compact blocks against bf16 weights are multiplied unrounded, as the
-// reference's promoted dot does: the consumer warps split each staged A
-// element v once into three bf16 terms, hi = bf16(v), mid = bf16(v - hi),
-// lo = bf16(v - hi - mid) (each difference exact in f32; the sum is v to
-// within 2^-24 |v|),
+// An f32 A against bf16 weights (an f32 x in tokens mode, f32 blocks in
+// compact mode) is multiplied unrounded, as the reference's promoted dot
+// does: the consumer warps split each staged A element v once into three
+// bf16 terms, hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid)
+// (each difference exact in f32; the sum is v to within 2^-24 |v|),
 // and one mma is issued per term against the same weight fragment (the
 // weight is exactly bf16). At Mixtral-8x22B width, T = 128 and top-2 that is
 // 3 terms x 256 pairs x 16384 x 6144 x 2 = 155 GFLOP (a warp whose 16 pairs
@@ -530,9 +529,10 @@ typedef CUresult (*TgEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The tensor map of a bf16 weight (rows, D) read in boxes of KS rows x 64
-// columns with the 128-byte swizzle (the driver's encoder, reached through
-// the runtime, so no link against the driver library is needed).
+// The tensor map of a bf16 matrix (rows, D), a weight or x, read in boxes of
+// KS rows x 64 columns with the 128-byte swizzle (the driver's encoder,
+// reached through the runtime, so no link against the driver library is
+// needed).
 static cudaError_t tg_weight_map(CUtensorMap* map, const __nv_bfloat16* w, long rows, int D,
                                  int KS) {
   static TgEncodeTiled encode = nullptr;

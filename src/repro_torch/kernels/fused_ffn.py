@@ -12,9 +12,14 @@ only in which rows share a score:
 - ``fused_up_relu_window``: a score row per slot, the union over its W
   window tokens (the selection input of a window's sparse down-projection).
 
-The source note says what bounds them on the H100 (wu's bytes at T = 8, the
-f32 operations at T = 128) and how the scores stay exact without ordering
-the atomics. Each wrapper has its own C entry point and launch counter.
+What bounds them on the H100 is wu's bytes (0.040 ms for OPT-6.7B's 134
+MB in bf16). The first design ran on f32 CUDA cores, whose 0.26 ms for
+the 17.2 GFLOP at T = 128 held it at 0.62 ms; bf16 now runs the tensor-core
+up-projection routine of ``csrc/up_tiles.cuh`` (a block per 128-column
+tile of wu and 64 rows over all of d, TMA boxes, ``wgmma``, the shift,
+ReLU and scores in its epilogue); f32 stays on CUDA cores, the parity
+path, with d split over blocks at small T (``up_relu_plan``). The source note says how the scores stay exact without ordering the
+atomics. Each wrapper has its own C entry point and launch counter.
 
 ``tile_activity`` and ``window_tile_activity`` are plain torch (XLA
 functions in the reference, not kernels).
@@ -30,8 +35,9 @@ from repro_torch.kernels import runtime as rt
 
 TILE = 128
 
-# csrc/fused_up_relu.cu: columns per block, rows of d per staged slice,
-# threads across a block's rows, and the grid it aims for when it splits d
+# csrc/fused_up_relu.cu up_relu (f32): columns per block, rows of d per
+# staged slice, threads across a block's rows, and the grid it aims for
+# when it splits d
 UR_BN, UR_BK, UR_TY, UR_TARGET_BLOCKS = 64, 32, 16, 1024
 UR_MAX_SCRATCH = 64 * 2 ** 20
 
@@ -55,8 +61,8 @@ def window_tile_activity(h: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 
 
 def up_relu_plan(T: int, d: int, F: int) -> Tuple[int, int, int]:
-    """(tm, S, kc) for the kernel: tm rows per thread (a block covers
-    16 * tm rows); the d axis cut into S consecutive ranges of kc rows
+    """(tm, S, kc) for the f32 CUDA-core kernel: tm rows per thread (a block
+    covers 16 * tm rows); the d axis cut into S consecutive ranges of kc rows
     (a multiple of the staged slice), as many as bring the grid to about
     UR_TARGET_BLOCKS blocks, with at least 4 slices per range and the
     (S, T, F) f32 partial-sum scratch under UR_MAX_SCRATCH bytes."""
@@ -85,12 +91,18 @@ def _launch(entry: str, x, wu, shift: float, n_groups: int, *window
     T, d = x.shape
     F = wu.shape[1]
     rt.require(wu.shape[0] == d and F % TILE == 0,
-               f"x {tuple(x.shape)} / wu {tuple(wu.shape)}: F must be a "
-               f"multiple of {TILE}")
+               lambda: f"x {tuple(x.shape)} / wu {tuple(wu.shape)}: F must be "
+                       f"a multiple of {TILE}")
     code = rt.dtype_code(x, wu)
     rt.require_contiguous(x=x, wu=wu)
-    rt.require(wu.data_ptr() % 16 == 0, "wu must be 16-byte aligned")
-    tm, S, kc = up_relu_plan(T, d, F)
+    rt.require_aligned(wu=wu)
+    if x.dtype == torch.bfloat16:  # the tensor-core routine
+        rt.require(d % 8 == 0,
+                   lambda: f"x {tuple(x.shape)}: bf16 needs d % 8 == 0")
+        rt.require_aligned(x=x)
+        tm, S, kc = 1, 1, d  # the f32 kernel's plan: not read
+    else:
+        tm, S, kc = up_relu_plan(T, d, F)
     h = torch.empty((T, F), dtype=torch.float32, device=x.device)
     scores = torch.empty((n_groups, F // TILE), dtype=torch.float32,
                          device=x.device)

@@ -160,6 +160,17 @@ def gather_runs(T: int, K: int, D: int, device) -> tuple:
     return run, scratch
 
 
+# csrc/up_tiles.cuh: output columns per block (one weight tile)
+UT_BN = 128
+
+
+def require_aligned(**tensors: torch.Tensor) -> None:
+    """The TMA and 16-byte copies of the tensor-core routines need 16-byte
+    aligned bases."""
+    for k, t in tensors.items():
+        require(t.data_ptr() % 16 == 0, lambda: f"{k} must be 16-byte aligned")
+
+
 def require(cond: bool, msg) -> None:
     """Raise ValueError(msg) unless cond; msg may be a callable that builds
     the message, so a wrapper's hot path formats nothing."""
@@ -170,11 +181,11 @@ def require(cond: bool, msg) -> None:
 def dtype_code(*tensors: torch.Tensor) -> int:
     dts = {t.dtype for t in tensors}
     require(len(dts) == 1 and next(iter(dts)) in DTYPE_CODES,
-            f"kernel takes one dtype of {list(DTYPE_CODES)}; got {dts}")
+            lambda: f"kernel takes one dtype of {list(DTYPE_CODES)}; got {dts}")
     return DTYPE_CODES[next(iter(dts))]
 
 
 def require_contiguous(**tensors: Optional[torch.Tensor]) -> None:
     for k, t in tensors.items():
         if t is not None:
-            require(t.is_contiguous(), f"{k} must be contiguous")
+            require(t.is_contiguous(), lambda: f"{k} must be contiguous")

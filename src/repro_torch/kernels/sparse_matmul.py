@@ -28,10 +28,13 @@ CUDA-core row gather of ``csrc/common.cuh`` (blocks of 16 rows walk runs of
 list slots in list order; ``runtime.gather_runs`` keeps its scratch under
 9 MB). Every kernel adds one product per valid list slot, so a tile listed
 twice counts twice, as in the reference; the plain versions weight each
-tile by its count (``predictors.tile_counts``). ``sparse_up_matmul`` and
-``expert_up_matmul`` share ``ffn_up`` (``csrc/ffn_up.cuh``) with
-``fused_sparse_ffn``. Each source note says what bounds the kernel on the
-H100.
+tile by its count (``predictors.tile_counts``). An f32 x against bf16
+weights is multiplied unrounded, as the reference's promoted dot does.
+``sparse_up_matmul`` with bf16 x and weights runs the tensor-core
+up-projection routine of ``csrc/up_tiles.cuh`` (a block per weight tile
+and chunk of up to 64 rows listing it); in f32, like ``expert_up_matmul``,
+it shares ``ffn_up`` (``csrc/ffn_up.cuh``) with ``fused_sparse_ffn``. Each
+source note says what bounds the kernel on the H100.
 """
 from __future__ import annotations
 
@@ -53,11 +56,12 @@ def sparse_matmul_tokens_plain(x, w, idx, nvalid, *, tile: int = 128
     """The plain PyTorch version: x's units weighted by the number of valid
     slots naming their tile (zero for non-listed tiles), times w, in f32 —
     the same sum, as skipped tiles add exact zeros and a tile listed twice
-    adds its product twice."""
+    adds its product twice. An f32 x against bf16 weights keeps its values,
+    as the reference's promoted dot does."""
     T, F = x.shape
     counts = preds.tiles_to_units(preds.tile_counts(idx, nvalid, F // tile),
                                   tile)
-    return (x.to(w.dtype).float() * counts) @ w.float()
+    return (x.float() * counts) @ w.float()
 
 
 def sparse_matmul_tokens(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
@@ -65,14 +69,15 @@ def sparse_matmul_tokens(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     nvalid (T,) int32. Returns (T, D) f32: row t sums one product per valid
     slot of its idx[t, :nvalid[t]] list. CPU tensors take the plain version;
     CUDA tensors launch the kernel (``sparse_matmul_tokens.launches`` counts
-    them): for bf16 weights the tile-grouped tensor-core routine, for f32
-    weights and x the CUDA-core row gather."""
+    them): for bf16 weights the tile-grouped tensor-core routine (an f32 x
+    multiplied unrounded, as three bf16 terms), for f32 weights and x the
+    CUDA-core row gather."""
     if rt.on_cpu(x, w, idx, nvalid):
         return sparse_matmul_tokens_plain(x, w, idx, nvalid, tile=tile)
     T, F = x.shape
     D = w.shape[1]
     K = idx.shape[1]
-    _, wc = _check_gather(x, w, idx, nvalid, tile, (T, K), (T,))
+    xc, wc = _check_gather(x, w, idx, nvalid, tile, (T, K), (T,))
     y = torch.empty((T, D), dtype=torch.float32, device=x.device)
     if wc == rt.DTYPE_CODES[torch.float32]:
         run, scratch = rt.gather_runs(T, K, D, x.device)
@@ -84,12 +89,10 @@ def sparse_matmul_tokens(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     else:
         R = min(F // tile, TG_RMAX)
         fn = rt.entry("sparse_matmul_tokens", "sparse_matmul_tokens_tc",
-                      _TC_ARGS + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        # an f32 x is rounded to bf16, as the reference's dot in the
-        # weights' dtype rounds it
-        rc = _tile_groups(fn, x.to(w.dtype), w, idx, nvalid, y,
+                      _TC_ARGS + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        rc = _tile_groups(fn, x, w, idx, nvalid, y,
                           n_tiles=F // tile, run=R, tile=tile,
-                          ints=lambda T_, S: (T_, F, D, K, S, R, tile))
+                          ints=lambda T_, S: (T_, F, D, K, S, R, tile, xc))
     rt.check(rc, "sparse_matmul_tokens")
     sparse_matmul_tokens.launches += 1
     return y
@@ -209,10 +212,11 @@ def _tile_groups(fn, a, w, idx, nvalid, y, *, n_tiles: int, run: int,
 
 def sparse_matmul_plain(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     """The plain PyTorch version of ``sparse_matmul``: x's units weighted by
-    the number of valid slots naming their tile, times w, in f32."""
+    the number of valid slots naming their tile, times w, in f32 (an f32 x
+    unrounded against bf16 weights, as the reference's promoted dot)."""
     n_tiles = x.shape[1] // tile
     counts = preds.tile_counts(idx.reshape(1, -1), nvalid.reshape(1), n_tiles)
-    return (x.to(w.dtype).float() * preds.tiles_to_units(counts, tile)) @ w.float()
+    return (x.float() * preds.tiles_to_units(counts, tile)) @ w.float()
 
 
 def sparse_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
@@ -256,22 +260,33 @@ def sparse_up_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     row t's listed tiles of x @ w, exact zeros elsewhere. CUDA tensors launch
     the kernel, which writes a compact (T, K, tile) buffer (zeros past
     nvalid), and ``scatter_compact`` places it (``sparse_up_matmul.launches``
-    counts the launches); CPU tensors take the plain version."""
+    counts the launches); CPU tensors take the plain version. bf16 at tile
+    128 runs the tensor-core routine of csrc/up_tiles.cuh (a block per
+    weight tile and chunk of up to 64 rows listing it); f32, or another
+    tile, the CUDA-core ``ffn_up``."""
     if rt.on_cpu(x, w, idx, nvalid):
         return sparse_up_matmul_plain(x, w, idx, nvalid, tile=tile)
     T, d = x.shape
     F, K = w.shape[1], idx.shape[1]
     rt.require(w.shape[0] == d and F % tile == 0,
-               f"x {tuple(x.shape)} / w {tuple(w.shape)} / tile {tile}")
+               lambda: f"x {tuple(x.shape)} / w {tuple(w.shape)} / tile {tile}")
     rt.require(idx.shape == (T, K) and nvalid.shape == (T,), "idx/nvalid shape")
     rt.require(idx.dtype == torch.int32 and nvalid.dtype == torch.int32,
                "idx and nvalid must be int32")
     code = rt.dtype_code(x, w)
     rt.require_contiguous(x=x, w=w, idx=idx, nvalid=nvalid)
     compact = torch.empty((T, K, tile), dtype=torch.float32, device=x.device)
-    fn = rt.entry("sparse_up_matmul", "sparse_up_matmul", _UP_ARGS)
-    rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(compact),
-            T, d, F, K, tile, code, rt.stream_ptr(x.device))
+    bits = None
+    if x.dtype == torch.bfloat16 and tile == rt.UT_BN:
+        rt.require(d % 8 == 0,
+                   lambda: f"x {tuple(x.shape)}: bf16 needs d % 8 == 0")
+        rt.require_aligned(x=x, w=w)
+        bits = torch.empty((-(-(F // tile) // 32), T), dtype=torch.int32,
+                           device=x.device)
+    fn = rt.entry("sparse_up_matmul", "sparse_up_matmul",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(bits),
+            rt.ptr(compact), T, d, F, K, tile, code, rt.stream_ptr(x.device))
     rt.check(rc, "sparse_up_matmul")
     sparse_up_matmul.launches += 1
     return scatter_compact(compact, idx, nvalid, F // tile)

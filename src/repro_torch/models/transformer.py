@@ -424,9 +424,14 @@ def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
     ``fused`` picks the lowering (the reference picks it with
     ``fast_kernels``): True runs ``fused_sparse_ffn`` over the lists; False
     the unfused pair, ``sparse_up_matmul`` then the activation times the
-    covered mask, then ``sparse_matmul_tokens``. The two give the same
-    result bit for bit (same per-tile dots, same accumulation order). On
-    CUDA tensors both launch the CUDA kernels.
+    covered mask, then ``sparse_matmul_tokens``. In f32 the two give the
+    same result bit for bit (same per-tile dots, same accumulation order).
+    With bf16 weights the pair runs the tensor-core routines
+    (``csrc/up_tiles.cuh``, ``csrc/tile_group.cuh``), which sum in another
+    order than ``fused_sparse_ffn``: on the card they agree within the bf16
+    tolerance (max |diff| 6.6e-5 of 4.2 at T = 8 with full lists, one bf16
+    ulp of f on OPT-6.7B layer 0; PERF.md). On CUDA tensors both launch the
+    CUDA kernels.
 
     With ``measure`` a recall miss is counted: a dense gate pre-activation
     (telemetry only, never fed to the residual stream) re-reads the gate

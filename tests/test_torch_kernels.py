@@ -285,7 +285,7 @@ def walk_tile_groups(a, w, idx, nvalid, *, tile: int, run: int,
     ascending id, each walked once per repeat (a row's A slice zeroed where
     it names the tile no more often, its (rep+1)-th slot's block in compact
     mode), f32 partials per (run, row), then each row's partials summed in
-    ascending run order. A is rounded to w's dtype (terms None) or split
+    ascending run order. A is multiplied as it is (terms None) or split
     into ``terms`` bf16 terms."""
     T, K = idx.shape
     D = w.shape[-1]
@@ -315,8 +315,7 @@ def walk_tile_groups(a, w, idx, nvalid, *, tile: int, run: int,
                     if len(slots[m][ti]) > rep:
                         A[m] = (a[t, slots[m][ti][rep]] if compact
                                 else a[t, ti * tile:(ti + 1) * tile]).float()
-                parts = ([A.to(w.dtype).float()] if terms is None
-                         else bf16_terms(A, terms))
+                parts = [A] if terms is None else bf16_terms(A, terms)
                 for part in reversed(parts):  # smallest term first
                     acc += part @ w2[ti * tile:(ti + 1) * tile]
         P[s, rows] = acc
@@ -391,28 +390,34 @@ def test_tile_group_scratch_stays_bounded(T, K, D, n_tiles, run):
 
 
 @pytest.mark.parametrize("case", ["one run", "four runs", "repeats unsorted",
-                                  "chunks of 2"])
+                                  "chunks of 2", "f32 x, bf16 w"])
 def test_tile_group_walk_matches_plain_and_pallas(case):
     """The plain walk of the routine (chunks, unions, zeroed rows, repeats,
     ordered sum) equals sparse_matmul_tokens' plain version and the Pallas
     kernel at f32, with nvalid == 0 rows, repeated tiles and unsorted
-    lists."""
+    lists; an f32 x against bf16 weights through three bf16 terms, not
+    rounded."""
     rng = np.random.RandomState(len(case))
     T, K, tile, D = 9, 5, 16, 24
     n_tiles = 8
     run, chunk = {"one run": (8, 64), "four runs": (2, 64),
-                  "repeats unsorted": (4, 64), "chunks of 2": (2, 2)}[case]
+                  "repeats unsorted": (4, 64), "chunks of 2": (2, 2),
+                  "f32 x, bf16 w": (8, 64)}[case]
     idx, nv = _random_lists(rng, T, K, n_tiles,
                             unsorted=case != "one run",
-                            repeats=case == "repeats unsorted")
+                            repeats=case in ("repeats unsorted", "f32 x, bf16 w"))
     x = (rng.randn(T, n_tiles * tile)).astype(np.float32)
     w = (rng.randn(n_tiles * tile, D) / 8).astype(np.float32)
-    tx, tw, ti, tn = map(torch.as_tensor, (x, w, idx, nv))
+    w_dtype = "bfloat16" if case == "f32 x, bf16 w" else "float32"
+    tx, ti, tn = map(torch.as_tensor, (x, idx, nv))
+    tw = torch.as_tensor(w).to(getattr(torch, w_dtype))
     got = walk_tile_groups(tx, tw, ti, tn, tile=tile, run=run, compact=False,
-                           chunk=chunk)
+                           chunk=chunk,
+                           terms=3 if w_dtype == "bfloat16" else None)
     _close(got, tsm.sparse_matmul_tokens_plain(tx, tw, ti, tn, tile=tile))
-    _close(got, jsm.sparse_matmul_tokens(*map(jnp.asarray, (x, w, idx, nv)),
-                                         tile=tile))
+    _close(got, jsm.sparse_matmul_tokens(
+        jnp.asarray(x), jnp.asarray(w, getattr(jnp, w_dtype)), jnp.asarray(idx),
+        jnp.asarray(nv), tile=tile))
     assert not got[nv == 0].any()
 
 
@@ -477,7 +482,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         tpa.paged_window_attention_plain(*args, window=5), **TOL)
     xs = c(np.random.RandomState(0).randn(4, 512).astype(np.float32))
     # f32 weights: the CUDA-core gather; bf16: the tile-grouped tensor-core
-    # routine (x rounded to bf16 by both, so only the f32 sums' order differs)
+    # routine (the f32 x unrounded in both, as three bf16 terms in the kernel,
+    # so only the f32 sums' order differs)
     for w in (c(wd), c(wd).bfloat16()):
         torch.testing.assert_close(
             tsm.sparse_matmul_tokens(xs, w, idx, nv, tile=tile),
