@@ -22,7 +22,15 @@ device and build always run):
             25 runs after warm-up: host time included) and on the card (one
             call captured in a CUDA graph and replayed), the plain version,
             and one PyTorch library call computing the same function (both
-            ways), and works out the card's bound. The tile-grouped routine
+            ways), and works out the card's bound. Kernel 2 (bf16: pages
+            cut into runs, tensor cores) is also timed at long contexts
+            (OPT-6.7B at 1536 to 2048 tokens, Mixtral-8x22B over its 4096
+            window at W = 1 and 16) and the OPT 16-token chunk, against
+            SDPA on K and V expanded to the query heads; kernel 5 (the
+            shared-list tile groups) at T = 8 beside T = 128, and on the
+            card at 32 and at 64 columns a block; both also
+            two calls bit for bit and one under the sync check (below).
+            The tile-grouped routine
             of kernels 3 and 10 (bf16 weights) also at 25% window lists, one
             row per list, T = 4096, repeated tiles, all tokens on two experts
             and k_valid drops; the up-projection routine of kernels 4, 6, 7
@@ -62,6 +70,7 @@ The line before the last is the kernels JSON object; the last line is
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -208,6 +217,7 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels import fused_ffn as kff
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import runtime as rt
     from repro_torch.kernels import sparse_matmul as ksm
     from repro_torch.models.common import paged_gather
     from repro_torch.predictor import predictors as preds
@@ -317,45 +327,105 @@ def kernel_phase(dev) -> dict:
         attn_case(f"OPT-6.7B chunk W=16 {dtype}", 8, 16, 32, 1, 128, 16, 16,
                   129, dtype)
         # Mixtral-8x22B's geometry on the MoE serve path: 8 kv heads x 6
-        # query heads, R = 96 rows per block at W = 16 (122 KB of shared
-        # memory); then its 4096-token sliding window over 4352 to 5120
-        # cached tokens, so the window masks and skips leading blocks
+        # query heads, R = 96 rows per block at W = 16 (bf16: six m16 tiles,
+        # one a consumer warp, the pages cut into runs); then its 4096-token
+        # sliding window over 4352 to 5120 cached tokens, so the window
+        # masks and skips leading blocks
         for W in (16, 1):
             attn_case(f"Mixtral-8x22B W={W} {dtype}", 8, W, 8, 6, 128, 16, 16,
                       129, dtype, window=4096)
             attn_case(f"Mixtral-8x22B W={W} window=4096 masking {dtype}", 8,
                       W, 8, 6, 128, 16, 320, 8 * 320 + 1, dtype, window=4096,
                       min_end=4352)
+        # a 5-token verify window (R = 30: two m16 tiles, bf16 splits the
+        # keys two ways) and R = 192 (bf16: two row groups of six tiles)
+        attn_case(f"Mixtral-8x22B W=5 {dtype}", 8, 5, 8, 6, 128, 16, 16, 129,
+                  dtype, window=4096)
+        attn_case(f"GQA W=32 g=6 window=100 {dtype}", 2, 32, 2, 6, 128, 16, 20,
+                  50, dtype, window=100)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         errs[dtype], args = attn_case(f"OPT-6.7B decode W=1 {dtype}", 8, 1, 32,
                                       1, 128, 16, 16, 129, dtype)
-    q, kp, vp, table, pos, end = args
-    blocks_read = int(sum(-(-int(e) // 16) for e in end))
-    n_bytes = (blocks_read * 32 * 16 * 128 * 2 * 2 + q.numel() * 2 * 2
-               + table.numel() * 4 + pos.numel() * 4)
-    flops = float(sum(int(e) for e in end)) * 32 * 4 * 128
-    b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
-    kg, vg = paged_gather(kp, table), paged_gather(vp, table)
-    S = kg.shape[2]
-    am = (torch.arange(S, device=dev)[None, :] <= pos[:, :1]).view(8, 1, 1, S)
-    qh = q[:, 0].reshape(8, 32, 1, 128)
+    # bf16 rows timed beside the decode row: long contexts (OPT-6.7B at
+    # 1536 to 2048 tokens, 269 MB of K and V in the pool; Mixtral-8x22B
+    # over its 4096 window) and the two 16-token prefill chunks
+    attn_timed = {"OPT-6.7B decode W=1": (args, 0)}
+    for name, shape, window, min_end in (
+            ("OPT-6.7B decode W=1 at 1536-2048 tokens",
+             (8, 1, 32, 1, 128, 16, 128, 1025), 0, 1536),
+            ("Mixtral-8x22B decode W=1 window=4096 at 4352-5120 tokens",
+             (8, 1, 8, 6, 128, 16, 320, 8 * 320 + 1), 4096, 4352),
+            ("Mixtral-8x22B W=16 window=4096 at 4352-5120 tokens",
+             (8, 16, 8, 6, 128, 16, 320, 8 * 320 + 1), 4096, 4352),
+            ("OPT-6.7B chunk W=16", (8, 16, 32, 1, 128, 16, 16, 129), 0,
+             None)):
+        err, a_ = attn_case(f"{name} {torch.bfloat16}", *shape, torch.bfloat16,
+                            window=window, min_end=min_end)
+        attn_timed[name] = (a_, window)
+        errs[name] = err
+    for name in ("OPT-6.7B decode W=1",
+                 "Mixtral-8x22B decode W=1 window=4096 at 4352-5120 tokens",
+                 "Mixtral-8x22B W=16 window=4096 at 4352-5120 tokens"):
+        (q, kp, vp, table, pos, _), window = attn_timed[name]
+        same_bits(f"paged_window_attention {name}",
+                  lambda: kpa.paged_window_attention(q, kp, vp, table, pos,
+                                                     window=window))
 
-    def lib_attn():  # SDPA over the gathered cache, the yardstick
-        return torch.nn.functional.scaled_dot_product_attention(
-            qh, kg, vg, attn_mask=am)
+    def attn_row(q, kp, vp, table, pos, end, window):
+        """bound (bytes: each needed page of K and V once, q, the output,
+        table and pos; operations: 4 hd per valid (row, key)), and the
+        kernel's, the plain version's and SDPA's times (SDPA over the
+        gathered cache, K and V expanded to the query heads before
+        timing, a boolean mask)"""
+        b, W, kvp, g, hd = q.shape
+        bs, nb = kp.shape[2], table.shape[1]
+        pos_np = pos.cpu().numpy()
+        pages, valid = 0, 0
+        for t_ in range(b):
+            lo, hi = kpa.needed_pages(pos_np[t_].tolist(), window, bs, nb)
+            pages += max(0, hi - lo + 1)
+            for p in pos_np[t_]:
+                valid += max(0, min(p + 1, window) if window else p + 1)
+        n_bytes = (pages * kvp * bs * hd * 2 * 2 + q.numel() * 2 * 2
+                   + table.numel() * 4 + pos.numel() * 4)
+        b_ms, b_by = bound(n_bytes, 4.0 * valid * g * kvp * hd,
+                           torch.bfloat16)
+        kg = paged_gather(kp, table).repeat_interleave(g, dim=1)
+        vg = paged_gather(vp, table).repeat_interleave(g, dim=1)
+        keys = torch.arange(kg.shape[2], device=dev)[None, None, :]
+        am = keys <= pos[:, :, None]
+        if window:
+            am &= keys > pos[:, :, None] - window
+        am = am[:, None]                                     # (b, 1, W, S)
+        qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvp * g, W, hd)
 
+        def lib_attn():  # SDPA over the gathered cache, the yardstick
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kg, vg, attn_mask=am)
+
+        return dict(**timings(
+            lambda: kpa.paged_window_attention(q, kp, vp, table, pos,
+                                               window=window),
+            lambda: kpa.paged_window_attention_plain(q, kp, vp, table, pos,
+                                                     window=window),
+            lib_attn), bound_ms=b_ms, bound_by=b_by,
+            splits=kpa.attention_splits(b, kvp, nb, W * g, hd, bs,
+                                        kpa._sm_count(dev)))
+
+    attn_at = {}
+    for name, (a_, window) in attn_timed.items():
+        attn_at[name] = dict(max_abs_err=errs.get(name, errs[torch.bfloat16]),
+                             **attn_row(*a_, window))
+    del attn_timed
     results["paged_window_attention"] = dict(
         name="paged_window_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:87",
-        max_abs_err=errs[torch.bfloat16],
-        **timings(lambda: kpa.paged_window_attention(q, kp, vp, table, pos),
-                  lambda: kpa.paged_window_attention_plain(q, kp, vp, table,
-                                                           pos), lib_attn),
-        bound_ms=b_ms, bound_by=b_by,
+        **attn_at.pop("OPT-6.7B decode W=1"),
         shape="b=8 W=1 kvp=32 g=1 hd=128 bs=16 nb=16 bf16",
-        max_abs_err_f32=errs[torch.float32])
+        max_abs_err_f32=errs[torch.float32],
+        **{f"at {k}": v for k, v in attn_at.items()})
 
     # -- sparse_matmul_tokens -----------------------------------------------
     def smm_case(name, T, F, D, tile, dtype, tile_mask, rows_per_list=1):
@@ -613,36 +683,76 @@ def kernel_phase(dev) -> dict:
         shared_case(f"tiny nvalid=0 {dtype}", 4, 256, 64, dtype, [1, 0], 0)
         shared_case(f"tiny duplicate pads {dtype}", 4, 256, 64, dtype,
                     [1, 1, 1], 1)
+        # a tile listed twice counts twice; T = 100 ends in a part chunk
+        shared_case(f"repeated valid tiles T=100 {dtype}", 100, 768, 64, dtype,
+                    [3, 1, 3, 0, 3, 5], 5)
         shared_case(f"OPT-6.7B T=128 K=32 nvalid=20 {dtype}", 128, 16384,
                     4096, dtype, order[:32], 20)
+        shared_case(f"OPT-6.7B T=1 K=32 score order {dtype}", 1, 16384, 4096,
+                    dtype, order[:32], 32)
         errs[dtype], args = shared_case(
             f"OPT-6.7B T=128 K=32 score order {dtype}", 128, 16384, 4096,
             dtype, order[:32], 32)
+    _, args8 = shared_case(f"OPT-6.7B T=8 K=32 score order {torch.bfloat16}",
+                           8, 16384, 4096, torch.bfloat16, order[:32], 32)
     x, w, idx, nvalid = args
     # an f32 x against bf16 weights is multiplied unrounded: f32 tolerance
     for name, xf, wb, ib, nb in (
             ("tiny duplicate pads", t(rng.randn(4, 256)),
              t(rng.randn(256, 64) / 16.0, torch.bfloat16),
              t([1, 1, 1], torch.int32), t(1, torch.int32)),
+            ("repeated valid tiles T=100", t(rng.randn(100, 768)),
+             t(rng.randn(768, 64) / 16.0, torch.bfloat16),
+             t([3, 1, 3, 0, 3, 5], torch.int32), t(5, torch.int32)),
             ("OPT-6.7B T=128 K=32 score order", x.float(), w, idx, nvalid)):
         compare(f"sparse_matmul {name} (x f32, w bf16)",
                 [ksm.sparse_matmul(xf, wb, ib, nb)],
                 [ksm.sparse_matmul_plain(xf, wb, ib, nb)], torch.float32)
-    nv = int(nvalid)
-    n_bytes = (128 * nv * 128 * 2 + nv * 128 * 4096 * 2 + idx.numel() * 4 + 4
-               + 128 * 4096 * 4)
-    b_ms, b_by = bound(n_bytes, 2.0 * 128 * nv * 128 * 4096, torch.bfloat16)
+    def shared_list(xa, wa, ia, na, columns):
+        """sparse_matmul's bf16 entry point with ``columns`` a block (the
+        wrapper takes shared_list_columns(T)); not counted as a launch"""
+        y = torch.empty((xa.shape[0], wa.shape[1]), dtype=torch.float32,
+                        device=dev)
+        fn = rt.entry("sparse_matmul", "sparse_matmul_tc",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        rt.check(fn(rt.ptr(xa), rt.ptr(wa), rt.ptr(ia), rt.ptr(na), rt.ptr(y),
+                    xa.shape[0], xa.shape[1], wa.shape[1], ia.shape[0], 128,
+                    columns, rt.DTYPE_CODES[xa.dtype], rt.stream_ptr(dev)),
+                 "sparse_matmul")
+        return y
+
+    sm_rows = {}
+    for T_, (xa, wa, ia, na) in ((128, args), (8, args8)):
+        same_bits(f"sparse_matmul T={T_}",
+                  lambda: ksm.sparse_matmul(xa, wa, ia, na))
+        # both block widths, checked and timed on the card: the wrapper's
+        # choice by T is the faster one where chip_smoke times it
+        by_columns = {}
+        for columns in (32, 64):
+            compare(f"sparse_matmul T={T_} at {columns} columns a block",
+                    [shared_list(xa, wa, ia, na, columns)],
+                    [ksm.sparse_matmul_plain(xa, wa, ia, na)], torch.bfloat16)
+            by_columns[columns] = device_ms(
+                lambda: shared_list(xa, wa, ia, na, columns))
+        nv = int(na)
+        n_bytes = (T_ * nv * 128 * 2 + nv * 128 * 4096 * 2 + ia.numel() * 4
+                   + 4 + T_ * 4096 * 4)
+        b_ms, b_by = bound(n_bytes, 2.0 * T_ * nv * 128 * 4096, torch.bfloat16)
+        sm_rows[T_] = dict(
+            **timings(lambda: ksm.sparse_matmul(xa, wa, ia, na),
+                      lambda: ksm.sparse_matmul_plain(xa, wa, ia, na),
+                      lambda: xa @ wa),
+            bound_ms=b_ms, bound_by=b_by,
+            columns_per_block=ksm.shared_list_columns(T_),
+            device_ms_by_columns=by_columns)
     results["sparse_matmul"] = dict(
         name="sparse_matmul", route="cuda",
         source="src/repro_torch/csrc/sparse_matmul.cu",
         replaces="src/repro/kernels/sparse_matmul.py:79",
         max_abs_err=errs[torch.bfloat16],
-        **timings(lambda: ksm.sparse_matmul(x, w, idx, nvalid),
-                  lambda: ksm.sparse_matmul_plain(x, w, idx, nvalid),
-                  lambda: x @ w),
-        bound_ms=b_ms, bound_by=b_by,
+        **sm_rows[128],
         shape="T=128 F=16384 D=4096 K=32 (density 0.25) score order bf16",
-        max_abs_err_f32=errs[torch.float32])
+        max_abs_err_f32=errs[torch.float32], at_T8=sm_rows[8])
 
     # select_tiles_static on the card: tied scores keep ascending order
     sc = np.zeros(128, np.float32)
@@ -1455,7 +1565,8 @@ def main(argv=None) -> int:
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
     line = {"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}
     log(card)
     print(json.dumps(line))

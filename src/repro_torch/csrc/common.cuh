@@ -32,17 +32,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // Per-row tile-gathered product on CUDA cores: the down-projection of
-// fused_sparse_ffn, sparse_matmul, and the f32 x f32 path of
+// fused_sparse_ffn, and the f32 x f32 path of sparse_matmul,
 // sparse_matmul_tokens and expert_down_matmul (their bf16-weight path is
 // tile_group.cuh):
 //
 //   y[t, j] = sum_{i < nvalid[t]} P[t, i, j],
 //   P[t, i, j] = sum_c round_to<WT>(x_tile(t, i)[c]) * w[idx[t, i] * tile + c, j]
 //
-// ROUND_X (the default) rounds an f32 x to the weights' type, as the
-// reference rounds fused_sparse_ffn's h before its down-projection
-// (h.astype(wd.dtype)); ROUND_X = false multiplies the f32 values unrounded,
-// as the reference's promoted dot does in sparse_matmul.
+// An f32 x is rounded to the weights' type, as the reference rounds
+// fused_sparse_ffn's h before its down-projection (h.astype(wd.dtype)).
 //
 // x_tile(t, i) is row t's slice for list slot i: at x + t*x_row + idx*tile
 // for a (T, F) input, or at x + t*x_row + i*tile for a compact (T, K, tile)
@@ -88,7 +86,7 @@ template <> struct Pair<__nv_bfloat16> {
 // grid (ceil(T / GATHER_ROWS), S, ceil(D / GATHER_COLS)); block (32, GATHER_WARPS).
 // D must be even. out is y (T, D) when S == 1, else R (T, S, D). Dynamic
 // shared memory: GATHER_ROWS * tile + GATHER_WARPS * GATHER_ROWS * GATHER_COLS floats.
-template <typename XT, typename WT, bool ROUND_X = true>
+template <typename XT, typename WT>
 __global__ void __launch_bounds__(32 * GATHER_WARPS)
 gather_runs(const XT* __restrict__ x, long x_row, int compact, const WT* __restrict__ w,
             const int* __restrict__ idx, long idx_row, const int* __restrict__ nvalid,
@@ -126,7 +124,7 @@ gather_runs(const XT* __restrict__ x, long x_row, int compact, const WT* __restr
       float v = 0.f;
       if (ti >= 0) {
         const XT* xr = x + (long)(r0 + r) * x_row + (compact ? (long)i * tile : (long)ti * tile);
-        v = ROUND_X ? round_to<WT>(to_f32(xr[c])) : to_f32(xr[c]);
+        v = round_to<WT>(to_f32(xr[c]));
       }
       xs[e] = v;
     }
@@ -187,7 +185,7 @@ __global__ void ordered_sum(const float* __restrict__ R, float* __restrict__ y, 
 }
 
 // R may be NULL when K <= run (S == 1): the blocks then write y directly.
-template <typename XT, typename WT, bool ROUND_X = true>
+template <typename XT, typename WT>
 static cudaError_t launch_tile_gather_rows(const XT* x, long x_row, int compact, const WT* w,
                                            const int* idx, long idx_row, const int* nvalid,
                                            int nv_row, float* R, float* y, int T, int K,
@@ -199,13 +197,13 @@ static cudaError_t launch_tile_gather_rows(const XT* x, long x_row, int compact,
   size_t smem = (size_t)(GATHER_ROWS * tile + GATHER_WARPS * GATHER_ROWS * GATHER_COLS) *
                 sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(gather_runs<XT, WT, ROUND_X>,
+    cudaError_t e = cudaFuncSetAttribute(gather_runs<XT, WT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((T + GATHER_ROWS - 1) / GATHER_ROWS, S, (D + GATHER_COLS - 1) / GATHER_COLS);
-  gather_runs<XT, WT, ROUND_X><<<grid, dim3(32, GATHER_WARPS), smem, stream>>>(
+  gather_runs<XT, WT><<<grid, dim3(32, GATHER_WARPS), smem, stream>>>(
       x, x_row, compact, w, idx, idx_row, nvalid, nv_row, S > 1 ? R : y, T, K, run, tile, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;

@@ -1,5 +1,6 @@
 // Tile-grouped row gather on tensor cores, for Hopper (sm_90a): the bf16-weight
-// path of sparse_matmul_tokens and expert_down_matmul.
+// path of sparse_matmul_tokens, expert_down_matmul and (shared-list mode, 4.)
+// sparse_matmul.
 //
 //   y[t, j] = sum_{i < nvalid[t]} sum_c a(t, i)[c] * w[idx[t, i] * tile + c, j]
 //
@@ -47,6 +48,18 @@
 //    reached 5e-5 of the sum on the card.
 // 3. run_sum (more than one run): y[t] = row t's pair partials P[s * T + t]
 //    summed in ascending run order, f32; a row with no run gets zeros.
+// 4. Shared-list mode (SHARED, sparse_matmul): every row names the same
+//    list idx (K,) with one nvalid, so chunk c is rows 64c.. with no
+//    ranking and no counts, and the walk is the list's own valid slots
+//    i < nvalid in list order (a tile listed twice is walked twice; pads
+//    past nvalid are not walked; nvalid == 0 writes exact zeros). The
+//    rows of a chunk are consecutive, so one producer thread asks the TMA
+//    engine for the step's x as one box (64 rows x KS columns; 128-byte
+//    swizzle for bf16 at KS = 64, which the consumers' fragments read
+//    without bank conflicts; rows past T read as zeros and are never
+//    written) beside the weight box, instead of the producers' cp.async.
+//    BN = 32 (64-byte swizzled weight boxes) doubles the blocks of a
+//    single chunk, for T <= 64.
 //
 // Operands: a bf16 A (x or compact blocks) is multiplied as it is; then the
 // operands equal the reference's and only the order of the f32 sum differs.
@@ -108,10 +121,13 @@ template <typename AT, int BN, int KS> struct TgShape {
 };
 
 // the 16-byte chunk holding column n (a multiple of 8) of row k of a
-// swizzled weight slab
-template <int KS>
+// swizzled weight slab: BN / 64 boxes of 64 columns with the 128-byte
+// swizzle, or (BN = 32) one box of 32 columns with the 64-byte swizzle
+// (16-byte chunk c of row k at c ^ (k / 2 % 4))
+template <int KS, int BN>
 __device__ __forceinline__ int tg_wchunk(int k, int n) {
-  return (n >> 6) * KS * 8 + k * 8 + (((n >> 3) & 7) ^ (k & 7));
+  if constexpr (BN == 32) return k * 4 + (((n >> 3) & 3) ^ ((k >> 1) & 3));
+  else return (n >> 6) * KS * 8 + k * 8 + (((n >> 3) & 7) ^ (k & 7));
 }
 
 __device__ __forceinline__ unsigned tg_saddr(const void* p) {
@@ -181,6 +197,21 @@ __device__ __forceinline__ void tg_afrag(const __nv_bfloat16* a, int str, bool n
   out[3] = n1 ? *reinterpret_cast<const unsigned*>(a + 8 * str + 8) : 0u;
 }
 
+// The A fragment (mma.sync's m16 x k16 layout) of rows ra and ra + 8,
+// columns kk + 2q, +1 and kk + 2q + 8, +9 of a slab of 128-byte rows with
+// the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8), as the TMA
+// engine writes it); a row whose flag is false reads as exact zeros.
+__device__ __forceinline__ void tg_afrag_sw(const __nv_bfloat16* slab, int ra, int kk, int q,
+                                            bool n0, bool n1, unsigned* out) {
+  const char* r0 = reinterpret_cast<const char*>(slab) + ra * 128 + 4 * q;
+  const char* r1 = r0 + 8 * 128;  // (ra + 8) % 8 == ra % 8: the same swizzle
+  const int c0 = ((kk >> 3) ^ (ra & 7)) << 4, c1 = (((kk >> 3) + 1) ^ (ra & 7)) << 4;
+  out[0] = n0 ? *reinterpret_cast<const unsigned*>(r0 + c0) : 0u;
+  out[1] = n1 ? *reinterpret_cast<const unsigned*>(r1 + c0) : 0u;
+  out[2] = n0 ? *reinterpret_cast<const unsigned*>(r0 + c1) : 0u;
+  out[3] = n1 ? *reinterpret_cast<const unsigned*>(r1 + c1) : 0u;
+}
+
 // The consumer warps' own barrier (id 1; the producers never wait on it).
 __device__ __forceinline__ void tg_consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(TG_CONSUMERS) : "memory");
@@ -209,8 +240,10 @@ __global__ void row_runs(const int* __restrict__ idx, int K, const int* __restri
 // added to acc with an f32 add: the tensor cores' f32 accumulation
 // truncates, and over the thousands of k16 steps of a long list (32768 rows
 // of w at Mixtral width, three terms each) its bias would reach 5e-5 of
-// the sum.
-template <typename AT, int BN, int KS, int MW>
+// the sum. SHARED (shared-list mode): every row of the chunk names every
+// step's tile, and the step's A is the TMA box (dense rows of KS values;
+// 128-byte swizzled for bf16 at KS = 64).
+template <typename AT, int BN, int KS, int MW, bool SHARED>
 __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws,
                                            __nv_bfloat16* Pl,
                                            unsigned long long* full, unsigned long long* empty,
@@ -233,13 +266,17 @@ __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   int cu = 0, crep = 0, ckh = 0;  // the step being consumed
   for (int step = 0; step < nsteps; ++step) {
-    const int slot = step % S::STAGES, r = list[cu];
-    // a row that does not name the step's tile (or lies past the chunk)
-    // holds stale data: masked to exact zeros
-    const bool na = cnt[ra * TG_RMAX + r] > crep, nb = cnt[(ra + 8) * TG_RMAX + r] > crep;
-    if (++ckh == nk) {
-      ckh = 0;
-      if (++crep == maxc[r]) crep = 0, ++cu;
+    const int slot = step % S::STAGES;
+    bool na = ra < len, nb = ra + 8 < len;
+    if constexpr (!SHARED) {
+      // a row that does not name the step's tile (or lies past the chunk)
+      // holds stale data: masked to exact zeros
+      const int r = list[cu];
+      na = cnt[ra * TG_RMAX + r] > crep, nb = cnt[(ra + 8) * TG_RMAX + r] > crep;
+      if (++ckh == nk) {
+        ckh = 0;
+        if (++crep == maxc[r]) crep = 0, ++cu;
+      }
     }
     tg_bar_wait(&full[slot], (step / S::STAGES) & 1);
     const __nv_bfloat16* as;  // the stage's bf16 A, TERMS planes apart
@@ -252,7 +289,8 @@ __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws
       const int ct = warp * 32 + lane;
       for (int e = ct; e < len * (KS / 2); e += TG_CONSUMERS) {
         const int m = e / (KS / 2), c2 = (e % (KS / 2)) * 2;
-        float2 v = *reinterpret_cast<const float2*>(As + (slot * TG_M + m) * ASTR + c2);
+        float2 v = *reinterpret_cast<const float2*>(
+            As + slot * TG_M * ASTR + m * (SHARED ? KS : ASTR) + c2);
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
           const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
@@ -262,6 +300,9 @@ __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws
       }
       tg_consumer_sync();
       as = Pl + ra * PSTR + 2 * q, astr = PSTR, aplane = TG_M * PSTR;
+    } else if constexpr (SHARED) {
+      as = As + slot * TG_M * ASTR, astr = KS, aplane = 0;  // the box
+      if constexpr (KS != 64) as += ra * KS + 2 * q;        // unswizzled rows
     } else {
       as = As + (slot * TG_M + ra) * ASTR + 2 * q, astr = ASTR, aplane = 0;
     }
@@ -279,7 +320,7 @@ __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws
         if constexpr (NT == 1) {
           asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                        : "=r"(b[0][0]), "=r"(b[0][1])
-                       : "r"(tg_saddr(ws + 8 * tg_wchunk<KS>(k, n0))));
+                       : "r"(tg_saddr(ws + 8 * tg_wchunk<KS, BN>(k, n0))));
         } else {
 #pragma unroll
           for (int np = 0; np < NT / 2; ++np)
@@ -287,12 +328,15 @@ __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws
                 "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                 : "=r"(b[2 * np][0]), "=r"(b[2 * np][1]), "=r"(b[2 * np + 1][0]),
                   "=r"(b[2 * np + 1][1])
-                : "r"(tg_saddr(ws + 8 * tg_wchunk<KS>(k, n0 + np * 16 + (lane >> 4) * 8))));
+                : "r"(tg_saddr(ws + 8 * tg_wchunk<KS, BN>(k, n0 + np * 16 + (lane >> 4) * 8))));
         }
 #pragma unroll
         for (int p = TERMS - 1; p >= 0; --p) {  // smallest term first
           unsigned af[4];
-          tg_afrag(as + p * aplane + kk, astr, na, nb, af);
+          if constexpr (SHARED && sizeof(AT) == 2 && KS == 64)
+            tg_afrag_sw(as, ra, kk, q, na, nb, af);
+          else
+            tg_afrag(as + p * aplane + kk, astr, na, nb, af);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) tg_mma(part[nt], af, b[nt][0], b[nt][1]);
         }
@@ -326,10 +370,13 @@ __device__ __forceinline__ void tg_consume(const AT* As, const __nv_bfloat16* Ws
 // one run, chunk c is rows c * TG_M .., and the block writes y; else it
 // writes its pairs' partials to P[s * T + row]). A rows are AT, TERMS terms
 // each: row t's slice of tile ti at a + t * a_row + ti * tile (tokens
-// mode), of slot i at a + (t * K + i) * tile (compact != 0).
-template <typename AT, int BN, int KS>
+// mode), of slot i at a + (t * K + i) * tile (compact != 0). SHARED: idx
+// is the one list (K,), nvalid one int, mask NULL, and xmap the TMA map of a
+// (T, F) in boxes of TG_M rows x KS columns (unread otherwise).
+template <typename AT, int BN, int KS, bool SHARED>
 __global__ void __launch_bounds__(TgShape<AT, BN, KS>::THREADS, 1)
-tile_groups(const __grid_constant__ CUtensorMap wmap, const AT* __restrict__ a, long a_row,
+tile_groups(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap,
+            const AT* __restrict__ a, long a_row,
             int compact, const int* __restrict__ idx, int K, const int* __restrict__ nvalid,
             const unsigned long long* __restrict__ mask, int T, int R, int tile, int D,
             float* __restrict__ out) {
@@ -384,131 +431,171 @@ tile_groups(const __grid_constant__ CUtensorMap wmap, const AT* __restrict__ a, 
   const int len = s_len;
   if (len <= 0) return;  // a surplus chunk of the upper-bound grid
 
-  // -- per (pair, tile of the run): the valid slots naming it, and the first
-  if (tid < S::STAGES) {
-    tg_bar_init(&full[tid], S::PRODUCERS + 1);  // + the weight boxes' expect_tx
-    tg_bar_init(&empty[tid], TG_CONSUMERS);
-  }
-  if (tid < TG_M) s_nv[tid] = tid < len ? nvalid[s_row[tid]] : 0;
-  for (int e = tid; e < TG_M * TG_RMAX; e += THREADS) cnt[e] = 0, first[e] = INT_MAX;
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();
-  const int t0 = run * R;
-  const int total = len * K;
-  for (int e0 = tid; e0 < total; e0 += 4 * THREADS) {  // 4 loads in flight a thread
-    int ti[4], mm[4], ii[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * THREADS;
-      ti[u] = -1, mm[u] = 0, ii[u] = 0;
-      if (e < total) {
-        mm[u] = e / K, ii[u] = e - mm[u] * K;
-        if (ii[u] < s_nv[mm[u]]) ti[u] = idx[(long)s_row[mm[u]] * K + ii[u]] - t0;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (ti[u] >= 0 && ti[u] < R) {  // integer atomics: the same counts in any order
-        atomicAdd(&cnt[mm[u] * TG_RMAX + ti[u]], 1);
-        atomicMin(&first[mm[u] * TG_RMAX + ti[u]], ii[u]);
-      }
-  }
-  __syncthreads();
-  for (int r = tid; r < R; r += THREADS) {
-    int mc = 0;
-    for (int m = 0; m < len; ++m) mc = max(mc, cnt[m * TG_RMAX + r]);
-    maxc[r] = mc;
-  }
-  __syncthreads();
   const int nk = tile / KS;
-  if (warp == 0) {  // the union in ascending tile id, and the walk's steps
-    int n = 0, steps = 0;
-    for (int b = 0; b < R; b += 32) {
-      const int r = b + lane;
-      const int mc = r < R ? maxc[r] : 0;
-      const unsigned live = __ballot_sync(0xffffffffu, mc > 0);
-      if (mc > 0) list[n + __popc(live & ((1u << lane) - 1))] = (short)r;
-      n += __popc(live);
-      steps += mc;
+  if constexpr (SHARED) {
+    // -- the list's valid slots, in list order: one producer thread asks the
+    //    TMA engine for each step's weight and x boxes
+    int* s_list = cnt;  // TG_M * TG_RMAX ints (the wrapper bounds K)
+    const int nv = min(max(nvalid[0], 0), K);
+    if (tid < S::STAGES) {
+      tg_bar_init(&full[tid], 1);
+      tg_bar_init(&empty[tid], TG_CONSUMERS);
     }
+    for (int i = tid; i < nv; i += THREADS) s_list[i] = idx[i];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
+    const int nsteps = nv * nk;
+    if (warp >= TG_CONSUMERS / 32) {
+      if (tid != TG_CONSUMERS) return;
+      constexpr unsigned XBYTES = TG_M * KS * sizeof(AT);
+      for (int step = 0; step < nsteps; ++step) {
+        const int slot = step % S::STAGES;
+        if (step >= S::STAGES) tg_bar_wait(&empty[slot], (step / S::STAGES - 1) & 1);
+        const int k = s_list[step / nk] * tile + (step % nk) * KS;  // row of w, column of x
+        tg_bar_arrive_tx(&full[slot], S::WBYTES + XBYTES);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) steps += __shfl_xor_sync(0xffffffffu, steps, o);
-    if (lane == 0) s_nsteps = steps * nk;
-  }
-  __syncthreads();
-  const int nsteps = s_nsteps;
-
-  if (warp >= TG_CONSUMERS / 32) {
-    // -- producers: step (u, rep, kh) of the walk into ring slot step % S,
-    //    once every consumer is done with the slot's previous step. Thread
-    //    pt copies A chunks pt, pt + PRODUCERS, .. (skipped where the row
-    //    does not name the step's tile, which the consumers mask to zero,
-    //    and past the chunk's rows, which are never stored); thread 0 asks the
-    //    TMA engine for the step's weight boxes (zeros past column D)
-    constexpr int ACH = TG_M * (KS / AVEC);
-    constexpr int APT = (ACH + S::PRODUCERS - 1) / S::PRODUCERS;
-    const int pt = tid - TG_CONSUMERS;
-    int a_m[APT], a_t[APT], a_v[APT];
-#pragma unroll
-    for (int j = 0; j < APT; ++j) {
-      const int e = pt + j * S::PRODUCERS;
-      a_m[j] = e / (KS / AVEC), a_v[j] = (e % (KS / AVEC)) * AVEC;
-      a_t[j] = e < ACH && a_m[j] < len ? s_row[a_m[j]] : -1;
-    }
-    int u = 0, rep = 0, kh = 0;
-    for (int step = 0; step < nsteps; ++step) {
-      const int slot = step % S::STAGES;
-      if (step >= S::STAGES) tg_bar_wait(&empty[slot], (step / S::STAGES - 1) & 1);
-      const int r = list[u], ti = t0 + r, k0 = kh * KS;
-      if (pt == 0) {
-        tg_bar_arrive_tx(&full[slot], S::WBYTES);
-#pragma unroll
-        for (int bx = 0; bx < BN / 64; ++bx)
-          tg_tma(Ws + (slot * (BN / 64) + bx) * KS * 64, &wmap, col0 + bx * 64, ti * tile + k0,
-                 &full[slot]);
+        for (int bx = 0; bx < (BN + 63) / 64; ++bx)
+          tg_tma(Ws + slot * KS * BN + bx * KS * 64, &wmap, col0 + bx * 64, k, &full[slot]);
+        tg_tma(As + slot * TG_M * ASTR, &xmap, k, c * TG_M, &full[slot]);
       }
-      AT* as = As + slot * TG_M * ASTR;
+      return;
+    }
+    const int mw = max(BN == 32 ? 2 : 1, len <= 16 ? 1 : len <= 32 ? 2 : 4);
+    if constexpr (BN >= 64)
+      if (mw == 1)
+        return tg_consume<AT, BN, KS, 1, true>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row,
+                                               nsteps, nk, len, 0, col0, D, out, warp, lane);
+    if (mw == 2)
+      return tg_consume<AT, BN, KS, 2, true>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row,
+                                             nsteps, nk, len, 0, col0, D, out, warp, lane);
+    return tg_consume<AT, BN, KS, 4, true>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row,
+                                           nsteps, nk, len, 0, col0, D, out, warp, lane);
+  } else {
+    // -- per (pair, tile of the run): the valid slots naming it, and the first
+    if (tid < S::STAGES) {
+      tg_bar_init(&full[tid], S::PRODUCERS + 1);  // + the weight boxes' expect_tx
+      tg_bar_init(&empty[tid], TG_CONSUMERS);
+    }
+    if (tid < TG_M) s_nv[tid] = tid < len ? nvalid[s_row[tid]] : 0;
+    for (int e = tid; e < TG_M * TG_RMAX; e += THREADS) cnt[e] = 0, first[e] = INT_MAX;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
+    const int t0 = run * R;
+    const int total = len * K;
+    for (int e0 = tid; e0 < total; e0 += 4 * THREADS) {  // 4 loads in flight a thread
+      int ti[4], mm[4], ii[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * THREADS;
+        ti[u] = -1, mm[u] = 0, ii[u] = 0;
+        if (e < total) {
+          mm[u] = e / K, ii[u] = e - mm[u] * K;
+          if (ii[u] < s_nv[mm[u]]) ti[u] = idx[(long)s_row[mm[u]] * K + ii[u]] - t0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (ti[u] >= 0 && ti[u] < R) {  // integer atomics: the same counts in any order
+          atomicAdd(&cnt[mm[u] * TG_RMAX + ti[u]], 1);
+          atomicMin(&first[mm[u] * TG_RMAX + ti[u]], ii[u]);
+        }
+    }
+    __syncthreads();
+    for (int r = tid; r < R; r += THREADS) {
+      int mc = 0;
+      for (int m = 0; m < len; ++m) mc = max(mc, cnt[m * TG_RMAX + r]);
+      maxc[r] = mc;
+    }
+    __syncthreads();
+    if (warp == 0) {  // the union in ascending tile id, and the walk's steps
+      int n = 0, steps = 0;
+      for (int b = 0; b < R; b += 32) {
+        const int r = b + lane;
+        const int mc = r < R ? maxc[r] : 0;
+        const unsigned live = __ballot_sync(0xffffffffu, mc > 0);
+        if (mc > 0) list[n + __popc(live & ((1u << lane) - 1))] = (short)r;
+        n += __popc(live);
+        steps += mc;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) steps += __shfl_xor_sync(0xffffffffu, steps, o);
+      if (lane == 0) s_nsteps = steps * nk;
+    }
+    __syncthreads();
+    const int nsteps = s_nsteps;
+
+    if (warp >= TG_CONSUMERS / 32) {
+      // -- producers: step (u, rep, kh) of the walk into ring slot step % S,
+      //    once every consumer is done with the slot's previous step. Thread
+      //    pt copies A chunks pt, pt + PRODUCERS, .. (skipped where the row
+      //    does not name the step's tile, which the consumers mask to zero,
+      //    and past the chunk's rows, which are never stored); thread 0 asks the
+      //    TMA engine for the step's weight boxes (zeros past column D)
+      constexpr int ACH = TG_M * (KS / AVEC);
+      constexpr int APT = (ACH + S::PRODUCERS - 1) / S::PRODUCERS;
+      const int pt = tid - TG_CONSUMERS;
+      int a_m[APT], a_t[APT], a_v[APT];
 #pragma unroll
       for (int j = 0; j < APT; ++j) {
-        if (a_t[j] < 0) continue;
-        const int e = a_m[j] * TG_RMAX + r;
-        if (cnt[e] <= rep) continue;
-        const AT* src;
-        if (compact) {
-          int slot_i = first[e];
-          if (rep > 0) {  // the (rep + 1)-th valid slot naming ti
-            const long b = (long)a_t[j] * K;
-            for (int i = slot_i + 1, seen = 0; i < s_nv[a_m[j]]; ++i)
-              if (idx[b + i] == ti && ++seen == rep) { slot_i = i; break; }
-          }
-          src = a + ((long)a_t[j] * K + slot_i) * tile + k0 + a_v[j];
-        } else {
-          src = a + (long)a_t[j] * a_row + (long)ti * tile + k0 + a_v[j];
+        const int e = pt + j * S::PRODUCERS;
+        a_m[j] = e / (KS / AVEC), a_v[j] = (e % (KS / AVEC)) * AVEC;
+        a_t[j] = e < ACH && a_m[j] < len ? s_row[a_m[j]] : -1;
+      }
+      int u = 0, rep = 0, kh = 0;
+      for (int step = 0; step < nsteps; ++step) {
+        const int slot = step % S::STAGES;
+        if (step >= S::STAGES) tg_bar_wait(&empty[slot], (step / S::STAGES - 1) & 1);
+        const int r = list[u], ti = t0 + r, k0 = kh * KS;
+        if (pt == 0) {
+          tg_bar_arrive_tx(&full[slot], S::WBYTES);
+#pragma unroll
+          for (int bx = 0; bx < BN / 64; ++bx)
+            tg_tma(Ws + (slot * (BN / 64) + bx) * KS * 64, &wmap, col0 + bx * 64, ti * tile + k0,
+                   &full[slot]);
         }
-        tg_cp16(as + a_m[j] * ASTR + a_v[j], src);
+        AT* as = As + slot * TG_M * ASTR;
+#pragma unroll
+        for (int j = 0; j < APT; ++j) {
+          if (a_t[j] < 0) continue;
+          const int e = a_m[j] * TG_RMAX + r;
+          if (cnt[e] <= rep) continue;
+          const AT* src;
+          if (compact) {
+            int slot_i = first[e];
+            if (rep > 0) {  // the (rep + 1)-th valid slot naming ti
+              const long b = (long)a_t[j] * K;
+              for (int i = slot_i + 1, seen = 0; i < s_nv[a_m[j]]; ++i)
+                if (idx[b + i] == ti && ++seen == rep) { slot_i = i; break; }
+            }
+            src = a + ((long)a_t[j] * K + slot_i) * tile + k0 + a_v[j];
+          } else {
+            src = a + (long)a_t[j] * a_row + (long)ti * tile + k0 + a_v[j];
+          }
+          tg_cp16(as + a_m[j] * ASTR + a_v[j], src);
+        }
+        tg_bar_arrive_copies(&full[slot]);
+        if (++kh == nk) {
+          kh = 0;
+          if (++rep == maxc[r]) rep = 0, ++u;
+        }
       }
-      tg_bar_arrive_copies(&full[slot]);
-      if (++kh == nk) {
-        kh = 0;
-        if (++rep == maxc[r]) rep = 0, ++u;
-      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      return;
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    return;
-  }
 
-  // -- consumers (8 warps), laid out by how many pairs the chunk holds ------
-  const long out_row0 = mask == nullptr ? 0 : (long)run * T;
-  const int mw = len <= 16 ? 1 : len <= 32 ? 2 : 4;
-  if (mw == 1)
-    tg_consume<AT, BN, KS, 1>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row, nsteps, nk,
-                                     len, out_row0, col0, D, out, warp, lane);
-  else if (mw == 2)
-    tg_consume<AT, BN, KS, 2>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row, nsteps, nk,
-                                     len, out_row0, col0, D, out, warp, lane);
-  else
-    tg_consume<AT, BN, KS, 4>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row, nsteps, nk,
-                                     len, out_row0, col0, D, out, warp, lane);
+    // -- consumers (8 warps), laid out by how many pairs the chunk holds ------
+    const long out_row0 = mask == nullptr ? 0 : (long)run * T;
+    const int mw = len <= 16 ? 1 : len <= 32 ? 2 : 4;
+    if (mw == 1)
+      tg_consume<AT, BN, KS, 1, false>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row, nsteps,
+                                       nk, len, out_row0, col0, D, out, warp, lane);
+    else if (mw == 2)
+      tg_consume<AT, BN, KS, 2, false>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row, nsteps,
+                                       nk, len, out_row0, col0, D, out, warp, lane);
+    else
+      tg_consume<AT, BN, KS, 4, false>(As, Ws, Pl, full, empty, cnt, maxc, list, s_row, nsteps,
+                                       nk, len, out_row0, col0, D, out, warp, lane);
+  }
 }
 
 // y[t, j] = sum over the runs s of row t (the bits of mask[t], ascending) of
@@ -529,12 +616,12 @@ typedef CUresult (*TgEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The tensor map of a bf16 matrix (rows, D), a weight or x, read in boxes of
-// KS rows x 64 columns with the 128-byte swizzle (the driver's encoder,
-// reached through the runtime, so no link against the driver library is
-// needed).
-static cudaError_t tg_weight_map(CUtensorMap* map, const __nv_bfloat16* w, long rows, int D,
-                                 int KS) {
+// The TMA tensor map of a row-major 2-D matrix (rows, cols) of `type`, read
+// in boxes of box_rows x box_cols (cuTensorMapEncodeTiled, found through
+// the runtime's entry-point query, so nothing links against libcuda).
+static cudaError_t tg_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                             const void* base, long rows, long cols, int box_cols, int box_rows,
+                             CUtensorMapSwizzle swizzle) {
   static TgEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -550,13 +637,21 @@ static cudaError_t tg_weight_map(CUtensorMap* map, const __nv_bfloat16* w, long 
       return e != cudaSuccess ? e : cudaErrorNotSupported;
     }
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)KS}, estr[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)w, dims, strides, box,
-                            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, estr[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a bf16 matrix (rows, D), a weight or x, read in boxes of
+// KS rows x 64 columns with the 128-byte swizzle.
+static cudaError_t tg_weight_map(CUtensorMap* map, const __nv_bfloat16* w, long rows, int D,
+                                 int KS) {
+  return tg_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, rows, D, 64, KS,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename AT, int BN, int KS>
@@ -569,12 +664,12 @@ static cudaError_t launch_tile_groups_ks(const AT* a, long a_row, int compact,
   CUtensorMap map;
   cudaError_t e = tg_weight_map(&map, w, w_rows, D, KS);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(tile_groups<AT, BN, KS>,
+  e = cudaFuncSetAttribute(tile_groups<AT, BN, KS, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((D + BN - 1) / BN, n_runs * ((T + TG_M - 1) / TG_M));
-  tile_groups<AT, BN, KS><<<grid, TgShape<AT, BN, KS>::THREADS, smem, stream>>>(
-      map, a, a_row, compact, idx, K, nvalid, mask, T, R, tile, D, out);
+  tile_groups<AT, BN, KS, false><<<grid, TgShape<AT, BN, KS>::THREADS, smem, stream>>>(
+      map, map, a, a_row, compact, idx, K, nvalid, mask, T, R, tile, D, out);
   return cudaGetLastError();
 }
 
@@ -609,4 +704,51 @@ static cudaError_t launch_tile_groups(const AT* a, long a_row, int compact, cons
   if (e != cudaSuccess || n_runs == 1) return e;
   run_sum<<<dim3(T, (D + 255) / 256), 256, 0, stream>>>(P, mask, T, y, D);
   return cudaGetLastError();
+}
+
+// Shared-list mode (sparse_matmul): y (T, D) = sum over the list's valid
+// slots, in list order, of x[:, idx[i] * tile : +tile] @ w[idx[i] * tile : +tile, :].
+// x (T, F) is AT (bf16, or f32 split into three bf16 terms), w (F, D) bf16;
+// idx (K,) with K <= TG_M * TG_RMAX, nvalid one int on the device. One launch,
+// no scratch.
+template <typename AT, int BN, int KS>
+static cudaError_t launch_tile_groups_shared_ks(const AT* x, const __nv_bfloat16* w,
+                                                const int* idx, int K, const int* nvalid, int T,
+                                                int F, int tile, int D, float* y,
+                                                cudaStream_t stream) {
+  constexpr size_t smem = TgShape<AT, BN, KS>::smem();
+  CUtensorMap wmap, xmap;
+  cudaError_t e = tg_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, F, D, BN == 32 ? 32 : 64,
+                            KS, BN == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  const bool swizzled = sizeof(AT) == 2 && KS == 64;  // the consumers' bf16 fragments
+  const CUtensorMapDataType xt =
+      sizeof(AT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  e = tg_map_2d(&xmap, xt, (int)sizeof(AT), x, T, F, KS, TG_M,
+                swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return e;
+  static bool attributes_set = false;  // once a process: the host calls cost microseconds
+  if (!attributes_set) {
+    e = cudaFuncSetAttribute(tile_groups<AT, BN, KS, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    attributes_set = true;
+  }
+  const dim3 grid((D + BN - 1) / BN, (T + TG_M - 1) / TG_M);
+  tile_groups<AT, BN, KS, true><<<grid, TgShape<AT, BN, KS>::THREADS, smem, stream>>>(
+      wmap, xmap, x, (long)F, 0, idx, K, nvalid, nullptr, T, 1, tile, D, y);
+  return cudaGetLastError();
+}
+
+template <typename AT, int BN>
+static cudaError_t launch_tile_groups_shared(const AT* x, const __nv_bfloat16* w, const int* idx,
+                                             int K, const int* nvalid, int T, int F, int tile,
+                                             int D, float* y, cudaStream_t stream) {
+  if (T <= 0 || D <= 0) return cudaGetLastError();
+  if (tile % 16 != 0 || D % 8 != 0 || K > TG_M * TG_RMAX) return cudaErrorInvalidValue;
+  return tile % TG_KS == 0
+             ? launch_tile_groups_shared_ks<AT, BN, TG_KS>(x, w, idx, K, nvalid, T, F, tile, D, y,
+                                                           stream)
+             : launch_tile_groups_shared_ks<AT, BN, 16>(x, w, idx, K, nvalid, T, F, tile, D, y,
+                                                        stream);
 }

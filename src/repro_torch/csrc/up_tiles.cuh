@@ -120,21 +120,6 @@ __device__ __forceinline__ void ut_cp16_fill(void* dst, const void* src, int src
                "r"(src_bytes));
 }
 
-// The A fragment (mma.sync's m16 x k16 layout) of rows ra and ra + 8,
-// columns kk + 2q, +1 and kk + 2q + 8, +9 of an x slab of 128-byte rows
-// with the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8), as the
-// TMA engine writes it); a row whose flag is false reads as exact zeros.
-__device__ __forceinline__ void ut_afrag(const __nv_bfloat16* slab, int ra, int kk, int q,
-                                         bool n0, bool n1, unsigned* out) {
-  const char* r0 = reinterpret_cast<const char*>(slab) + ra * 128 + 4 * q;
-  const char* r1 = r0 + 8 * 128;  // (ra + 8) % 8 == ra % 8: the same swizzle
-  const int c0 = ((kk >> 3) ^ (ra & 7)) << 4, c1 = (((kk >> 3) + 1) ^ (ra & 7)) << 4;
-  out[0] = n0 ? *reinterpret_cast<const unsigned*>(r0 + c0) : 0u;
-  out[1] = n1 ? *reinterpret_cast<const unsigned*>(r1 + c0) : 0u;
-  out[2] = n0 ? *reinterpret_cast<const unsigned*>(r0 + c1) : 0u;
-  out[3] = n1 ? *reinterpret_cast<const unsigned*>(r1 + c1) : 0u;
-}
-
 // The matrix descriptor of a k16 x 128 slice of a weight slab: two 64-column
 // TMA boxes 8 KB apart (leading byte offset), rows of 128 bytes in groups of
 // 8 (1 KB, stride byte offset), the 128-byte swizzle; n-contiguous, so the
@@ -206,7 +191,7 @@ __device__ __forceinline__ void ut_consume(const UtArgs& a, unsigned char* base,
       unsigned af[UT_KS / 16][4];
       const __nv_bfloat16* as = As + slot * UT_M * UT_KS;
 #pragma unroll
-      for (int kk = 0; kk < UT_KS / 16; ++kk) ut_afrag(as, ra, kk * 16, q, na, nb, af[kk]);
+      for (int kk = 0; kk < UT_KS / 16; ++kk) tg_afrag_sw(as, ra, kk * 16, q, na, nb, af[kk]);
       const __nv_bfloat16* ws = Ws + slot * UT_KS * UT_BN;
       ut_pin(part);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

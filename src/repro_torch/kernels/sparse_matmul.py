@@ -7,7 +7,10 @@ Kernels (CUDA C++, sm_90a), ports of the TPU kernels of
   lists, the down-projection of chunked prefill and of the unfused
   predictor FFN;
 - ``sparse_matmul`` (``csrc/sparse_matmul.cu``): one tile list shared by
-  every row, the down-projection of ``ops.sparse_ffn_apply``;
+  every row, the down-projection of ``ops.sparse_ffn_apply``; with bf16
+  weights the shared-list mode of ``csrc/tile_group.cuh`` (chunks of 64
+  consecutive rows, the list's valid slots walked in list order, x and the
+  weight brought by the TMA engine as boxes, tensor cores);
 - ``sparse_up_matmul`` (``csrc/sparse_up_matmul.cu``): output-tile gather,
   the up-projection of the unfused predictor FFN;
 - ``expert_up_matmul`` / ``expert_down_matmul`` (``csrc/expert_up_matmul.cu``,
@@ -47,7 +50,7 @@ from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.fused_decode import scatter_compact
 from repro_torch.predictor import predictors as preds
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _UP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -123,8 +126,10 @@ def _check_gather(x, w, idx, nvalid, tile: int, idx_shape, nv_shape):
 # ---------------------------------------------------------------------------
 # the tile-grouped tensor-core routine (csrc/tile_group.cuh)
 
-# its chunk size, longest run and most runs, and the bound on its scratch
+# its chunk size, longest run and most runs, the longest shared list, and
+# the bound on its scratch
 TG_M, TG_RMAX, TG_MAX_RUNS = 64, 128, 64
+TG_LIST_MAX = TG_M * TG_RMAX
 TG_SCRATCH_BYTES = 32 << 20
 _TC_ARGS = [ctypes.c_void_p] * 7  # a, w, idx, nvalid, mask, P, y
 
@@ -219,22 +224,44 @@ def sparse_matmul_plain(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     return (x.float() * preds.tiles_to_units(counts, tile)) @ w.float()
 
 
+def shared_list_columns(T: int) -> int:
+    """Output columns a block of the shared-list mode takes: 32 when the
+    rows fit one chunk of TG_M (twice the blocks of 64 columns, for a grid
+    of a few rows), else 64."""
+    return 32 if T <= TG_M else 64
+
+
 def sparse_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     """One tile list shared by every row: x (T, F), w (F, D), idx (K,) int32
     tile ids in any order, nvalid () int32. Returns (T, D) f32, the sum over
     idx[:nvalid] in list order. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (``sparse_matmul.launches`` counts them)."""
+    tensors launch the kernel (``sparse_matmul.launches`` counts them): for
+    bf16 weights the shared-list mode of the tile-grouped tensor-core
+    routine (an f32 x multiplied unrounded, as three bf16 terms), for f32
+    weights and x the CUDA-core row gather."""
     if rt.on_cpu(x, w, idx, nvalid):
         return sparse_matmul_plain(x, w, idx, nvalid, tile=tile)
-    T = x.shape[0]
+    T, F = x.shape
     D, K = w.shape[1], idx.shape[0]
     xc, wc = _check_gather(x, w, idx, nvalid, tile, (K,), ())
     y = torch.empty((T, D), dtype=torch.float32, device=x.device)
-    run, scratch = rt.gather_runs(T, K, D, x.device)
-    fn = rt.entry("sparse_matmul", "sparse_matmul", _ARGS)
-    rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(scratch),
-            rt.ptr(y), T, x.shape[1], D, K, run, tile, xc, wc,
-            rt.stream_ptr(x.device))
+    if wc == rt.DTYPE_CODES[torch.float32]:
+        run, scratch = rt.gather_runs(T, K, D, x.device)
+        fn = rt.entry("sparse_matmul", "sparse_matmul", _ARGS)
+        rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid),
+                rt.ptr(scratch), rt.ptr(y), T, F, D, K, run, tile,
+                rt.stream_ptr(x.device))
+    else:
+        rt.require(tile % 16 == 0 and D % 8 == 0 and K <= TG_LIST_MAX,
+                   lambda: f"the tensor-core gather takes tile % 16 == 0, D % 8 "
+                           f"== 0 and at most {TG_LIST_MAX} list slots; got "
+                           f"tile {tile}, w {tuple(w.shape)}, K {K}")
+        rt.require_aligned(x=x, w=w)
+        fn = rt.entry("sparse_matmul", "sparse_matmul_tc",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(y),
+                T, F, D, K, tile, shared_list_columns(T), xc,
+                rt.stream_ptr(x.device))
     rt.check(rc, "sparse_matmul")
     sparse_matmul.launches += 1
     return y

@@ -488,3 +488,25 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
         torch.testing.assert_close(
             tsm.sparse_matmul_tokens(xs, w, idx, nv, tile=tile),
             tsm.sparse_matmul_tokens_plain(xs, w, idx, nv, tile=tile), **TOL)
+    # bf16 attention with its pages cut into several runs, merged by the
+    # second launch (bf16 tolerance: p is rounded to bf16 for p @ v)
+    args = [c(a) for a in _attn_case(4, b=2, g=6, hd=64, n_blocks=60, bs=16,
+                                     nb=24)]
+    args[:3] = [a.bfloat16() for a in args[:3]]
+    assert tpa.attention_splits(2, 2, 24, 24, 64, 16,
+                                tpa._sm_count(cuda_device)) > 1
+    got = tpa.paged_window_attention(*args, window=9)
+    want = tpa.paged_window_attention_plain(*args, window=9).float()
+    assert (got.float() - want).abs().max() <= 1e-2 * want.abs().max()
+    # one shared list with bf16 weights: the shared-list tile groups, an f32
+    # x unrounded (f32 tolerance), a bf16 x at the bf16 tolerance; a tile
+    # listed twice counts twice, the pad past nvalid not at all
+    li = c(np.array([3, 1, 3, 0], np.int32))
+    lv = c(np.array(3, np.int32))
+    wb = c(wd).bfloat16()
+    torch.testing.assert_close(tsm.sparse_matmul(xs, wb, li, lv, tile=tile),
+                               tsm.sparse_matmul_plain(xs, wb, li, lv,
+                                                       tile=tile), **TOL)
+    yb = tsm.sparse_matmul(xs.bfloat16(), wb, li, lv, tile=tile)
+    want = tsm.sparse_matmul_plain(xs.bfloat16(), wb, li, lv, tile=tile)
+    assert (yb - want).abs().max() <= 1e-2 * want.abs().max()
