@@ -26,21 +26,28 @@ device and build always run):
             cut into runs, tensor cores) is also timed at long contexts
             (OPT-6.7B at 1536 to 2048 tokens, Mixtral-8x22B over its 4096
             window at W = 1 and 16) and the OPT 16-token chunk, against
-            SDPA on K and V expanded to the query heads; kernel 5 (the
+            SDPA on K and V expanded to the query heads; kernel 1 (bf16:
+            the up-projection routine with the activation, GLU and mask
+            in its epilogue, then the tile-grouped down gather) also with
+            a GLU at OPT-6.7B width, and at T = 128 and 1, and by parts
+            (its down half in 1 to 8 runs of tile ids; each half alone);
+            kernel 5 (the
             shared-list tile groups) at T = 8 beside T = 128, and on the
             card at 32 and at 64 columns a block; both also
             two calls bit for bit and one under the sync check (below).
             The tile-grouped routine
-            of kernels 3 and 10 (bf16 weights) also at 25% window lists, one
-            row per list, T = 4096, repeated tiles, all tokens on two experts
-            and k_valid drops; the up-projection routine of kernels 4, 6, 7
-            and 8 (bf16) at repeated and padded tiles, 25% and full lists,
-            one row, T = 4096 and all-inactive shifts (f32 also with d split
-            over blocks at small T);
+            of kernels 1, 3 and 10 (bf16 weights) also at 25% window
+            lists, one row per list, T = 4096, repeated tiles, all tokens on
+            two experts and k_valid drops; the up-projection routine of
+            kernels 1, 4, 6, 7, 8 and 9 (bf16) at repeated and padded tiles,
+            d = 72, 25% and full lists, one row, T = 4096, all-inactive
+            shifts, all tokens on two experts and k_valid drops (f32 also
+            with d split over blocks at small T);
             for both, two calls must agree bit for bit and a third runs
             under torch.cuda.set_sync_debug_mode("error"). The unfused
             predictor pair (sparse_up_matmul, sparse_matmul_tokens) is held
-            against fused_sparse_ffn on the same lists, and the expert chain
+            against fused_sparse_ffn on the same lists (f32: bit for bit),
+            and the expert chain
             (up, SiLU GLU, gates, down) against the per-expert dense
             product.
 4. parity   f32 engine streams of tiny-opt and tiny-relu on the card
@@ -62,7 +69,8 @@ device and build always run):
             freed, Mixtral-8x22B with 4 of its 56 layers: the engine in
             plain mode with the same geometry and requests (and a profiled
             batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
-            128.
+            128, timed per call and on the card beside the dispatch
+            einsums.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -212,6 +220,64 @@ def bound(n_bytes: float, flops: float, dtype) -> tuple:
 # phase 3: kernels
 
 
+def fused_ffn_parts(x, wg, wd, idx, nvalid, mask, want) -> dict:
+    """fused_sparse_ffn's bf16 route by parts, on the card, through the C
+    entry points (not counted as launches): the whole kernel with the down
+    half's tile ids in 1, 2, 4 and 8 runs (the wrapper takes
+    fused_decode.down_runs), each held against the plain version (want);
+    the up half alone (sparse_up_matmul's kernel on the same lists: the
+    same routine without the activation and mask, and without that
+    wrapper's scatter); the down half alone (expert_down_matmul's bf16
+    entry over the one matrix, in the wrapper's runs)."""
+    from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels import sparse_matmul as ksm
+
+    T, d = x.shape
+    F, D, K = wg.shape[1], wd.shape[1], idx.shape[1]
+    n_tiles, dev = F // 128, x.device
+    bits = torch.empty((-(-n_tiles // 32), T), dtype=torch.int32, device=dev)
+    hb = torch.empty((T, K, 128), dtype=torch.bfloat16, device=dev)
+    h = torch.empty((T, K, 128), dtype=torch.float32, device=dev)
+    y = torch.empty((T, D), dtype=torch.float32, device=dev)
+    runs = torch.empty(T, dtype=torch.int64, device=dev)
+    P = torch.empty((8 * T, D), dtype=torch.float32, device=dev)
+    mk = mask.to(torch.float32)
+    fused = rt.entry("fused_sparse_ffn", "fused_sparse_ffn_tc", kfd._TC_ARGS)
+
+    def whole(n):  # relu: ACT_RELU = 0
+        return fused(rt.ptr(x), rt.ptr(wg), None, rt.ptr(wd), rt.ptr(mk),
+                     rt.ptr(idx), rt.ptr(nvalid), rt.ptr(bits), rt.ptr(hb),
+                     rt.ptr(runs), rt.ptr(P), rt.ptr(h), rt.ptr(y), T, d, F, D,
+                     K, n, -(-n_tiles // n), 0, 0.0, rt.stream_ptr(dev))
+
+    by_runs = {}
+    for n in (1, 2, 4, 8):
+        rt.check(whole(n), "fused_sparse_ffn")
+        torch.cuda.synchronize()
+        compare(f"fused_sparse_ffn OPT-6.7B T=8 MLP+mask bf16, {n} runs",
+                [y, h], want, torch.bfloat16)
+        by_runs[str(n)] = device_ms(lambda: whole(n))
+    up = rt.entry("sparse_up_matmul", "sparse_up_matmul",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    n, R = kfd.down_runs(T, D, n_tiles)
+    down = rt.entry("expert_down_matmul", "expert_down_matmul_tc",
+                    ksm._TC_ARGS + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    parts = dict(
+        device_ms_by_runs=by_runs, runs_picked=n,
+        up_half_device_ms=device_ms(lambda: up(
+            rt.ptr(x), rt.ptr(wg), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(bits),
+            rt.ptr(h), T, d, F, K, 128, 1, rt.stream_ptr(dev))),
+        down_half_device_ms=device_ms(lambda: down(
+            rt.ptr(hb), rt.ptr(wd), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(runs),
+            rt.ptr(P), rt.ptr(y), T, K, 128, D, n, R, 1, F,
+            rt.stream_ptr(dev))))
+    log("  fused_sparse_ffn OPT-6.7B T=8 MLP+mask bf16 by parts "
+        + json.dumps(parts))
+    return parts
+
+
+
 def kernel_phase(dev) -> dict:
     from repro_torch.kernels import fused_decode as kfd
     from repro_torch.kernels import fused_ffn as kff
@@ -236,7 +302,7 @@ def kernel_phase(dev) -> dict:
 
     # -- fused_sparse_ffn ---------------------------------------------------
     def ffn_case(name, T, d, F, tile, dtype, *, glu, masked, activation="relu",
-                 shift=0.0, tile_mask=None, unit_p=0.5):
+                 shift=0.0, tile_mask=None, unit_p=0.5, lists=None):
         n_tiles = F // tile
         x = t(rng.randn(T, d), dtype)
         wg = t(rng.randn(d, F) / np.sqrt(d), dtype)
@@ -244,7 +310,8 @@ def kernel_phase(dev) -> dict:
         wd = t(rng.randn(F, d) / np.sqrt(F), dtype)
         if tile_mask is None:
             tile_mask = np.ones((T, n_tiles), bool)
-        idx, nvalid = tile_lists(tile_mask)
+        idx, nvalid = (tile_lists(tile_mask) if lists is None else
+                       (t(lists[0], torch.int32), t(lists[1], torch.int32)))
         mask = t(rng.rand(T, F) < unit_p, torch.bool) if masked else None
         kw = dict(w_up=wu, unit_mask=mask, activation=activation, shift=shift,
                   tile=tile)
@@ -270,12 +337,33 @@ def kernel_phase(dev) -> dict:
                     ffn_case(f"tiny {act} glu={glu} mask={masked} {dtype}",
                              4, 64, 256, 128, dtype, glu=glu, masked=masked,
                              activation=act, shift=shift, tile_mask=edges)
+    # repeated valid tiles, pads repeating the first tile, unsorted lists,
+    # nvalid == 0; d = 72 (not a multiple of the routine's 64 rows a stage)
+    rep_lists = ([[1, 1, 0, 1], [3, 3, 3, 3], [2, 0, 2, 3], [0, 1, 2, 3]],
+                 [4, 1, 3, 0])
+    for dtype in (torch.float32, torch.bfloat16):
+        for glu in (False, True):
+            for masked in (False, True):
+                ffn_case(f"repeated tiles d=72 glu={glu} mask={masked} {dtype}",
+                         4, 72, 512, 128, dtype, glu=glu, masked=masked,
+                         lists=rep_lists)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         errs[dtype], args = ffn_case(f"OPT-6.7B decode T=8 MLP+mask {dtype}",
                                      8, 4096, 16384, 128, dtype, glu=False,
                                      masked=True)
+    # bf16 at the other row counts (several row chunks and runs; one row),
+    # and the GLU at OPT width, timed below
+    for name, T_, p in (("T=128 25% lists", 128, 0.25), ("T=1 one row", 1, 0.97)):
+        ffn_case(f"OPT-6.7B {name} MLP+mask bf16", T_, 4096, 16384, 128,
+                 torch.bfloat16, glu=False, masked=True,
+                 tile_mask=rng.rand(T_, 128) < p)
+    err_glu, glu_args = ffn_case("OPT-6.7B decode T=8 GLU+mask bf16", 8, 4096,
+                                 16384, 128, torch.bfloat16, glu=True,
+                                 masked=True)
     x, wg, wu, wd, idx, nvalid, mask, kw = args  # bf16, the main path's type
+    same_bits("fused_sparse_ffn OPT-6.7B T=8 MLP+mask bf16",
+              lambda: kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw)[0])
     T, d, F = 8, 4096, 16384
     nv = nvalid.cpu().numpy()
     n_tiles_distinct = int(preds.covered_tiles(idx, nvalid, F // 128).any(0).sum())
@@ -299,6 +387,20 @@ def kernel_phase(dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         shape="T=8 d=4096 F=16384 tile=128 K=128 MLP+mask bf16",
         max_abs_err_f32=errs[torch.float32])
+    results["fused_sparse_ffn"].update(fused_ffn_parts(
+        x, wg, wd, idx, nvalid, mask,
+        want=kfd.fused_sparse_ffn_plain(x, wg, wd, idx, nvalid, **kw)))
+    # the GLU at OPT width: gate, up and down tiles
+    gx, gwg, gwu, gwd, gidx, gnv, gmask, gkw = glu_args
+    g_ms, g_by = bound(w_bytes * 3 // 2 + io, flops * 3 / 2, torch.bfloat16)
+    results["fused_sparse_ffn"]["at T=8 GLU+mask"] = dict(
+        max_abs_err=err_glu, bound_ms=g_ms, bound_by=g_by,
+        **timings(lambda: kfd.fused_sparse_ffn(gx, gwg, gwd, gidx, gnv, **gkw),
+                  lib=lambda: (torch.relu(gx @ gwg) * (gx @ gwu)
+                               * gmask.to(torch.bfloat16)) @ gwd))
+    log("  fused_sparse_ffn OPT-6.7B T=8 GLU+mask bf16 " + json.dumps(
+        results["fused_sparse_ffn"]["at T=8 GLU+mask"]))
+    del glu_args, gx, gwg, gwu, gwd, gidx, gnv, gmask, gkw
 
     # -- paged_window_attention ---------------------------------------------
     def attn_case(name, b, W, kvp, g, hd, bs, nb, n_blocks, dtype, window=0,
@@ -540,10 +642,8 @@ def kernel_phase(dev) -> dict:
                      float(nv_.sum()) * 128 * d_ * 2, torch.bfloat16)
 
     # repeated valid tiles, pads repeating the first tile, unsorted lists,
-    # nvalid == 0 (bf16 at tile 128: the tensor-core routine; bf16 at tile
-    # 64 and f32: ffn_up)
-    rep_lists = ([[1, 1, 0, 1], [3, 3, 3, 3], [2, 0, 2, 3], [0, 1, 2, 3]],
-                 [4, 1, 3, 0])
+    # nvalid == 0 (rep_lists; bf16 at tile 128: the tensor-core routine;
+    # bf16 at tile 64 and f32: ffn_up)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         up_case(f"tiny edges {dtype}", 4, 64, 256, 128, dtype, edges)
@@ -590,8 +690,10 @@ def kernel_phase(dev) -> dict:
 
     # the unfused pair (sparse_up_matmul, then sparse_matmul_tokens) against
     # fused_sparse_ffn on the same lists: in f32 the same up-dots and the
-    # same gather, so bit-equality; in bf16 both halves of the pair run the
-    # tensor-core routines, which sum in another order: TOL_BF16
+    # same gather, so bit-equality (checked); in bf16 the pair and the fused
+    # kernel run the same two tensor-core routines (up_tiles.cuh,
+    # tile_group.cuh), the fused kernel's down half over runs of tile ids
+    # summed by run_sum: TOL_BF16, the difference logged
     for dtype in (torch.float32, torch.bfloat16):
         xx = t(rng.randn(8, 4096), dtype)
         wg = t(rng.randn(4096, 16384) / 64.0, dtype)
@@ -610,6 +712,8 @@ def kernel_phase(dev) -> dict:
                     [hu, yu], [hf, yf], dtype)
             log(f"  unfused vs fused {frac:.0%} {dtype}: bit-equal "
                 f"{dh == 0 and dy == 0} (max|dh| {dh:.3e}, max|dy| {dy:.3e})")
+            if dtype == torch.float32 and (dh or dy):
+                fail(f"unfused vs fused FFN, {frac:.0%} lists f32: not bit-equal")
             results["sparse_up_matmul"].setdefault("fused_unfused_max_diff", {})[
                 f"{frac:.2f} {dtype}"] = max(dh, dy)
 
@@ -914,11 +1018,18 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
 
-    # tiny edges: E = 4, d = 64, F = 256, tile 128 (tpe 2), k_valid padding
+    # tiny edges: E = 4, d = 64, F = 256, tile 128 (tpe 2), k_valid padding;
+    # d = 72, not a multiple of the up routine's 64 rows a stage: each
+    # expert's slab reads zeros past d, not the next expert's rows
     topi = np.stack([rng.permutation(4)[:2] for _ in range(6)])
     kv = t([2, 2, 1, 0, 2, 1], torch.int32)
     idx, nv = ksm.expert_tile_lists(t(topi, torch.int32), 2, kv)
     for dtype in (torch.float32, torch.bfloat16):
+        x72 = t(rng.randn(6, 72), dtype)
+        w72 = t(rng.randn(4, 72, 256) / 8.0, dtype)
+        compare(f"expert_up_matmul tiny d=72 {dtype}",
+                [ksm.expert_up_matmul(x72, w72, idx, nv)],
+                [ksm.expert_up_matmul_plain(x72, w72, idx, nv)], dtype)
         x = t(rng.randn(6, 64), dtype)
         wu = t(rng.randn(4, 64, 256) / 8.0, dtype)
         wd = t(rng.randn(4, 256, 64) / 16.0, dtype)
@@ -1019,6 +1130,13 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
             topi = t(np.stack([rng.permutation(E)[:2] for _ in range(T)]),
                      torch.int32)
         idx, nv = ksm.expert_tile_lists(topi, tpe, kv)
+        xr = t(rng.randn(T, d), torch.bfloat16)
+        cu = ksm.expert_up_matmul(xr, pm["wu"], idx, nv)
+        compare(f"expert_up_matmul Mixtral-8x22B {name} bf16", [cu],
+                [ksm.expert_up_matmul_plain(xr, pm["wu"], idx, nv)],
+                torch.bfloat16)
+        if kv is not None and cu[kv == 0].abs().sum().item():
+            fail("expert_up_matmul: a token with no live expert is not zero")
         for cd in (torch.float32, torch.bfloat16):
             cc = t(rng.randn(T, idx.shape[1], tile) / 8.0, cd)
             compare(f"expert_down_matmul Mixtral-8x22B {name} ({cd}, bf16)",
@@ -1026,6 +1144,8 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
                     [ksm.expert_down_matmul_plain(cc, pm["wd"], idx, nv)], cd)
     same_bits("expert_down_matmul T=128 (f32, bf16)",
               lambda: ksm.expert_down_matmul(c, pm["wd"], idx_main, nv_main))
+    same_bits("expert_up_matmul T=128 bf16",
+              lambda: ksm.expert_up_matmul(x, pm["wu"], idx_main, nv_main))
     rows = {}
     K = cfg.top_k * tpe
     for kind, line, shape in (
@@ -1451,12 +1571,14 @@ def moe_serve(dev, counters, add, cfg=None) -> None:
         x = xs[T_]
         compare(f"grouped-gather MoE FFN T={T_} vs per-expert dense", [y],
                 [dense_expert_chain(pm, x, cfg)], torch.bfloat16)
+        gathered = lambda: moe.apply_moe_gathered(pm, x, cfg)  # noqa: E731
+        einsum = lambda: moe.apply_moe(pm, x, cfg)  # noqa: E731
         log("  grouped-gather MoE FFN " + json.dumps(dict(
             tokens=T_, layer=0,
-            gathered_ms=time_ms(lambda: moe.apply_moe_gathered(pm, x, cfg),
-                                reps=10),
-            dispatch_einsum_ms=time_ms(lambda: moe.apply_moe(pm, x, cfg),
-                                       reps=10))))
+            gathered_ms=time_ms(gathered, reps=10),
+            dispatch_einsum_ms=time_ms(einsum, reps=10),
+            gathered_device_ms=device_ms(gathered),
+            dispatch_einsum_device_ms=device_ms(einsum))))
 
 
 def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:

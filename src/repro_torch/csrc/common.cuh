@@ -25,6 +25,30 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// activation enum shared with core/activations.py (ACT_*), applied in the
+// epilogues of the FFN up-projections (ffn_up.cuh, up_tiles.cuh)
+enum { ACT_RELU = 0, ACT_GELU_TANH = 1, ACT_GATED_SIGMOID = 2, ACT_SHIFTED_RELU = 3,
+       ACT_FATRELU = 4, ACT_IDENTITY = 5 };
+
+__device__ __forceinline__ float apply_act(float v, int act, float prm) {
+  switch (act) {
+    case ACT_RELU:
+      return fmaxf(v, 0.f);
+    case ACT_GELU_TANH: {
+      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
+    }
+    case ACT_GATED_SIGMOID:
+      return v / (1.f + expf(-prm * v));
+    case ACT_SHIFTED_RELU:
+      return fmaxf(v - prm, 0.f);
+    case ACT_FATRELU:
+      return v > prm ? v : 0.f;
+    default:  // ACT_IDENTITY
+      return v;
+  }
+}
+
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {

@@ -1,12 +1,15 @@
-// The up-projection half of the decode FFN kernels (sm_90a), shared by
-// fused_sparse_ffn.cu and sparse_up_matmul.cu so that both compute each
-// gathered tile's dot products in the same order:
+// The CUDA-core up-projection of the list-driven FFN kernels (sm_90a): the
+// f32 path (and tiles other than 128) of fused_sparse_ffn.cu,
+// sparse_up_matmul.cu and expert_up_matmul.cu, so that in f32 the fused
+// kernel and the unfused pair compute each gathered tile's dot products in
+// the same order:
 //
 //   h_compact[t, i, c] = act(x_t . Wg[:, idx[t, i] * tile + c])
 //                        [* (x_t . Wu[:, ...])] [* mask[t, ...]]
 //
-// for list slots i < nvalid[t], zeros past it. sparse_up_matmul runs it with
-// ACT_IDENTITY, no Wu and no mask: the bare gathered product.
+// for list slots i < nvalid[t], zeros past it. sparse_up_matmul and
+// expert_up_matmul run it with ACT_IDENTITY, no Wu and no mask: the bare
+// gathered product. bf16 at tile 128 runs up_tiles.cuh on tensor cores.
 //
 // The weights may be a stack of E (d, F) matrices (expert_up_matmul): a tile
 // id names tile (id % tpe) of matrix id / tpe, with tpe = F / tile tiles per
@@ -15,29 +18,6 @@
 #pragma once
 
 #include "common.cuh"
-
-// activation enum shared with core/activations.py (ACT_*)
-enum { ACT_RELU = 0, ACT_GELU_TANH = 1, ACT_GATED_SIGMOID = 2, ACT_SHIFTED_RELU = 3,
-       ACT_FATRELU = 4, ACT_IDENTITY = 5 };
-
-__device__ __forceinline__ float apply_act(float v, int act, float prm) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(v, 0.f);
-    case ACT_GELU_TANH: {
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
-    }
-    case ACT_GATED_SIGMOID:
-      return v / (1.f + expf(-prm * v));
-    case ACT_SHIFTED_RELU:
-      return fmaxf(v - prm, 0.f);
-    case ACT_FATRELU:
-      return v > prm ? v : 0.f;
-    default:  // ACT_IDENTITY
-      return v;
-  }
-}
 
 #define UP_ROWS 8     // tokens per block
 #define UP_COLS 128   // tile columns per pass (one per thread)

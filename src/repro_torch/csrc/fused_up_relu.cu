@@ -275,7 +275,7 @@ static int run_up_relu(const void* x, const void* wu, void* h, void* scores, voi
     a.x = (const __nv_bfloat16*)x;
     a.T = T, a.d = d, a.F = F;
     a.h = (float*)h, a.scores = sc, a.G = G, a.shift = shift;
-    e = launch_up_tiles(a, (const __nv_bfloat16*)wu, st);
+    e = launch_up_tiles(a, (const __nv_bfloat16*)wu, nullptr, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

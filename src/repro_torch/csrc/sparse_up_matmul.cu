@@ -31,10 +31,12 @@
 //   activation, no second projection and no mask, so its dot products are
 //   summed in the order fused_sparse_ffn sums them: in f32 the unfused pair
 //   (this kernel, then sparse_matmul_tokens) gives the fused kernel's result
-//   bit for bit. In bf16 the pair (this routine, then tile_group.cuh)
-//   agrees with fused_sparse_ffn within the bf16 tolerance, not bit for bit:
-//   max |diff| 6.6e-5 of 4.2 at T = 8 with full lists, one bf16 ulp of f on
-//   OPT-6.7B layer 0 (chip_smoke.py, PERF.md).
+//   bit for bit. In bf16 the pair and fused_sparse_ffn run the same two
+//   routines (up_tiles.cuh, then tile_group.cuh): h is the same bit for
+//   bit, y agrees within the bf16 tolerance, since the fused kernel's down
+//   half sums runs of tile ids (run_sum) where sparse_matmul_tokens walks
+//   one run: max |diff| 1.7e-6 of 4.3 at T = 8 with full lists
+//   (chip_smoke.py on one H100, PERF.md).
 #include "ffn_up.cuh"
 #include "up_tiles.cuh"
 
@@ -51,18 +53,12 @@ extern "C" int sparse_up_matmul(const void* x, const void* w, const void* idx,
   float* out = (float*)compact;
   cudaError_t e;
   if (dtype == DT_BF16 && tile == UT_BN) {
-    if (T <= 0 || K <= 0) return (int)cudaGetLastError();
-    const int n_words = (F / UT_BN + 31) / 32;
-    ut_rows<<<T, 128, n_words * sizeof(unsigned), s>>>(ix, K, nv, T, n_words, (unsigned*)bits,
-                                                        out);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
     UtArgs a = {};
     a.x = (const __nv_bfloat16*)x;
     a.T = T, a.d = d, a.F = F;
-    a.bits = (const unsigned*)bits, a.idx = ix, a.nvalid = nv, a.K = K;
+    a.bits = (unsigned*)bits, a.idx = ix, a.nvalid = nv, a.K = K;
     a.compact = out;
-    e = launch_up_tiles(a, (const __nv_bfloat16*)w, s);
+    e = launch_up_tiles(a, (const __nv_bfloat16*)w, nullptr, s);
   } else if (dtype == DT_F32) {
     e = launch_up((const float*)x, (const float*)w, (const float*)nullptr, nullptr, ix, nv, out,
                   T, d, F, K, tile, F / tile, ACT_IDENTITY, 0.f, s);

@@ -616,12 +616,13 @@ typedef CUresult (*TgEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The TMA tensor map of a row-major 2-D matrix (rows, cols) of `type`, read
-// in boxes of box_rows x box_cols (cuTensorMapEncodeTiled, found through
-// the runtime's entry-point query, so nothing links against libcuda).
-static cudaError_t tg_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-                             const void* base, long rows, long cols, int box_cols, int box_rows,
-                             CUtensorMapSwizzle swizzle) {
+// The TMA tensor map of a row-major array of `rank` (2 or 3) dimensions of
+// `type`, dims and box innermost first (cuTensorMapEncodeTiled, found
+// through the runtime's entry-point query, so nothing links against
+// libcuda); elements past an edge read as zeros.
+static cudaError_t tg_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                          const void* base, int rank, const long* dims, const int* box,
+                          CUtensorMapSwizzle swizzle) {
   static TgEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -637,13 +638,28 @@ static cudaError_t tg_map_2d(CUtensorMap* map, CUtensorMapDataType type, int ele
       return e != cudaSuccess ? e : cudaErrorNotSupported;
     }
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, estr[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+  if (rank < 2 || rank > 3) return cudaErrorInvalidValue;
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3], estr[3] = {1, 1, 1};
+  cuuint64_t stride = elem_bytes;  // bytes between neighbours along dimension i
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i], b[i] = (cuuint32_t)box[i];
+    if (i > 0) strides[i - 1] = stride;
+    stride *= d[i];
+  }
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, strides, b, estr,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major 2-D matrix (rows, cols) read in boxes of box_rows x box_cols.
+static cudaError_t tg_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                             const void* base, long rows, long cols, int box_cols, int box_rows,
+                             CUtensorMapSwizzle swizzle) {
+  const long dims[2] = {cols, rows};
+  const int box[2] = {box_cols, box_rows};
+  return tg_map(map, type, elem_bytes, base, 2, dims, box, swizzle);
 }
 
 // The tensor map of a bf16 matrix (rows, D), a weight or x, read in boxes of

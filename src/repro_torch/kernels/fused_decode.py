@@ -3,7 +3,11 @@
 Kernel: ``csrc/fused_sparse_ffn.cu`` (CUDA C++, sm_90a), the port of the
 TPU kernel ``src/repro/kernels/fused_decode.py:fused_sparse_ffn``. The
 source note there says what bounds it on the H100 (weight bytes) and how
-its launches keep the TPU's list-order f32 accumulation without atomics.
+its launches replace the TPU's carried output block: bf16 at tile 128 runs
+the tensor-core up-projection routine (``csrc/up_tiles.cuh``) with the
+activation, GLU and mask in its epilogue, then the tile-grouped down
+gather (``csrc/tile_group.cuh``) over a bf16 copy of h; f32 (the parity
+path) runs ``ffn_up`` and the CUDA-core row gather in list order.
 
 For token t and list slot i < nvalid[t]:
 ``h = act(x_t @ Wg[:, tile_i]) [* (x_t @ Wu[:, tile_i])] [* mask]``,
@@ -23,6 +27,25 @@ from repro_torch.kernels import runtime as rt
 from repro_torch.predictor import predictors as preds
 
 _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+_TC_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+
+# the H100's SMs, which the down half's blocks should fill
+SMS = 132
+
+
+def down_runs(T: int, D: int, n_tiles: int) -> Tuple[int, int]:
+    """(n_runs, R): the down half (csrc/tile_group.cuh, compact mode) cuts
+    the tile ids into n_runs runs of R, a block per (run, chunk of 64 rows,
+    128 output columns), as many runs as keep the blocks within one wave of
+    the card's SMs (4 runs of 32 tiles at OPT-6.7B decode, T = 8: 128
+    blocks, where one run gives 32), and at least enough that no run holds
+    more than TG_RMAX ids."""
+    blocks = -(-D // 128) * -(-T // rt.TG_M)
+    n = max(1, min(n_tiles, rt.TG_MAX_RUNS, SMS // blocks),
+            -(-n_tiles // rt.TG_RMAX))
+    R = -(-n_tiles // n)
+    return -(-n_tiles // R), R
 
 
 def fused_sparse_ffn_plain(x, w_gate, wd, idx, nvalid, *, w_up=None,
@@ -64,7 +87,9 @@ def fused_sparse_ffn(x, w_gate, wd, idx, nvalid, *, w_up=None, unit_mask=None,
     idx (T, K) int32; nvalid (T,) int32; unit_mask optional (T, F) bool or
     f32 multiplied into h. Returns (y (T, d_out) f32, h_compact (T, K, tile)
     f32, zeros past nvalid). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (``fused_sparse_ffn.launches`` counts them).
+    tensors launch the kernel (``fused_sparse_ffn.launches`` counts them):
+    bf16 at tile 128 the tensor-core routines, f32 or another tile the
+    CUDA-core pair.
     """
     if rt.on_cpu(x, w_gate, wd, idx, nvalid, w_up, unit_mask):
         return fused_sparse_ffn_plain(x, w_gate, wd, idx, nvalid, w_up=w_up,
@@ -95,18 +120,63 @@ def fused_sparse_ffn(x, w_gate, wd, idx, nvalid, *, w_up=None, unit_mask=None,
     act, prm = acts.kernel_code(activation, shift)
     y = torch.empty((T, d_out), dtype=torch.float32, device=x.device)
     h = torch.empty((T, K, tile), dtype=torch.float32, device=x.device)
-    run, scratch = rt.gather_runs(T, K, d_out, x.device)
-    fn = rt.entry("fused_sparse_ffn", "fused_sparse_ffn", _ARGS)
-    rc = fn(rt.ptr(x), rt.ptr(w_gate), rt.ptr(w_up), rt.ptr(wd), rt.ptr(mask),
-            rt.ptr(idx), rt.ptr(nvalid), rt.ptr(h), rt.ptr(scratch), rt.ptr(y),
-            T, d, F, d_out, K, run, tile, code, act, prm,
-            rt.stream_ptr(x.device))
+    if code == rt.DTYPE_CODES[torch.bfloat16] and tile == rt.UT_BN:
+        rc = _fused_tc(x, w_gate, w_up, wd, mask, idx, nvalid, h, y, act, prm)
+    else:
+        run, scratch = rt.gather_runs(T, K, d_out, x.device)
+        fn = rt.entry("fused_sparse_ffn", "fused_sparse_ffn", _ARGS)
+        rc = fn(rt.ptr(x), rt.ptr(w_gate), rt.ptr(w_up), rt.ptr(wd),
+                rt.ptr(mask), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(h),
+                rt.ptr(scratch), rt.ptr(y), T, d, F, d_out, K, run, tile, code,
+                act, prm, rt.stream_ptr(x.device))
     rt.check(rc, "fused_sparse_ffn")
     fused_sparse_ffn.launches += 1
     return y, h
 
 
 fused_sparse_ffn.launches = 0
+
+
+def _fused_tc(x, w_gate, w_up, wd, mask, idx, nvalid, h, y, act: int,
+              prm: float) -> int:
+    """The bf16 route at tile 128 (``fused_sparse_ffn_tc``): its scratch
+    (the up half's bitmap, the bf16 copy of h, and with several runs the
+    runs mask and pair partials) allocated here; rows go in slabs whose
+    partials stay under TG_SCRATCH_BYTES. Returns the first non-zero CUDA
+    error code, else 0."""
+    T, d = x.shape
+    F, K, d_out = w_gate.shape[1], idx.shape[1], wd.shape[1]
+    rt.require(d % 8 == 0 and d_out % 8 == 0,
+               lambda: f"bf16 needs d % 8 == 0 and d_out % 8 == 0; got "
+                       f"{d}, {d_out}")
+    rt.require_aligned(x=x, w_gate=w_gate, w_up=w_up, wd=wd, mask=mask)
+    n_tiles = F // rt.UT_BN
+    n_runs, R = down_runs(T, d_out, n_tiles)
+    rt.require(n_runs <= rt.TG_MAX_RUNS,
+               lambda: f"d_ff={F}: more than {rt.TG_MAX_RUNS} runs of "
+                       f"{rt.TG_RMAX} tiles")
+    hb = torch.empty((T, K, rt.UT_BN), dtype=torch.bfloat16, device=x.device)
+    fn = rt.entry("fused_sparse_ffn", "fused_sparse_ffn_tc", _TC_ARGS)
+    stream = rt.stream_ptr(x.device)
+    slab = rt.tile_group_slab_rows(d_out, n_runs) or max(T, 1)
+    for r0 in range(0, T, slab):
+        r1 = min(T, r0 + slab)
+        bits = torch.empty((-(-n_tiles // 32), r1 - r0), dtype=torch.int32,
+                           device=x.device)
+        runs = P = None
+        if n_runs > 1:
+            runs = torch.empty(r1 - r0, dtype=torch.int64, device=x.device)
+            P = torch.empty((n_runs * (r1 - r0), d_out), dtype=torch.float32,
+                            device=x.device)
+        rc = fn(rt.ptr(x[r0:r1]), rt.ptr(w_gate), rt.ptr(w_up), rt.ptr(wd),
+                rt.ptr(None if mask is None else mask[r0:r1]),
+                rt.ptr(idx[r0:r1]), rt.ptr(nvalid[r0:r1]), rt.ptr(bits),
+                rt.ptr(hb[r0:r1]), rt.ptr(runs), rt.ptr(P), rt.ptr(h[r0:r1]),
+                rt.ptr(y[r0:r1]), r1 - r0, d, F, d_out, K, n_runs, R, act, prm,
+                stream)
+        if rc:
+            return rc
+    return 0
 
 
 def scatter_compact(compact, idx, nvalid, n_tiles: int) -> torch.Tensor:

@@ -163,12 +163,28 @@ def gather_runs(T: int, K: int, D: int, device) -> tuple:
 # csrc/up_tiles.cuh: output columns per block (one weight tile)
 UT_BN = 128
 
+# csrc/tile_group.cuh: its chunk size, longest run and most runs, and the
+# bound on its scratch
+TG_M, TG_RMAX, TG_MAX_RUNS = 64, 128, 64
+TG_SCRATCH_BYTES = 32 << 20
 
-def require_aligned(**tensors: torch.Tensor) -> None:
+
+def tile_group_slab_rows(D: int, n_runs: int):
+    """Rows per launch of the tile-grouped routine: with more than one run
+    a slab's scratch, its pair partials (rows x n_runs x D f32) and runs
+    mask (rows x 8 bytes), stays under TG_SCRATCH_BYTES. None with one run
+    (no scratch: the blocks write y)."""
+    if n_runs == 1:
+        return None
+    return max(1, TG_SCRATCH_BYTES // (n_runs * D * 4 + 8))
+
+
+def require_aligned(**tensors: Optional[torch.Tensor]) -> None:
     """The TMA and 16-byte copies of the tensor-core routines need 16-byte
     aligned bases."""
     for k, t in tensors.items():
-        require(t.data_ptr() % 16 == 0, lambda: f"{k} must be 16-byte aligned")
+        if t is not None:
+            require(t.data_ptr() % 16 == 0, lambda: f"{k} must be 16-byte aligned")
 
 
 def require(cond: bool, msg) -> None:

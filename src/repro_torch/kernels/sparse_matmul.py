@@ -33,11 +33,13 @@ list slots in list order; ``runtime.gather_runs`` keeps its scratch under
 twice counts twice, as in the reference; the plain versions weight each
 tile by its count (``predictors.tile_counts``). An f32 x against bf16
 weights is multiplied unrounded, as the reference's promoted dot does.
-``sparse_up_matmul`` with bf16 x and weights runs the tensor-core
-up-projection routine of ``csrc/up_tiles.cuh`` (a block per weight tile
-and chunk of up to 64 rows listing it); in f32, like ``expert_up_matmul``,
-it shares ``ffn_up`` (``csrc/ffn_up.cuh``) with ``fused_sparse_ffn``. Each
-source note says what bounds the kernel on the H100.
+``sparse_up_matmul`` and ``expert_up_matmul`` with bf16 x and weights at
+tile 128 run the tensor-core up-projection routine of ``csrc/up_tiles.cuh``
+(a block per weight tile, a global tile id of the stacked experts for
+``expert_up_matmul``, and chunk of up to 64 rows listing it), as does the
+up half of ``fused_sparse_ffn``; in f32 they share ``ffn_up``
+(``csrc/ffn_up.cuh``) with ``fused_sparse_ffn``. Each source note says what
+bounds the kernel on the H100.
 """
 from __future__ import annotations
 
@@ -48,10 +50,12 @@ import torch
 
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.fused_decode import scatter_compact
+from repro_torch.kernels.runtime import (TG_M, TG_MAX_RUNS, TG_RMAX,
+                                         TG_SCRATCH_BYTES, tile_group_slab_rows)
 from repro_torch.predictor import predictors as preds
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_UP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_UP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def sparse_matmul_tokens_plain(x, w, idx, nvalid, *, tile: int = 128
@@ -126,11 +130,9 @@ def _check_gather(x, w, idx, nvalid, tile: int, idx_shape, nv_shape):
 # ---------------------------------------------------------------------------
 # the tile-grouped tensor-core routine (csrc/tile_group.cuh)
 
-# its chunk size, longest run and most runs, the longest shared list, and
-# the bound on its scratch
-TG_M, TG_RMAX, TG_MAX_RUNS = 64, 128, 64
+# its chunk size, longest run and most runs, and the bound on its scratch
+# (kernels/runtime.py); the longest shared list
 TG_LIST_MAX = TG_M * TG_RMAX
-TG_SCRATCH_BYTES = 32 << 20
 _TC_ARGS = [ctypes.c_void_p] * 7  # a, w, idx, nvalid, mask, P, y
 
 
@@ -171,16 +173,6 @@ def tile_group_plan(idx, nvalid, run: int, n_runs: int,
     chunk_rows = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
     chunk_rows.scatter_(0, pos.reshape(-1), rows.reshape(-1))
     return TilePlan(mask, chunk_rows[:dump].view(n_runs * cpr, chunk))
-
-
-def tile_group_slab_rows(D: int, n_runs: int):
-    """Rows per launch of the tile-grouped routine: with more than one run
-    a slab's scratch, its pair partials (rows x n_runs x D f32) and runs
-    mask (rows x 8 bytes), stays under TG_SCRATCH_BYTES. None with one run
-    (no scratch: the blocks write y)."""
-    if n_runs == 1:
-        return None
-    return max(1, TG_SCRATCH_BYTES // (n_runs * D * 4 + 8))
 
 
 def _tile_groups(fn, a, w, idx, nvalid, y, *, n_tiles: int, run: int,
@@ -377,7 +369,10 @@ def expert_up_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     (T, K, tile) f32 blocks: block i of token t is x[t] @ w[e, :, ft * tile:
     (ft + 1) * tile] with (e, ft) = divmod(idx[t, i], F // tile); exact
     zeros past nvalid[t]. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``expert_up_matmul.launches`` counts them)."""
+    launch the kernel (``expert_up_matmul.launches`` counts them): bf16 at
+    tile 128 the tensor-core routine of csrc/up_tiles.cuh over the stacked
+    weight (a block per global tile id and chunk of up to 64 tokens routed
+    to its expert); f32, or another tile, the CUDA-core ``ffn_up``."""
     if rt.on_cpu(x, w, idx, nvalid):
         return expert_up_matmul_plain(x, w, idx, nvalid, tile=tile)
     T, d = x.shape
@@ -391,9 +386,17 @@ def expert_up_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     code = rt.dtype_code(x, w)
     rt.require_contiguous(x=x, w=w, idx=idx, nvalid=nvalid)
     compact = torch.empty((T, K, tile), dtype=torch.float32, device=x.device)
+    bits = None
+    if x.dtype == torch.bfloat16 and tile == rt.UT_BN:
+        rt.require(d % 8 == 0,
+                   lambda: f"x {tuple(x.shape)}: bf16 needs d % 8 == 0")
+        rt.require_aligned(x=x, w=w)
+        bits = torch.empty((-(-(E * F // tile) // 32), T), dtype=torch.int32,
+                           device=x.device)
     fn = rt.entry("expert_up_matmul", "expert_up_matmul", _UP_ARGS)
-    rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(compact),
-            T, d, F, K, tile, code, rt.stream_ptr(x.device))
+    rc = fn(rt.ptr(x), rt.ptr(w), rt.ptr(idx), rt.ptr(nvalid), rt.ptr(bits),
+            rt.ptr(compact), T, d, E, F, K, tile, code,
+            rt.stream_ptr(x.device))
     rt.check(rc, "expert_up_matmul")
     expert_up_matmul.launches += 1
     return compact
