@@ -25,8 +25,10 @@ device and build always run):
             ways), and works out the card's bound. Kernel 2 (bf16: pages
             cut into runs, tensor cores) is also timed at long contexts
             (OPT-6.7B at 1536 to 2048 tokens, Mixtral-8x22B over its 4096
-            window at W = 1 and 16) and the OPT 16-token chunk, against
-            SDPA on K and V expanded to the query heads; kernel 1 (bf16:
+            window at W = 1 and 16), the OPT 16-token chunk and the
+            speculative serve's verify window (8 slots x W = 5), against
+            SDPA on K and V expanded to the query heads; kernel 3 also at
+            that verify window (40 rows, one union list a slot); kernel 1 (bf16:
             the up-projection routine with the activation, GLU and mask
             in its epilogue, then the tile-grouped down gather) also with
             a GLU at OPT-6.7B width, and at T = 128 and 1, and by parts
@@ -54,8 +56,14 @@ device and build always run):
             (kernels) equal the CPU streams (plain versions) token for token,
             logprobs within 1e-5: plain mode, and predictor mode with a sign
             predictor at recall 1.0; the fused and unfused predictor FFN
-            agree on the card; tiny-moe (drop-free) in whole-prompt and
-            chunked mode.
+            agree on the card; sampled traffic (seeded top-k and top-p,
+            unseeded, greedy) in plain (whole-prompt, chunked) and
+            predictor mode; the speculative engine with a 1-layer random
+            draft, greedy and sampled, whole-prompt and chunked; on the
+            card the spec stream equals the AR stream, and the target as
+            its own draft prints its accept rate; the key schedule, random
+            bits and uniform on the card bit-equal to the CPU's; tiny-moe
+            (drop-free) in whole-prompt and chunked mode.
 5. serve    each path of the port at full width, bf16, random weights from a
             seed, with the launch counts set to 0 before it and read after it
             (every kernel of the path must launch). OPT-6.7B, 32 layers: the
@@ -65,7 +73,14 @@ device and build always run):
             time by kernel, and the busy share of that run's wall time); the
             unfused predictor FFN on one layer for 8 tokens;
             ops.sparse_ffn_apply at T = 8 and 128, density 0.25; the
-            per-token and window score kernels on layer 0. Then, OPT-6.7B
+            per-token and window score kernels on layer 0. Sampled serving:
+            the plain engine with 4 of the 8 requests sampled, twice, the
+            second time submitted in a shuffled order (the streams must be
+            identical), and the sampling head alone at B = 8 over the
+            vocabulary. Speculative serving: OPT-6.7B verifying an OPT-1.3B
+            draft (24 layers, full width), γ = 4, greedy and sampled
+            (step ms, tokens/s, α, s_agg, weight bytes a step, peak
+            memory). Then, OPT-6.7B
             freed, Mixtral-8x22B with 4 of its 56 layers: the engine in
             plain mode with the same geometry and requests (and a profiled
             batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
@@ -461,6 +476,15 @@ def kernel_phase(dev) -> dict:
             ("Mixtral-8x22B W=16 window=4096 at 4352-5120 tokens",
              (8, 16, 8, 6, 128, 16, 320, 8 * 320 + 1), 4096, 4352),
             ("OPT-6.7B chunk W=16", (8, 16, 32, 1, 128, 16, 16, 129), 0,
+             None),
+            # the speculative serve's verify window: 8 slots x γ+1 = 5
+            # rows over up to 256 cached tokens
+            ("OPT-6.7B verify W=5", (8, 5, 32, 1, 128, 16, 16, 129), 0,
+             None),
+            # its OPT-1.3B draft (32 heads x 64): each W = 1 draft step
+            # and each 16-token prefill chunk the draft writes
+            ("OPT-1.3B draft W=1", (8, 1, 32, 1, 64, 16, 16, 129), 0, None),
+            ("OPT-1.3B draft chunk W=16", (8, 16, 32, 1, 64, 16, 16, 129), 0,
              None)):
         err, a_ = attn_case(f"{name} {torch.bfloat16}", *shape, torch.bfloat16,
                             window=window, min_end=min_end)
@@ -560,12 +584,18 @@ def kernel_phase(dev) -> dict:
     # differ; one row per list at T = 8; 16 slots x 256-token chunks;
     # repeated tiles, pads repeating the first tile and unsorted lists
     extra = {}
-    for name, T_, n_lists, p in (("T=128 8x16 rows 25% lists", 128, 8, 0.25),
-                                 ("T=8 one row per list", 8, 8, 0.97),
-                                 ("T=4096 16x256 rows", 4096, 16, 0.97)):
-        err, args = smm_case(f"OPT-6.7B {name} {torch.bfloat16}", T_, 16384,
-                             4096, 128, torch.bfloat16,
-                             rng.rand(n_lists, 128) < p,
+    for name, T_, n_lists, p, F_, D_ in (
+            ("T=128 8x16 rows 25% lists", 128, 8, 0.25, 16384, 4096),
+            ("T=8 one row per list", 8, 8, 0.97, 16384, 4096),
+            # the speculative serve: OPT-6.7B's verify window (8 slots x 5
+            # rows, one union list a slot) and a step of the OPT-1.3B draft
+            ("T=40 verify 8x5 rows", 40, 8, 0.97, 16384, 4096),
+            ("OPT-1.3B draft T=8 one row per list", 8, 8, 0.97, 8192, 2048),
+            ("T=4096 16x256 rows", 4096, 16, 0.97, 16384, 4096)):
+        model = "" if name.startswith("OPT") else "OPT-6.7B "
+        err, args = smm_case(f"{model}{name} {torch.bfloat16}", T_, F_, D_,
+                             128, torch.bfloat16,
+                             rng.rand(n_lists, F_ // 128) < p,
                              rows_per_list=T_ // n_lists)
         extra[name] = (err, args)
     # an f32 x is multiplied unrounded whatever the weights' type (three
@@ -595,12 +625,17 @@ def kernel_phase(dev) -> dict:
     at = {}
     for name, (err, (xa, wa, ia, na)) in extra.items():
         na_np = na.cpu().numpy()
-        da = int(preds.covered_tiles(ia, na, 128).any(0).sum())
-        ba = bound(xa.numel() * 2 + da * 128 * 4096 * 2 + ia.numel() * 4
-                   + na_np.size * 4 + xa.shape[0] * 4096 * 4,
-                   float(na_np.sum()) * 128 * 4096 * 2, torch.bfloat16)
+        Fa, Da = wa.shape
+        da = int(preds.covered_tiles(ia, na, Fa // 128).any(0).sum())
+        ba = bound(xa.numel() * 2 + da * 128 * Da * 2 + ia.numel() * 4
+                   + na_np.size * 4 + xa.shape[0] * Da * 4,
+                   float(na_np.sum()) * 128 * Da * 2, torch.bfloat16)
+        plain = None
+        if "verify" in name or "draft" in name:
+            plain = lambda: ksm.sparse_matmul_tokens_plain(  # noqa: E731
+                xa, wa, ia, na)
         at[name] = dict(max_abs_err=err, **timings(
-            lambda: ksm.sparse_matmul_tokens(xa, wa, ia, na),
+            lambda: ksm.sparse_matmul_tokens(xa, wa, ia, na), plain,
             lib=lambda: xa @ wa), bound_ms=ba[0], bound_by=ba[1])
     del extra
     results["sparse_matmul_tokens"] = dict(
@@ -1165,17 +1200,130 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
 # phase 4: f32 engine parity, card vs CPU
 
 
-def serve_streams(cfg, params, device, prompts, chunk, predictor=None):
+def serve_streams(cfg, params, device, prompts, chunk, predictor=None,
+                  sampling=None, reuse=4, **spec):
+    """Serve ``prompts`` (10 new tokens each, γ-window reuse ``reuse``)
+    through a fresh engine; ``sampling`` gives each request its
+    SamplingParams (None: greedy), ``spec`` the speculative fields of
+    EngineConfig (draft_cfg, draft_params, gamma), where reuse is ignored.
+    Returns (streams, logprobs, engine)."""
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     eng = ContinuousBatchingEngine(
         cfg, params, EngineConfig(n_slots=4, block_size=8,
                                   max_blocks_per_seq=6, prefill_chunk=chunk,
-                                  predictor=predictor),
+                                  predictor=predictor, base_seed=3, **spec),
         device=device)
-    uids = [eng.submit(p, 10, reuse_window=4) for p in prompts]
+    sampling = sampling or [None] * len(prompts)
+    uids = [eng.submit(p, 10, reuse_window=reuse, sampling=sp)
+            for p, sp in zip(prompts, sampling)]
     res = eng.run()
     return ([res[u].tokens.tolist() for u in uids],
             np.concatenate([res[u].logprobs for u in uids]), eng)
+
+
+def parity_sampling(n: int):
+    """The parity phase's sampled traffic over ``n`` requests: seeded top-k,
+    seeded top-p, unseeded (the engine's base_seed) and greedy in turn."""
+    from repro_torch.serving import SamplingParams
+    kinds = [SamplingParams(temperature=0.9, top_k=40, seed=11),
+             SamplingParams(temperature=1.2, top_p=0.9, seed=12),
+             SamplingParams(temperature=0.8), None]
+    return [kinds[i % 4] for i in range(n)]
+
+
+def same_streams(what: str, got, want) -> float:
+    """Fails unless the (streams, logprobs) pairs agree (the card's against
+    the CPU's, or two paths on the card): tokens exactly, logprobs within
+    1e-5; returns the largest logprob difference."""
+    if got[0] != want[0]:
+        fail(f"{what}: streams {got[0]} != {want[0]}")
+    d = float(np.max(np.abs(got[1] - want[1])))
+    if d > 1e-5:
+        fail(f"{what}: logprobs differ by {d:.3e}")
+    return d
+
+
+def key_schedule_parity(dev) -> None:
+    """The key schedule, random bits and uniform on the card are bit-equal
+    to the CPU's (integer and bit operations only)."""
+    from repro_torch.serving import prng
+    from repro_torch.serving import sampling as smp
+
+    g = torch.Generator().manual_seed(0)
+    keys = torch.randint(0, 2 ** 32, (8, 2), generator=g, dtype=torch.int64)
+    gen = torch.randint(0, 1000, (8,), generator=g, dtype=torch.int64)
+    for what, fn in (
+            ("position_keys", lambda k, n: smp.position_keys(k, n)),
+            ("window_keys W=5", lambda k, n: smp.window_keys(k, n, 5)),
+            ("random_bits32 V=50272",
+             lambda k, n: prng.random_bits32(smp.position_keys(k, n), 50272)),
+            ("uniform V=50272",
+             lambda k, n: prng.uniform(smp.position_keys(k, n), 50272))):
+        want = fn(keys, gen)
+        got = fn(keys.to(dev), gen.to(dev)).cpu()
+        if not torch.equal(got.view(torch.int32) if got.is_floating_point()
+                           else got,
+                           want.view(torch.int32) if want.is_floating_point()
+                           else want):
+            fail(f"{what}: the card's bits differ from the CPU's")
+    log("  ok key schedule, random bits and uniform: card bit-equal to CPU")
+
+
+def sampled_spec_parity(dev, cfg, p_cpu, p_dev, prompts, pred_cpu, pred_dev
+                        ) -> None:
+    """Sampled and speculative f32 streams of one tiny config, card against
+    CPU: sampled traffic in plain (whole-prompt, chunked) and predictor
+    mode; the speculative engine with the 1-layer random draft
+    (launch/serve_api.py's) on greedy and sampled traffic, whole-prompt and
+    chunked; then, on the card, the spec stream against the AR stream and
+    the target as its own draft."""
+    from repro_torch.serving import SamplingParams
+
+    sampled = parity_sampling(len(prompts))
+    for chunk, pc, pd in ((0, None, None), (4, None, None),
+                          (4, pred_cpu, pred_dev)):
+        mode = "predictor" if pc is not None else "plain"
+        want = serve_streams(cfg, p_cpu, "cpu", prompts, chunk, pc, sampled)
+        got = serve_streams(cfg, p_dev, dev, prompts, chunk, pd, sampled)
+        d = same_streams(f"{cfg.name} sampled {mode} chunk={chunk}", got,
+                         want)
+        log(f"  ok parity {cfg.name} sampled {mode} prefill_chunk={chunk}: "
+            f"{sum(map(len, got[0]))} tokens identical, max|dlogprob| "
+            f"{d:.2e}")
+    dcfg = cfg.replace(name=f"{cfg.name}-draft", n_layers=1)
+    d_cpu = numpy_params(dcfg, seed=2)
+    d_dev = _to(d_cpu, dev)
+    greedy = [None, SamplingParams(stop=((7,),))] + [None] * (len(prompts) - 2)
+    # the AR stream a spec engine must reproduce: dense decode (a verify
+    # window is its own γ-window)
+    ar = serve_streams(cfg, p_dev, dev, prompts, 4, sampling=sampled, reuse=0)
+    for traffic, sps in (("greedy", greedy), ("sampled", sampled)):
+        for chunk in (0, 4):
+            want = serve_streams(cfg, p_cpu, "cpu", prompts, chunk,
+                                 sampling=sps, draft_cfg=dcfg,
+                                 draft_params=d_cpu, gamma=4)
+            got = serve_streams(cfg, p_dev, dev, prompts, chunk, sampling=sps,
+                                draft_cfg=dcfg, draft_params=d_dev, gamma=4)
+            what = f"{cfg.name} spec {traffic} chunk={chunk}"
+            d = same_streams(what, got, want)
+            if abs(got[2].s_agg_window() - want[2].s_agg_window()) > 1e-6:
+                fail(f"{what}: s_agg {got[2].s_agg_window()} != CPU "
+                     f"{want[2].s_agg_window()}")
+            log(f"  ok parity {what}: {sum(map(len, got[0]))} tokens "
+                f"identical, max|dlogprob| {d:.2e}, s_agg "
+                f"{got[2].s_agg_window():.4f}")
+            if traffic == "sampled" and chunk == 4:
+                d = same_streams(f"{cfg.name} card spec vs card AR", got, ar)
+                log(f"  ok {cfg.name} card spec stream = card AR stream "
+                    f"(max|dlogprob| {d:.2e})")
+    got = serve_streams(cfg, p_dev, dev, prompts, 4, sampling=sampled,
+                        draft_cfg=cfg, draft_params=p_dev, gamma=4)
+    d = same_streams(f"{cfg.name} card spec (target as draft) vs AR", got, ar)
+    res = got[2].scheduler.results
+    alpha = (sum(r.draft_accepted for r in res.values())
+             / max(1, sum(r.draft_proposed for r in res.values())))
+    log(f"  {cfg.name} target as its own draft on the card: accept rate "
+        f"{alpha:.4f}, stream = AR stream (max|dlogprob| {d:.2e})")
 
 
 def numpy_params(cfg, seed: int):
@@ -1234,12 +1382,8 @@ def parity_phase(dev) -> None:
                                              pd)
             if not eng.fast_kernels:
                 fail("engine on the card did not take the kernel path")
-            if got != want:
-                fail(f"{name} {mode} chunk={chunk}: card stream {got} != "
-                     f"CPU {want}")
-            d = float(np.max(np.abs(lp_got - lp_want)))
-            if d > 1e-5:
-                fail(f"{name} {mode} chunk={chunk}: logprobs differ by {d:.3e}")
+            d = same_streams(f"{name} {mode} chunk={chunk}", (got, lp_got),
+                             (want, lp_want))
             extra = ""
             if pc is not None:
                 if eng.predictor_recall() != 1.0 or e_cpu.predictor_recall() != 1.0:
@@ -1271,6 +1415,9 @@ def parity_phase(dev) -> None:
                  f"(max|df| {df:.3e})")
         log(f"  ok fused vs unfused predictor FFN {name}: f bit-equal "
             f"{df == 0}, act equal")
+        sampled_spec_parity(dev, cfg, p_cpu, p_dev, prompts, pred_cpu,
+                            pred_dev)
+    key_schedule_parity(dev)
 
     # tiny-moe (drop-free capacity): plain mode, whole-prompt and chunked
     cfg = get_config("tiny-moe").replace(compute_dtype="float32")
@@ -1283,11 +1430,8 @@ def parity_phase(dev) -> None:
         got, lp_got, eng = serve_streams(cfg, p_dev, dev, prompts, chunk)
         if not eng.fast_kernels:
             fail("MoE engine on the card did not take the kernel path")
-        if got != want:
-            fail(f"tiny-moe chunk={chunk}: card stream {got} != CPU {want}")
-        d = float(np.max(np.abs(lp_got - lp_want)))
-        if d > 1e-5:
-            fail(f"tiny-moe chunk={chunk}: logprobs differ by {d:.3e}")
+        d = same_streams(f"tiny-moe chunk={chunk}", (got, lp_got),
+                         (want, lp_want))
         if abs(eng.weight_io_bytes_per_step()
                - e_cpu.weight_io_bytes_per_step()) > 1e-9 * e_cpu.weight_io_bytes_per_step():
             fail(f"tiny-moe chunk={chunk}: weight I/O "
@@ -1313,10 +1457,15 @@ def timed_steps(eng) -> dict:
     clock with the card synchronised at both ends. Steps that ran a prefill
     chunk (or admitted) count as prefill, the rest as decode."""
     out = {"prefill": [], "decode": [], "decode_tokens": 0}
-    while eng.scheduler.has_work():
-        prefilling = bool(eng.scheduler.prefill_indices()) or bool(
-            len(eng.scheduler.queue))
-        n_active = len(eng.scheduler.active_indices())
+    sched = eng.scheduler
+
+    def emitted():  # slots' tokens so far, retired requests' included
+        return (sum(len(s.out) for s in sched.slots if s is not None)
+                + sum(len(r.tokens) for r in sched.results.values()))
+
+    while sched.has_work():
+        prefilling = bool(sched.prefill_indices()) or bool(len(sched.queue))
+        before = emitted()
         torch.cuda.synchronize()
         a = time.perf_counter()
         if not eng.step():
@@ -1327,7 +1476,8 @@ def timed_steps(eng) -> dict:
             out["prefill"].append(ms)
         else:
             out["decode"].append(ms)
-            out["decode_tokens"] += n_active
+            # tokens the step emitted: one a slot, more under speculation
+            out["decode_tokens"] += emitted() - before
     return out
 
 
@@ -1347,19 +1497,44 @@ def counted(path: str, counters, expect, fn):
     return out, launches
 
 
-def serve_run(eng, cfg, seed: int) -> dict:
-    """8 requests (prompts of 16 to 64 tokens, 16 new tokens each, γ = 4)
-    through ``eng`` to completion, with step timings and peak memory."""
-    dev = eng.device
+def serve_sampling():
+    """The serve phase's sampled traffic over its 8 requests: requests 0, 2,
+    4 and 6 seeded, top-k 50 and top-p 0.9 in turn; the rest greedy."""
+    from repro_torch.serving import SamplingParams
+    return [(SamplingParams(temperature=0.8, top_k=50, seed=100 + i)
+             if i % 4 == 0 else
+             SamplingParams(temperature=1.0, top_p=0.9, seed=100 + i))
+            if i % 2 == 0 else None for i in range(8)]
+
+
+def submit_requests(eng, cfg, seed: int, sampling=None, order=None):
+    """The serve phase's 8 requests (prompts of 16 to 64 tokens, 16 new
+    tokens each, γ = 4) submitted to ``eng``. ``sampling`` gives each
+    request its SamplingParams (None: greedy); ``order`` permutes the order
+    of submission. Returns (prompt lengths, sampling, {request: uid})."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(16, 65, size=8)
-    uids = [eng.submit(rng.randint(0, cfg.vocab_size, n), 16, reuse_window=4)
-            for n in lens]
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    sampling = sampling or [None] * 8
+    uids = {}
+    for i in (order if order is not None else range(8)):
+        uids[i] = eng.submit(prompts[i], 16, reuse_window=4,
+                             sampling=sampling[i])
+    return lens, sampling, uids
+
+
+def serve_run(eng, cfg, seed: int, sampling=None, order=None) -> dict:
+    """``submit_requests``' requests through ``eng`` to completion, with
+    step timings and peak memory. The streams, by request, come back under
+    "_streams". In speculative mode every step after admission is a spec
+    step, and the decode tokens/s counts the tokens the steps emitted."""
+    dev = eng.device
+    lens, sampling, uids = submit_requests(eng, cfg, seed, sampling, order)
     torch.cuda.reset_peak_memory_stats(dev)
     steps = timed_steps(eng)
     prefill_ms, decode_ms = steps["prefill"], steps["decode"]
     res = eng.run()
-    for u in uids:
+    for u in uids.values():
         r = res[u]
         if len(r.tokens) != 16:
             fail(f"request {u} finished with {len(r.tokens)} tokens, not 16")
@@ -1367,13 +1542,24 @@ def serve_run(eng, cfg, seed: int) -> dict:
             fail(f"request {u} has non-finite logprobs")
     return dict(model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
                 prompt_lens=lens.tolist(), max_new=16, n_slots=8,
+                sampled=sum(sp is not None and not sp.is_greedy
+                            for sp in sampling),
                 prefill_steps=len(prefill_ms),
                 prefill_step_ms_median=float(np.median(prefill_ms)),
                 decode_steps=len(decode_ms),
                 decode_step_ms_median=float(np.median(decode_ms)),
                 decode_tokens_per_s=steps["decode_tokens"] / (sum(decode_ms) / 1e3),
                 peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                weight_io_saved=eng.weight_io_saved())
+                weight_io_saved=eng.weight_io_saved(),
+                _streams=[res[uids[i]].tokens.tolist() for i in range(8)],
+                _logprobs=np.concatenate([res[uids[i]].logprobs
+                                          for i in range(8)]))
+
+
+def log_serve(out: dict, **extra) -> None:
+    """One serve run's figures as a JSON line (streams left out)."""
+    log("  serve " + json.dumps({k: v for k, v in dict(out, **extra).items()
+                                 if not k.startswith("_")}))
 
 
 def serve_phase(dev, counters) -> dict:
@@ -1412,11 +1598,12 @@ def serve_phase(dev, counters) -> dict:
         ("fused_sparse_ffn", "paged_window_attention", "sparse_matmul_tokens"),
         lambda: serve_run(eng, cfg, seed=0))
     add(launches)
-    log("  serve " + json.dumps(dict(out, mode="plain", launches=launches)))
+    log_serve(out, mode="plain", launches=launches)
     profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
                                 "decode": out["decode_step_ms_median"]},
                 "plain")
     del eng
+    sampled_serve(dev, counters, add, cfg, params, geom, out)
 
     # -- predictor mode: the sign predictor at a bf16 probe ------------------
     pred = sign_predictor(params, cfg, probe_dtype="bfloat16")
@@ -1433,7 +1620,7 @@ def serve_phase(dev, counters) -> dict:
                predictor_recall=eng.predictor_recall(),
                weight_io_bytes_per_step=eng.weight_io_bytes_per_step(),
                launches=launches)
-    log("  serve " + json.dumps(out))
+    log_serve(out)
     if eng.predictor_recall() != 1.0:
         fail(f"sign predictor at the compute dtype missed units: recall "
              f"{eng.predictor_recall()}")
@@ -1513,12 +1700,281 @@ def serve_phase(dev, counters) -> dict:
             kff.fused_up_relu_tokens_plain(x8, wu), torch.bfloat16)
     compare("fused_up_relu_window entry point B=8 W=16", outs[1],
             kff.fused_up_relu_window_plain(x_win, wu), torch.bfloat16)
-    del params, pred, pf, pred_l, wu, wd, xs, x8, x_win, outs, unfused, fused
+    del pred, pf, pred_l, wu, wd, xs, x8, x_win, outs, unfused, fused
+    torch.cuda.empty_cache()
+    spec_serve(dev, counters, add, cfg, params, geom)
+    del params
     torch.cuda.empty_cache()
 
     moe_serve(dev, counters, add)
     log(f"  launches summed over the paths: {json.dumps(total)}")
     return total
+
+
+def sampled_serve(dev, counters, add, cfg, params, geom, greedy: dict
+                  ) -> None:
+    """The plain engine on the serve phase's requests with 4 of 8 sampled
+    (``serve_sampling``), twice, the second time submitted in a shuffled
+    order: the streams must be identical (the keys hang off seed and
+    prompt, never the slot or the admission order). Then the greedy
+    requests once more, so the two sampled runs sit between two greedy
+    ones (``greedy``, run before, and this one), whose streams must be
+    identical too; step times and tokens/s of all four. Then the sampling
+    head alone at B = 8 over the vocabulary, per call and on the card."""
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serving import sampling as smp
+
+    runs = []
+    for sampling, order in ((serve_sampling(), None),
+                            (serve_sampling(), [5, 2, 7, 0, 3, 6, 1, 4]),
+                            (None, None)):
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**geom),
+                                       device=dev)
+        out, launches = counted(
+            "sampled plain serving" if sampling else "plain serving again",
+            counters, ("fused_sparse_ffn", "paged_window_attention",
+                       "sparse_matmul_tokens"),
+            lambda: serve_run(eng, cfg, seed=0, sampling=sampling,
+                              order=order))
+        add(launches)
+        runs.append(dict(out, launches=launches))
+        del eng
+    a, b, again = runs
+    if a["_streams"] != b["_streams"] or not np.array_equal(a["_logprobs"],
+                                                            b["_logprobs"]):
+        fail("sampled serving: shuffled admission changed the streams")
+    if again["_streams"] != greedy["_streams"]:
+        fail("plain serving: a second greedy run changed the streams")
+    if a["_streams"] == greedy["_streams"]:
+        fail("sampled serving: the sampled requests kept the greedy streams")
+    changed = sum(x != y for x, y in zip(a["_streams"], greedy["_streams"]))
+    log_serve(a, mode="plain sampled",
+              replay_identical_under_shuffled_admission=True,
+              streams_differing_from_greedy=changed,
+              shuffled_decode_step_ms_median=b["decode_step_ms_median"],
+              shuffled_decode_tokens_per_s=b["decode_tokens_per_s"],
+              greedy_decode_step_ms_median=greedy["decode_step_ms_median"],
+              greedy_decode_tokens_per_s=greedy["decode_tokens_per_s"],
+              greedy_again_decode_step_ms_median=again[
+                  "decode_step_ms_median"],
+              greedy_again_decode_tokens_per_s=again["decode_tokens_per_s"])
+
+    step_breakdown(dev, cfg, params, geom)
+
+    rng = np.random.RandomState(6)
+    B, V = 8, cfg.vocab_size
+    logits = torch.as_tensor(rng.randn(B, V) * 3, dtype=torch.bfloat16,
+                             device=dev)
+    sps = serve_sampling()
+    temps = torch.tensor([sp.temperature if sp else 0.0 for sp in sps],
+                         device=dev)
+    tks = torch.tensor([sp.top_k if sp else 0 for sp in sps], device=dev)
+    tps = torch.tensor([sp.top_p if sp else 1.0 for sp in sps], device=dev)
+    keys = torch.as_tensor(np.stack([
+        smp.request_prng_key([i], sp) if sp else np.zeros(2, np.uint32)
+        for i, sp in enumerate(sps)]).astype(np.int64), device=dev)
+    head = lambda: smp.sample_head(logits, V, temps, tks, tps, keys)  # noqa: E731
+    greedy_head = lambda: smp.greedy_head(logits, V)  # noqa: E731
+    want = smp.sample_head(logits.cpu(), V, temps.cpu(), tks.cpu(),
+                           tps.cpu(), keys.cpu())
+    got = head()
+    if got[0].cpu().tolist() != want[0].tolist():
+        fail(f"sample_head B={B} V={V}: card tokens {got[0].tolist()} != "
+             f"CPU {want[0].tolist()}")
+    same_bits(f"sample_head B={B} V={V} tokens", lambda: head()[0])
+    log("  sample_head " + json.dumps(dict(
+        B=B, V=V, sampled_rows=int((temps > 0).sum()),
+        tokens_equal_cpu=True,
+        max_abs_dlogprob=(got[1].cpu() - want[1]).abs().max().item(),
+        ms=time_ms(head), device_ms=device_ms(head),
+        greedy_only_ms=time_ms(greedy_head),
+        greedy_only_device_ms=device_ms(greedy_head))))
+
+
+def step_breakdown(dev, cfg, params, geom) -> None:
+    """Where a sampled plain step's time goes beside a greedy one's, on the
+    serve phase's requests (``serve_sampling`` against all greedy), prefill
+    and decode steps apart. Two passes a traffic, each on a fresh engine:
+
+    - fenced: the card synchronised around each part of the step, so a
+      part's time holds its host and its card work: "sampling state"
+      (``_sampling``: the scheduler's arrays and their host-to-device
+      copies), "model" (the family's model call), "head" (every
+      ``_Sampling.head`` call: two in a chunk step that also decodes),
+      "record" (the scheduler's record), and "rest" (the step's other
+      arrays and copies, the fetch, retirement and admission). Means a
+      step, so the parts add up to the step.
+    - host profile: cProfile over the same steps with no fences; each
+      watched function's cumulative host time a step (a function that
+      waits on the card holds that wait) and the functions with the most
+      own host time. The profiler slows the host: its step means are
+      printed beside."""
+    import cProfile
+    import pstats
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serving import engine as E
+
+    def fence(fn, part, bucket):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            bucket[part] = (bucket.get(part, 0.0)
+                            + (time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    class FencedFamily:
+        def __init__(self, fam, bucket):
+            self._fam, self._bucket = fam, bucket
+
+        def __getattr__(self, name):
+            f = getattr(self._fam, name)
+            return (fence(f, "model", self._bucket)
+                    if name.startswith("model_") else f)
+
+    def drive(eng, run_step):
+        """Step ``eng`` to the end; run_step(kind, eng.step) runs a step."""
+        sched = eng.scheduler
+        while sched.has_work():
+            kind = ("prefill" if sched.prefill_indices() or len(sched.queue)
+                    else "decode")
+            if not run_step(kind, eng.step):
+                break
+
+    watch = {  # name: (file, function)
+        "sampling state": ("engine.py", "_sampling"),
+        "model": ("dense_family.py", "model_"),
+        "head": ("engine.py", "head"),
+        "sample_head": ("sampling.py", "sample_head"),
+        "filter_logits": ("sampling.py", "filter_logits"),
+        "  sort": ("~", "<built-in method torch.sort>"),
+        "  cumsum": ("~", "<built-in method torch.cumsum>"),
+        "position_keys": ("sampling.py", "position_keys"),
+        "categorical": ("prng.py", "categorical"),
+        "  threefry2x32": ("prng.py", "threefry2x32"),
+        "greedy_head": ("sampling.py", "greedy_head"),
+        "fetch (.cpu())": ("~", "<method 'cpu' of 'torch._C.TensorBase' "
+                                "objects>"),
+        "record": ("scheduler.py", "record"),
+        "record_prefill": ("scheduler.py", "record_prefill"),
+    }
+    head = E._Sampling.head
+    for traffic, sampling in (("greedy", None), ("sampled", serve_sampling())):
+        # -- fenced pass --------------------------------------------------
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**geom),
+                                       device=dev)
+        submit_requests(eng, cfg, 0, sampling)
+        bucket, rows = {}, {"prefill": [], "decode": []}
+        eng._sampling = fence(eng._sampling, "sampling state", bucket)
+        eng.fam = FencedFamily(eng.fam, bucket)
+        sched = eng.scheduler
+        for name in ("record", "record_prefill"):
+            setattr(sched, name, fence(getattr(sched, name), "record",
+                                       bucket))
+
+        def fenced_step(kind, step):
+            bucket.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = step()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            rows[kind].append(dict(bucket, step=total,
+                                   rest=total - sum(bucket.values())))
+            return ok
+
+        E._Sampling.head = fence(head, "head", bucket)
+        try:
+            drive(eng, fenced_step)
+        finally:
+            E._Sampling.head = head
+        del eng
+        # -- host profile -------------------------------------------------
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**geom),
+                                       device=dev)
+        submit_requests(eng, cfg, 0, sampling)
+        profs = {k: cProfile.Profile() for k in rows}
+        walls = {k: [] for k in rows}
+
+        def profiled_step(kind, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            profs[kind].enable()
+            ok = step()
+            torch.cuda.synchronize()
+            profs[kind].disable()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+            return ok
+
+        drive(eng, profiled_step)
+        del eng
+        for kind in ("prefill", "decode"):
+            n = len(rows[kind])
+            parts = ("sampling state", "model", "head", "record", "rest",
+                     "step")
+            fenced = {p: float(np.mean([r.get(p, 0.0) for r in rows[kind]]))
+                      for p in parts}
+            stats = pstats.Stats(profs[kind]).stats
+            m = len(walls[kind])
+            host, calls = {}, {}
+            for label, (file, fn) in watch.items():
+                hits = [v for (f, _, name), v in stats.items()
+                        if f.endswith(file) and (name == fn or (
+                            fn.endswith("_") and name.startswith(fn)))]
+                host[label.strip()] = sum(v[3] for v in hits) * 1e3 / m
+                calls[label.strip()] = sum(v[1] for v in hits) / m
+            top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+            log("  step breakdown " + json.dumps(dict(
+                traffic=traffic, kind=kind, steps=n,
+                fenced_ms_mean=fenced,
+                host_profile_ms_per_step=host,
+                host_profile_calls_per_step=calls,
+                profiled_step_ms_mean=float(np.mean(walls[kind])),
+                top_own_host_ms_per_step=[
+                    [f"{Path(f).name}:{ln}({name})", v[2] * 1e3 / m]
+                    for (f, ln, name), v in top])))
+
+
+def spec_serve(dev, counters, add, cfg, params, geom, dcfg=None) -> None:
+    """The speculative engine at full width: OPT-6.7B verifying the
+    windows of an OPT-1.3B draft (24 layers, the same vocabulary), γ = 4,
+    on the serve phase's requests, greedy and with 4 of 8 sampled. Each
+    run is counted: the draft's W = 1 steps and the verify windows run
+    kernels 2 and 3. With random weights α and s_agg are about 0 (printed,
+    not gated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    dcfg = dcfg or get_config("opt-1.3b").replace(compute_dtype="bfloat16")
+    dparams = T.init_params(dcfg, seed=1, device=dev)
+    for traffic, sampling in (("greedy", None), ("sampled", serve_sampling())):
+        eng = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(draft_cfg=dcfg, draft_params=dparams,
+                                      gamma=4, **geom), device=dev)
+        out, launches = counted(
+            f"speculative serving ({traffic})", counters,
+            ("paged_window_attention", "sparse_matmul_tokens"),
+            lambda: serve_run(eng, cfg, seed=0, sampling=sampling))
+        add(launches)
+        res = eng.scheduler.results
+        prop = sum(r.draft_proposed for r in res.values())
+        acc = sum(r.draft_accepted for r in res.values())
+        log_serve(out, mode=f"spec {traffic}", draft=dcfg.name,
+                  draft_layers=dcfg.n_layers, gamma=4,
+                  spec_step_ms_median=out["decode_step_ms_median"],
+                  alpha=acc / max(1, prop), draft_proposed=prop,
+                  draft_accepted=acc, s_agg_window=eng.s_agg_window(),
+                  weight_io_bytes_per_step=eng.weight_io_bytes_per_step(),
+                  launches=launches)
+        if traffic == "greedy":
+            profile_run(eng, cfg, dev,
+                        {"prefill": out["prefill_step_ms_median"],
+                         "decode": out["decode_step_ms_median"]}, "spec")
+        del eng
+    del dparams
 
 
 def moe_serve(dev, counters, add, cfg=None) -> None:
@@ -1552,7 +2008,7 @@ def moe_serve(dev, counters, add, cfg=None) -> None:
     out.update(mode="moe plain", expert_io_fraction=eng.expert_io_fraction(),
                weight_io_bytes_per_step=eng.weight_io_bytes_per_step(),
                launches=launches)
-    log("  serve " + json.dumps(out))
+    log_serve(out)
     profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
                                 "decode": out["decode_step_ms_median"]},
                 "moe plain")

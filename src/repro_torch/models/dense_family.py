@@ -54,3 +54,20 @@ def model_decode_paged_predicted(params, pages, table, token, pos,
                                          block_size=block_size,
                                          measure=measure,
                                          fast_kernels=fast_kernels)
+
+
+def model_verify_window_paged(params, pages, table, tokens, pos0, wlen,
+                              cfg: ModelConfig, ffn_masks, refresh,
+                              block_size: int, fast_kernels=None):
+    return T.verify_window_paged(params, pages, table, tokens, pos0, wlen,
+                                 cfg, ffn_masks, refresh,
+                                 block_size=block_size,
+                                 fast_kernels=fast_kernels)
+
+
+def model_draft_gamma_paged(params, pages, table, token, pos0, wlen,
+                            cfg: ModelConfig, gamma: int, block_size: int,
+                            next_fn=None, fast_kernels=None):
+    return T.draft_gamma_paged(params, pages, table, token, pos0, wlen, cfg,
+                               gamma=gamma, block_size=block_size,
+                               next_fn=next_fn, fast_kernels=fast_kernels)

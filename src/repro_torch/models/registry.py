@@ -1,8 +1,8 @@
 """Architecture-family registry of the port.
 
 The dense and MoE families are ported; each declares the paged-serving
-capabilities it serves (MoE, like the reference's, has no predictor mode;
-its ``spec_verify`` waits for speculative mode). The reference's other
+capabilities it serves, as the reference's do (MoE has no predictor mode
+and cannot draft; it verifies a dense draft's windows). The reference's other
 families are known by name with an empty capability set, so serving one
 raises the uniform ``ServingCaps.require`` error, and asking for its module
 raises NotImplementedError.
@@ -51,10 +51,11 @@ def _load_builtin(name: str) -> None:
         from repro_torch.models import dense_family
         register_family("dense", dense_family,
                         caps=("paged_decode", "chunked_prefill",
-                              "predictor"))
+                              "spec_verify", "spec_draft", "predictor"))
     elif name == "moe":
         from repro_torch.models import moe
-        register_family("moe", moe, caps=("paged_decode", "chunked_prefill"))
+        register_family("moe", moe, caps=("paged_decode", "chunked_prefill",
+                                          "spec_verify"))
     elif name in _NOT_PORTED:
         _FAMILIES[name] = None
         _CAPS[name] = ServingCaps()

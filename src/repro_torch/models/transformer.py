@@ -409,6 +409,46 @@ def prefill_chunk_paged(params, pages, table, tokens, pos0, clen,
                                fast_kernels=fast_kernels)
 
 
+def draft_gamma_paged(params, pages, table, token, pos0, wlen,
+                      cfg: ModelConfig, *, gamma: int, block_size: int,
+                      next_fn=None, fast_kernels: Optional[bool] = None):
+    """Draft γ tokens per slot over the paged pool — the proposer half of
+    speculative decoding, batched across slots, with no host sync inside
+    the loop (the reference's ``lax.scan`` as a Python loop).
+
+    token (b,) each slot's current (verified) token; pos0 (b,) its write
+    position; wlen (b,) the slot's verification window length W_s — draft
+    step g writes position pos0+g only while g < W_s (out-of-window and
+    idle-slot writes go to the scratch block). The loop runs γ+1 steps so
+    the final proposal's own K/V is already in the draft cache when every
+    draft is accepted; the extra step's logits are discarded. Each step is
+    ``verify_window_paged`` at W = 1 with zero masks and refresh on (the
+    kernel path: ``paged_window_attention`` and ``sparse_matmul_tokens``).
+
+    next_fn(logits (b, vocab_p), g) -> (b,) int32 selects each step's
+    proposal (the engine's sampling head on the shared key schedule);
+    None takes the greedy argmax.
+
+    Returns (proposals (b, γ) int32, pages)."""
+    b = token.shape[0]
+    masks = torch.zeros((cfg.n_layers, b, cfg.d_ff), dtype=torch.bool,
+                        device=token.device)
+    refresh = torch.ones((b,), dtype=torch.bool, device=token.device)
+    tok, props = token, []
+    for g in range(gamma + 1):
+        wl = (g < wlen).to(wlen.dtype)  # 0/1: write-enable as W_s
+        logits, pages, _, _ = verify_window_paged(
+            params, pages, table, tok[:, None], pos0 + g, wl, cfg, masks,
+            refresh, block_size=block_size, fast_kernels=fast_kernels)
+        if next_fn is None:
+            tok = torch.argmax(logits[:, 0, : cfg.vocab_size].float(),
+                               -1).to(torch.int32)
+        else:
+            tok = next_fn(logits[:, 0], g)
+        props.append(tok)
+    return torch.stack(props[:gamma], 1), pages
+
+
 def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
                           tile: int, k_tiles: int, mask, refresh,
                           measure: bool = True, fused: bool):
@@ -426,12 +466,12 @@ def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
     the unfused pair, ``sparse_up_matmul`` then the activation times the
     covered mask, then ``sparse_matmul_tokens``. In f32 the two give the
     same result bit for bit (same per-tile dots, same accumulation order).
-    With bf16 weights the pair runs the tensor-core routines
-    (``csrc/up_tiles.cuh``, ``csrc/tile_group.cuh``), which sum in another
-    order than ``fused_sparse_ffn``: on the card they agree within the bf16
-    tolerance (max |diff| 6.6e-5 of 4.2 at T = 8 with full lists, one bf16
-    ulp of f on OPT-6.7B layer 0; PERF.md). On CUDA tensors both launch the
-    CUDA kernels.
+    With bf16 weights both lowerings run the tensor-core routines
+    (``csrc/up_tiles.cuh``, ``csrc/tile_group.cuh``) and agree within the
+    bf16 tolerance; on an H100 (``chip_smoke.py``, PERF.md section 6) h
+    came out bit-equal and y within 1.7e-6 of 4.3 at the kernel level, and
+    f within 2.4e-4 (one bf16 ulp) served on OPT-6.7B layer 0. On CUDA
+    tensors both launch the CUDA kernels.
 
     With ``measure`` a recall miss is counted: a dense gate pre-activation
     (telemetry only, never fed to the residual stream) re-reads the gate

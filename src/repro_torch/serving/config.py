@@ -4,8 +4,8 @@ fields, defaults and ``validate()``), without its legacy-kwargs shim.
 
 ``validate()`` owns every rule decidable from the config alone; rules that
 need the model config or the device stay in the engine, which also raises
-NotImplementedError for the modes this port does not serve yet
-(speculative, mesh, observability, sparsity tracking).
+NotImplementedError for the modes this port does not serve yet (mesh,
+observability, sparsity tracking).
 """
 from __future__ import annotations
 

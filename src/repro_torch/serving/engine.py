@@ -1,24 +1,37 @@
 """Continuous-batching serving engine of the PyTorch port.
 
 ``ContinuousBatchingEngine(cfg, params, config=EngineConfig(...),
-device="cuda")`` is the reference's engine (``serving/engine.py``) for
-greedy requests in two of its serving modes: requests are admitted and
-retired mid-decode by the copied numpy scheduler, K/V lives in a paged
-block pool shared by the slot batch, and admission runs either as
-whole-prompt prefill (``prefill_chunk == 0``) or as one fixed-shape chunk
-per step. The shared prompt-prefix cache and SLO preemption come with the
-scheduler. Every step decodes one token per active slot:
+device="cuda")`` is the reference's engine (``serving/engine.py``) in its
+three serving modes: requests are admitted and retired mid-decode by the
+copied numpy scheduler, K/V lives in a paged block pool shared by the slot
+batch, and admission runs either as whole-prompt prefill
+(``prefill_chunk == 0``) or as one fixed-shape chunk per step. The shared
+prompt-prefix cache and SLO preemption come with the scheduler. Each step
+advances every active slot:
 
-* plain mode, with per-request γ-window FFN masks;
+* plain mode: one token, with per-request γ-window FFN masks;
 * predictor mode (``EngineConfig(predictor=...)``, a
-  ``repro_torch.predictor.Predictor`` on the engine's device): the
-  predictor names each token's active FFN tiles before any FFN weight is
-  read, and the step gathers only those tiles for the up- and
-  down-projections, with density and recall telemetry per step.
+  ``repro_torch.predictor.Predictor`` on the engine's device): one token;
+  the predictor names each token's active FFN tiles before any FFN weight
+  is read, and the step gathers only those tiles for the up- and
+  down-projections, with density and recall telemetry per step;
+* speculative mode (``EngineConfig(draft_cfg=, draft_params=, gamma=)``,
+  paper Sec. 5.2): a dense draft proposes γ tokens per slot
+  (``draft_gamma_paged``), the target verifies each slot's γ+1-token
+  window in one forward (``model_verify_window_paged``) whose FFN
+  down-projection reads only the window's union-active rows (s_agg), and
+  the scheduler keeps the longest accepted prefix plus the target's own
+  token.
+
+Every token comes from one sampling head (serving/sampling.py): greedy
+rows take the argmax, sampled rows (temperature > 0) draw with the
+request's key schedule, which the draft shares (key-coupled acceptance:
+a sampled spec stream equals the autoregressive one for any draft).
 
 The model family comes from ``cfg.family`` (models/registry.py): dense, or
-MoE (plain mode only, as in the reference; routing to top_k of n_experts
-is itself activation sparsity, ``expert_io_fraction``).
+MoE (plain and speculative modes with a dense draft, as in the reference;
+routing to top_k of n_experts is itself activation sparsity,
+``expert_io_fraction``).
 
 PyTorch runs the step eagerly (no jit). ``fast_kernels`` follows the
 device: on CUDA the steps run the hand-written kernels (kernels/*.py) and
@@ -27,8 +40,7 @@ plain path, or with ``fast_kernels=True`` the kernel path's structure with
 each wrapper's plain version. With an MoE config on the CPU,
 ``fast_kernels=True`` warns and serves the plain path, as the reference
 does; on CUDA its steps run the attention kernel. Not ported yet, and raising
-NotImplementedError: speculative mode, ``mesh=``, ``obs=``,
-``track_sparsity`` and sampled (temperature > 0) requests.
+NotImplementedError: ``mesh=``, ``obs=`` and ``track_sparsity``.
 """
 from __future__ import annotations
 
@@ -42,7 +54,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import registry
 from repro_torch.serving.config import EngineConfig
-from repro_torch.serving.sampling import SamplingParams, greedy_head, require_greedy
+from repro_torch.serving import sampling as smp
+from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
 
 
@@ -54,8 +67,44 @@ def _leaves(tree):
         yield tree
 
 
+class _Sampling:
+    """One step's per-slot sampling state, from the scheduler's
+    ``sampling_arrays``. Whether any row samples is known on the host: an
+    all-greedy step moves nothing to the device and takes the greedy head.
+    The engine builds it before queueing the step's kernels, so its
+    host-to-device copies never wait on them."""
+
+    def __init__(self, arrays, tensor):
+        temps, tks, tps, keys, gen = arrays
+        self.any_sampled = bool((temps > 0).any())
+        if self.any_sampled:
+            self.temps = tensor(temps, torch.float32)
+            self.top_k = tensor(tks, torch.int64)
+            self.top_p = tensor(tps, torch.float32)
+            self.keys = tensor(keys.astype(np.int64), torch.int64)
+            self.gen = tensor(gen, torch.int64)
+
+    def head(self, logits, vocab: int, offset: int = 0):
+        """Next token and logprob per row of logits (B, vocab_p), keyed at
+        each slot's next generated index plus ``offset``; or per position
+        of a verify window (B, W, vocab_p), position j keyed at that index
+        plus j."""
+        if not self.any_sampled:
+            return smp.greedy_head(logits, vocab)
+        gen = self.gen + offset
+        if logits.dim() == 2:
+            return smp.sample_head(logits, vocab, self.temps, self.top_k,
+                                   self.top_p, smp.position_keys(self.keys,
+                                                                 gen))
+        B, W = logits.shape[:2]
+        per_slot = (a[:, None].expand(B, W)
+                    for a in (self.temps, self.top_k, self.top_p))
+        return smp.sample_head(logits, vocab, *per_slot,
+                               smp.window_keys(self.keys, gen, W))
+
+
 class ContinuousBatchingEngine:
-    """Continuous-batching greedy serving over a paged KV cache.
+    """Continuous-batching serving over a paged KV cache.
 
     cfg: the model config; params: its parameter tree on ``device``
     (``transformer.init_params`` or ``convert.params_from_jax``); config:
@@ -70,8 +119,7 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda" and config.fast_kernels is False:
             raise ValueError("fast_kernels=False on CUDA: on the card the "
                              "engine runs the hand-written kernels")
-        for on, what in ((config.draft_cfg is not None, "speculative mode"),
-                         (config.mesh is not None, "mesh= (sharded serving)"),
+        for on, what in ((config.mesh is not None, "mesh= (sharded serving)"),
                          (config.obs is not None, "obs= (observability)"),
                          (config.track_sparsity, "track_sparsity")):
             if on:
@@ -83,10 +131,7 @@ class ContinuousBatchingEngine:
             raise ValueError("continuous batching requires an FFN (d_ff > 0)")
         if config.prefill_chunk:
             caps.require("chunked_prefill", cfg.family)
-        off = [t.device for t in _leaves(params) if t.device != self.device]
-        if off:
-            raise ValueError(f"params must lie on {self.device}; found "
-                             f"{sorted(set(map(str, off)))}")
+        self._require_on_device(params, "params")
         self.predictor = predictor = config.predictor
         self.predictor_telemetry = config.predictor_telemetry
         if predictor is not None:
@@ -95,11 +140,7 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"predictor geometry {predictor.n_tiles}x"
                     f"{predictor.tile} does not cover d_ff={cfg.d_ff}")
-            off = [t.device for t in predictor.params.values()
-                   if t.device != self.device]
-            if off:
-                raise ValueError(f"predictor params must lie on {self.device}; "
-                                 f"found {sorted(set(map(str, off)))}")
+            self._require_on_device(predictor.params, "predictor params")
         self.config = config
         self.cfg = cfg
         self.params = params
@@ -124,6 +165,23 @@ class ContinuousBatchingEngine:
             aging_steps=config.aging_steps)
         self.pages = self.fam.init_paged_cache(cfg, n_blocks, config.block_size,
                                                device=self.device)
+        self.base_seed = config.base_seed
+        self.spec = config.draft_cfg is not None
+        self.gamma = config.gamma
+        if self.spec:
+            dcfg = config.draft_cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            caps.require("spec_verify", cfg.family)
+            registry.serving_caps(dcfg).require("spec_draft", dcfg.family)
+            self._require_on_device(config.draft_params, "draft params")
+            self.draft_cfg = dcfg
+            self.draft_params = config.draft_params
+            self.dfam = registry.get_family(dcfg)
+            # the draft shares the slots' block TABLES but has its own pool
+            # (its layer count / head geometry differ from the target's)
+            self.draft_pages = self.dfam.init_paged_cache(
+                dcfg, n_blocks, config.block_size, device=self.device)
         self.masks = torch.zeros((cfg.n_layers, config.n_slots, cfg.d_ff),
                                  dtype=torch.bool, device=self.device)
         self.t = 0
@@ -136,6 +194,12 @@ class ContinuousBatchingEngine:
         self._pred_active = 0
         self._pred_miss = 0
 
+    def _require_on_device(self, tree, what: str) -> None:
+        off = [t.device for t in _leaves(tree) if t.device != self.device]
+        if off:
+            raise ValueError(f"{what} must lie on {self.device}; found "
+                             f"{sorted(set(map(str, off)))}")
+
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
@@ -143,14 +207,21 @@ class ContinuousBatchingEngine:
     def submit(self, prompt, max_new: int, reuse_window: int = 0,
                sampling: Optional[SamplingParams] = None, *,
                priority: int = 0, slo_ms: Optional[float] = None) -> int:
-        """Enqueue a greedy request; returns its uid. ``reuse_window`` is
-        the γ of the request's FFN weight reuse (0 = dense)."""
-        require_greedy(sampling)
+        """Enqueue a request; returns its uid. ``reuse_window`` is the γ of
+        the request's FFN weight reuse (0 = dense; ignored in speculative
+        mode, where each verify window is its own γ-window). ``sampling``
+        (None = greedy) selects the decoding distribution and stop
+        sequences; a sampled request's PRNG key comes from (seed, request
+        fingerprint), never from its uid, slot or admission order."""
         self._uid += 1
+        key = None
+        if sampling is not None and not sampling.is_greedy:
+            key = smp.request_prng_key(prompt, sampling, self.base_seed)
         req = Request(uid=self._uid,
                       tokens=np.asarray(prompt, np.int32).reshape(-1),
                       max_new=max_new, reuse_window=reuse_window,
-                      sampling=sampling, priority=priority, slo_ms=slo_ms)
+                      sampling=sampling, key=key, priority=priority,
+                      slo_ms=slo_ms)
         self.scheduler.submit(req, self.t)
         return self._uid
 
@@ -167,24 +238,41 @@ class ContinuousBatchingEngine:
         sched.retire_finished(self.t)
         newly = sched.admit(self.t)
         if not self.prefill_chunk:
-            for _, slot in newly:
-                self._prefill_whole(slot)
+            for i, slot in newly:
+                self._prefill_whole(i, slot)
             return bool(newly)
         if not sched.prefill_indices():
             return False
         self._prefill_one_chunk()
         return True
 
-    def _prefill_whole(self, slot) -> None:
+    def _sampling(self, slot: Optional[int] = None) -> _Sampling:
+        """The step's sampling state from the scheduler's
+        ``sampling_arrays``; with ``slot``, that slot's row alone, keyed at
+        generated index 0, where the reference keys the token a
+        whole-prompt prefill seeds (a resumed slot's too)."""
+        arrays = self.scheduler.sampling_arrays()
+        if slot is not None:
+            *row, gen = (a[slot:slot + 1] for a in arrays)
+            arrays = (*row, np.zeros_like(gen))
+        return _Sampling(arrays, self._tensor)
+
+    def _prefill_whole(self, i: int, slot) -> None:
         s = slot.prefill_len
         nb_eff = -(-s // self.block_size)
         toks = np.zeros((1, nb_eff * self.block_size), np.int32)
         toks[0, :s] = slot.prefill_tokens
+        batch = {"tokens": self._tensor(toks)}
+        blocks = self._tensor(slot.blocks[:nb_eff], torch.int32)
+        one = self._sampling(i)
         last, self.pages = self.fam.model_prefill_paged(
-            self.params, {"tokens": self._tensor(toks)}, self.cfg, self.pages,
-            self._tensor(slot.blocks[:nb_eff], torch.int32), self.block_size,
+            self.params, batch, self.cfg, self.pages, blocks, self.block_size,
             true_len=s)
-        nxt, lp = greedy_head(last, self.cfg.vocab_size)
+        if self.spec:
+            _, self.draft_pages = self.dfam.model_prefill_paged(
+                self.draft_params, batch, self.draft_cfg, self.draft_pages,
+                blocks, self.block_size, true_len=s)
+        nxt, lp = one.head(last, self.cfg.vocab_size)
         self.scheduler.seed(slot, int(nxt[0]), float(lp[0]), step=self.t)
 
     def _prefill_one_chunk(self) -> None:
@@ -195,29 +283,58 @@ class ContinuousBatchingEngine:
         # activity into the mask row; continuing chunks OR into it
         refresh = clen > 0
         keep = self._tensor(refresh & ~first)
+        jtok, jtable = self._tensor(tokens), self._tensor(table)
+        jpos, jclen = self._tensor(pos0), self._tensor(clen)
+        B, C = tokens.shape
+        last = np.maximum(clen - 1, 0)
+        jlast = self._tensor(last, torch.int64)
+        smpl = self._sampling()
         logits, self.pages, new_masks, aux = self.fam.model_prefill_chunk_paged(
-            self.params, {"tokens": self._tensor(tokens)}, self.cfg, self.pages,
-            self._tensor(table), self._tensor(pos0), self._tensor(clen),
-            self.masks, self._tensor(refresh), self.block_size,
+            self.params, {"tokens": jtok}, self.cfg, self.pages, jtable, jpos,
+            jclen, self.masks, self._tensor(refresh), self.block_size,
             fast_kernels=self.fast_kernels)
         self.masks = torch.where(keep[None, :, None], self.masks | aux[0],
                                  new_masks)
-        nxt, lp = greedy_head(logits, self.cfg.vocab_size)
-        sched.record_prefill(nxt.cpu().numpy(), lp.cpu().numpy(), clen,
-                             warm=self.warm_masks, step=self.t)
+        if self.spec:
+            # the draft needs the prompt K/V in ITS pool too. Its own
+            # γ-masks never persist, but refresh MUST be on: refresh off
+            # with zero masks zeroes the FFN (eff = mask | refresh), which
+            # would corrupt the drafted prompt K/V — exact output either
+            # way, but acceptance would collapse
+            dcfg = self.draft_cfg
+            _, self.draft_pages, _, _ = self.dfam.model_verify_window_paged(
+                self.draft_params, self.draft_pages, jtable, jtok, jpos, jclen,
+                dcfg, torch.zeros((dcfg.n_layers, B, dcfg.d_ff),
+                                  dtype=torch.bool, device=self.device),
+                torch.ones((B,), dtype=torch.bool, device=self.device),
+                self.block_size, fast_kernels=self.fast_kernels)
+        # only a slot's last chunk position (clen - 1) can seed a token, so
+        # the head runs on that row alone, keyed at the slot's CURRENT
+        # generated index (0 for a fresh prompt; a resumed preempted slot
+        # continues its schedule at len(out)). The reference samples every
+        # position with that key and reads the same row.
+        rows = logits[torch.arange(B, device=self.device), jlast]
+        nxt, lp = smpl.head(rows, self.cfg.vocab_size)
+        nxt_bc = np.zeros((B, C), np.int32)
+        lp_bc = np.zeros((B, C), np.float32)
+        nxt_bc[np.arange(B), last] = nxt.cpu().numpy()
+        lp_bc[np.arange(B), last] = lp.cpu().numpy()
+        sched.record_prefill(nxt_bc, lp_bc, clen, warm=self.warm_masks,
+                             step=self.t)
 
     @torch.inference_mode()
     def _advance(self, active) -> None:
         """Decode one token for every active slot."""
         sched = self.scheduler
         tokens, pos, table, refresh = sched.batch_arrays()
+        smpl = self._sampling()
         logits, self.pages, self.masks, (_, _, density) = \
             self.fam.model_decode_paged(
                 self.params, self.pages, self._tensor(table),
                 self._tensor(tokens), self._tensor(pos), self.cfg, self.masks,
                 self._tensor(refresh), self.block_size,
                 fast_kernels=self.fast_kernels)
-        nxt, lp = greedy_head(logits, self.cfg.vocab_size)
+        nxt, lp = smpl.head(logits, self.cfg.vocab_size)
         lp_np, dens_np = torch.stack([lp, density.mean(0)]).cpu().numpy()
         nxt_np = nxt.cpu().numpy()
         self._account(active, dens_np)
@@ -231,6 +348,7 @@ class ContinuousBatchingEngine:
         sched = self.scheduler
         pred = self.predictor
         tokens, pos, table, refresh = sched.batch_arrays()
+        smpl = self._sampling()
         logits, self.pages, self.masks, (_, _, density, n_act, n_miss) = \
             self.fam.model_decode_paged_predicted(
                 self.params, self.pages, self._tensor(table),
@@ -238,7 +356,7 @@ class ContinuousBatchingEngine:
                 self._tensor(refresh), pred.params, pred.kind, pred.tile,
                 pred.k_tiles, self.block_size, self.predictor_telemetry,
                 fast_kernels=self.fast_kernels)
-        nxt, lp = greedy_head(logits, self.cfg.vocab_size)
+        nxt, lp = smpl.head(logits, self.cfg.vocab_size)
         lp_np, dens_np = torch.stack([lp, density.mean(0)]).cpu().numpy()
         na, nm = torch.stack([n_act.sum(0), n_miss.sum(0)]).cpu().numpy()
         nxt_np = nxt.cpu().numpy()
@@ -247,6 +365,43 @@ class ContinuousBatchingEngine:
         self._pred_miss += int(sum(nm[i] for i in active))
         sched.record(nxt_np, lp_np, pred_density=dens_np, pred_active=na,
                      pred_miss=nm)
+
+    @torch.inference_mode()
+    def _advance_spec(self, active) -> None:
+        """Speculative decode, batched across slots: γ draft tokens per
+        slot from one draft loop, then every slot's γ+1-token window
+        through one target forward. The only host traffic is the (B, γ)
+        proposal fetch the window is built from and the (B, W) fetch of
+        the target's tokens and logprobs. Draft and verify sample with the
+        slots' shared key schedule (key-coupled acceptance)."""
+        sched = self.scheduler
+        vocab = self.cfg.vocab_size
+        tokens, pos0, table, wlen = sched.spec_batch(self.gamma + 1)
+        smpl = self._sampling()
+        jt, jp, jw = (self._tensor(table), self._tensor(pos0),
+                      self._tensor(wlen))
+
+        def next_fn(logits, g):
+            # proposal g is keyed at generated index gen0 + g
+            return smpl.head(logits, vocab, offset=g)[0]
+
+        props, self.draft_pages = self.dfam.model_draft_gamma_paged(
+            self.draft_params, self.draft_pages, jt, self._tensor(tokens), jp,
+            jw, self.draft_cfg, self.gamma, self.block_size, next_fn=next_fn,
+            fast_kernels=self.fast_kernels)
+        window = np.concatenate([tokens[:, None], props.cpu().numpy()], 1)
+        refresh = torch.ones((self.config.n_slots,), dtype=torch.bool,
+                             device=self.device)
+        logits, self.pages, self.masks, (_, _, _, udens) = \
+            self.fam.model_verify_window_paged(
+                self.params, self.pages, jt, self._tensor(window), jp, jw,
+                self.cfg, self.masks, refresh, self.block_size,
+                fast_kernels=self.fast_kernels)
+        target, lp = smpl.head(logits, vocab)
+        dens_np = udens.mean(0).cpu().numpy()
+        target_np, lp_np = target.cpu().numpy(), lp.cpu().numpy()
+        self._account(active, dens_np)
+        sched.record_spec(window, target_np, lp_np, wlen)
 
     def _account(self, active, dens_np) -> None:
         """Per-(active slot, step) weight-read fraction."""
@@ -257,11 +412,15 @@ class ContinuousBatchingEngine:
 
     def step(self) -> bool:
         """Retire, admit, advance prefill (one chunk in chunked mode), then
-        decode one token per active slot. False when no work ran."""
+        advance every active slot: one decoded token each, or one drafted
+        and verified window each in speculative mode. False when no work
+        ran."""
         prefilled = self._admit()
         active = self.scheduler.active_indices()
         if active:
-            if self.predictor is not None:
+            if self.spec:
+                self._advance_spec(active)
+            elif self.predictor is not None:
                 self._advance_pred(active)
             else:
                 self._advance(active)
@@ -302,8 +461,10 @@ class ContinuousBatchingEngine:
     def weight_io_saved(self) -> float:
         """Fraction of FFN weight reads skipped, averaged over (active slot,
         step); 0.0 before any decode step. Plain mode: down-projection rows
-        skipped by γ-window reuse. Predictor mode: up- AND down-projection
-        tiles the predictor never gathered (1 - mean predicted density)."""
+        skipped by γ-window reuse. Speculative mode: down-projection rows
+        outside each verify window's union activity, the measured s_agg(γ)
+        of paper Sec. 5.2. Predictor mode: up- AND down-projection tiles
+        the predictor never gathered (1 - mean predicted density)."""
         if not self._dens_n:
             return 0.0
         return 1.0 - self._dens_sum / self._dens_n
@@ -313,7 +474,9 @@ class ContinuousBatchingEngine:
         skippable scope: every projection for predictor serving and on the
         dense family's kernel path (the fused kernel gathers the γ-mask's
         tiles for the up- and down-projections), the down-projection
-        otherwise. MoE counts all experts: routing is part of the measured
+        otherwise — speculative mode included, since a verify window's up
+        projection stays dense (its union is known only after it runs).
+        MoE counts all experts: routing is part of the measured
         density (expert fraction x within-expert density), so density x
         this figure is the activated-expert bytes, as in the reference. Its
         step has no fused FFN kernel, so its scope is the down-projection
@@ -323,7 +486,7 @@ class ContinuousBatchingEngine:
                                ).element_size()
         proj = cfg.d_ff * cfg.d_model * itemsize * max(1, cfg.n_experts)
         n_all = 3 if cfg.ffn_kind == "glu" else 2
-        if self.predictor is not None or (self.fast_kernels
+        if self.predictor is not None or (self.fast_kernels and not self.spec
                                           and not cfg.n_experts):
             return cfg.n_layers * n_all * proj
         return cfg.n_layers * proj
@@ -353,6 +516,14 @@ class ContinuousBatchingEngine:
         if not self._pred_active:
             return 1.0  # measured: no unit fired, so none was missed
         return 1.0 - self._pred_miss / self._pred_active
+
+    def s_agg_window(self) -> Optional[float]:
+        """Measured mean aggregated sparsity per verify window (speculative
+        mode): 1 - mean fraction of FFN units active anywhere in a window.
+        None outside speculative mode or before any verify window ran."""
+        if not self.spec or not self._dens_n:
+            return None
+        return self.weight_io_saved()
 
     def expert_io_fraction(self) -> Optional[float]:
         """Fraction of the expert FFN weights a token's routing activates,

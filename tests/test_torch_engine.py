@@ -188,16 +188,108 @@ def test_preempt_resume_streams_equal_reference(name, scenario):
 
 
 def test_unported_modes_raise():
+    """Sampled requests and speculative mode are served; sharded serving,
+    observability and sparsity tracking still raise NotImplementedError;
+    predictor with a draft raises the reference's ValueError; a family
+    with no paged serving raises the capability error."""
     _, tcfg, _, tp = _params("tiny-opt")
-    eng = ContinuousBatchingEngine(tcfg, tp, EngineConfig(**GEOM),
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.8))
-    eng.submit([1, 2, 3], 2, sampling=SamplingParams(stop=((5,),)))  # greedy
-    for kw in (dict(draft_cfg=tcfg, draft_params=tp), dict(mesh=object()),
+    eng = ContinuousBatchingEngine(
+        tcfg, tp, EngineConfig(draft_cfg=tcfg, draft_params=tp, gamma=2,
+                               **GEOM), device="cpu")
+    uids = [eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.8)),
+            eng.submit([1, 2, 3], 2, sampling=SamplingParams(stop=((5,),)))]
+    res = eng.run()
+    assert len(res[uids[0]].tokens) == 4
+    assert res[uids[0]].accept_rate == 1.0  # the target drafts for itself
+    assert res[uids[1]].finish_reason in ("length", "stop")
+    for kw in (dict(mesh=object()), dict(obs=object()),
                dict(track_sparsity=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             ContinuousBatchingEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ContinuousBatchingEngine(tcfg, tp, EngineConfig(
+            draft_cfg=tcfg, draft_params=tp, predictor=object()), device="cpu")
     mamba = get_config("tiny-opt").replace(family="mamba", ssm_state=8)
     with pytest.raises(ValueError, match="'paged_decode' serving capability"):
         ContinuousBatchingEngine(mamba, tp, EngineConfig(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# warm masks, prefill budget, stop sequences and cancel against the reference
+
+SCENARIOS = {
+    "warm_masks": dict(prefill_chunk=4, warm_masks=True),
+    "prefill_budget": dict(prefill_chunk=4, prefill_budget=5),
+    "stop_greedy": dict(prefill_chunk=0),
+    "stop_sampled": dict(prefill_chunk=4, base_seed=5),
+    "cancel": dict(prefill_chunk=4),
+}
+
+
+def _scenario_run(eng, smp, prompts, scenario, stops=None):
+    """Drive either engine (the same API) through one scenario; returns
+    (the results in submit order, None for a request withdrawn from the
+    queue; weight_io_saved). ``stops`` (request index -> stop sequence)
+    applies to the stop scenarios."""
+    stops = stops or {}
+    sampled = scenario == "stop_sampled"
+    uids = []
+    for i, (p, r) in enumerate(zip(prompts, REUSE)):
+        kw = dict(stop=(stops[i],)) if i in stops else {}
+        if sampled and i % 2 == 0:
+            kw.update(temperature=0.9, top_k=50, seed=i if i else None)
+        sp = smp.SamplingParams(**kw) if kw else None
+        uids.append(eng.submit(p, MAX_NEW, reuse_window=r, sampling=sp))
+    if scenario == "cancel":
+        while True:  # cancel request 1 once it has three tokens out
+            eng.step()
+            slots = [s for s in eng.scheduler.slots
+                     if s is not None and s.request.uid == uids[1]]
+            if slots and len(slots[0].out) >= 3:
+                break
+        assert eng.cancel(uids[1])
+        assert eng.cancel(uids[4])  # still queued: withdrawn at once
+    res = eng.run()
+    return [res.get(u) for u in uids], eng.weight_io_saved()
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+@pytest.mark.parametrize("name", ["tiny-relu", "tiny-opt"])
+def test_engine_options_equal_reference(name, scenario):
+    """Streams, finish reasons and weight_io_saved of the port equal the
+    JAX engine's with warm γ-masks, a prefill budget, greedy and sampled
+    stop sequences (each stop taken from the unstopped stream, so it
+    fires), and a cancel mid-stream and in the queue."""
+    from repro.serving import sampling as jsmp
+    from repro_torch.serving import sampling as tsmp
+
+    jcfg, tcfg, jp, tp = _params(name)
+    kw = dict(GEOM, **SCENARIOS[scenario])
+    prompts = _prompts(tcfg.vocab_size)
+    stops = None
+    if scenario.startswith("stop"):
+        free, _ = _scenario_run(ContinuousBatchingEngine(
+            tcfg, tp, EngineConfig(**kw), device="cpu"), tsmp, prompts,
+            scenario)
+        stops = {0: tuple(free[0].tokens[2:4].tolist()),
+                 3: (int(free[3].tokens[5]),)}
+    want, want_saved = _scenario_run(JEngine(jcfg, jp, config=JConfig(**kw)),
+                                     jsmp, prompts, scenario, stops)
+    for fast in (None, True):
+        eng = ContinuousBatchingEngine(
+            tcfg, tp, EngineConfig(fast_kernels=fast, **kw), device="cpu")
+        got, saved = _scenario_run(eng, tsmp, prompts, scenario, stops)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is None:
+                continue
+            assert g.tokens.tolist() == np.asarray(w.tokens).tolist()
+            np.testing.assert_allclose(g.logprobs, w.logprobs, rtol=0,
+                                       atol=1e-5)
+            assert g.finish_reason == w.finish_reason
+        assert saved == pytest.approx(want_saved, abs=1e-9)
+    reasons = [w.finish_reason for w in want if w is not None]
+    if scenario.startswith("stop"):
+        assert reasons.count("stop") == 2
+    if scenario == "cancel":
+        assert "cancelled" in reasons

@@ -148,6 +148,46 @@ def test_moe_serving_and_expert_gathers_run_with_jax_and_reference_unimportable(
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
 
 
+def test_sampled_and_spec_serving_run_with_jax_and_reference_unimportable():
+    """The seeded sampling head, its key schedule and speculative serving
+    (dense target with a 1-layer draft, chunked prefill) need nothing of
+    JAX or the JAX package."""
+    prog = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.serving import (ContinuousBatchingEngine,
+                                         EngineConfig, SamplingParams,
+                                         spec_metrics)
+        cfg = get_config("tiny-relu").replace(compute_dtype="float32")
+        dcfg = cfg.replace(name="tiny-relu-draft", n_layers=1)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        dparams = T.init_params(dcfg, seed=2, device="cpu")
+        eng = ContinuousBatchingEngine(
+            cfg, params, EngineConfig(n_slots=2, prefill_chunk=4,
+                                      draft_cfg=dcfg, draft_params=dparams,
+                                      gamma=3), device="cpu")
+        sp = SamplingParams(temperature=0.9, top_p=0.9, seed=2 ** 32 + 5)
+        uids = [eng.submit(np.arange(1, n + 1), 6, sampling=sp)
+                for n in (5, 9)]
+        res = eng.run()
+        assert all(len(res[u].tokens) == 6 for u in uids)
+        m = spec_metrics(res[uids[0]], gamma=3, c=0.1,
+                         s_agg=eng.s_agg_window())
+        assert m.n_draft_calls > 0 and 0.0 <= eng.s_agg_window() < 1.0
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
 def test_moe_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.models import moe

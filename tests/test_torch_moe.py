@@ -312,7 +312,8 @@ def test_moe_engine_rejects_predictor_and_keeps_dense_metrics():
     with pytest.raises(ValueError, match="'moe'.*'predictor'"):
         ContinuousBatchingEngine(tcfg, tp, EngineConfig(predictor=object()),
                                  device="cpu")
-    assert treg.serving_caps("moe") == {"paged_decode", "chunked_prefill"}
+    assert treg.serving_caps("moe") == {"paged_decode", "chunked_prefill",
+                                        "spec_verify"}
     dense_cfg = get_config("tiny-opt").replace(compute_dtype="float32")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
