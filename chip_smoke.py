@@ -64,9 +64,27 @@ device and build always run):
             its own draft prints its accept rate; the key schedule, random
             bits and uniform on the card bit-equal to the CPU's; tiny-moe
             (drop-free) in whole-prompt and chunked mode.
-5. serve    each path of the port at full width, bf16, random weights from a
+5. api      the serving front door and observability. tiny-relu at f32 on
+            the card in plain, spec and predictor mode: AsyncServingEngine
+            streams equal the same engine's offline engine.run() (greedy
+            logprobs bit for bit), streams with the obs hub off equal those
+            with it on, track_sparsity trackers equal the CPU engine's, and
+            every step raises as many synchronizing-op warnings
+            (set_sync_debug_mode("warn")) with the hub on as off. Then
+            launch.serve_smoke_client --mode plain against a real server
+            process on the card. Then OPT-6.7B (32 layers, bf16) behind
+            ApiServer in this process, counted: the serve phase's 8
+            requests (4 sampled) as 8 concurrent SSE clients plus one that
+            disconnects mid-stream; every stream equals an offline
+            engine.run() of the same requests on the same engine; client
+            TTFT and TPOT, the hub's percentiles, the step phases (admit,
+            prefill, dispatch, host_sync, sample) of decode and chunk steps,
+            the hub's own time, HTTP against offline tokens/s.
+6. serve    each path of the port at full width, bf16, random weights from a
             seed, with the launch counts set to 0 before it and read after it
-            (every kernel of the path must launch). OPT-6.7B, 32 layers: the
+            (every kernel of the path must launch); each run prints its
+            step-phase means (decode and chunk steps apart) and its
+            engine's metrics_snapshot(). OPT-6.7B, 32 layers: the
             engine in plain mode (chunked prefill, γ-window reuse) and in
             predictor mode (sign predictor, bf16 probe), 8 requests each,
             then 8 more through each engine under torch.profiler (device
@@ -94,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import subprocess
 import sys
@@ -112,7 +131,7 @@ TOL_F32 = 1e-5
 # intermediates (h before the down-projection, p before P@V, the output)
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
-PHASES = ("kernels", "parity", "serve")  # device and build always run
+PHASES = ("kernels", "parity", "api", "serve")  # device and build always run
 
 
 def log(msg: str) -> None:
@@ -1449,7 +1468,364 @@ def _to(tree, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: OPT-6.7B at full width
+# phase 5: the serving front door and observability
+
+
+def api_phase(dev, counters, cfg=None) -> dict:
+    """The async engine, the HTTP/SSE server and the observability hub on
+    the card: f32 parity on tiny-relu (``api_parity``), the smoke client
+    against a real server process (``api_smoke_process``), then OPT-6.7B
+    at full width behind the HTTP server in this process
+    (``api_full_width``, counted). Returns that run's launches."""
+    api_parity(dev)
+    api_smoke_process(dev)
+    return api_full_width(dev, counters, cfg)
+
+
+def _collect_stream(api, prompt, max_new, sampling=None, reuse_window=0):
+    """(tokens, logprobs) of one request streamed through ``api``."""
+    async def run():
+        tokens, lps = [], []
+        async for ev in api.stream(prompt, max_new, sampling=sampling,
+                                   reuse_window=reuse_window):
+            if not ev.finished:
+                tokens.append(ev.token)
+                lps.append(ev.logprob)
+        return tokens, lps
+    return run()
+
+
+def count_syncs(eng, prompts, dev) -> list:
+    """Serve ``prompts`` (10 new tokens each) through ``eng`` step by step
+    under ``torch.cuda.set_sync_debug_mode("warn")``; per step, the
+    synchronizing-op warnings it raised, and the device-to-host fetches
+    (``Tensor.cpu``, ``.item``, ``.tolist`` on a tensor of ``dev``) it
+    made. Returns [(warnings, fetches), ...]."""
+    import warnings
+
+    for p in prompts:
+        eng.submit(p, 10, reuse_window=4)
+    fetches = [0]
+    patched = {name: getattr(torch.Tensor, name)
+               for name in ("cpu", "item", "tolist")}
+
+    def counting(fn):
+        def run(t, *a, **k):
+            if t.device.type == dev.type:
+                fetches[0] += 1
+            return fn(t, *a, **k)
+        return run
+
+    counts = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, fn in patched.items():
+            setattr(torch.Tensor, name, counting(fn))
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            while eng.scheduler.has_work():
+                n0, f0 = len(caught), fetches[0]
+                if not eng.step():
+                    break
+                counts.append((sum("synchroniz" in str(w.message)
+                                   for w in caught[n0:]), fetches[0] - f0))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            for name, fn in patched.items():
+                setattr(torch.Tensor, name, fn)
+    return counts
+
+
+def api_parity(dev) -> None:
+    """tiny-relu at f32 on the card, in plain, spec (1-layer random draft,
+    γ = 2) and predictor mode (sign, recall 1.0, tile 1), chunked prefill,
+    greedy and sampled traffic (``parity_sampling``):
+
+    - ``AsyncServingEngine`` streams equal the same card engine's offline
+      ``engine.run()``: tokens exactly, greedy logprobs bit for bit;
+    - an engine with ``EngineObs.disabled()`` serves the same streams;
+    - ``track_sparsity`` trackers on the card equal the CPU engine's;
+    - observability adds no sync: with the hub on and off, every step of
+      the same workload raises the same count of synchronizing-op
+      warnings (``count_syncs``; if the card raised none at all, the
+      count of device-to-host fetches decides, and the line says so)."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.obs import EngineObs
+    from repro_torch.predictor import calibrate
+    from repro_torch.serving import (AsyncServingEngine,
+                                     ContinuousBatchingEngine, EngineConfig)
+
+    cfg = get_config("tiny-relu").replace(compute_dtype="float32")
+    dcfg = cfg.replace(name="tiny-relu-draft", n_layers=1)
+    p_cpu, d_cpu = numpy_params(cfg, seed=0), numpy_params(dcfg, seed=2)
+    params = {"cpu": p_cpu, dev.type: _to(p_cpu, dev)}
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (4, 24))
+    pred = calibrate(p_cpu, cfg, {"tokens": torch.as_tensor(toks)},
+                     kind="sign", probe_dtype="float32", target_recall=1.0,
+                     tile=1)
+    modes = {
+        "plain": lambda d: {},
+        "spec": lambda d: dict(draft_cfg=dcfg, draft_params=_to(d_cpu, d),
+                               gamma=2),
+        "predictor": lambda d: dict(predictor=dataclasses.replace(
+            pred, params=_to(pred.params, d))),
+    }
+    prompts = [np.random.RandomState(s).randint(0, cfg.vocab_size, n)
+               for s, n in ((1, 9), (2, 5), (3, 13), (4, 21), (5, 3))]
+    sampling = parity_sampling(len(prompts))
+
+    def engine(device, mode, **extra):
+        device = torch.device(device)
+        return ContinuousBatchingEngine(
+            cfg, params[device.type], EngineConfig(
+                n_slots=4, block_size=8, max_blocks_per_seq=6,
+                prefill_chunk=4, base_seed=3, **modes[mode](device),
+                **extra), device=device)
+
+    def offline(eng):
+        uids = [eng.submit(p, 10, reuse_window=4, sampling=sp)
+                for p, sp in zip(prompts, sampling)]
+        res = eng.run()
+        return ([res[u].tokens.tolist() for u in uids],
+                [res[u].logprobs for u in uids])
+
+    async def streamed(eng):
+        async with AsyncServingEngine(eng) as api:
+            return await asyncio.gather(*[
+                _collect_stream(api, p, 10, sp, reuse_window=4)
+                for p, sp in zip(prompts, sampling)])
+
+    for mode in modes:
+        eng = engine(dev, mode)
+        want, want_lp = offline(eng)
+        got = asyncio.run(asyncio.wait_for(streamed(eng), 600))
+        for i, (tokens, lps) in enumerate(got):
+            if tokens != want[i]:
+                fail(f"api {mode}: request {i} streamed {tokens} != "
+                     f"offline engine.run() {want[i]}")
+            greedy = sampling[i] is None
+            if greedy and not np.array_equal(np.float32(lps), want_lp[i]):
+                fail(f"api {mode}: greedy request {i} logprobs differ from "
+                     f"engine.run()'s")
+        d_sampled = max(float(np.abs(np.float32(lps) - want_lp[i]).max())
+                        for i, (_, lps) in enumerate(got) if sampling[i])
+        off = offline(engine(dev, mode, obs=EngineObs.disabled()))
+        if off[0] != want or not all(map(np.array_equal, off[1], want_lp)):
+            fail(f"api {mode}: streams with observability off differ")
+        t_cpu, t_dev = (engine(d, mode, track_sparsity=True)
+                        for d in ("cpu", dev))
+        offline(t_cpu)
+        offline(t_dev)
+        if sorted(t_cpu.trackers) != sorted(t_dev.trackers):
+            fail(f"api {mode}: tracked requests differ card vs CPU")
+        flips = sum(int((t_cpu.trackers[u].used
+                         != t_dev.trackers[u].used).sum())
+                    for u in t_cpu.trackers)
+        dcurve = max(float(np.abs(np.subtract(t_cpu.trackers[u].curve,
+                                              t_dev.trackers[u].curve)).max())
+                     for u in t_cpu.trackers)
+        if flips or dcurve > 1e-6:
+            fail(f"api {mode}: trackers card vs CPU: {flips} units differ, "
+                 f"max|dcurve| {dcurve:.2e}")
+        on_n = count_syncs(engine(dev, mode), prompts, dev)
+        off_n = count_syncs(engine(dev, mode, obs=EngineObs.disabled()),
+                            prompts, dev)
+        by = "sync-debug warnings"
+        if not any(w for w, _ in on_n + off_n):
+            by = "device-to-host fetches (no sync-debug warning raised)"
+            on_n, off_n = ([(f, f) for _, f in c] for c in (on_n, off_n))
+        if [w for w, _ in on_n] != [w for w, _ in off_n]:
+            fail(f"api {mode}: {by} a step with obs on {on_n} != off "
+                 f"{off_n}")
+        log("  ok api " + json.dumps(dict(
+            mode=mode, requests=len(prompts),
+            streams_equal_engine_run=True, greedy_logprobs_bit_equal=True,
+            sampled_max_abs_dlogprob=d_sampled,
+            obs_off_streams_identical=True,
+            trackers_equal_cpu=len(t_cpu.trackers),
+            syncs_per_step_counted_by=by,
+            syncs_per_step_obs_on=[w for w, _ in on_n],
+            syncs_per_step_obs_off=[w for w, _ in off_n],
+            fetches_per_step_obs_on=[f for _, f in on_n])))
+
+
+def api_smoke_process(dev) -> None:
+    """``python -m repro_torch.launch.serve_smoke_client --mode plain``
+    on ``dev``: the real server process, 8 SSE clients (one disconnecting
+    mid-stream), greedy streams against the offline run, /metrics against
+    the clients. Its logs go under build/api_smoke/; the client and the
+    server it starts run in a session of their own, killed on timeout."""
+    import os
+    import signal
+
+    out = ROOT / "build" / "api_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_smoke_client",
+         "--mode", "plain", "--device", dev.type,
+         "--log", str(out / "api_smoke_server.log"),
+         "--metrics-out", str(out / "api_smoke_metrics.prom")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail("serve_smoke_client did not finish within 600 s")
+    if proc.returncode != 0 or "serve-smoke PASS" not in text:
+        fail(f"serve_smoke_client --device {dev.type} failed "
+             f"(rc {proc.returncode}):\n{text[-3000:]}")
+    log(f"  ok {text.strip().splitlines()[-1]} "
+        f"({time.perf_counter() - t0:.1f} s with its server process)")
+
+
+def _quantiles(xs) -> dict:
+    return dict(median=float(np.median(xs)), p99=float(np.percentile(xs, 99)))
+
+
+def api_full_width(dev, counters, cfg=None) -> dict:
+    """OPT-6.7B (32 layers, bf16, random weights from a seed) behind
+    ``ApiServer`` on port 0 in this process, with the serve phase's
+    geometry (8 slots, block 16, 16 blocks a sequence, chunks of 16).
+    First an offline ``engine.run()`` of the serve phase's 8 requests (4
+    sampled) on the engine; then, the hub reset, the same 8 requests as 8
+    concurrent SSE clients plus a ninth that disconnects after 3 tokens,
+    counted (kernels 1-3 must launch); then the offline run again, whose
+    time is compared (the first one pays the engine's first steps). Every
+    completed stream must equal the offline run's. Prints client-side TTFT and TPOT (exact
+    median and p99), the hub's p50 and p99 (bucket edges), each step
+    phase's mean for decode and chunk steps apart, the hub's own time as
+    a share of step time, /metrics against the clients, and HTTP against
+    offline tokens/s. Returns the launches."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_api import ApiServer
+    from repro_torch.launch.serve_smoke_client import http_get, stream_client
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.serving import (AsyncServingEngine,
+                                     ContinuousBatchingEngine, EngineConfig)
+
+    cfg = cfg or get_config("opt-6.7b").replace(compute_dtype="bfloat16")
+    params = T.init_params(cfg, seed=0, device=dev)
+    eng = ContinuousBatchingEngine(
+        cfg, params, EngineConfig(n_slots=8, block_size=16,
+                                  max_blocks_per_seq=16, prefill_chunk=16),
+        device=dev)
+    sampling = serve_sampling()
+
+    def offline():
+        _, _, uids = submit_requests(eng, cfg, 0, sampling)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return ([res[uids[i]].tokens.tolist() for i in range(8)],
+                time.perf_counter() - t0)
+
+    want, offline_cold_s = offline()
+
+    bodies = []
+    for p, sp in zip(serve_prompts(cfg, 0), sampling):
+        b = {"prompt": p.tolist(), "max_new": 16, "reuse_window": 4}
+        if sp is not None:
+            b.update(temperature=sp.temperature, top_k=sp.top_k,
+                     top_p=sp.top_p, seed=sp.seed)
+        bodies.append(b)
+    extra = np.random.RandomState(9).randint(0, cfg.vocab_size, 40)
+    bodies.append({"prompt": extra.tolist(), "max_new": 16})
+    eng.obs.reset()
+    rows = phase_capture(eng)
+    times = [[] for _ in bodies]
+
+    async def http_run():
+        async with AsyncServingEngine(eng) as api:
+            server = ApiServer(api, mode="plain")
+            await server.start(port=0)
+            try:
+                t0 = time.perf_counter()
+                outs = await asyncio.gather(*[
+                    stream_client(server.port, b, times=times[i],
+                                  disconnect_after=3 if i == 8 else None)
+                    for i, b in enumerate(bodies)])
+                wall = time.perf_counter() - t0
+                # the server cancels the ninth request when a write to its
+                # closed socket fails, a step or two after the client left
+                for _ in range(600):
+                    _, metrics = await http_get(server.port, "/metrics")
+                    if 'reason="cancelled"' in metrics:
+                        break
+                    await asyncio.sleep(0.05)
+                _, statusz = await http_get(server.port, "/statusz")
+                return outs, wall, metrics, statusz
+            finally:
+                await server.aclose()
+
+    (outs, wall, metrics, statusz), launches = counted(
+        "api serving (OPT-6.7B over HTTP/SSE)", counters,
+        ("fused_sparse_ffn", "paged_window_attention", "sparse_matmul_tokens"),
+        lambda: asyncio.run(asyncio.wait_for(http_run(), 900)))
+    obs = eng.obs
+    hub = {name: {q: (None if obs.quantile(f"repro_{name}_seconds", q) is None
+                      else obs.quantile(f"repro_{name}_seconds", q) * 1e3)
+                  for q in (0.5, 0.99)}
+           for name in ("request_ttft", "request_tpot", "api_ttft",
+                        "engine_step")}
+    phases, self_share = phase_means(rows), obs_self_time_share(obs)
+    snapshot = eng.metrics_snapshot()
+    again, offline_s = offline()
+    if again != want:
+        fail("api OPT-6.7B: a second offline run changed the streams")
+    for i, (tokens, final) in enumerate(outs[:8]):
+        if final is None or tokens != want[i] or final["tokens"] != want[i]:
+            fail(f"api OPT-6.7B: client {i} streamed {tokens} != offline "
+                 f"engine.run() {want[i]}")
+    if outs[8][1] is not None or len(outs[8][0]) != 3:
+        fail("api OPT-6.7B: the disconnecting client was not cut at 3 "
+             "tokens")
+    m = parse_prometheus(metrics)
+    reasons = {lab: v for (name, lab), v in m.items()
+               if name == "repro_requests_finished_total"}
+    if (m.get(("repro_requests_submitted_total", "")) != 9
+            or sum(reasons.values()) != 9
+            or reasons.get('reason="cancelled"') != 1):
+        fail(f"api OPT-6.7B: /metrics counts {reasons}")
+    if "repro serving engine" not in statusz:
+        fail("api OPT-6.7B: /statusz did not render")
+    n_tokens = sum(len(t) for t in want)
+    ttft = [(ts[1] - ts[0]) * 1e3 for ts in times[:8]]
+    tpot = [(ts[-1] - ts[1]) * 1e3 / (len(ts) - 2) for ts in times[:8]]
+    log("  api " + json.dumps(dict(
+        model=cfg.name, layers=cfg.n_layers, dtype=str(cfg.compute_dtype),
+        clients=len(bodies), sampled=sum(sp is not None for sp in sampling),
+        streams_equal_offline=8, disconnected_after_tokens=3,
+        client_ttft_ms=_quantiles(ttft), client_tpot_ms=_quantiles(tpot),
+        hub_ms_p50_p99_bucket_edges=hub,
+        phase_ms_mean=phases, obs_self_time_share=self_share,
+        http_tokens_per_s=n_tokens / wall, http_wall_s=wall,
+        offline_tokens_per_s=n_tokens / offline_s, offline_wall_s=offline_s,
+        offline_first_run_tokens_per_s=n_tokens / offline_cold_s,
+        metrics_generated_tokens=m.get(("repro_generated_tokens_total", "")),
+        metrics_snapshot=snapshot, launches=launches)))
+    del eng, params
+    # the disconnected client's BrokenPipeError traceback holds the server,
+    # and through it the engine, in a reference cycle: free it now
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: OPT-6.7B at full width
 
 
 def timed_steps(eng) -> dict:
@@ -1507,14 +1883,20 @@ def serve_sampling():
             if i % 2 == 0 else None for i in range(8)]
 
 
-def submit_requests(eng, cfg, seed: int, sampling=None, order=None):
-    """The serve phase's 8 requests (prompts of 16 to 64 tokens, 16 new
-    tokens each, γ = 4) submitted to ``eng``. ``sampling`` gives each
-    request its SamplingParams (None: greedy); ``order`` permutes the order
-    of submission. Returns (prompt lengths, sampling, {request: uid})."""
+def serve_prompts(cfg, seed: int) -> list:
+    """The serve phase's 8 prompts of 16 to 64 tokens from ``seed``."""
     rng = np.random.RandomState(seed)
-    lens = rng.randint(16, 65, size=8)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    return [rng.randint(0, cfg.vocab_size, n)
+            for n in rng.randint(16, 65, size=8)]
+
+
+def submit_requests(eng, cfg, seed: int, sampling=None, order=None):
+    """The serve phase's 8 requests (``serve_prompts``, 16 new tokens each,
+    γ = 4) submitted to ``eng``. ``sampling`` gives each request its
+    SamplingParams (None: greedy); ``order`` permutes the order of
+    submission. Returns (prompt lengths, sampling, {request: uid})."""
+    prompts = serve_prompts(cfg, seed)
+    lens = np.array([len(p) for p in prompts])
     sampling = sampling or [None] * 8
     uids = {}
     for i in (order if order is not None else range(8)):
@@ -1531,6 +1913,7 @@ def serve_run(eng, cfg, seed: int, sampling=None, order=None) -> dict:
     dev = eng.device
     lens, sampling, uids = submit_requests(eng, cfg, seed, sampling, order)
     torch.cuda.reset_peak_memory_stats(dev)
+    phases = phase_capture(eng)
     steps = timed_steps(eng)
     prefill_ms, decode_ms = steps["prefill"], steps["decode"]
     res = eng.run()
@@ -1551,9 +1934,49 @@ def serve_run(eng, cfg, seed: int, sampling=None, order=None) -> dict:
                 decode_tokens_per_s=steps["decode_tokens"] / (sum(decode_ms) / 1e3),
                 peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                 weight_io_saved=eng.weight_io_saved(),
+                phase_ms_mean=phase_means(phases),
+                obs_self_time_share=obs_self_time_share(eng.obs),
+                metrics_snapshot=eng.metrics_snapshot(),
                 _streams=[res[uids[i]].tokens.tolist() for i in range(8)],
                 _logprobs=np.concatenate([res[uids[i]].logprobs
                                           for i in range(8)]))
+
+
+def phase_capture(eng) -> dict:
+    """Record the step-phase times (ms) of each step that did work from
+    then on, through the engine's observability hub (its ``step_end``,
+    which receives the step's trace): steps that ran a prefill chunk under
+    "chunk", the rest under "decode". Returns the dict it fills."""
+    rows = {"chunk": [], "decode": []}
+    step_end = eng.obs.step_end
+
+    def capture(st, **kw):
+        if kw["worked"]:
+            row = {k: v * 1e3 for k, v in st.phases.items()}
+            row["step"] = (time.perf_counter() - st.t0) * 1e3
+            rows["chunk" if "prefill" in st.phases else "decode"].append(row)
+        step_end(st, **kw)
+
+    eng.obs.step_end = capture
+    return rows
+
+
+def phase_means(rows: dict) -> dict:
+    """Each phase's mean ms over ``phase_capture``'s steps of a kind (a
+    phase a step did not run counts 0), with the step count."""
+    out = {}
+    for kind, rs in rows.items():
+        if rs:
+            keys = sorted({k for r in rs for k in r})
+            out[kind] = dict(steps=len(rs), **{
+                k: float(np.mean([r.get(k, 0.0) for r in rs])) for k in keys})
+    return out
+
+
+def obs_self_time_share(obs) -> float:
+    """The hub's own time over the summed step time it recorded."""
+    step = obs.h_step.snapshot()["series"].get("", {}).get("sum", 0.0)
+    return obs.self_time_s / step if step else float("nan")
 
 
 def log_serve(out: dict, **extra) -> None:
@@ -2137,9 +2560,13 @@ def main(argv=None) -> int:
                 "fused_up_relu_window": kff.fused_up_relu_window,
                 "expert_up_matmul": ksm.expert_up_matmul,
                 "expert_down_matmul": ksm.expert_down_matmul}
-    if "serve" in phases:
-        log("[serve]")
-        launches = serve_phase(dev, counters)
+    launches = {name: 0 for name in counters}
+    for phase, run in (("api", api_phase), ("serve", serve_phase)):
+        if phase in phases:
+            log(f"[{phase}]")
+            for name, n in run(dev, counters).items():
+                launches[name] += n
+    if {"api", "serve"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

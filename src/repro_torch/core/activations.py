@@ -103,6 +103,13 @@ def kernel_code(name: str, shift: float = 0.0) -> Tuple[int, float]:
     raise KeyError(f"unknown activation {name!r}; known: {sorted(_REGISTRY)}")
 
 
+def is_sparse_activation(name: str) -> bool:
+    """Does this activation produce exact zeros (hence exploitable
+    sparsity)?"""
+    return (name == "relu" or name.startswith("shifted_relu")
+            or name.startswith("fatrelu"))
+
+
 def firing_threshold(name: str, shift: float = 0.0) -> Optional[float]:
     """Pre-activation threshold above which a ReLU-family unit fires
     (f(pre) != 0 iff pre > threshold); None for soft activations."""

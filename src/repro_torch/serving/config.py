@@ -4,8 +4,10 @@ fields, defaults and ``validate()``), without its legacy-kwargs shim.
 
 ``validate()`` owns every rule decidable from the config alone; rules that
 need the model config or the device stay in the engine, which also raises
-NotImplementedError for the modes this port does not serve yet (mesh,
-observability, sparsity tracking).
+NotImplementedError for the one field this port does not serve yet
+(``mesh``). ``obs`` takes a ``repro_torch.obs.EngineObs`` (None: the engine
+makes an enabled one) and ``track_sparsity`` keeps a per-request
+``AggregatedTracker``.
 """
 from __future__ import annotations
 

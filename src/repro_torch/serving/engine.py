@@ -40,7 +40,19 @@ plain path, or with ``fast_kernels=True`` the kernel path's structure with
 each wrapper's plain version. With an MoE config on the CPU,
 ``fast_kernels=True`` warns and serves the plain path, as the reference
 does; on CUDA its steps run the attention kernel. Not ported yet, and raising
-NotImplementedError: ``mesh=``, ``obs=`` and ``track_sparsity``.
+NotImplementedError: ``mesh=``.
+
+Observability (``EngineConfig(obs=)``, an ``repro_torch.obs.EngineObs``;
+None makes an enabled one): every step is traced in five phases, as in
+the reference: ``admit`` (retirement and admission), ``prefill`` (the
+prefill work with its fetch), ``dispatch`` (the host building the step's
+arrays and queueing its kernels), ``host_sync`` (the host waiting for the
+step's one stacked device-to-host fetch) and ``sample`` (the scheduler's
+bookkeeping). The hooks read host values the step already fetched: no
+device sync is added, and streams are identical with observability on or
+off (``EngineObs.disabled()``). ``track_sparsity`` keeps one
+``AggregatedTracker`` per request (paper Sec. 5.1) in ``trackers``, fed
+from the step's FFN activity: one more fetch a step, made only when on.
 """
 from __future__ import annotations
 
@@ -51,12 +63,20 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparsity import AggregatedTracker
 from repro_torch.models import common as cm
 from repro_torch.models import registry
+from repro_torch.obs import EngineObs
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving import sampling as smp
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
+
+
+def _tile_activity(scores: torch.Tensor) -> torch.Tensor:
+    """(L, B, n_tiles) tile scores -> (B,) fraction of d_ff tiles with any
+    live activation, on the device (fetched with the step's other stats)."""
+    return (scores > 0).float().mean((0, 2))
 
 
 def _leaves(tree):
@@ -119,12 +139,9 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda" and config.fast_kernels is False:
             raise ValueError("fast_kernels=False on CUDA: on the card the "
                              "engine runs the hand-written kernels")
-        for on, what in ((config.mesh is not None, "mesh= (sharded serving)"),
-                         (config.obs is not None, "obs= (observability)"),
-                         (config.track_sparsity, "track_sparsity")):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP.md)")
+        if config.mesh is not None:
+            raise NotImplementedError("mesh= (sharded serving) is not ported "
+                                      "to PyTorch yet (ROADMAP.md)")
         caps = registry.serving_caps(cfg)
         caps.require("paged_decode", cfg.family)
         if not cfg.d_ff:
@@ -157,10 +174,15 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = config.prefill_chunk
         self.warm_masks = config.warm_masks
         self.prefill_budget = config.prefill_budget
+        self.track = config.track_sparsity
+        # one device: no mesh, so no tensor parallelism (format_statusz)
+        self.tp = 1
+        self.obs = config.obs if config.obs is not None else EngineObs()
         n_blocks = config.resolved_n_blocks
         self.scheduler = Scheduler(
             config.n_slots, n_blocks, config.block_size,
             config.max_blocks_per_seq, prefix_cache=config.prefix_cache,
+            obs=self.obs,
             preemption=config.preemption and config.prefill_chunk > 0,
             aging_steps=config.aging_steps)
         self.pages = self.fam.init_paged_cache(cfg, n_blocks, config.block_size,
@@ -184,15 +206,30 @@ class ContinuousBatchingEngine:
                 dcfg, n_blocks, config.block_size, device=self.device)
         self.masks = torch.zeros((cfg.n_layers, config.n_slots, cfg.d_ff),
                                  dtype=torch.bool, device=self.device)
+        self.trackers: Dict[int, AggregatedTracker] = {}
         self.t = 0
         self._uid = 0
         # per-(active slot, step) FFN weight-read fraction: down-projection
-        # rows under γ-window reuse, gathered tiles in predictor mode
+        # rows under γ-window reuse, gathered tiles in predictor mode;
+        # _tiles_sum: the fraction of d_ff tiles with any live activation
         self._dens_sum = 0.0
+        self._tiles_sum = 0.0
         self._dens_n = 0
         # predictor-mode recall accounting (miss counts from the step)
         self._pred_active = 0
         self._pred_miss = 0
+        # the step's means over active slots, stashed by _account() from
+        # the arrays it already holds, for obs.step_end (no extra fetch)
+        self._step_density: Optional[float] = None
+        self._step_tiles: Optional[float] = None
+        self.obs.set_engine_info(
+            arch=cfg.name,
+            mode=("spec" if self.spec
+                  else "predictor" if predictor is not None else "plain"),
+            n_slots=config.n_slots, block_size=config.block_size,
+            prefill_chunk=config.prefill_chunk, tp=self.tp,
+            fast_kernels=self.fast_kernels, family=cfg.family,
+            n_experts=cfg.n_experts)
 
     def _require_on_device(self, tree, what: str) -> None:
         off = [t.device for t in _leaves(tree) if t.device != self.device]
@@ -229,21 +266,34 @@ class ContinuousBatchingEngine:
         return self.scheduler.cancel(uid)
 
     # -- steps --------------------------------------------------------------
-    @torch.inference_mode()
-    def _admit(self) -> bool:
+    def _admit(self, st) -> bool:
         """Retire finished requests, admit queued ones, and advance prefill:
         every newly admitted prompt at once (whole-prompt mode) or ONE chunk
-        of every prefilling slot (chunked mode). True when prefill ran."""
+        of every prefilling slot (chunked mode). True when prefill ran.
+        ``st`` is the step's trace: retirement and admission under
+        "admit", the prefill work with its fetches under "prefill"."""
         sched = self.scheduler
-        sched.retire_finished(self.t)
-        newly = sched.admit(self.t)
+        with st.phase("admit"):
+            sched.retire_finished(self.t)
+            newly = sched.admit(self.t)
+            if self.track:
+                for _, slot in newly:
+                    # a resumed (preempted) slot keeps its tracker: the
+                    # union statistics span the whole logical request
+                    if slot.request.uid not in self.trackers:
+                        self.trackers[slot.request.uid] = AggregatedTracker(
+                            self.cfg.n_layers, self.cfg.d_ff)
         if not self.prefill_chunk:
-            for i, slot in newly:
-                self._prefill_whole(i, slot)
-            return bool(newly)
+            if not newly:
+                return False
+            with st.phase("prefill"):
+                for i, slot in newly:
+                    self._prefill_whole(i, slot)
+            return True
         if not sched.prefill_indices():
             return False
-        self._prefill_one_chunk()
+        with st.phase("prefill"):
+            self._prefill_one_chunk()
         return True
 
     def _sampling(self, slot: Optional[int] = None) -> _Sampling:
@@ -322,52 +372,63 @@ class ContinuousBatchingEngine:
         sched.record_prefill(nxt_bc, lp_bc, clen, warm=self.warm_masks,
                              step=self.t)
 
-    @torch.inference_mode()
-    def _advance(self, active) -> None:
+    def _advance(self, active, st) -> None:
         """Decode one token for every active slot."""
         sched = self.scheduler
-        tokens, pos, table, refresh = sched.batch_arrays()
-        smpl = self._sampling()
-        logits, self.pages, self.masks, (_, _, density) = \
-            self.fam.model_decode_paged(
-                self.params, self.pages, self._tensor(table),
-                self._tensor(tokens), self._tensor(pos), self.cfg, self.masks,
-                self._tensor(refresh), self.block_size,
-                fast_kernels=self.fast_kernels)
-        nxt, lp = smpl.head(logits, self.cfg.vocab_size)
-        lp_np, dens_np = torch.stack([lp, density.mean(0)]).cpu().numpy()
-        nxt_np = nxt.cpu().numpy()
-        self._account(active, dens_np)
-        sched.record(nxt_np, lp_np)
+        with st.phase("dispatch"):
+            tokens, pos, table, refresh = sched.batch_arrays()
+            smpl = self._sampling()
+            logits, self.pages, self.masks, (act, scores, density) = \
+                self.fam.model_decode_paged(
+                    self.params, self.pages, self._tensor(table),
+                    self._tensor(tokens), self._tensor(pos), self.cfg,
+                    self.masks, self._tensor(refresh), self.block_size,
+                    fast_kernels=self.fast_kernels)
+            nxt, lp = smpl.head(logits, self.cfg.vocab_size)
+            stats = torch.stack([lp, density.mean(0), _tile_activity(scores)])
+        with st.phase("host_sync"):
+            lp_np, dens_np, tiles_np = stats.cpu().numpy()
+            nxt_np = nxt.cpu().numpy()
+        with st.phase("sample"):
+            self._account(active, dens_np, tiles_np, act)
+            sched.record(nxt_np, lp_np)
 
-    @torch.inference_mode()
-    def _advance_pred(self, active) -> None:
+    def _advance_pred(self, active, st) -> None:
         """Predictor-mode decode: per-token predicted tile lists drive the
         gathered up- and down-projections; density and recall telemetry
         come back with the step."""
         sched = self.scheduler
         pred = self.predictor
-        tokens, pos, table, refresh = sched.batch_arrays()
-        smpl = self._sampling()
-        logits, self.pages, self.masks, (_, _, density, n_act, n_miss) = \
-            self.fam.model_decode_paged_predicted(
-                self.params, self.pages, self._tensor(table),
-                self._tensor(tokens), self._tensor(pos), self.cfg, self.masks,
-                self._tensor(refresh), pred.params, pred.kind, pred.tile,
-                pred.k_tiles, self.block_size, self.predictor_telemetry,
-                fast_kernels=self.fast_kernels)
-        nxt, lp = smpl.head(logits, self.cfg.vocab_size)
-        lp_np, dens_np = torch.stack([lp, density.mean(0)]).cpu().numpy()
-        na, nm = torch.stack([n_act.sum(0), n_miss.sum(0)]).cpu().numpy()
-        nxt_np = nxt.cpu().numpy()
-        self._account(active, dens_np)
-        self._pred_active += int(sum(na[i] for i in active))
-        self._pred_miss += int(sum(nm[i] for i in active))
-        sched.record(nxt_np, lp_np, pred_density=dens_np, pred_active=na,
-                     pred_miss=nm)
+        with st.phase("dispatch"):
+            tokens, pos, table, refresh = sched.batch_arrays()
+            smpl = self._sampling()
+            logits, self.pages, self.masks, (act, scores, density, n_act,
+                                             n_miss) = \
+                self.fam.model_decode_paged_predicted(
+                    self.params, self.pages, self._tensor(table),
+                    self._tensor(tokens), self._tensor(pos), self.cfg,
+                    self.masks, self._tensor(refresh), pred.params,
+                    pred.kind, pred.tile, pred.k_tiles, self.block_size,
+                    self.predictor_telemetry, fast_kernels=self.fast_kernels)
+            nxt, lp = smpl.head(logits, self.cfg.vocab_size)
+            stats = torch.stack([lp, density.mean(0), _tile_activity(scores)])
+            counts = torch.stack([n_act.sum(0), n_miss.sum(0)])
+        with st.phase("host_sync"):
+            lp_np, dens_np, tiles_np = stats.cpu().numpy()
+            na, nm = counts.cpu().numpy()
+            nxt_np = nxt.cpu().numpy()
+        with st.phase("sample"):
+            self._account(active, dens_np, tiles_np, act)
+            step_act = int(sum(na[i] for i in active))
+            step_miss = int(sum(nm[i] for i in active))
+            self._pred_active += step_act
+            self._pred_miss += step_miss
+            if self.predictor_telemetry:
+                self.obs.predictor_counts(step_act, step_miss)
+            sched.record(nxt_np, lp_np, pred_density=dens_np,
+                         pred_active=na, pred_miss=nm)
 
-    @torch.inference_mode()
-    def _advance_spec(self, active) -> None:
+    def _advance_spec(self, active, st) -> None:
         """Speculative decode, batched across slots: γ draft tokens per
         slot from one draft loop, then every slot's γ+1-token window
         through one target forward. The only host traffic is the (B, γ)
@@ -376,58 +437,98 @@ class ContinuousBatchingEngine:
         slots' shared key schedule (key-coupled acceptance)."""
         sched = self.scheduler
         vocab = self.cfg.vocab_size
-        tokens, pos0, table, wlen = sched.spec_batch(self.gamma + 1)
-        smpl = self._sampling()
-        jt, jp, jw = (self._tensor(table), self._tensor(pos0),
-                      self._tensor(wlen))
+        with st.phase("dispatch"):
+            tokens, pos0, table, wlen = sched.spec_batch(self.gamma + 1)
+            smpl = self._sampling()
+            jt, jp, jw = (self._tensor(table), self._tensor(pos0),
+                          self._tensor(wlen))
 
-        def next_fn(logits, g):
-            # proposal g is keyed at generated index gen0 + g
-            return smpl.head(logits, vocab, offset=g)[0]
+            def next_fn(logits, g):
+                # proposal g is keyed at generated index gen0 + g
+                return smpl.head(logits, vocab, offset=g)[0]
 
-        props, self.draft_pages = self.dfam.model_draft_gamma_paged(
-            self.draft_params, self.draft_pages, jt, self._tensor(tokens), jp,
-            jw, self.draft_cfg, self.gamma, self.block_size, next_fn=next_fn,
-            fast_kernels=self.fast_kernels)
-        window = np.concatenate([tokens[:, None], props.cpu().numpy()], 1)
-        refresh = torch.ones((self.config.n_slots,), dtype=torch.bool,
-                             device=self.device)
-        logits, self.pages, self.masks, (_, _, _, udens) = \
-            self.fam.model_verify_window_paged(
-                self.params, self.pages, jt, self._tensor(window), jp, jw,
-                self.cfg, self.masks, refresh, self.block_size,
-                fast_kernels=self.fast_kernels)
-        target, lp = smpl.head(logits, vocab)
-        dens_np = udens.mean(0).cpu().numpy()
-        target_np, lp_np = target.cpu().numpy(), lp.cpu().numpy()
-        self._account(active, dens_np)
-        sched.record_spec(window, target_np, lp_np, wlen)
+            props, self.draft_pages = self.dfam.model_draft_gamma_paged(
+                self.draft_params, self.draft_pages, jt, self._tensor(tokens),
+                jp, jw, self.draft_cfg, self.gamma, self.block_size,
+                next_fn=next_fn, fast_kernels=self.fast_kernels)
+            # the (B, γ) proposal fetch is pipeline-necessary (the verify
+            # window is built from it), so it stays in "dispatch"
+            window = np.concatenate([tokens[:, None], props.cpu().numpy()], 1)
+            refresh = torch.ones((self.config.n_slots,), dtype=torch.bool,
+                                 device=self.device)
+            logits, self.pages, self.masks, (act, scores, _, udens) = \
+                self.fam.model_verify_window_paged(
+                    self.params, self.pages, jt, self._tensor(window), jp, jw,
+                    self.cfg, self.masks, refresh, self.block_size,
+                    fast_kernels=self.fast_kernels)
+            target, lp = smpl.head(logits, vocab)
+            stats = torch.stack([udens.mean(0), _tile_activity(scores)])
+        with st.phase("host_sync"):
+            dens_np, tiles_np = stats.cpu().numpy()
+            target_np, lp_np = target.cpu().numpy(), lp.cpu().numpy()
+        with st.phase("sample"):
+            self._account(active, dens_np, tiles_np, act)
+            sched.record_spec(window, target_np, lp_np, wlen)
 
-    def _account(self, active, dens_np) -> None:
-        """Per-(active slot, step) weight-read fraction."""
+    def _account(self, active, dens_np, tiles_np, act) -> None:
+        """Per-(active slot, step) weight-read fraction, tile activity and,
+        with ``track_sparsity``, the requests' trackers (the step's (L, B,
+        F) activity fetched here, the one fetch tracking adds). Stashes the
+        step's means for obs.step_end from the arrays it already holds."""
         self.scheduler.record_io(active, dens_np)
         for i in active:
             self._dens_sum += float(dens_np[i])
+            self._tiles_sum += float(tiles_np[i])
             self._dens_n += 1
+        if active:
+            self._step_density = float(np.mean(dens_np[active]))
+            self._step_tiles = float(np.mean(tiles_np[active]))
+        if self.track:
+            act_np = act.cpu().numpy()
+            for i in active:
+                uid = self.scheduler.slots[i].request.uid
+                self.trackers[uid].update(act_np[:, i, :])
 
+    @torch.inference_mode()
     def step(self) -> bool:
         """Retire, admit, advance prefill (one chunk in chunked mode), then
         advance every active slot: one decoded token each, or one drafted
         and verified window each in speculative mode. False when no work
-        ran."""
-        prefilled = self._admit()
+        ran. Runs under inference mode, which is per thread: a worker
+        thread stepping the engine (serving/api.py) is covered too."""
+        st = self.obs.step_start()
+        self._step_density = self._step_tiles = None
+        prefilled = self._admit(st)
         active = self.scheduler.active_indices()
         if active:
             if self.spec:
-                self._advance_spec(active)
+                self._advance_spec(active, st)
             elif self.predictor is not None:
-                self._advance_pred(active)
+                self._advance_pred(active, st)
             else:
-                self._advance(active)
+                self._advance(active, st)
         elif not prefilled:
+            self._obs_step_end(st, False, active)
             return False
         self.t += 1
+        self._obs_step_end(st, True, active)
         return True
+
+    def _obs_step_end(self, st, worked: bool, active) -> None:
+        """Close the step's trace with host-side state only (occupancy,
+        pool, queue, and the density _account() already stashed)."""
+        if not self.obs.enabled:
+            return
+        sched = self.scheduler
+        dens = self._step_density
+        self.obs.step_end(
+            st, worked=worked, slots_active=len(active),
+            n_slots=sched.n_slots, queue_depth=len(sched.queue),
+            pool_used=sched.allocator.allocated,
+            pool_total=sched.allocator.n_blocks - 1,
+            density=dens, tiles=self._step_tiles,
+            ffn_bytes=(None if dens is None
+                       else dens * self._mode_ffn_bytes() / self.tp))
 
     def drain(self, max_steps: int = 1_000_000) -> Dict[int, RequestResult]:
         """Drive step() until every submitted request has finished; raises
@@ -533,9 +634,41 @@ class ContinuousBatchingEngine:
             return None
         return self.cfg.top_k / self.cfg.n_experts
 
+    def tile_activity_rate(self) -> Optional[float]:
+        """Mean fraction of d_ff tiles with any live activation, per (active
+        slot, step): what a tile-gathered down-projection would load. None
+        before any measured step."""
+        if not self._dens_n:
+            return None
+        return self._tiles_sum / self._dens_n
+
     def prefix_hit_rate(self) -> float:
         """Fraction of admitted prompt tokens served from the prefix cache."""
         s = self.scheduler
         if not s.prefill_tokens_total:
             return 0.0
         return s.prefill_tokens_saved / s.prefill_tokens_total
+
+    def prefill_tokens_saved(self) -> int:
+        """Total prompt tokens whose prefill was skipped via cached prefix
+        blocks, across every admitted request."""
+        return self.scheduler.prefill_tokens_saved
+
+    def metrics_snapshot(self) -> Dict[str, float]:
+        """Every scalar engine metric that is currently available: the
+        None-valued ones (wrong mode, telemetry off, nothing measured yet)
+        are omitted, never faked. /statusz and launch/serve.py's report
+        read this."""
+        out = {
+            "steps": float(self.t),
+            "weight_io_saved": self.weight_io_saved(),
+            "weight_io_bytes_per_step": self.weight_io_bytes_per_step(),
+            "tile_activity_rate": self.tile_activity_rate(),
+            "prefix_hit_rate": self.prefix_hit_rate(),
+            "prefill_tokens_saved": float(self.prefill_tokens_saved()),
+            "predictor_density": self.predictor_density(),
+            "predictor_recall": self.predictor_recall(),
+            "s_agg_window": self.s_agg_window(),
+            "expert_io_fraction": self.expert_io_fraction(),
+        }
+        return {k: v for k, v in out.items() if v is not None}

@@ -18,6 +18,7 @@ from repro.serving import ContinuousBatchingEngine as JEngine
 from repro.serving.config import EngineConfig as JConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
+from repro_torch.obs import EngineObs
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
                                  SamplingParams)
 
@@ -188,10 +189,12 @@ def test_preempt_resume_streams_equal_reference(name, scenario):
 
 
 def test_unported_modes_raise():
-    """Sampled requests and speculative mode are served; sharded serving,
-    observability and sparsity tracking still raise NotImplementedError;
-    predictor with a draft raises the reference's ValueError; a family
-    with no paged serving raises the capability error."""
+    """Sampled requests and speculative mode are served; observability
+    and sparsity tracking are accepted (the engine keeps the hub it was
+    given, and a tracker per request); sharded serving still raises
+    NotImplementedError; predictor with a draft raises the reference's
+    ValueError; a family with no paged serving raises the capability
+    error."""
     _, tcfg, _, tp = _params("tiny-opt")
     eng = ContinuousBatchingEngine(
         tcfg, tp, EngineConfig(draft_cfg=tcfg, draft_params=tp, gamma=2,
@@ -202,10 +205,17 @@ def test_unported_modes_raise():
     assert len(res[uids[0]].tokens) == 4
     assert res[uids[0]].accept_rate == 1.0  # the target drafts for itself
     assert res[uids[1]].finish_reason in ("length", "stop")
-    for kw in (dict(mesh=object()), dict(obs=object()),
-               dict(track_sparsity=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ContinuousBatchingEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ContinuousBatchingEngine(tcfg, tp, EngineConfig(mesh=object()),
+                                 device="cpu")
+    hub = EngineObs.disabled()
+    eng = ContinuousBatchingEngine(
+        tcfg, tp, EngineConfig(obs=hub, track_sparsity=True, **GEOM),
+        device="cpu")
+    uid = eng.submit([1, 2, 3], 3)
+    eng.run()
+    assert eng.obs is hub and eng.scheduler.obs is hub
+    assert len(eng.trackers[uid].curve) == 2  # decode steps after the seed
     with pytest.raises(ValueError, match="mutually exclusive"):
         ContinuousBatchingEngine(tcfg, tp, EngineConfig(
             draft_cfg=tcfg, draft_params=tp, predictor=object()), device="cpu")

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: nothing under src/repro_torch/, and not
 chip_smoke.py, imports jax or the JAX package ``repro``; the port serves
-with both made unimportable; and its entry points never fall back to the
-CPU when CUDA is absent."""
+with both made unimportable, through the engine and through the launcher's
+engine behind ``AsyncServingEngine``; and its entry points never fall back
+to the CPU when CUDA is absent."""
 import ast
 import os
 import subprocess
@@ -55,6 +56,19 @@ def test_port_serves_with_jax_and_reference_unimportable():
                 for n in (5, 9)]
         res = eng.run()
         assert all(len(res[u].tokens) == 4 for u in uids)
+        # the front door: the launcher's engine behind the async API
+        import asyncio
+        from repro_torch.launch.serve_api import build_engine, parse_args
+        from repro_torch.serving import AsyncServingEngine
+        eng = build_engine(parse_args(["--arch", "tiny-relu", "--f32",
+                                       "--device", "cpu"]))
+
+        async def serve():
+            async with AsyncServingEngine(eng) as api:
+                return await api.generate([3, 1, 4, 1, 5], 4)
+
+        ev = asyncio.run(asyncio.wait_for(serve(), 120))
+        assert ev.finish_reason == "length" and len(ev.result.tokens) == 4
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")

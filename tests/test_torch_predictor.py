@@ -34,6 +34,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.predictor import calibration as tcal
 from repro_torch.predictor import predictors as tpred
 from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+from torch_twin import port_predictor
 
 # one intra-op thread: the suite runs in parallel workers, and torch's
 # default of one thread per core would crowd out the other workers' tests
@@ -82,20 +83,6 @@ def _reference_predictor(name, kind):
               else dict(rank=4, target_recall=0.9))
         _CACHE[key] = jcal.calibrate(jp, jcfg, batch, kind=kind, tile=1, **kw)
     return _CACHE[key]
-
-
-def _to_port(pred):
-    """The same predictor as the port's dataclass, params as torch (CPU)."""
-    params = {k: torch.from_numpy(np.array(v, np.float32))
-              for k, v in pred.params.items()}
-    if "w" in params:
-        params["w"] = params["w"].to(getattr(torch, pred.probe_dtype))
-    return tpred.Predictor(
-        kind=pred.kind, params=params, n_tiles=pred.n_tiles,
-        k_tiles=pred.k_tiles, tile=pred.tile,
-        target_recall=pred.target_recall, probe_dtype=pred.probe_dtype,
-        reports=[tpred.LayerReport(**dataclasses.asdict(r))
-                 for r in pred.reports])
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +267,7 @@ def test_ffn_decode_predicted_matches_reference(name, kind):
     unfused one, and against each other bit for bit."""
     jcfg, tcfg, jp, tp = _setup(name)
     ref_pred = _reference_predictor(name, kind)
-    port_pred = _to_port(ref_pred)
+    port_pred = port_predictor(ref_pred)
     layer = 1
     jl = jax.tree.map(lambda a: a[layer], ref_pred.params)
     tl = {k: v[layer] for k, v in port_pred.params.items()}
@@ -322,7 +309,7 @@ def test_decode_step_paged_predicted_matches_reference(name, fast):
     the (act, scores, density, n_active, n_miss) telemetry."""
     jcfg, tcfg, jp, tp = _setup(name)
     ref_pred = _reference_predictor(name, "sign")
-    port_pred = _to_port(ref_pred)
+    port_pred = port_predictor(ref_pred)
     rng = np.random.RandomState(0)
     g = TT.attn_geometry(tcfg)
     shape = (jcfg.n_layers, 14, g.kvp, BS, g.head_dim)
@@ -401,7 +388,7 @@ def test_predictor_streams_equal_reference(reference_streams, name, kind,
     want, want_dens, want_recall, want_bytes = reference_streams(name, kind,
                                                                  chunk)
     _, tcfg, _, tp = _setup(name)
-    pred = _to_port(_reference_predictor(name, kind))
+    pred = port_predictor(_reference_predictor(name, kind))
     for fast in (None, True):
         eng = ContinuousBatchingEngine(
             tcfg, tp, EngineConfig(prefill_chunk=chunk, predictor=pred,
@@ -431,7 +418,7 @@ def test_predictor_telemetry_off_serves_the_same_stream():
     """predictor_telemetry=False: no recall probe, zero miss counts, the
     same tokens, and predictor_recall() None (never a fake 1.0)."""
     _, tcfg, _, tp = _setup("tiny-opt")
-    pred = _to_port(_reference_predictor("tiny-opt", "sign"))
+    pred = port_predictor(_reference_predictor("tiny-opt", "sign"))
     streams = []
     for telemetry in (True, False):
         eng = ContinuousBatchingEngine(
@@ -450,7 +437,7 @@ def test_predictor_engine_checks(monkeypatch):
     """The predictor must cover d_ff and lie on the engine's device; with
     no CUDA and no device="cpu", the engine and load_predictor raise."""
     _, tcfg, _, tp = _setup("tiny-relu")
-    pred = _to_port(_reference_predictor("tiny-relu", "sign"))
+    pred = port_predictor(_reference_predictor("tiny-relu", "sign"))
     bad = dataclasses.replace(pred, n_tiles=pred.n_tiles // 2)
     with pytest.raises(ValueError, match="does not cover d_ff"):
         ContinuousBatchingEngine(tcfg, tp, EngineConfig(predictor=bad),
