@@ -34,8 +34,11 @@ device and build always run):
             a GLU at OPT-6.7B width, and at T = 128 and 1, and by parts
             (its down half in 1 to 8 runs of tile ids; each half alone);
             kernel 5 (the
-            shared-list tile groups) at T = 8 beside T = 128, and on the
-            card at 32 and at 64 columns a block; both also
+            shared-list tile groups) at the legacy decode's static-capacity
+            shape (OPT-6.7B wd, T = 4, the batch union's top 32 of 128
+            tiles, as gathered_matmul passes them; also through
+            gathered_matmul against its CPU gather) beside T = 128 and
+            T = 8, and on the card at 32 and at 64 columns a block; all also
             two calls bit for bit and one under the sync check (below).
             The tile-grouped routine
             of kernels 1, 3 and 10 (bf16 weights) also at 25% window
@@ -63,7 +66,12 @@ device and build always run):
             card the spec stream equals the AR stream, and the target as
             its own draft prints its accept rate; the key schedule, random
             bits and uniform on the card bit-equal to the CPU's; tiny-moe
-            (drop-free) in whole-prompt and chunked mode.
+            (drop-free) in whole-prompt and chunked mode. Static tile
+            capacities and the legacy ServeEngine (track_sparsity on):
+            tiny-relu and tiny-moe generate dense with γ = 3, at
+            enable_sparse_serving(cfg, 0.5, 1.0) and at (0.5, 0.75) with a
+            tile of 16, then the continuous engine at (0.5, 1.0), whole
+            and chunked; kernel 5 (behind gathered_matmul) must launch.
 5. api      the serving front door and observability. tiny-relu at f32 on
             the card in plain, spec and predictor mode: AsyncServingEngine
             streams equal the same engine's offline engine.run() (greedy
@@ -98,7 +106,12 @@ device and build always run):
             vocabulary. Speculative serving: OPT-6.7B verifying an OPT-1.3B
             draft (24 layers, full width), γ = 4, greedy and sampled
             (step ms, tokens/s, α, s_agg, weight bytes a step, peak
-            memory). Then, OPT-6.7B
+            memory). The legacy ServeEngine at OPT-6.7B (4 prompts of 32
+            tokens, 16 new): dense, γ = 4 with track_sparsity, and
+            --sparse-density 0.25 (relufy_stage2, capacities 0.25 / 0.75:
+            kernel 5 on q, k, v, wu and wd), each with its decode step
+            ms, tokens/s, peak memory, modeled weight bytes a layer and
+            kernel 5's launches. Then, OPT-6.7B
             freed, Mixtral-8x22B with 4 of its 56 layers: the engine in
             plain mode with the same geometry and requests (and a profiled
             batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
@@ -319,6 +332,7 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import runtime as rt
     from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import common as cm
     from repro_torch.models.common import paged_gather
     from repro_torch.predictor import predictors as preds
 
@@ -853,6 +867,55 @@ def kernel_phase(dev) -> dict:
             dtype, order[:32], 32)
     _, args8 = shared_case(f"OPT-6.7B T=8 K=32 score order {torch.bfloat16}",
                            8, 16384, 4096, torch.bfloat16, order[:32], 32)
+    # the legacy decode's down-projection at static capacity 0.25 (the
+    # served shape): OPT-6.7B wd, 4 rows of relu activations, the batch
+    # union's top 32 of 128 tiles with nvalid = mask.sum(), as
+    # common.gathered_matmul passes them
+    h4 = torch.relu(t(rng.randn(4, 16384), torch.bfloat16))
+    w4 = t(rng.randn(16384, 4096) / 128.0, torch.bfloat16)
+    i4, m4 = cm.select_active_tiles(cm.tile_scores(h4, 128), 0.25)
+    n4 = m4.sum(dtype=torch.int32)
+    args4 = (h4, w4, i4, n4)
+    err4 = compare("sparse_matmul legacy decode T=4 K=32 of 128 bf16",
+                   [ksm.sparse_matmul(*args4)],
+                   [ksm.sparse_matmul_plain(*args4)], torch.bfloat16)
+    compare("gathered_matmul legacy decode T=4 (kernel 5) vs the CPU gather",
+            [cm.gathered_matmul(h4, w4, i4, m4, 128)],
+            [cm.gathered_matmul(h4.cpu(), w4.cpu(), i4.cpu(), m4.cpu(),
+                                128).to(dev)],
+            torch.bfloat16)
+    # the same decode's input-side gathers at static input capacity 0.75:
+    # one selection over 4 relu(norm) rows, the top 24 of the 32 d_model
+    # tiles, shared by the q, k and v products (D = 4096) and by wu
+    # (D = 16384); all but the wd launches of the served static run
+    xi = torch.relu(t(rng.randn(4, 4096), torch.bfloat16))
+    ii, mi = cm.select_active_tiles(cm.tile_scores(xi, 128), 0.75)
+    ni = mi.sum(dtype=torch.int32)
+    if int(ni) != 24:
+        fail(f"legacy decode input selection: nvalid {int(ni)} != 24")
+    inputs_rows = {}
+    for what, D_ in (("qkv", 4096), ("wu", 16384)):
+        wi = t(rng.randn(4096, D_) / 64.0, torch.bfloat16)
+        a_ = (xi, wi, ii, ni)
+        err_i = compare(f"sparse_matmul legacy decode {what} T=4 K=24 of 32 "
+                        f"D={D_} bf16", [ksm.sparse_matmul(*a_)],
+                        [ksm.sparse_matmul_plain(*a_)], torch.bfloat16)
+        compare(f"gathered_matmul legacy decode {what} D={D_} (kernel 5) vs "
+                f"the CPU gather", [cm.gathered_matmul(xi, wi, ii, mi, 128)],
+                [cm.gathered_matmul(xi.cpu(), wi.cpu(), ii.cpu(), mi.cpu(),
+                                    128).to(dev)], torch.bfloat16)
+        same_bits(f"sparse_matmul {what} D={D_}",
+                  lambda: ksm.sparse_matmul(*a_))
+        n_bytes = 4 * 24 * 128 * 2 + 24 * 128 * D_ * 2 + 24 * 4 + 4 + 4 * D_ * 4
+        b_ms, b_by = bound(n_bytes, 2.0 * 4 * 24 * 128 * D_, torch.bfloat16)
+        inputs_rows[what] = dict(
+            max_abs_err=err_i, shape=f"T=4 F=4096 D={D_}, 24 of 32 tiles "
+                                     f"(density 0.75) bf16",
+            **timings(lambda: ksm.sparse_matmul(*a_),
+                      lambda: ksm.sparse_matmul_plain(*a_),
+                      lambda: xi @ wi),
+            bound_ms=b_ms, bound_by=b_by)
+        del wi, a_
     x, w, idx, nvalid = args
     # an f32 x against bf16 weights is multiplied unrounded: f32 tolerance
     for name, xf, wb, ib, nb in (
@@ -880,7 +943,7 @@ def kernel_phase(dev) -> dict:
         return y
 
     sm_rows = {}
-    for T_, (xa, wa, ia, na) in ((128, args), (8, args8)):
+    for T_, (xa, wa, ia, na) in ((4, args4), (128, args), (8, args8)):
         same_bits(f"sparse_matmul T={T_}",
                   lambda: ksm.sparse_matmul(xa, wa, ia, na))
         # both block widths, checked and timed on the card: the wrapper's
@@ -907,10 +970,13 @@ def kernel_phase(dev) -> dict:
         name="sparse_matmul", route="cuda",
         source="src/repro_torch/csrc/sparse_matmul.cu",
         replaces="src/repro/kernels/sparse_matmul.py:79",
-        max_abs_err=errs[torch.bfloat16],
-        **sm_rows[128],
-        shape="T=128 F=16384 D=4096 K=32 (density 0.25) score order bf16",
-        max_abs_err_f32=errs[torch.float32], at_T8=sm_rows[8])
+        max_abs_err=err4, **sm_rows[4],
+        shape="legacy decode T=4 F=16384 D=4096, 32 of 128 tiles "
+              "(density 0.25) bf16",
+        max_abs_err_f32=errs[torch.float32],
+        at_T128=dict(sm_rows[128], max_abs_err=errs[torch.bfloat16]),
+        at_T8=sm_rows[8], at_legacy_qkv=inputs_rows["qkv"],
+        at_legacy_wu=inputs_rows["wu"])
 
     # select_tiles_static on the card: tied scores keep ascending order
     sc = np.zeros(128, np.float32)
@@ -1459,6 +1525,70 @@ def parity_phase(dev) -> None:
         log(f"  ok parity tiny-moe plain prefill_chunk={chunk}: "
             f"{sum(map(len, got))} tokens identical, max|dlogprob| {d:.2e}, "
             f"expert I/O fraction {eng.expert_io_fraction()}")
+    static_parity(dev)
+
+
+def legacy_generate(cfg, params, device, toks, reuse: int):
+    """``ServeEngine.generate`` of 12 tokens over the (b, s) batch ``toks``
+    with ``track_sparsity`` (every step a stats step) and γ = ``reuse``."""
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(cfg, params, max_len=48, track_sparsity=True,
+                      device=device)
+    return eng.generate({"tokens": toks}, max_new=12, reuse_window=reuse)
+
+
+def static_parity(dev) -> None:
+    """The legacy ServeEngine and static tile capacities, f32 greedy, card
+    (kernel 5 behind gathered_matmul) against CPU (the plain gather), on
+    tiny-relu and tiny-moe: ``generate`` dense with γ = 3, at
+    ``enable_sparse_serving(cfg, 0.5, 1.0)`` (the FFN down-projection keeps
+    1 of 2 tiles; tiny-moe's experts have no capacity, so only its
+    attention runs there) and at (0.5, 0.75) with a tile of 16 (QKV inputs
+    gathered too, so tiny-moe reaches kernel 5); then the continuous
+    engine at (0.5, 1.0), whole-prompt and chunked. Tokens exactly,
+    logprobs within 1e-5; fails unless kernel 5 launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.kernels import sparse_matmul as ksm
+
+    n0 = ksm.sparse_matmul.launches
+    for name in ("tiny-relu", "tiny-moe"):
+        base = get_config(name).replace(compute_dtype="float32")
+        p_cpu = numpy_params(base, seed=0)
+        p_dev = _to(p_cpu, dev)
+        toks = np.random.RandomState(6).randint(0, base.vocab_size, (3, 10))
+        half = rf.enable_sparse_serving(base, 0.5, 1.0)
+        for what, cfg, reuse in (
+                ("dense, reuse_window=3", base, 3),
+                ("static 0.5 / 1.0", half, 0),
+                ("static 0.5 / 0.75, tile 16", rf.enable_sparse_serving(
+                    base.replace_sparsity(tile_size=16), 0.5, 0.75), 0)):
+            k0 = ksm.sparse_matmul.launches
+            want = legacy_generate(cfg, p_cpu, "cpu", toks, reuse)
+            got = legacy_generate(cfg, p_dev, dev, toks, reuse)
+            d = same_streams(f"legacy {name} {what}",
+                             (got.tokens.tolist(), got.logprobs),
+                             (want.tokens.tolist(), want.logprobs))
+            sites = {k: abs(v - want.site_sparsity[k])
+                     for k, v in got.site_sparsity.items()}
+            log(f"  ok parity legacy {name} {what}: {got.tokens.size} tokens "
+                f"identical, max|dlogprob| {d:.2e}, kernel 5 launches "
+                f"{ksm.sparse_matmul.launches - k0}, max|dsite sparsity| "
+                f"{max(sites.values()):.2e}")
+        prompts = [np.random.RandomState(s).randint(0, base.vocab_size, n)
+                   for s, n in ((1, 9), (2, 5), (3, 13))]
+        for chunk in (0, 4):
+            k0 = ksm.sparse_matmul.launches
+            want, lp_want, _ = serve_streams(half, p_cpu, "cpu", prompts, chunk)
+            got, lp_got, _ = serve_streams(half, p_dev, dev, prompts, chunk)
+            d = same_streams(f"continuous {name} static 0.5 / 1.0 "
+                             f"chunk={chunk}", (got, lp_got), (want, lp_want))
+            log(f"  ok parity continuous {name} static 0.5 / 1.0 "
+                f"prefill_chunk={chunk}: {sum(map(len, got))} tokens "
+                f"identical, max|dlogprob| {d:.2e}, kernel 5 launches "
+                f"{ksm.sparse_matmul.launches - k0}")
+    if ksm.sparse_matmul.launches == n0:
+        fail("static capacities on the card never launched kernel 5")
 
 
 def _to(tree, dev):
@@ -2126,6 +2256,7 @@ def serve_phase(dev, counters) -> dict:
     del pred, pf, pred_l, wu, wd, xs, x8, x_win, outs, unfused, fused
     torch.cuda.empty_cache()
     spec_serve(dev, counters, add, cfg, params, geom)
+    legacy_serve(dev, counters, add, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -2398,6 +2529,99 @@ def spec_serve(dev, counters, add, cfg, params, geom, dcfg=None) -> None:
                          "decode": out["decode_step_ms_median"]}, "spec")
         del eng
     del dparams
+
+
+def legacy_weight_bytes(cfg, dens_in: float, dens_ffn: float) -> float:
+    """Modeled weight bytes a layer reads in a legacy decode step at static
+    tile capacities (dens_in, dens_ffn), as the reference's
+    apply_attn_decode and apply_ffn gather: q, k, v, wu (and wg) read their
+    top ceil(dens_in * n) of the n input tiles, wd its top
+    ceil(dens_ffn * n) hidden tiles, wo all of its rows."""
+    import math
+
+    from repro_torch.models.transformer import attn_geometry
+
+    g, tile = attn_geometry(cfg), cfg.sparsity.tile_size
+    item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+
+    def rows(n, dens):  # the rows of a product over n input units read
+        return n if dens >= 1.0 else max(1, math.ceil(dens * (n // tile))) * tile
+
+    n_up = 2 if cfg.ffn_kind == "glu" else 1
+    cols_in = (g.hp + 2 * g.kvp) * g.head_dim + n_up * cfg.d_ff
+    return item * (rows(cfg.d_model, dens_in) * cols_in
+                   + g.hp * g.head_dim * cfg.d_model
+                   + rows(cfg.d_ff, dens_ffn) * cfg.d_model)
+
+
+def legacy_serve(dev, counters, add, cfg, params) -> None:
+    """The legacy single-batch ServeEngine at OPT-6.7B full width (32
+    layers, bf16), 4 prompts of 32 tokens, 16 new tokens: dense; γ = 4
+    with track_sparsity (every step a stats step); and --sparse-density
+    0.25 (relufy_stage2, then enable_sparse_serving(cfg, 0.25, 0.75): q,
+    k, v and wu gather 24 of 32 input tiles, wd 32 of 128 hidden tiles,
+    all through kernel 5). Each run is warmed once, then counted and timed:
+    the decode step is (generate - prefill) / 16 on the host clock with
+    the card synchronised; tokens/s, peak memory, the modeled weight bytes
+    a layer and kernel 5's launches are printed, and one decode step
+    without statistics alone: per call (time_ms) and on the card
+    (device_ms, a CUDA graph replay)."""
+    from repro_torch.core import relufication as rf
+    from repro_torch.serving import ServeEngine
+
+    toks = np.random.RandomState(8).randint(0, cfg.vocab_size, (4, 32))
+    static = rf.enable_sparse_serving(rf.relufy_stage2(cfg), 0.25, 0.75)
+    for what, c, reuse, track, expect in (
+            ("dense", cfg, 0, False, ()),
+            ("reuse_window=4, track_sparsity", cfg, 4, True, ()),
+            ("static 0.25 / 0.75", static, 0, False, ("sparse_matmul",))):
+        eng = ServeEngine(c, params, max_len=48, track_sparsity=track,
+                          device=dev)
+        batch = {"tokens": toks}
+
+        def gen():
+            return eng.generate(batch, max_new=16, reuse_window=reuse)
+
+        gen()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = time.perf_counter()
+        res, launches = counted(f"legacy serve {what}", counters, expect, gen)
+        gen_ms = (time.perf_counter() - a) * 1e3
+        add(launches)
+        a = time.perf_counter()
+        with torch.inference_mode():
+            _, cache = eng.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - a) * 1e3
+        with torch.inference_mode():  # one plain decode step, fenced alone
+            tok = torch.as_tensor(res.tokens[:, 0], device=dev)
+            pos = torch.full((4,), 32, dtype=torch.int32, device=dev)
+            step = lambda: eng.decode(cache, tok, pos)  # noqa: E731
+            call_ms, card_ms = time_ms(step, reps=10), device_ms(step)
+        if (res.tokens.shape != (4, 16) or res.tokens.min() < 0
+                or res.tokens.max() >= c.vocab_size
+                or not np.isfinite(res.logprobs).all()
+                or (res.logprobs > 0).any()):
+            fail(f"legacy serve {what}: bad tokens or logprobs")
+        step_ms = (gen_ms - prefill_ms) / 16
+        dens_in, dens_ffn = ((0.75, 0.25) if c.sparsity.enabled
+                             else (1.0, 1.0))
+        out = dict(mode=f"legacy {what}", batch=4, prompt=32, new_tokens=16,
+                   generate_ms=gen_ms, prefill_ms=prefill_ms,
+                   decode_step_ms=step_ms, decode_tokens_per_s=4e3 / step_ms,
+                   decode_call_ms=call_ms, decode_device_ms=card_ms,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   modeled_weight_mb_per_layer=legacy_weight_bytes(
+                       c, dens_in, dens_ffn) / 1e6,
+                   kernel5_launches=launches["sparse_matmul"])
+        if track:
+            if not 0.0 <= res.aggregated.aggregated_sparsity() <= 1.0:
+                fail("legacy serve: aggregated sparsity out of [0, 1]")
+            out.update(site_sparsity=res.site_sparsity,
+                       aggregated_sparsity=res.aggregated.aggregated_sparsity())
+        log("  serve " + json.dumps(out))
+        del eng
 
 
 def moe_serve(dev, counters, add, cfg=None) -> None:

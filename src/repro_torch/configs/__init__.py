@@ -4,9 +4,9 @@
 ``smoke_config(name)`` a reduced same-family config for CPU runs (the
 reference's rule). The port carries the configs it serves: ``tiny``,
 ``tiny-relu``, ``tiny-opt`` and ``tiny-moe`` (configs/tiny.py), the
-paper's dense models (configs/paper_models.py) and the MoE models
-(configs/moe_models.py). An arch the port has not registered raises
-KeyError with the known list.
+paper's dense models (configs/paper_models.py), the assigned dense models
+(configs/dense_models.py) and the MoE models (configs/moe_models.py).
+An arch the port has not registered raises KeyError with the known list.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import moe_models, paper_models, tiny  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        dense_models, moe_models, paper_models, tiny)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -56,8 +56,9 @@ def shifted_relufy(cfg: ModelConfig, shift: float) -> ModelConfig:
 def enable_sparse_serving(cfg: ModelConfig, ffn_density: float,
                           input_density: float = 1.0,
                           reuse_window: int = 0) -> ModelConfig:
-    """Turn on the tile-gathered sparse decode path. The port's model
-    steps raise for tile capacities below 1 (ROADMAP.md)."""
+    """Turn on the tile-gathered sparse decode path. The decode steps serve
+    tile capacities below 1 through ``common.maybe_sparse_matmul``, whose
+    tile gather is kernel 5 (``sparse_matmul``) on CUDA tensors."""
     return cfg.replace_sparsity(enabled=True, ffn_tile_density=ffn_density,
                                 input_tile_density=input_density,
                                 reuse_window=reuse_window)

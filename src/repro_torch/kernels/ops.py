@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels.fused_ffn import TILE, fused_up_relu
 from repro_torch.kernels.sparse_matmul import sparse_matmul
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import resolve_device, select_active_tiles
 
 
 def select_tiles_static(scores: torch.Tensor, density: float
@@ -23,15 +23,10 @@ def select_tiles_static(scores: torch.Tensor, density: float
     """Top-k tile selection with static capacity k = ceil(density * n):
     (n,) scores -> (idx (k,) int32 in score order, nvalid () int32 the
     count of selected tiles with a score above 0). Equal scores keep
-    ascending tile order, as ``lax.top_k`` does in the reference: the zero
-    scores tie whenever k exceeds the active tiles, and ``torch.topk`` is
-    not stable, so this takes the first k of a stable descending sort."""
-    n = scores.shape[-1]
-    k = max(1, int(math.ceil(density * n)))
-    top, idx = torch.sort(scores, descending=True, stable=True)
-    top, idx = top[:k], idx[:k]
-    nvalid = (top > 0).sum().to(torch.int32)
-    return idx.to(torch.int32), nvalid
+    ascending tile order, as ``lax.top_k`` does in the reference: it is
+    ``common.select_active_tiles`` with its mask counted."""
+    idx, mask = select_active_tiles(scores, density)
+    return idx, mask.sum(dtype=torch.int32)
 
 
 def sparse_ffn_apply(x, wu, wd, *, density: float = 0.25, shift: float = 0.0,

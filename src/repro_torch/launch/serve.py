@@ -1,6 +1,10 @@
-"""Serving launcher of the port: the continuous-batching smoke path of the
-reference's ``launch/serve.py``, with the same report lines.
+"""Serving launcher of the port: the smoke paths of the reference's
+``launch/serve.py`` (the legacy single-batch ``ServeEngine`` and the
+continuous-batching engine), with the same report lines.
 
+  python -m repro_torch.launch.serve --arch qwen3-4b --smoke --tokens 32
+  python -m repro_torch.launch.serve --arch qwen3-4b --smoke \\
+      --sparse-density 0.5 --reuse-window 3   # static tile capacities
   python -m repro_torch.launch.serve --arch tiny-relu --smoke --continuous
   python -m repro_torch.launch.serve --arch tiny-relu --smoke --speculative
   python -m repro_torch.launch.serve --arch tiny-relu --smoke \\
@@ -11,12 +15,12 @@ reference's ``launch/serve.py``, with the same report lines.
       --continuous   # MoE through the engine: routed experts as sparsity
 
 The engine runs on CUDA unless ``--device cpu`` is given; with no CUDA and
-no ``--device cpu`` it raises. Not ported, raising NotImplementedError
-(ROADMAP.md): ``--mesh`` (sharded serving), the legacy single-batch
-``ServeEngine`` (no ``--continuous``) and the pod-mesh compile path (no
-``--smoke``). ``--sparse-density > 0`` asks for static tile capacities
-below 1, which the port's model steps reject (ROADMAP.md); it never falls
-back to dense serving.
+no ``--device cpu`` it raises. ``--sparse-density d > 0`` relufies the
+model (stage 2) and serves it at static tile capacities d (FFN) and
+min(1, 3 d) (inputs), on both engines. Not ported, raising
+NotImplementedError (ROADMAP.md): ``--mesh`` (sharded serving) and the
+pod-mesh compile path (no ``--smoke``). A family whose modules the port
+does not have yet raises on either engine.
 """
 from __future__ import annotations
 
@@ -80,10 +84,6 @@ def main(argv=None) -> None:
     if not args.smoke:
         raise NotImplementedError("the pod-mesh compile path (no --smoke) "
                                   "is not ported to PyTorch (ROADMAP.md)")
-    if not args.continuous:
-        raise NotImplementedError("the legacy single-batch ServeEngine (no "
-                                  "--continuous) is not ported to PyTorch "
-                                  "yet (ROADMAP.md)")
 
     import numpy as np
 
@@ -93,7 +93,8 @@ def main(argv=None) -> None:
     from repro_torch.models import common as cm
     from repro_torch.models import registry
     from repro_torch.obs import format_statusz
-    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
+                                     ServeEngine)
     from repro_torch.serving.spec_decode import spec_metrics
 
     device = cm.resolve_device(args.device)
@@ -103,6 +104,20 @@ def main(argv=None) -> None:
         cfg = relufication.enable_sparse_serving(
             cfg, args.sparse_density, min(1.0, args.sparse_density * 3),
             reuse_window=args.reuse_window)
+    if not args.continuous:
+        params = registry.get_family(cfg).init_params(cfg, seed=0,
+                                                      device=device)
+        eng = ServeEngine(cfg, params, max_len=64 + args.tokens,
+                          track_sparsity=True, device=device)
+        batch = {"tokens": np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (2, 8))}
+        res = eng.generate(batch, max_new=args.tokens,
+                           reuse_window=args.reuse_window)
+        agg = (res.aggregated.aggregated_sparsity()
+               if res.aggregated is not None else float("nan"))
+        print(f"generated {res.tokens.shape} tokens; aggregated FFN sparsity "
+              f"{agg:.3f}")
+        return
     if args.predictor != "none":
         from repro_torch.core.activations import is_sparse_activation
         if not is_sparse_activation(cfg.activation):

@@ -1,5 +1,7 @@
-"""Shared model components of the PyTorch port — the serving subset of the
-reference's ``models/common.py``.
+"""Shared model components of the PyTorch port — the reference's
+``models/common.py`` less its training helpers (remat wrapping, f32
+master casts): norms, RoPE, head padding, attention, the paged cache, the
+paper's static-capacity tile gathers and the statistics collector.
 
 Layouts are the reference's, so tests compare like with like: attention
 queries in the per-group padded layout ``(b, s, kvp, g, hd)``, caches
@@ -161,6 +163,13 @@ def _largest_divisor_leq(n: int, cap: int) -> int:
 # attention
 
 
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """x rounded to ``dtype`` (the reference scales q by ``jnp.asarray(x,
+    q.dtype)``), as a Python number: multiplying by it copies nothing to
+    the device, so a step stays capturable in a CUDA graph."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, q_chunk: int = 512,
                     kv_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
@@ -173,12 +182,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv = k.shape[1]
     q_chunk = _largest_divisor_leq(s, min(q_chunk, s))
     kv_chunk = _largest_divisor_leq(skv, min(kv_chunk, skv))
-    scale = 1.0 / math.sqrt(d)
+    scale = _in_dtype(1.0 / math.sqrt(d), q.dtype)
     kf, vf = k.float(), v.float()
     outs = []
     for q0 in range(0, s, q_chunk):
         cq = q_chunk
-        qi = (q[:, q0:q0 + cq] * torch.tensor(scale, dtype=q.dtype, device=q.device)).float()
+        qi = (q[:, q0:q0 + cq] * scale).float()
         q_pos = q0 + q_offset + torch.arange(cq, device=q.device)
         hi = min(skv, q0 + q_offset + cq) if causal else skv
         lo = max(0, q0 + q_offset - window + 1) if window else 0
@@ -220,8 +229,7 @@ def window_attention(q: torch.Tensor, k_cache: torch.Tensor,
     in q's dtype."""
     b, W, kvp, g, d = q.shape
     S = k_cache.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    qs = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)).to(k_cache.dtype)
+    qs = (q * _in_dtype(1.0 / math.sqrt(d), q.dtype)).to(k_cache.dtype)
     logits = torch.einsum("bqhgd,bhsd->bhgqs", qs.float(), k_cache.float())
     ar = torch.arange(S, device=q.device)
     valid = ar[None, None, :] <= pos[:, :, None]
@@ -309,7 +317,69 @@ def paged_write_prefill(pages: torch.Tensor, kv: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# FFN gather tile
+# the paper's mechanism: tile-level activation sparsity at a static capacity
+
+
+def tile_scores(h: torch.Tensor, tile: int) -> torch.Tensor:
+    """Per-tile activity score max |h| over each tile. h (..., F) ->
+    (..., F // tile)."""
+    F = h.shape[-1]
+    return h.abs().reshape(h.shape[:-1] + (F // tile, tile)).amax(-1)
+
+
+def _top_sorted(scores: torch.Tensor, k: int):
+    """The top k of the last axis, ties to the lower index (``lax.top_k``):
+    the first k of a stable descending sort, as ``torch.topk`` promises no
+    order among equal scores and zero scores tie often."""
+    top, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return top[..., :k], idx[..., :k]
+
+
+def select_active_tiles(scores: torch.Tensor, density: float,
+                        n_groups: int = 1):
+    """Static-capacity top-k tile selection, batch union, group-balanced.
+    scores (tokens, n_tiles) (their max over tokens is taken: co-batched
+    rows change the selection) or (n_tiles,). Each of ``n_groups`` equal
+    groups keeps k_g = max(1, ceil(density * group size)) tiles. Returns
+    (idx (n_groups * k_g,) int32 global tile ids, descending score within
+    each group; mask (n_groups * k_g,) in scores' dtype, 1 where the tile's
+    score is above 0)."""
+    if scores.dim() == 2:
+        scores = scores.amax(0)
+    n_tiles = scores.shape[-1]
+    gsz = n_tiles // n_groups
+    k_g = max(1, int(math.ceil(density * gsz)))
+    top, idx_l = _top_sorted(scores.reshape(n_groups, gsz), k_g)
+    idx = idx_l + (torch.arange(n_groups, device=scores.device) * gsz)[:, None]
+    mask = (top > 0).to(scores.dtype)
+    return idx.reshape(-1).to(torch.int32), mask.reshape(-1)
+
+
+def gathered_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                    mask: torch.Tensor, tile: int) -> torch.Tensor:
+    """y = x @ w over the selected F tiles only: x (t, F), w (F, D), idx
+    (k,) tile ids, mask (k,) validity. Returns (t, D) in x's dtype, summed
+    in f32.
+
+    On CUDA tensors it is kernel 5 (``kernels.sparse_matmul.sparse_matmul``)
+    with nvalid = mask.sum() kept on the device: ``select_active_tiles``
+    lists the tiles with a score above 0 first, and a masked tile's x is all
+    zero, so the kernel's sum over idx[:nvalid] is the reference's. On CPU
+    tensors it is the reference's gather-and-matmul."""
+    if x.is_cuda:
+        # imported here: the kernel module's own imports reach this module
+        from repro_torch.kernels import sparse_matmul as ksm
+        nvalid = mask.sum(dtype=torch.int32)
+        return ksm.sparse_matmul(x.contiguous(), w.contiguous(), idx, nvalid,
+                                 tile=tile).to(x.dtype)
+    t, F = x.shape
+    D = w.shape[1]
+    k = idx.shape[0]
+    il = idx.long()
+    xg = x.reshape(t, F // tile, tile)[:, il] * mask[None, :, None].to(x.dtype)
+    wg = w.reshape(F // tile, tile, D)[il]
+    return (xg.reshape(t, k * tile).float()
+            @ wg.reshape(k * tile, D).float()).to(x.dtype)
 
 
 def pick_group_tile(F: int, n_groups: int) -> int:
@@ -332,6 +402,57 @@ def ffn_gather_tile(cfg: ModelConfig) -> int:
     for the serving steps' tile lists and scores)."""
     ts = cfg.sparsity.tile_size
     return ts if cfg.d_ff % ts == 0 else pick_group_tile(cfg.d_ff, 1)
+
+
+def grouped_sparse_matmul(x: torch.Tensor, w: torch.Tensor, density: float,
+                          n_groups: int) -> torch.Tensor:
+    """Tile-gathered matmul with the F axis cut into ``n_groups`` groups,
+    each keeping its own top tiles (the reference's TP layout: each
+    shard's gather stays local). Plain torch ops, as the reference leaves
+    it to XLA; its group tile (``pick_group_tile``) need not suit a kernel.
+    x (t, F), w (F, D) -> (t, D) in x's dtype."""
+    t, F = x.shape
+    D = w.shape[1]
+    tile = pick_group_tile(F, n_groups)
+    tiles_g = F // n_groups // tile
+    k_g = max(1, int(math.ceil(density * tiles_g)))
+    xt = x.reshape(t, n_groups, tiles_g, tile)
+    top, idx = _top_sorted(xt.abs().amax(dim=(0, 3)), k_g)  # (G, k_g)
+    mask = (top > 0).to(x.dtype)
+    groups = torch.arange(n_groups, device=x.device)[:, None]
+    xg = xt[:, groups, idx] * mask[None, :, :, None]  # (t, G, k_g, tile)
+    wg = w.reshape(n_groups, tiles_g, tile, D)[groups, idx]  # (G, k_g, tile, D)
+    return torch.einsum("tgkc,gkcd->td", xg.float(), wg.float()).to(x.dtype)
+
+
+def maybe_sparse_matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+                        density: float, n_groups: int = 0) -> torch.Tensor:
+    """Dense x @ w at density 1, else the tile-gathered product at the
+    static capacity ``density``: group-balanced (``grouped_sparse_matmul``)
+    when ``n_groups`` (default cfg.sparsity.n_groups) is above 1 and
+    divides F, else over the batch union's top tiles of
+    cfg.sparsity.tile_size (``gathered_matmul``)."""
+    return maybe_sparse_matmuls(x, (w,), cfg, density, n_groups)[0]
+
+
+def maybe_sparse_matmuls(x: torch.Tensor, ws, cfg: ModelConfig,
+                         density: float, n_groups: int = 0):
+    """``[maybe_sparse_matmul(x, w, ...) for w in ws]`` with the tile
+    selection, which depends on x alone, made once for all of them (the
+    reference selects again for each product; the results are the same)."""
+    if density >= 1.0:
+        return [x @ w for w in ws]
+    n_groups = n_groups or cfg.sparsity.n_groups
+    if n_groups > 1 and x.shape[1] % n_groups == 0:
+        return [grouped_sparse_matmul(x, w, density, n_groups) for w in ws]
+    tile = cfg.sparsity.tile_size
+    idx, mask = select_active_tiles(tile_scores(x, tile), density, 1)
+    return [gathered_matmul(x, w, idx, mask, tile) for w in ws]
+
+
+def site_sparsity(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of exact zeros in x, an f32 scalar on x's device."""
+    return (x == 0).float().mean()
 
 
 def layer_params(params, i: int):
@@ -367,16 +488,37 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 class StatsCollector:
-    """Activation capture during a forward (the subset of the reference's
-    ``StatsCollector`` the predictor calibration uses): ``add_raw`` records
-    only when the collector is active and built with ``raw=True``."""
+    """Per-site sparsity and pre-activation statistics during a forward or
+    decode step (the reference's ``StatsCollector``). Inactive (the
+    default) every ``add*`` is a no-op and computes nothing. The values
+    stay on the device (scalars, or the (F,) ``down_act`` mask): reading
+    them is the caller's fetch."""
 
     def __init__(self, active: bool = False, raw: bool = False):
         self.active = active
         self.raw = active and raw
         self.stats: Dict[str, torch.Tensor] = {}
 
+    def add(self, name: str, value: torch.Tensor) -> None:
+        if self.active:
+            self.stats[name] = value
+
     def add_raw(self, name: str, x: torch.Tensor) -> None:
-        """Capture a full activation tensor (calibration runs only)."""
+        """Capture a full activation tensor (calibration runs only): only
+        when the collector was built with ``raw=True``."""
         if self.raw:
             self.stats[name] = x.detach()
+
+    def add_sparsity(self, name: str, x: torch.Tensor) -> None:
+        if self.active:
+            self.stats[name] = site_sparsity(x.detach())
+
+    def add_preact(self, name: str, x: torch.Tensor) -> None:
+        if self.active:
+            xf = x.detach().float()
+            self.stats[name + "/mean"] = xf.mean()
+            self.stats[name + "/std"] = xf.std(unbiased=False)
+            self.stats[name + "/frac_neg"] = (xf < 0).float().mean()
+
+
+NO_STATS = StatsCollector(False)  # the shared inactive collector

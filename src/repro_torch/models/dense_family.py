@@ -1,5 +1,7 @@
-"""Registry adapter for the dense decoder family: the paged-serving entry
-points its declared capabilities promise (batch-dict interface)."""
+"""Registry adapter for the dense decoder family (batch-dict interface):
+the registry's uniform interface (forward, the legacy contiguous-cache
+prefill and decode) and the paged-serving entry points its declared
+capabilities promise."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -10,9 +12,25 @@ from repro_torch.models import transformer as T
 init_params = T.init_params
 
 
-def model_forward(params, batch, cfg: ModelConfig, *, stats=None):
+def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS):
     return T.forward(params, batch["tokens"], cfg, stats=stats)
 
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    return T.init_cache(cfg, batch, max_len, device=device)
+
+
+def model_prefill(params, batch, cfg: ModelConfig, max_len: int, stats=cm.NO_STATS):
+    return T.prefill(params, batch["tokens"], cfg, max_len, stats=stats)
+
+
+def model_decode(params, cache, token, pos, cfg: ModelConfig, stats=cm.NO_STATS,
+                 ffn_masks=None):
+    return T.decode_step(params, cache, token, pos, cfg, stats=stats,
+                         ffn_masks=ffn_masks)
+
+
+# -- continuous-batching (paged-cache) serving interface --------------------
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device="cuda"):

@@ -1,5 +1,6 @@
 """Top-k Mixture-of-Experts family (Mixtral-8x22B, Phi-3.5-MoE), in
-PyTorch — the serving subset of the reference's ``models/moe.py``.
+PyTorch — the forward, the legacy contiguous-cache steps and the paged
+serving steps of the reference's ``models/moe.py``.
 
 Grouped one-hot dispatch: t tokens are split into G groups of about
 ``cfg.moe_group_size``; in each group an expert takes cap = ceil(tg *
@@ -67,12 +68,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 # routing
 
 
-def _route(p, x, cfg: ModelConfig):
+def _route(p, x, cfg: ModelConfig,
+           stats: cm.StatsCollector = cm.NO_STATS):
     """Top-k routing and grouped priority slot assignment for t tokens
     x (t, d), as the reference's ``_route``: the router logits' softmax in
     f32, the top k with ties to the lower expert index (``lax.top_k``; a
     stable descending sort here, as ``torch.topk`` promises no order), the
     gates renormalised over the k, then k = 0 claims capacity before k = 1.
+    An active ``stats`` records ``moe_drop_frac`` (the share of the
+    t * top_k assignments capacity dropped) and ``moe_load_cv`` (the
+    coefficient of variation of the gate mass each (group, expert) takes).
 
     Returns (xg (G, tg, d), dispatch (G, tg, E, cap) bool, combine
     (G, tg, E, cap) f32, (G, tg, cap), (topi, topv) (G, tg, k))."""
@@ -104,25 +109,39 @@ def _route(p, x, cfg: ModelConfig):
         dispatch |= sel > 0
         combine = combine + sel * topv[..., kk][..., None, None]
         counts = counts + oh.sum(1)
+    if stats.active:
+        stats.add("moe_drop_frac", 1.0 - dispatch.sum() / (G * tg * k))
+        load = combine.sum((1, 3))  # (G, E)
+        stats.add("moe_load_cv",
+                  load.std(unbiased=False) / (load.mean() + 1e-9))
     return xg, dispatch, combine, (G, tg, cap), (topi, topv)
 
 
-def _expert_hidden(p, xe, cfg: ModelConfig):
-    """act(xe @ Wg) [* (xe @ Wu)] per expert slot: xe (G, E, cap, d)."""
+def _expert_hidden(p, xe, cfg: ModelConfig,
+                   stats: cm.StatsCollector = cm.NO_STATS):
+    """act(xe @ Wg) [* (xe @ Wu)] per expert slot: xe (G, E, cap, d);
+    ``stats`` records the gate's pre-activation (``moe_pre``)."""
     act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
-    if cfg.ffn_kind == "glu":
-        return (act_fn(torch.einsum("gecd,edf->gecf", xe, p["wg"]))
-                * torch.einsum("gecd,edf->gecf", xe, p["wu"]))
-    return act_fn(torch.einsum("gecd,edf->gecf", xe, p["wu"]))
+    glu = cfg.ffn_kind == "glu"
+    pre = torch.einsum("gecd,edf->gecf", xe, p["wg"] if glu else p["wu"])
+    stats.add_preact("moe_pre", pre)
+    if glu:
+        return act_fn(pre) * torch.einsum("gecd,edf->gecf", xe, p["wu"])
+    return act_fn(pre)
 
 
-def apply_moe(p, x, cfg: ModelConfig):
+def apply_moe(p, x, cfg: ModelConfig,
+              stats: cm.StatsCollector = cm.NO_STATS):
     """x (t, d) -> (t, d): top-k routing with capacity, the experts'
-    FFNs on their slots, and the gate-weighted combine."""
-    xg, dispatch, combine, _, _ = _route(p, x, cfg)
+    FFNs on their slots, and the gate-weighted combine. An active ``stats``
+    records the routing's sites, ``moe_pre`` and ``down_in`` (no
+    ``down_act``: as in the reference, expert units feed no tracker)."""
+    xg, dispatch, combine, _, _ = _route(p, x, cfg, stats)
     dd = dispatch.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dd, xg)
-    ye = torch.einsum("gecf,efd->gecd", _expert_hidden(p, xe, cfg), p["wd"])
+    h = _expert_hidden(p, xe, cfg, stats)
+    stats.add_sparsity("down_in", h)
+    ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
     return y.reshape(x.shape)
 
@@ -172,23 +191,59 @@ def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
 
 
 def apply_block(p, x, cfg: ModelConfig, positions,
-                stats: Optional[cm.StatsCollector] = None):
+                stats: cm.StatsCollector = cm.NO_STATS):
     """Full-sequence block (``transformer.forward``'s layer function):
     attention, then the MoE FFN over the b * s tokens. Returns (x, kv)."""
     h = T.post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
-    a, kv = T.apply_attn_full(p["attn"], h, cfg, positions)
+    a, kv = T.apply_attn_full(p["attn"], h, cfg, positions, stats=stats)
     x = x + a
     h = T.post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
     b, s, d = h.shape
     h = h.reshape(b * s, d)
-    if stats is not None:
-        stats.add_raw("ffn_x", h)
-    return x + apply_moe(p["moe"], h, cfg).reshape(b, s, d), kv
+    stats.add_raw("ffn_x", h)
+    return x + apply_moe(p["moe"], h, cfg, stats).reshape(b, s, d), kv
 
 
-def model_forward(params, batch, cfg: ModelConfig, *, stats=None):
+def apply_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
+                       layer: int, stats: cm.StatsCollector = cm.NO_STATS):
+    """One-token block over the contiguous cache: the dense family's
+    attention (``transformer.apply_attn_decode``), then the MoE FFN."""
+    h = T.post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
+    a, k_cache, v_cache = T.apply_attn_decode(
+        p["attn"], h, cfg, k_cache, v_cache, pos, stats=stats, layer=layer)
+    x = x + a
+    h = T.post_norm(cm.apply_norm(p["ln2"], x[:, None], cfg)[:, 0], cfg)
+    return x + apply_moe(p["moe"], h, cfg, stats), k_cache, v_cache
+
+
+def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS):
     return T.forward(params, batch["tokens"], cfg, stats=stats,
                      block=apply_block)
+
+
+# ---------------------------------------------------------------------------
+# legacy single-batch serving (the dense family's contiguous cache)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    return T.init_cache(cfg, batch, max_len, device=device)
+
+
+def model_prefill(params, batch, cfg: ModelConfig, max_len: int, stats=cm.NO_STATS):
+    return T.prefill(params, batch["tokens"], cfg, max_len, stats=stats,
+                     block=apply_block)
+
+
+def model_decode(params, cache, token, pos, cfg: ModelConfig, stats=cm.NO_STATS):
+    """One legacy decode step (``transformer.decode_step``'s contract, no
+    γ-window masks). An active ``stats`` is shared by every layer, as in
+    the reference: each site keeps the last layer's value."""
+
+    def layer_fn(p_i, i, x, kc, vc):
+        return apply_block_decode(p_i, x, cfg, kc, vc, pos, stats=stats,
+                                  layer=i)
+
+    return T.decode_core(params, cache, token, pos, cfg, layer_fn)
 
 
 # ---------------------------------------------------------------------------

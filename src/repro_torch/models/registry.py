@@ -1,5 +1,18 @@
 """Architecture-family registry of the port.
 
+Uniform interface per family (duck-typed module), as in the reference:
+  init_params(cfg, *, seed, device) -> params
+  model_forward(params, batch, cfg, *, stats=NO_STATS)
+      -> logits aligned with batch["tokens"] (b, s, vocab_p)
+  init_cache(cfg, batch, max_len, device) -> cache dict
+  model_prefill(params, batch, cfg, max_len, stats=NO_STATS)
+      -> (logits_b, cache)
+  model_decode(params, cache, token, pos, cfg, stats=NO_STATS)
+      -> (logits, cache)
+
+batch is a dict: {"tokens": (b, s) int}; NO_STATS is ``common.NO_STATS``,
+the shared inactive collector.
+
 The dense and MoE families are ported; each declares the paged-serving
 capabilities it serves, as the reference's do (MoE has no predictor mode
 and cannot draft; it verifies a dense draft's windows). The reference's other

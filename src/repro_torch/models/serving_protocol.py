@@ -11,6 +11,10 @@
    ``decode_step_core`` / ``window_step_core`` hold it once, parameterised
    by the family's per-layer block function. Where the reference scans
    over stacked layers, this is a Python loop over layer views.
+
+Family hook with a default: ``prompt_token_offset(cfg) -> int``, the extra
+non-text positions a family prepends to the prompt; the legacy
+``ServeEngine`` offsets decode positions by it. Default 0.
 """
 from __future__ import annotations
 
@@ -58,6 +62,15 @@ def validate_caps(name: str, module, caps: ServingCaps) -> None:
         if missing:
             raise ValueError(f"family {name!r} declares capability {cap!r} "
                              f"but is missing {missing}")
+
+
+def prompt_token_offset(fam, cfg) -> int:
+    """The family's extra prompt-position offset (default 0). Families with
+    non-text prefix positions (the reference's vlm vision patches) define
+    ``prompt_token_offset(cfg)``; resolved here so engines stay free of
+    per-family probes."""
+    hook = getattr(fam, "prompt_token_offset", None)
+    return 0 if hook is None else int(hook(cfg))
 
 
 def refresh_union_masks(ffn_masks, act, refresh):

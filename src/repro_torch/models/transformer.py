@@ -1,5 +1,8 @@
-"""Dense decoder-only transformer family, in PyTorch — the serving subset
-of the reference's ``models/transformer.py``.
+"""Dense decoder-only transformer family, in PyTorch — the serving and
+forward paths of the reference's ``models/transformer.py``: the full
+forward with its per-layer statistics, the contiguous-cache prefill and
+decode of the legacy ``ServeEngine``, and the paged continuous-batching
+steps.
 
 Parameters are a dict tree with the reference's names and layouts
 (``wq (d, hp, hd)``, ``wo (hp, hd, d)``, ``wu (d, F)``, ``wd (F, d)``),
@@ -9,15 +12,22 @@ every call (``cast_params``); the values the model computes with are the
 same.
 
 Plain products (QKV, ``wo``, the dense up-projection, the logits) are
-``torch.matmul``. On CUDA tensors the serving steps run the three
-hand-written CUDA kernels the reference runs as Pallas kernels
-(``kernel_path`` says when):
+``torch.matmul``. Static tile capacities (``cfg.sparsity.enabled`` with
+``input_tile_density`` / ``ffn_tile_density`` below 1) lower the decode
+steps' QKV, up- and down-projections through
+``common.maybe_sparse_matmul``, whose tile gather is kernel 5
+(``sparse_matmul``) on CUDA tensors; the full forward (and so
+whole-prompt prefill) stays dense, as in the reference. On CUDA tensors
+the paged serving steps run the hand-written CUDA kernels the reference
+runs as Pallas kernels (``kernel_path`` says when):
 ``paged_window_attention`` (decode and window attention),
 ``fused_sparse_ffn`` (W = 1 decode FFN over the γ-window tile list, and
 the predictor FFN) and ``sparse_matmul_tokens`` (window-union
-down-projection of chunked prefill). The predictor FFN's unfused lowering
+down-projection of chunked prefill); the last two only at densities 1, as
+the reference gates them. The predictor FFN's unfused lowering
 (``_ffn_decode_predicted(fused=False)``) runs ``sparse_up_matmul`` and
-``sparse_matmul_tokens`` instead of the fused kernel.
+``sparse_matmul_tokens`` instead of the fused kernel. The contiguous
+cache's attention is plain torch ops, as the reference's is XLA.
 """
 from __future__ import annotations
 
@@ -46,14 +56,12 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def require_dense_projections(cfg: ModelConfig) -> None:
-    """The port serves dense projections only: static tile capacities
-    below 1.0 (``maybe_sparse_matmul`` in the reference) are not ported."""
+def densities(cfg: ModelConfig):
+    """(input, ffn) static tile capacities of the decode steps: the
+    configured ones when ``cfg.sparsity.enabled``, else (1.0, 1.0)."""
     s = cfg.sparsity
-    if s.enabled and (s.input_tile_density < 1.0 or s.ffn_tile_density < 1.0):
-        raise NotImplementedError(
-            "static tile-capacity sparsity (input/ffn_tile_density < 1) is "
-            "not ported yet (ROADMAP.md)")
+    return ((s.input_tile_density, s.ffn_tile_density) if s.enabled
+            else (1.0, 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -144,14 +152,18 @@ def _init_ffn(cfg: ModelConfig, stacked, dense):
 # blocks
 
 
-def _qkv(p, x, cfg: ModelConfig, positions):
-    """x (b, s, d) -> q (b, s, hp, hd), k/v (b, s, kvp, hd); RoPE applied."""
+def _qkv(p, x, cfg: ModelConfig, positions, *,
+         stats: cm.StatsCollector = cm.NO_STATS, decode: bool = False):
+    """x (b, s, d) -> q (b, s, hp, hd), k/v (b, s, kvp, hd); RoPE applied.
+    ``decode`` applies the static input tile capacity (``densities``): one
+    selection of the input's top d_model tiles for the three products."""
     g = attn_geometry(cfg)
+    stats.add_sparsity("qkv_in", x)
     b, s, d = x.shape
-    x2 = x.reshape(b * s, d)
-    q = (x2 @ p["wq"].reshape(d, g.hp * g.head_dim)).reshape(b, s, g.hp, g.head_dim)
-    k = (x2 @ p["wk"].reshape(d, g.kvp * g.head_dim)).reshape(b, s, g.kvp, g.head_dim)
-    v = (x2 @ p["wv"].reshape(d, g.kvp * g.head_dim)).reshape(b, s, g.kvp, g.head_dim)
+    dens = densities(cfg)[0] if decode else 1.0
+    ws = [p[n].reshape(d, -1) for n in ("wq", "wk", "wv")]
+    q, k, v = (y.reshape(b, s, -1, g.head_dim) for y in
+               cm.maybe_sparse_matmuls(x.reshape(b * s, d), ws, cfg, dens))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -177,21 +189,48 @@ def post_norm(x, cfg: ModelConfig):
     return torch.relu(x) if cfg.post_norm_relu else x
 
 
-def _ffn_hidden(pf, x, cfg: ModelConfig):
-    """Dense hidden activation act(x @ Wg) [* (x @ Wu)]."""
+def _ffn_hidden(pf, x, cfg: ModelConfig, dens_in: float = 1.0,
+                stats: cm.StatsCollector = cm.NO_STATS):
+    """Hidden activation act(x @ Wg) [* (x @ Wu)], each product at the
+    input tile capacity ``dens_in``; ``stats`` records the gate's
+    pre-activation (``ffn_pre``)."""
     act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
-    if cfg.ffn_kind == "glu":
-        return act_fn(x @ pf["wg"]) * (x @ pf["wu"])
-    return act_fn(x @ pf["wu"])
+    glu = cfg.ffn_kind == "glu"
+    if glu:
+        pre, up = cm.maybe_sparse_matmuls(x, [pf["wg"], pf["wu"]], cfg, dens_in)
+    else:
+        pre, = cm.maybe_sparse_matmuls(x, [pf["wu"]], cfg, dens_in)
+    stats.add_preact("ffn_pre", pre)
+    return act_fn(pre) * up if glu else act_fn(pre)
 
 
-def apply_attn_full(p, x, cfg: ModelConfig, positions):
+def apply_ffn(p, x, cfg: ModelConfig, *, stats: cm.StatsCollector = cm.NO_STATS,
+              decode: bool = False, ffn_mask: Optional[torch.Tensor] = None):
+    """x (tokens, d) -> (tokens, d). ``decode`` applies the static tile
+    capacities (``densities``); ffn_mask (d_ff,) emulates γ-window weight
+    reuse (only the window's loaded rows participate). An active ``stats``
+    records ``up_in``, ``ffn_x`` (raw only), ``ffn_pre``, ``down_in`` and
+    ``down_act`` (the (d_ff,) units active in any row)."""
+    stats.add_sparsity("up_in", x)
+    stats.add_raw("ffn_x", x)  # predictor-calibration capture
+    dens_in, dens_ffn = densities(cfg) if decode else (1.0, 1.0)
+    h = _ffn_hidden(p, x, cfg, dens_in, stats)
+    if ffn_mask is not None:
+        h = h * ffn_mask.to(h.dtype)
+    stats.add_sparsity("down_in", h)
+    if stats.active:
+        stats.add("down_act", (h != 0).any(0))
+    return cm.maybe_sparse_matmul(h, p["wd"], cfg, dens_ffn)
+
+
+def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
+                    stats: cm.StatsCollector = cm.NO_STATS):
     """Full-sequence causal attention (prefill / forward). Returns
     (out (b, s, d), (k, v) (b, s, kvp, hd) for the cache). GQA K/V are
     replicated to 16 heads as the reference does."""
     g = attn_geometry(cfg)
     b, s = x.shape[:2]
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, stats=stats)
     kv = (k, v)
     r = 1 if g.kvp % cm.TP == 0 else cm.TP // g.kvp
     if r > 1:
@@ -204,17 +243,53 @@ def apply_attn_full(p, x, cfg: ModelConfig, positions):
 
 
 def apply_block(p, x, cfg: ModelConfig, positions,
-                stats: Optional[cm.StatsCollector] = None):
+                stats: cm.StatsCollector = cm.NO_STATS):
     h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
-    a, kv = apply_attn_full(p["attn"], h, cfg, positions)
+    a, kv = apply_attn_full(p["attn"], h, cfg, positions, stats=stats)
     x = x + a
     h = post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
     b, s, d = h.shape
-    h = h.reshape(b * s, d)
-    if stats is not None:
-        stats.add_raw("ffn_x", h)  # predictor-calibration capture
-    f = _ffn_hidden(p["ffn"], h, cfg) @ p["ffn"]["wd"]
+    f = apply_ffn(p["ffn"], h.reshape(b * s, d), cfg, stats=stats)
     return x + f.reshape(b, s, d), kv
+
+
+def apply_attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
+                      layer: int, stats: cm.StatsCollector = cm.NO_STATS):
+    """One-token attention of ``layer`` against the contiguous head-major
+    cache. x (b, d); pos (b,) write positions; k_cache / v_cache the
+    stacked (L, b, kvp, S, hd) buffers. Every row's K/V is written IN PLACE
+    at pos[0], as the reference's uniform-position ``dynamic_update_slice``
+    writes it (a legacy batch shares its positions). A position past S - 1
+    is an index error, where the reference clamps it silently
+    (``ServeEngine.generate`` checks the bound on the host before it
+    starts). The attention is plain
+    torch ops, as the reference's ``decode_attention`` is XLA. Returns (out
+    (b, d), k_cache, v_cache)."""
+    g = attn_geometry(cfg)
+    b = x.shape[0]
+    q, k, v = _qkv(p, x[:, None, :], cfg, pos[:, None], stats=stats,
+                   decode=True)
+    q = q.reshape(b, g.kvp, g.group, g.head_dim)
+    kl, vl = k_cache[layer], v_cache[layer]
+    at = pos[:1].long()
+    kl.index_copy_(2, at, k.transpose(1, 2).to(kl.dtype))  # (b, kvp, 1, hd)
+    vl.index_copy_(2, at, v.transpose(1, 2).to(vl.dtype))
+    o = cm.decode_attention(q, kl, vl, pos, window=cfg.sliding_window)
+    out = _attn_out(p, o.reshape(b, 1, g.hp, g.head_dim), cfg)[:, 0]
+    return out, k_cache, v_cache
+
+
+def apply_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
+                       layer: int, stats: cm.StatsCollector = cm.NO_STATS,
+                       ffn_mask=None):
+    h = post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
+    a, k_cache, v_cache = apply_attn_decode(
+        p["attn"], h, cfg, k_cache, v_cache, pos, stats=stats, layer=layer)
+    x = x + a
+    h = post_norm(cm.apply_norm(p["ln2"], x[:, None], cfg)[:, 0], cfg)
+    f = apply_ffn(p["ffn"], h, cfg, stats=stats, decode=True,
+                  ffn_mask=ffn_mask)
+    return x + f, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -237,27 +312,26 @@ def logits_from(params, x, cfg: ModelConfig):
 
 def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
             last_index: Optional[int] = None,
-            stats: Optional[cm.StatsCollector] = None,
+            stats: cm.StatsCollector = cm.NO_STATS,
             block: Optional[Callable] = None):
-    """Full-sequence forward. tokens (b, s) -> logits (b, s, vocab_p). With
+    """Full-sequence forward, dense at any tile capacity (as the
+    reference's). tokens (b, s) -> logits (b, s, vocab_p). With
     ``return_kv``: (logits (b, 1, vocab_p) at ``last_index`` (default
     s - 1), (k, v) each (L, b, s, kvp, hd)). An active ``stats`` collects
-    each layer's sites under ``layer{i}/`` (with ``raw=True``: the FFN
+    each layer's sites under ``layer{i}/`` (with ``raw=True`` also the FFN
     input, ``layer{i}/ffn_x`` (b * s, d)). ``block(p, x, cfg, positions,
     stats)`` -> (x, (k, v)) is the layer function (the reference's
     ``remat_block``), by default the dense ``apply_block``."""
     block = block or apply_block
-    require_dense_projections(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_tokens(params, tokens, cfg, positions)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        sub = (cm.StatsCollector(True, raw=stats.raw)
-               if stats is not None and stats.active else None)
+        sub = cm.StatsCollector(True, raw=stats.raw) if stats.active else stats
         x, (k, v) = block(cm.layer_params(params, i), x, cfg, positions,
                           stats=sub)
-        if sub is not None:
+        if stats.active:
             for key, val in sub.stats.items():
                 stats.stats[f"layer{i}/{key}"] = val
         if return_kv:
@@ -269,6 +343,80 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
         return (logits_from(params, x[:, li:li + 1], cfg),
                 (torch.stack(ks), torch.stack(vs)))
     return logits_from(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# legacy single-batch serving: contiguous head-major cache, uniform positions
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda"):
+    """Zero cache {"k", "v"} each (L, batch, kvp, max_len, hd), head-major
+    (the decode attention reads it untransposed)."""
+    g = attn_geometry(cfg)
+    dtype = dtype or compute_dtype(cfg)
+    shape = (cfg.n_layers, batch, g.kvp, max_len, g.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def finalize_prefill_cache(k, v, max_len: int):
+    """The forward's (L, b, s, kvp, hd) K and V -> the head-major cache
+    dict, zero-padded along the sequence to ``max_len``."""
+    k = k.permute(0, 1, 3, 2, 4)  # -> (L, b, kvp, s, hd)
+    v = v.permute(0, 1, 3, 2, 4)
+    pad = max_len - k.shape[3]
+    if pad > 0:
+        zeros = k.new_zeros(k.shape[:3] + (pad,) + k.shape[4:])
+        k = torch.cat([k, zeros], dim=3)
+        v = torch.cat([v, zeros], dim=3)
+    return {"k": k.contiguous(), "v": v.contiguous()}
+
+
+def prefill(params, tokens, cfg: ModelConfig, max_len: int,
+            stats: cm.StatsCollector = cm.NO_STATS,
+            block: Optional[Callable] = None):
+    """Run the whole prompt (dense); returns (last-token logits
+    (b, vocab_p), the cache at ``max_len``)."""
+    logits, kv = forward(params, tokens, cfg, stats=stats, return_kv=True,
+                         block=block)
+    return logits[:, -1], finalize_prefill_cache(*kv, max_len)
+
+
+def decode_core(params, cache, token, pos, cfg: ModelConfig,
+                layer_fn: Callable):
+    """Embed -> the layers over the contiguous cache -> final norm and
+    logits; ``layer_fn(p_i, i, x, k_cache, v_cache)`` -> (x, k_cache,
+    v_cache) is the family's decode block. Returns (logits (b, vocab_p),
+    cache)."""
+    x = embed_tokens(params, token[:, None], cfg, pos[:, None])[:, 0]
+    kc, vc = cache["k"], cache["v"]
+    for i in range(cfg.n_layers):
+        x, kc, vc = layer_fn(cm.layer_params(params, i), i, x, kc, vc)
+    x = cm.apply_norm(params["final_norm"], x[:, None], cfg)[:, 0]
+    return logits_from(params, x, cfg), {"k": kc, "v": vc}
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig,
+                stats: cm.StatsCollector = cm.NO_STATS,
+                ffn_masks: Optional[torch.Tensor] = None):
+    """One legacy decode step. token (b,) int; pos (b,) write position
+    (uniform: every row is written at pos[0]); the cache is updated in
+    place. ffn_masks (L, d_ff): γ-window weight-reuse masks. An active
+    ``stats`` collects each layer's sites under ``layer{i}/``. Returns
+    (logits (b, vocab_p), cache)."""
+
+    def layer_fn(p_i, i, x, kc, vc):
+        sub = cm.StatsCollector(True) if stats.active else stats
+        x, kc, vc = apply_block_decode(
+            p_i, x, cfg, kc, vc, pos, stats=sub, layer=i,
+            ffn_mask=None if ffn_masks is None else ffn_masks[i])
+        if stats.active:
+            for key, val in sub.stats.items():
+                stats.stats[f"layer{i}/{key}"] = val
+        return x, kc, vc
+
+    return decode_core(params, cache, token, pos, cfg, layer_fn)
 
 
 def prefill_paged(params, tokens, cfg: ModelConfig, pages, blocks, *,
@@ -313,7 +461,7 @@ def apply_attn_window_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     fast_kernels = kernel_path(fast_kernels, x)
     g = attn_geometry(cfg)
     b, W, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, pos)
+    q, k, v = _qkv(p, x, cfg, pos, decode=True)
     q = q.reshape(b, W, g.kvp, g.group, g.head_dim).contiguous()
     cm.paged_write_window(k_pages, layer, table, pos, k, block_size, valid)
     cm.paged_write_window(v_pages, layer, table, pos, v, block_size, valid)
@@ -336,10 +484,13 @@ def apply_ffn_window(p, x, cfg: ModelConfig, *, mask, refresh, valid,
     (b, F // tile), density (b,), union_density (b,)).
 
     The kernel path (``kernel_path``) runs the down-projection through
-    ``sparse_matmul_tokens`` over each slot's window-union tile list."""
+    ``sparse_matmul_tokens`` over each slot's window-union tile list when
+    both tile capacities are 1; below 1 the products take
+    ``maybe_sparse_matmul``, as in the reference."""
     fast_kernels = kernel_path(fast_kernels, x)
     b, W, d = x.shape
-    h = _ffn_hidden(p, x.reshape(b * W, d), cfg).reshape(b, W, -1)
+    dens_in, dens_ffn = densities(cfg)
+    h = _ffn_hidden(p, x.reshape(b * W, d), cfg, dens_in).reshape(b, W, -1)
     eff = mask | refresh[:, None]
     h = h * eff[:, None, :].to(h.dtype)
     hv = h * valid[:, :, None].to(h.dtype)
@@ -348,7 +499,7 @@ def apply_ffn_window(p, x, cfg: ModelConfig, *, mask, refresh, valid,
     scores = window_tile_activity(hv, tile)
     density = eff.float().mean(-1)
     union_density = act.float().mean(-1)
-    if fast_kernels:
+    if fast_kernels and dens_in >= 1.0 and dens_ffn >= 1.0:
         n_tiles = h.shape[-1] // tile
         idx, nvalid = preds.pack_tile_indices(scores > 0, n_tiles)
         out = ksm.sparse_matmul_tokens(
@@ -356,7 +507,8 @@ def apply_ffn_window(p, x, cfg: ModelConfig, *, mask, refresh, valid,
             idx.repeat_interleave(W, 0), nvalid.repeat_interleave(W),
             tile=tile).to(x.dtype)
     else:
-        out = h.reshape(b * W, -1) @ p["wd"]
+        out = cm.maybe_sparse_matmul(h.reshape(b * W, -1), p["wd"], cfg,
+                                     dens_ffn)
     return out.reshape(b, W, d), act, scores, density, union_density
 
 
@@ -383,7 +535,6 @@ def verify_window_paged(params, pages, table, tokens, pos0, wlen,
     ffn_masks (L, b, F) bool; refresh (b,). Returns (logits (b, W,
     vocab_p), pages, new_masks (L, b, F), aux) with aux = (act, scores,
     density, union_density) stacked over layers."""
-    require_dense_projections(cfg)
 
     def layer_fn(pl_i, li, x, kp, vp, fm, pos, valid):
         x, kp, vp, act, scores, density, udens = apply_block_window_paged(
@@ -530,9 +681,10 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
                              fast_kernels: Optional[bool] = None):
     """Single-token decode block over the paged pool (kept apart from the
     window block as the reference keeps it). On the kernel path
-    (``kernel_path``) the FFN runs through ``fused_sparse_ffn`` over the
-    γ-window mask's tile list, with the mask applied per unit inside the
-    kernel.
+    (``kernel_path``) and at tile capacities 1 the FFN runs through
+    ``fused_sparse_ffn`` over the γ-window mask's tile list, with the mask
+    applied per unit inside the kernel; below 1 its products take
+    ``maybe_sparse_matmul``, as in the reference.
 
     ``pred`` (a per-layer predictor-param slice; None = off) switches the
     FFN to the predictor-gathered path (``_ffn_decode_predicted``, fused on
@@ -541,7 +693,7 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     fast_kernels = kernel_path(fast_kernels, x)
     g = attn_geometry(cfg)
     h = post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
-    q, k, v = _qkv(p["attn"], h[:, None, :], cfg, pos[:, None])
+    q, k, v = _qkv(p["attn"], h[:, None, :], cfg, pos[:, None], decode=True)
     q = q.reshape(q.shape[0], g.kvp, g.group, g.head_dim).contiguous()
     cm.paged_write_token(k_pages, layer, table, pos, k[:, 0], block_size)
     cm.paged_write_token(v_pages, layer, table, pos, v[:, 0], block_size)
@@ -566,7 +718,8 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     pf = p["ffn"]
     eff = mask | refresh[:, None]
     tile = cm.ffn_gather_tile(cfg)
-    if fast_kernels:
+    dens_in, dens_ffn = densities(cfg)
+    if fast_kernels and dens_in >= 1.0 and dens_ffn >= 1.0:
         n_tiles = cfg.d_ff // tile
         idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(eff, tile),
                                               n_tiles)
@@ -578,8 +731,8 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
         hh = kfd.scatter_compact(compact, idx, nvalid, n_tiles)
         f = f32.to(h.dtype)
     else:
-        hh = _ffn_hidden(pf, h, cfg) * eff.to(h.dtype)
-        f = hh @ pf["wd"]
+        hh = _ffn_hidden(pf, h, cfg, dens_in) * eff.to(h.dtype)
+        f = cm.maybe_sparse_matmul(hh, pf["wd"], cfg, dens_ffn)
     act = hh != 0
     scores = tile_activity(hh, tile)
     density = eff.float().mean(-1)
@@ -593,7 +746,6 @@ def decode_step_paged(params, pages, table, token, pos, cfg: ModelConfig,
     token/pos/refresh (b,); table (b, nb); ffn_masks (L, b, F) bool.
     Returns (logits (b, vocab_p), pages, new_masks (L, b, F), aux) with
     aux = (act (L, b, F), scores (L, b, F // tile), density (L, b))."""
-    require_dense_projections(cfg)
 
     def layer_fn(pl_i, li, x, kp, vp, fm):
         x, kp, vp, act, scores, density = apply_block_decode_paged(
@@ -621,7 +773,6 @@ def decode_step_paged_predicted(params, pages, table, token, pos,
     aux = (act (L, b, F), scores (L, b, F // tile'), density (L, b) fraction
     of FFN weight tiles read, n_active (L, b), n_miss (L, b) recall
     telemetry; zeros when measure=False)."""
-    require_dense_projections(cfg)
 
     def layer_fn(pl_i, li, x, kp, vp, fm, pred_l):
         x, kp, vp, act, scores, density, n_act, n_miss = \

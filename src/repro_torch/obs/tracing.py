@@ -26,7 +26,10 @@ per-step bookkeeping cost.
 
 A copy of the reference's ``obs/tracing.py``. In the port's eager engine
 ``dispatch`` is the host queueing the step's kernels and ``host_sync`` the
-host waiting for the card (the step's one stacked device-to-host fetch).
+host waiting for the card: the step's device-to-host fetches, two in a
+plain decode step and three in predictor and speculative mode.
+Speculative mode's proposal fetch falls in ``dispatch``, and
+``track_sparsity``'s activity fetch in ``sample``.
 The scheduler is host-only with no torch import; so is this module — hooks
 must stay stdlib-only (see obs/metrics.py).
 """

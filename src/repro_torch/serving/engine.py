@@ -1,4 +1,6 @@
-"""Continuous-batching serving engine of the PyTorch port.
+"""Serving engines of the PyTorch port, the reference's two tiers
+(``serving/engine.py``): ``ContinuousBatchingEngine`` below, and the
+legacy single-batch ``ServeEngine`` at the end of the module.
 
 ``ContinuousBatchingEngine(cfg, params, config=EngineConfig(...),
 device="cuda")`` is the reference's engine (``serving/engine.py``) in its
@@ -47,7 +49,10 @@ None makes an enabled one): every step is traced in five phases, as in
 the reference: ``admit`` (retirement and admission), ``prefill`` (the
 prefill work with its fetch), ``dispatch`` (the host building the step's
 arrays and queueing its kernels), ``host_sync`` (the host waiting for the
-step's one stacked device-to-host fetch) and ``sample`` (the scheduler's
+step's device-to-host fetches: in plain mode the stacked logprob and
+telemetry rows, then the tokens; predictor mode adds the recall counts;
+speculative mode fetches the telemetry, the tokens and the logprobs apart,
+after its proposal fetch in ``dispatch``) and ``sample`` (the scheduler's
 bookkeeping). The hooks read host values the step already fetched: no
 device sync is added, and streams are identical with observability on or
 off (``EngineObs.disabled()``). ``track_sparsity`` keeps one
@@ -56,8 +61,9 @@ from the step's FFN activity: one more fetch a step, made only when on.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,11 +72,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparsity import AggregatedTracker
 from repro_torch.models import common as cm
 from repro_torch.models import registry
+from repro_torch.models import serving_protocol as sp
 from repro_torch.obs import EngineObs
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving import sampling as smp
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    """What ``ServeEngine.generate`` returns: tokens and their logprobs
+    (b, n_new), the mean site sparsity of its stats steps by site, the
+    batch's aggregated-sparsity tracker (``track_sparsity``) and the step
+    count."""
+    tokens: np.ndarray  # (b, n_new)
+    logprobs: Optional[np.ndarray]
+    site_sparsity: Dict[str, float]
+    aggregated: Optional[AggregatedTracker]
+    steps: int
 
 
 def _tile_activity(scores: torch.Tensor) -> torch.Tensor:
@@ -672,3 +692,151 @@ class ContinuousBatchingEngine:
             "expert_io_fraction": self.expert_io_fraction(),
         }
         return {k: v for k, v in out.items() if v is not None}
+
+
+# ---------------------------------------------------------------------------
+# legacy single-batch path (compatibility: generate()/score() callers)
+
+_SITES = ("down_in", "up_in", "qkv_in")
+
+
+class ServeEngine:
+    """The legacy single-batch engine: a contiguous head-major cache of
+    ``max_len`` positions (the family's ``model_prefill`` /
+    ``model_decode``), one Python loop over tokens, every row of the batch
+    at the same position. It serves any registered family (the reference's
+    route for families without paged serving) and the paper's
+    measurement runs: γ-window reuse through ``decode(ffn_masks=)``
+    (Fig. 7c) and per-site sparsity.
+
+    params live on ``device`` ("cuda" by default; with no CUDA and no
+    ``device="cpu"`` construction raises). Static tile capacities (a
+    config from ``enable_sparse_serving``) gather through kernel 5 on the
+    card. A decode step writes the cache in place."""
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 256,
+                 track_sparsity: bool = False, device="cuda"):
+        self.device = cm.resolve_device(device)
+        off = {str(t.device) for t in _leaves(params)
+               if t.device != self.device}
+        if off:
+            raise ValueError(f"params must lie on {self.device}; found "
+                             f"{sorted(off)}")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.fam = registry.get_family(cfg)
+        self.track = track_sparsity
+
+    def _batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    # -- basic API ----------------------------------------------------------
+    def prefill(self, batch):
+        """The whole prompt batch (dense) -> (last logits (b, vocab_p),
+        the cache at max_len)."""
+        return self.fam.model_prefill(self.params, self._batch(batch),
+                                      self.cfg, self.max_len)
+
+    def decode(self, cache, token, pos, ffn_masks=None, stats=cm.NO_STATS):
+        """One step: token (b,), pos (b,) (rows written at pos[0]);
+        ffn_masks (L, d_ff) γ-window masks, stats a StatsCollector.
+        Returns (logits (b, vocab_p), cache)."""
+        kw = {} if ffn_masks is None else {"ffn_masks": ffn_masks}
+        return self.fam.model_decode(self.params, cache, token, pos,
+                                     self.cfg, stats=stats, **kw)
+
+    # -- generation with the paper's machinery ------------------------------
+    @torch.inference_mode()
+    def generate(self, batch, max_new: int,
+                 reuse_window: int = 0) -> GenerationResult:
+        """Greedy generation. reuse_window=γ enables the paper's Fig. 7c
+        strategy: every γ-th step runs with statistics and its (L, d_ff)
+        batch-union activity becomes the mask of the steps until the next
+        refresh (only the window's loaded FFN rows participate). With
+        ``track_sparsity`` every step collects statistics. Raises when
+        prompt and generation overrun max_len (the reference clamps the
+        write position instead).
+
+        The loop queues each step's kernels without a host sync: tokens,
+        logprobs, the stats steps' site values and masks stay on the
+        device and come back in one fetch at the end."""
+        cfg = self.cfg
+        batch = self._batch(batch)
+        b, s = batch["tokens"].shape
+        offset = sp.prompt_token_offset(self.fam, cfg)
+        if offset + s + max_new > self.max_len:
+            raise ValueError(
+                f"prompt offset {offset} + length {s} + max_new {max_new} "
+                f"exceeds the cache's max_len {self.max_len}")
+        last, cache = self.prefill(batch)
+        vocab = cfg.vocab_size
+        toks: List[torch.Tensor] = []
+        lps: List[torch.Tensor] = []
+        sites: List[tuple] = []  # (site name, device scalar)
+        step_masks: List[torch.Tensor] = []  # (L, d_ff) per stats step
+        masks = None
+
+        def head(logits):
+            lf = logits[:, :vocab].float()
+            nxt = torch.argmax(lf, -1)
+            lp = torch.log_softmax(lf, -1).gather(1, nxt[:, None])[:, 0]
+            return nxt.to(torch.int32), lp
+
+        nxt, lp = head(last)
+        for step in range(max_new):
+            toks.append(nxt)
+            lps.append(lp)
+            pos = torch.full((b,), offset + s + step, dtype=torch.int32,
+                             device=self.device)
+            need_stats = self.track or (
+                reuse_window > 0 and step % max(1, reuse_window) == 0)
+            if need_stats:
+                stats = cm.StatsCollector(True)
+                logits, cache = self.decode(cache, nxt, pos, stats=stats)
+                act = _collect_down_act(stats, cfg)
+                if act is not None and self.track and cfg.d_ff:
+                    step_masks.append(act)
+                sites += [(k.split("/")[-1], v) for k, v in stats.stats.items()
+                          if k.endswith(_SITES)]
+                if reuse_window > 0 and act is not None:
+                    masks = act
+            else:
+                logits, cache = self.decode(cache, nxt, pos, ffn_masks=masks)
+            nxt, lp = head(logits)
+
+        tok_np = torch.stack(toks, 1).cpu().numpy()
+        lp_np = torch.stack(lps, 1).cpu().numpy()
+        site_acc: Dict[str, List[float]] = {}
+        if sites:
+            vals = torch.stack([v for _, v in sites]).cpu().numpy()
+            for (name, _), v in zip(sites, vals):
+                site_acc.setdefault(name, []).append(float(v))
+        tracker = (AggregatedTracker(cfg.n_layers, cfg.d_ff)
+                   if self.track and cfg.d_ff else None)
+        if tracker is not None and step_masks:
+            for m in torch.stack(step_masks).cpu().numpy():
+                tracker.update(m)
+        return GenerationResult(
+            tokens=tok_np, logprobs=lp_np,
+            site_sparsity={k: float(np.mean(v)) for k, v in site_acc.items()},
+            aggregated=tracker, steps=max_new)
+
+    @torch.inference_mode()
+    def score(self, batch) -> float:
+        """Mean NLL of batch['tokens'] (perplexity = exp(score))."""
+        from repro_torch.train.step import lm_loss
+        loss, _ = lm_loss(self.params, self._batch(batch), self.cfg)
+        return float(loss)
+
+
+def _collect_down_act(stats: cm.StatsCollector,
+                      cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """The stats step's per-layer (d_ff,) unit activity stacked to
+    (L, d_ff) bool on the device, or None when the family records none
+    (MoE)."""
+    masks = [stats.stats[key] for key in
+             (f"layer{i}/down_act" for i in range(cfg.n_layers))
+             if key in stats.stats]
+    return torch.stack(masks) if masks else None

@@ -1,8 +1,9 @@
 """Continuous-batching scheduler: request queue, refcounted block allocator,
 prompt-prefix cache, and slot bookkeeping for the paged KV cache
 (models/common.py). A copy of the reference's numpy scheduler, kept in the
-port so it imports nothing of the JAX package; its observability hooks
-stay optional (``obs=None``; the port has no observability hub yet).
+port so it imports nothing of the JAX package. Its observability hooks
+are optional (``obs=None``); the port's engine passes its ``EngineObs``
+hub (repro_torch/obs).
 
 Pure host-side logic, so admission/retirement policy is unit-
 testable without a model. The engine (serving/engine.py) owns the device
@@ -514,8 +515,8 @@ class Scheduler:
         # prompt-token accounting behind the engine's prefix_hit_rate()
         self.prefill_tokens_total = 0
         self.prefill_tokens_saved = 0
-        # optional observability hub (None in the port): per-request span
-        # hooks fire at the state transitions below.
+        # optional observability hub (the engine passes its EngineObs):
+        # per-request span hooks fire at the state transitions below.
         self.obs = obs
 
     # -- lifecycle ----------------------------------------------------------

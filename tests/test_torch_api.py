@@ -446,11 +446,11 @@ def test_launchers_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_engine(parse_args(BASE_ARGS))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--arch", "tiny-relu", "--smoke", "--continuous"])
+    for argv in (["--smoke", "--continuous"], ["--smoke"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", "tiny-relu"] + argv)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_smoke_client.main(["--mode", "plain"])
-    for argv in (["--smoke", "--continuous", "--mesh", "1,2"],
-                 ["--smoke"], []):
+    for argv in (["--smoke", "--continuous", "--mesh", "1,2"], []):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.main(["--arch", "tiny-relu", "--device", "cpu"] + argv)

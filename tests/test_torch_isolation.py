@@ -263,3 +263,37 @@ def test_engine_rejects_params_on_another_device():
     params["embed"] = params["embed"].to("meta")
     with pytest.raises(ValueError, match="params must lie on cpu"):
         ContinuousBatchingEngine(cfg, params, device="cpu")
+
+
+def test_legacy_engine_runs_with_jax_and_reference_unimportable():
+    """The legacy ServeEngine (γ-window reuse, tracking, static tile
+    capacities, score) and the four assigned dense configs need nothing of
+    JAX or the JAX package."""
+    prog = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        from repro_torch.configs import get_config, smoke_config
+        from repro_torch.core import relufication as rf
+        from repro_torch.models import transformer as T
+        from repro_torch.serving import ServeEngine
+        cfg = get_config("tiny-relu").replace(compute_dtype="float32")
+        params = T.init_params(cfg, seed=0, device="cpu")
+        toks = np.arange(16).reshape(2, 8)
+        for c in (cfg, rf.enable_sparse_serving(cfg, 0.5)):
+            eng = ServeEngine(c, params, max_len=32, track_sparsity=True,
+                              device="cpu")
+            res = eng.generate({"tokens": toks}, max_new=5, reuse_window=2)
+            assert res.tokens.shape == (2, 5) and res.site_sparsity
+        assert np.isfinite(eng.score({"tokens": toks}))
+        for name in ("qwen3-4b", "qwen2-7b", "starcoder2-15b", "deepseek-67b"):
+            assert smoke_config(name).family == "dense"
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
