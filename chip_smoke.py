@@ -117,6 +117,25 @@ device and build always run):
             batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
             128, timed per call and on the card beside the dispatch
             einsums.
+7. train    relufication training and the forward statistics, with the
+            launch counts set to 0 before and read after (the path runs
+            none of the ten kernels: its forward is dense and the
+            reference has no backward kernel, so every count must stay
+            0). f32 parity: tiny-relu, tiny-moe and tiny relufied to stage
+            2, 3 train steps (2 microbatches, "minimal" remat) card against
+            CPU on the same numpy params and batches (loss, grad_norm, lr,
+            step_ok; params within 2 lr N, median 1e-6), and a fourth card
+            step under set_sync_debug_mode("error"). Full width: llama-7b
+            relufied to stage 2, 4 of its 32 layers (1.08 B params), f32
+            masters and bf16 compute, 8 x 1024 tokens of the synthetic
+            corpus (vocab 32000), 12 Trainer steps with async checkpoints
+            every 6: finite losses, none skipped, the last 3 below the
+            first; a second Trainer on a copy holding only the step-6
+            checkpoint restores that step's state (eval loss equal) and
+            runs to 12, its losses within 1e-2 of the first run's; measure_site_sparsity before and after (qkv and up
+            sparse), calibrate_shift(0.9) and the shifted model's down
+            sparsity. Prints the step's and the host data's median ms,
+            tokens/s, peak GiB and MFU (model_flops over 989 TFLOP/s).
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -127,6 +146,7 @@ import argparse
 import ctypes
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -144,7 +164,7 @@ TOL_F32 = 1e-5
 # intermediates (h before the down-projection, p before P@V, the output)
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
-PHASES = ("kernels", "parity", "api", "serve")  # device and build always run
+PHASES = ("kernels", "parity", "api", "serve", "train")  # device and build always run
 
 
 def log(msg: str) -> None:
@@ -2684,6 +2704,28 @@ def moe_serve(dev, counters, add, cfg=None) -> None:
             dispatch_einsum_device_ms=device_ms(einsum))))
 
 
+def device_times(prof):
+    """(busy ms: the union of the device intervals a torch.profiler run
+    recorded, {kernel name: device ms})."""
+    from torch.autograd import DeviceType
+
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "device_time", None)
+            if t is None:
+                t = e.cuda_time
+            by_name[e.name] = by_name.get(e.name, 0.0) + t / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    busy = 0.0
+    end = float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += (b - max(a, end)) / 1e3
+            end = b
+    return busy, by_name
+
+
 def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
     """A second batch of 8 requests through the same engine under
     torch.profiler (device activity only): device time by kernel, and the
@@ -2693,7 +2735,6 @@ def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
     share is a lower bound of the unprofiled run's; the profiled step
     medians are printed beside the unprofiled ones (``unprofiled``) to show
     by how much."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI start-up cost
@@ -2705,20 +2746,7 @@ def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         steps = timed_steps(eng)
     wall_ms = sum(steps["prefill"]) + sum(steps["decode"])
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "device_time", None)
-            if t is None:
-                t = e.cuda_time
-            by_name[e.name] = by_name.get(e.name, 0.0) + t / 1e3
-            spans.append((e.time_range.start, e.time_range.end))
-    busy = 0.0  # union of device intervals, ms
-    end = float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += (b - max(a, end)) / 1e3
-            end = b
+    busy, by_name = device_times(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     log("  profile " + json.dumps({
         "mode": mode,
@@ -2734,6 +2762,263 @@ def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training (relufication fine-tuning) and the forward statistics
+
+# params after N steps, card against CPU: an Adam update is close to
+# lr * sign(g), so an entry whose gradient is near zero may move by up to
+# 2 lr in one and not the other; the median entry stays within 1e-6
+TRAIN_MEDIAN_TOL = 1e-6
+# grad_norm after the first step, relative: one tiny-moe expert
+# pre-activation can sit inside the f32 rounding of zero, where relu'
+# differs (the CPU tests' tolerance)
+TRAIN_GRAD_NORM_TOL = {"tiny-moe": 1e-3}
+
+
+def train_parity(dev, steps: int = 3) -> None:
+    """f32 training, card against CPU, on the same numpy params and batches:
+    ``steps`` steps of ``make_train_step`` with 2 microbatches and the
+    "minimal" remat policy. Loss, lr and step_ok within 1e-5, grad_norm
+    within 1e-5 (relative; after the first step tiny-moe's 1e-3), the
+    params within max |d| <= 2 lr N and median |d| <= 1e-6. One more card
+    step runs under set_sync_debug_mode("error"): the step syncs the host
+    nowhere."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.data.pipeline import DataConfig, PackedIterator
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten, tree_map
+
+    lr = 1e-3
+    tc = TrainConfig(learning_rate=lr, warmup_steps=2, total_steps=10,
+                     num_microbatches=2, remat_policy="minimal")
+    f32 = dict(compute_dtype="float32")
+    models = {"tiny-relu": get_config("tiny-relu").replace(**f32),
+              "tiny-moe": get_config("tiny-moe").replace(**f32),
+              "tiny-stage2": rf.relufy_stage2(get_config("tiny").replace(**f32))}
+    for i, (name, cfg) in enumerate(models.items()):
+        p_cpu = numpy_params(cfg, seed=20 + i)
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        o_cpu, o_dev = adamw.init_opt_state(p_cpu), adamw.init_opt_state(p_dev)
+        fn = make_train_step(cfg, tc)
+        it = PackedIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                       batch_size=4, seed=3 + i))
+        for k in range(steps):
+            batch = {key: torch.as_tensor(v) for key, v in next(it).items()}
+            bd = {key: v.to(dev) for key, v in batch.items()}
+            p_cpu, o_cpu, m_cpu = fn(p_cpu, o_cpu, batch)
+            p_dev, o_dev, m_dev = fn(p_dev, o_dev, bd)
+            for key in ("loss", "grad_norm", "lr", "step_ok"):
+                want, got = float(m_cpu[key]), float(m_dev[key])
+                tol = (TRAIN_GRAD_NORM_TOL.get(name, TOL_F32)
+                       if key == "grad_norm" and k else TOL_F32)
+                if not abs(got - want) <= tol * max(1.0, abs(want)):
+                    fail(f"train parity {name} step {k + 1} {key}: card "
+                         f"{got!r} vs CPU {want!r} (tol {tol})")
+        # one more card step: no host sync anywhere in it
+        bd = {key: torch.as_tensor(v, device=dev) for key, v in next(it).items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(p_dev, o_dev, bd)
+        except RuntimeError as e:
+            fail(f"train step {name}: syncs the host ({e})")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        diffs = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in
+                           zip(flatten((p_dev, o_dev.m)), flatten((p_cpu, o_cpu.m)))])
+        worst, median = diffs.max().item(), diffs.median().item()
+        if worst > 2 * lr * steps or median > TRAIN_MEDIAN_TOL:
+            fail(f"train parity {name}: params/moments max|d| {worst:.3e} "
+                 f"(limit {2 * lr * steps:.1e}), median {median:.3e} "
+                 f"(limit {TRAIN_MEDIAN_TOL})")
+        log(f"  ok train parity {name}: {steps} steps, loss {float(m_dev['loss']):.6f}"
+            f" (CPU {float(m_cpu['loss']):.6f}), params max|d| {worst:.3e},"
+            f" median {median:.3e}; no host sync in a step")
+
+
+def site_line(sp: dict) -> str:
+    return ", ".join(f"{k} {sp[k]:.4f}" for k in ("mean/qkv", "mean/up",
+                                                  "mean/down") if k in sp)
+
+
+def train_full_width(dev, cfg=None, dc=None, steps: int = 12,
+                     ckpt_every: int = 6) -> None:
+    """llama-7b relufied to stage 2 at 4 of its 32 layers (d 4096, 32
+    heads x 128, d_ff 11008, vocab 32000 padded to 32768, untied): f32
+    masters, bf16 compute, ``steps`` steps of the Trainer with async
+    checkpoints every ``ckpt_every`` steps. Checks: finite losses, no step
+    skipped, the mean of the last 3 losses below the first. A second
+    Trainer on a copy holding only the step-``ckpt_every`` checkpoint:
+    the restored state's eval loss within 1e-5 (relative) of the first
+    run's eval at that step (the same weights, the same held-out rows);
+    then it runs on to ``steps``, its optimizer step there and each loss
+    within 1e-2 (relative) of the first run's. The stage-2 sites qkv and
+    up sparse before and after; calibrate_shift(0.9) finite, and
+    shifted_relufy with it raising the down-projection's input sparsity.
+    Prints step ms (median, data and step apart), tokens/s, peak GiB, MFU,
+    a profile of two steps and the sparsity sites."""
+    import shutil
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.core import flops
+    from repro_torch.core import relufication as rf
+    from repro_torch.core.sparsity import measure_site_sparsity
+    from repro_torch.data.pipeline import DataConfig, eval_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import flatten
+
+    cfg = cfg or rf.relufy_stage2(get_config("llama-7b")).replace(
+        n_layers=4, compute_dtype="bfloat16")
+    dc = dc or DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                          batch_size=8)
+    tc = TrainConfig(num_microbatches=2, remat_policy="minimal",
+                     learning_rate=1e-4, warmup_steps=2)
+    start = time.perf_counter()
+
+    def stamp(msg: str) -> None:  # seconds since the part began
+        log(f"  [{time.perf_counter() - start:.1f} s] {msg}")
+
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log(f"  checkpoints under {root}: {shutil.disk_usage(root).free / 2**30:.0f}"
+        " GiB free")
+    first, second = root / "first", root / "second"
+    quiet = dict(eval_every=ckpt_every, ckpt_every=ckpt_every, device=dev,
+                 log=lambda m: log("  " + m))
+    evb = {k: torch.as_tensor(v, device=dev)
+           for k, v in eval_batches(dc, 1)[0].items()}
+    params = [T.init_params(cfg, seed=tc.seed, device=dev,
+                            dtype=torch.float32)]
+    n = sum(p.numel() for p in flatten(params[0]))
+    sp0 = measure_site_sparsity(params[0], evb, cfg)
+    stamp(f"llama-7b stage 2, {cfg.n_layers} layers: {n / 1e9:.3f} B params"
+          f" (f32 masters); sites before: {site_line(sp0)}")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tc, dc, ckpt_dir=str(first), **quiet)
+        rep = tr.run(steps, params=params.pop())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = rep.losses
+        if not np.isfinite(losses).all() or rep.skipped_steps:
+            fail(f"train: losses {losses}, skipped {rep.skipped_steps}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            fail(f"train: the loss did not fall: {losses}")
+        step_ms = float(np.median(rep.step_seconds[1:])) * 1e3
+        data_ms = float(np.median(rep.data_seconds[1:])) * 1e3
+        tokens = dc.batch_size * dc.seq_len
+        mf = flops.model_flops(cfg, ShapeConfig("train", "train", dc.seq_len,
+                                                dc.batch_size))
+        mfu = mf / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+        stamp(f"first run: {steps} steps in {wall:.1f} s; losses "
+              f"{[round(x, 4) for x in losses]}; eval {rep.eval_losses}")
+        log(f"  train step ms (median of steps 2-{steps}): step {step_ms:.1f}, "
+            f"host data {data_ms:.1f}; tokens/s {tokens / (step_ms / 1e3):.0f} "
+            f"(step alone), {tokens / ((step_ms + data_ms) / 1e3):.0f} (with "
+            f"data); model_flops {mf:.4e}, MFU {mfu:.4f} of 989 TFLOP/s; "
+            f"peak {peak:.2f} GiB; stragglers {rep.straggler_steps}; by step "
+            f"(ms, data / step): {[(round(d * 1e3, 1), round(t * 1e3, 1)) for d, t in zip(rep.data_seconds, rep.step_seconds)]}")
+        profile_train_step(tr, evb, step_ms)
+        sp1 = measure_site_sparsity(tr.params, evb, cfg)
+        shift = rf.calibrate_shift(tr.params, evb, cfg, target_sparsity=0.9)
+        sp2 = measure_site_sparsity(tr.params, evb,
+                                    rf.shifted_relufy(cfg, shift))
+        stamp(f"sites after: {site_line(sp1)}; calibrate_shift(0.9) = "
+              f"{shift:.6f}; shifted: {site_line(sp2)}")
+        for when, sp in (("before", sp0), ("after", sp1)):
+            if not (sp["mean/qkv"] > 0 and sp["mean/up"] > 0):
+                fail(f"train: stage-2 sites not sparse {when}: {sp}")
+        if not (np.isfinite(shift) and sp2["mean/down"] > sp1["mean/down"]):
+            fail(f"train: shift {shift} gave down {sp2['mean/down']} vs "
+                 f"{sp1['mean/down']}")
+        eval_at = rep.eval_losses[0]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume: only the step-ckpt_every checkpoint, hard-linked
+        name = f"step_{ckpt_every:010d}"
+        shutil.copytree(first / name, second / name, copy_function=os.link)
+        shutil.rmtree(first)
+        tr = Trainer(cfg, tc, dc, ckpt_dir=str(second), **quiet)
+        tr.run(ckpt_every)  # restores, takes no step
+        held = tr.eval_loss(tr.params)
+        stamp(f"restored step {ckpt_every} in a second Trainer")
+        if not abs(held - eval_at) <= TOL_F32 * abs(eval_at):
+            fail(f"train resume: eval of the restored step {ckpt_every} "
+                 f"{held!r} vs the first run's {eval_at!r}")
+        rep2 = tr.run(steps)
+        if (rep2.resumed_from, rep2.steps, int(tr.opt_state.step)) != (
+                ckpt_every, steps - ckpt_every, steps):
+            fail(f"train resume: from {rep2.resumed_from}, {rep2.steps} "
+                 f"steps, optimizer step {int(tr.opt_state.step)}")
+        # steps 7-12 against the first run's, each within TOL_BF16 of it
+        # (relative): bf16 products, the embedding gradient's atomic adds
+        # in another order, and other rows (the restarted iterator begins
+        # at the next document: the reference drops the packed remainder)
+        gap = np.abs(np.subtract(rep2.losses, losses[ckpt_every:]))
+        if not (np.isfinite(rep2.losses).all() and
+                (gap <= TOL_BF16 * np.abs(losses[ckpt_every:])).all()):
+            fail(f"train resume: losses {rep2.losses} vs {losses[ckpt_every:]}"
+                 f" (tol {TOL_BF16}, relative)")
+        stamp(f"ok resume: step {ckpt_every} eval loss {held!r}, the first "
+              f"run's {eval_at!r}; steps {ckpt_every + 1}-{steps} losses "
+              f"{[round(x, 4) for x in rep2.losses]}, max |d| {gap.max():.4f}"
+              f" to the first run's (tol {TOL_BF16}, relative)")
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_train_step(tr, batch, unprofiled_ms: float, n: int = 2) -> None:
+    """``n`` more train steps from the trainer's state on ``batch`` (their
+    results dropped) under torch.profiler: the device's busy share of
+    their wall time and the device time by kernel. The profiler slows
+    the host, so the share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI start-up cost
+        tr.step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_times(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    log("  profile " + json.dumps({
+        "mode": "train", "steps": n, "wall_ms": wall_ms,
+        "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+        "kernel_time_sum_ms": sum(by_name.values()),
+        "unprofiled_step_ms_median": unprofiled_ms,
+        "top_kernels_ms": [[k[:80], ms] for k, ms in top]}))
+
+
+def train_phase(dev, counters) -> dict:
+    """Phase 7: f32 card = CPU parity of the train step, then the
+    full-width relufication run. The path runs none of the ten kernels
+    (training's forward is dense and the reference has no backward
+    kernel): the counts must stay 0."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, launches = counted("train", counters, (),
+                          lambda: (train_parity(dev), train_full_width(dev)))
+    if any(launches.values()):
+        fail(f"the train path launched kernels: {launches}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2785,7 +3070,8 @@ def main(argv=None) -> int:
                 "expert_up_matmul": ksm.expert_up_matmul,
                 "expert_down_matmul": ksm.expert_down_matmul}
     launches = {name: 0 for name in counters}
-    for phase, run in (("api", api_phase), ("serve", serve_phase)):
+    for phase, run in (("api", api_phase), ("serve", serve_phase),
+                       ("train", train_phase)):
         if phase in phases:
             log(f"[{phase}]")
             for name, n in run(dev, counters).items():

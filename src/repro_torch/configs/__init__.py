@@ -12,7 +12,10 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, SparsityConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
+    ModelConfig, ShapeConfig, SparsityConfig, TrainConfig,
+)
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

@@ -1,6 +1,6 @@
 """Config schema of the PyTorch port: a copy of the reference package's
-``configs/base.py`` (``ModelConfig``, ``SparsityConfig``), kept apart so the
-port imports nothing of the JAX package.
+``configs/base.py`` (``ModelConfig``, ``SparsityConfig``, ``ShapeConfig``,
+``TrainConfig``), kept apart so the port imports nothing of the JAX package.
 
 Every architecture (assigned pool + the paper's own models) is described by a
 single ``ModelConfig``. The relufication surgery (paper Sec. 4) operates on
@@ -140,3 +140,57 @@ class ModelConfig:
         d = json.loads(s)
         d["sparsity"] = SparsityConfig(**d.get("sparsity", {}))
         return ModelConfig(**d)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned (input-shape) cell: what gets lowered in the dry-run."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    num_microbatches: int = 1
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's fields and defaults. The port trains on one device:
+    ``zero_stage`` 0 (replicated optimizer state) and 1 (sharded over a
+    data axis of one) are the same there, and the other values of
+    ``zero_stage`` and ``grad_compression`` need a mesh the port does not
+    have, so they raise NotImplementedError."""
+
+    learning_rate: float = 1.5e-5  # paper's fine-tuning LR
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # constant | cosine | linear
+    zero_stage: int = 1  # 0: replicated opt state, 1: sharded over dp, 3: fsdp params
+    remat_policy: str = "minimal"  # none | minimal | full | save_ars
+    num_microbatches: int = 1
+    grad_compression: str = "none"  # none | int8_ef
+    skip_nonfinite: bool = True
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.zero_stage not in (0, 1):
+            raise NotImplementedError(
+                f"zero_stage={self.zero_stage} shards over a mesh; the port "
+                "trains on one device (zero_stage 0 or 1)")
+        if self.grad_compression != "none":
+            raise NotImplementedError(
+                f"grad_compression={self.grad_compression!r} compresses a "
+                "data-parallel reduction; the port trains on one device")

@@ -4,9 +4,10 @@
 (``params["layers"]`` stacked on a leading layer axis, as its
 ``transformer.init_params`` builds it) and returns the port's tree: the
 same names and layouts, each float leaf stored once in the compute dtype on
-the device. The reference keeps f32 masters and casts them to the compute
-dtype at every call (``cast_params``); the values both compute with are the
-same.
+the device for serving, or as f32 masters for training (``dtype=
+torch.float32``; the port's ``transformer.forward`` casts them at its
+entry, as the reference's ``cast_params`` does at every call). The values
+both compute with are the same.
 """
 from __future__ import annotations
 

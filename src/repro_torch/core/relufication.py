@@ -4,9 +4,8 @@ launchers call, copied from the reference's ``core/relufication.py``.
 The paper's procedure keeps the pretrained weights and only swaps the
 activation function (stage 1) / inserts ReLU after norms (stage 2), then
 fine-tunes briefly. Surgery here is therefore a *config* transformation —
-parameters pass through unchanged. ``calibrate_shift`` needs the forward
-pass's pre-activation statistics and waits for the training slice
-(ROADMAP.md).
+parameters pass through unchanged. ``calibrate_shift`` picks the shifted
+ReLU's shift (Sec. 5.3) from the forward's pre-activation statistics.
 """
 from __future__ import annotations
 
@@ -51,6 +50,24 @@ def relufy_stage2(cfg: ModelConfig) -> ModelConfig:
 def shifted_relufy(cfg: ModelConfig, shift: float) -> ModelConfig:
     """ReLU(x - b) activation (paper Sec. 5.3)."""
     return cfg.replace(activation="shifted_relu").replace_sparsity(shift=shift)
+
+
+def calibrate_shift(params, batch, cfg: ModelConfig,
+                    target_sparsity: float = 0.95) -> float:
+    """Pick the shift b so that ~target_sparsity of pre-activations fall
+    below it, from the measured pre-activation distribution (the paper reads
+    b off the distribution plot, e.g. b=1 for relufied Llama; we use the
+    per-layer mean/std under a normal approximation and average).
+    """
+    from repro_torch.core.sparsity import preactivation_stats
+    stats = preactivation_stats(params, batch, cfg)
+    shifts = []
+    means = {k[: -len("/mean")]: v for k, v in stats.items() if k.endswith("/mean")}
+    for base, mu in means.items():
+        sd = stats.get(base + "/std", 0.0)
+        if sd > 0:
+            shifts.append(mu + _norm_ppf(target_sparsity) * sd)
+    return float(np.mean(shifts)) if shifts else 0.0
 
 
 def enable_sparse_serving(cfg: ModelConfig, ffn_density: float,

@@ -1,7 +1,8 @@
 """Shared model components of the PyTorch port — the reference's
-``models/common.py`` less its training helpers (remat wrapping, f32
-master casts): norms, RoPE, head padding, attention, the paged cache, the
-paper's static-capacity tile gathers and the statistics collector.
+``models/common.py``: norms, RoPE, head padding, attention, the paged
+cache, the paper's static-capacity tile gathers, the statistics collector,
+and the training helpers (the f32 master cast ``cast_params``, the
+per-layer split ``unstack_layers`` and the remat policies ``wrap_block``).
 
 Layouts are the reference's, so tests compare like with like: attention
 queries in the per-group padded layout ``(b, s, kvp, g, hd)``, caches
@@ -16,10 +17,11 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 
@@ -461,6 +463,99 @@ def layer_params(params, i: int):
     def take(t):
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
     return take(params["layers"])
+
+
+def unstack_layers(layers, n_layers: int):
+    """The ``n_layers`` per-layer trees of a ``layers`` tree stacked on a
+    leading axis (views, no copies), by one ``unbind`` a leaf. Under
+    autograd its backward is one ``stack`` a leaf, where taking layer i
+    of each leaf (``layer_params``) allocates a zero gradient of the whole
+    stacked leaf for every layer."""
+    if isinstance(layers, dict):
+        subs = {k: unstack_layers(v, n_layers) for k, v in layers.items()}
+        return [{k: subs[k][i] for k in subs} for i in range(n_layers)]
+    return layers.unbind(0)
+
+
+# ---------------------------------------------------------------------------
+# training helpers: mixed precision and remat
+
+
+def cast_params(params, cfg: ModelConfig):
+    """Mixed precision: f32 master leaves cast to the compute dtype at the
+    model's entry, differentiably, so their gradients come back in f32.
+    Leaves already in another dtype (serving params, stored once in the
+    compute dtype) pass through uncopied."""
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.to(cdt) if t.dtype == torch.float32 else t
+
+    return cast(params)
+
+
+def call(fn: Callable, *args):
+    """A block's sublayer run as is (``wrap_block``'s "save_ars" policy
+    checkpoints each one instead)."""
+    return fn(*args)
+
+
+def _checkpointed(fn: Callable, *args):
+    return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _products_saved():
+    return ckpt.create_selective_checkpoint_contexts(_save_products)
+
+
+REMAT_POLICIES = ("none", "minimal", "full", "save_ars")
+
+
+def wrap_block(policy: str, block_fn: Callable) -> Callable:
+    """A family's full-sequence layer function ``block_fn(p, x, cfg,
+    positions, stats, sublayer=call) -> (x, kv)`` under a remat policy,
+    through ``torch.utils.checkpoint`` (non-reentrant):
+
+    - "none": no checkpointing; the backward keeps every activation;
+    - "full": the whole block is recomputed in the backward from its
+      input;
+    - "minimal": selective checkpointing that keeps the outputs of the
+      2-D products (``aten.mm``/``addmm``: every weight product, which
+      ``torch.matmul`` folds to 2-D) and recomputes the rest, the
+      reference's ``dots_with_no_batch_dims_saveable``;
+    - "save_ars": the attention and FFN sublayers checkpointed apart, so
+      the backward keeps the sublayers' inputs and outputs (the
+      reference's saved ``attn_out`` / ``ffn_out``) and recomputes what
+      lies inside each.
+
+    All four give the same gradients. A recompute calls an active stats
+    collector's ``add*`` again under the same keys with the same values."""
+    if policy in (None, "none"):
+        return block_fn
+    if policy == "save_ars":
+        def block(p, x, cfg, positions, stats=NO_STATS):
+            return block_fn(p, x, cfg, positions, stats, sublayer=_checkpointed)
+        return block
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; known: "
+                         f"{REMAT_POLICIES}")
+    kw = {"context_fn": _products_saved} if policy == "minimal" else {}
+
+    def block(p, x, cfg, positions, stats=NO_STATS):
+        return ckpt.checkpoint(block_fn, p, x, cfg, positions, stats,
+                               use_reentrant=False, **kw)
+
+    return block
 
 
 def rms_norm_headdim(scale: torch.Tensor, x: torch.Tensor,

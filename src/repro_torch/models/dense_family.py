@@ -12,8 +12,10 @@ from repro_torch.models import transformer as T
 init_params = T.init_params
 
 
-def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS):
-    return T.forward(params, batch["tokens"], cfg, stats=stats)
+def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
+                  remat_policy: str = "none"):
+    return T.forward(params, batch["tokens"], cfg, stats=stats,
+                     block=cm.wrap_block(remat_policy, T.apply_block))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):

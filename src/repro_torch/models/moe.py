@@ -190,18 +190,25 @@ def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
 # blocks and the whole model
 
 
-def apply_block(p, x, cfg: ModelConfig, positions,
-                stats: cm.StatsCollector = cm.NO_STATS):
-    """Full-sequence block (``transformer.forward``'s layer function):
-    attention, then the MoE FFN over the b * s tokens. Returns (x, kv)."""
-    h = T.post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
-    a, kv = T.apply_attn_full(p["attn"], h, cfg, positions, stats=stats)
-    x = x + a
+def moe_sublayer(p, x, cfg: ModelConfig,
+                 stats: cm.StatsCollector = cm.NO_STATS):
+    """The MoE half of a block: norm, (stage-2 ReLU), the MoE FFN over the
+    b * s tokens. Returns the residual update (b, s, d)."""
     h = T.post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
     b, s, d = h.shape
     h = h.reshape(b * s, d)
     stats.add_raw("ffn_x", h)
-    return x + apply_moe(p["moe"], h, cfg, stats).reshape(b, s, d), kv
+    return apply_moe(p["moe"], h, cfg, stats).reshape(b, s, d)
+
+
+def apply_block(p, x, cfg: ModelConfig, positions,
+                stats: cm.StatsCollector = cm.NO_STATS, sublayer=cm.call):
+    """Full-sequence block (``transformer.forward``'s layer function):
+    attention, then the MoE FFN over the b * s tokens. Returns (x, kv).
+    ``sublayer`` runs each half, as in ``transformer.apply_block``."""
+    a, kv = sublayer(T.attn_sublayer, p, x, cfg, positions, stats)
+    x = x + a
+    return x + sublayer(moe_sublayer, p, x, cfg, stats), kv
 
 
 def apply_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
@@ -216,9 +223,10 @@ def apply_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     return x + apply_moe(p["moe"], h, cfg, stats), k_cache, v_cache
 
 
-def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS):
+def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
+                  remat_policy: str = "none"):
     return T.forward(params, batch["tokens"], cfg, stats=stats,
-                     block=apply_block)
+                     block=cm.wrap_block(remat_policy, apply_block))
 
 
 # ---------------------------------------------------------------------------

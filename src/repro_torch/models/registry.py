@@ -2,7 +2,7 @@
 
 Uniform interface per family (duck-typed module), as in the reference:
   init_params(cfg, *, seed, device) -> params
-  model_forward(params, batch, cfg, *, stats=NO_STATS)
+  model_forward(params, batch, cfg, *, stats=NO_STATS, remat_policy="none")
       -> logits aligned with batch["tokens"] (b, s, vocab_p)
   init_cache(cfg, batch, max_len, device) -> cache dict
   model_prefill(params, batch, cfg, max_len, stats=NO_STATS)

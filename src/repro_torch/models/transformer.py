@@ -6,10 +6,12 @@ steps.
 
 Parameters are a dict tree with the reference's names and layouts
 (``wq (d, hp, hd)``, ``wo (hp, hd, d)``, ``wu (d, F)``, ``wd (F, d)``),
-per-layer leaves stacked on a leading axis, stored once in the compute
-dtype on the device. The reference keeps f32 masters and casts them at
-every call (``cast_params``); the values the model computes with are the
-same.
+per-layer leaves stacked on a leading axis. Serving params are stored
+once in the compute dtype on the device; training keeps f32 masters
+(``init_params(..., dtype=torch.float32)``), which ``forward`` casts to
+the compute dtype at its entry (``common.cast_params``), as the reference
+casts its masters at every call. The values the model computes with are
+the same.
 
 Plain products (QKV, ``wo``, the dense up-projection, the logits) are
 ``torch.matmul``. Static tile capacities (``cfg.sparsity.enabled`` with
@@ -242,15 +244,32 @@ def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
     return _attn_out(p, o.reshape(b, s, g.hp, g.head_dim), cfg), kv
 
 
-def apply_block(p, x, cfg: ModelConfig, positions,
-                stats: cm.StatsCollector = cm.NO_STATS):
+def attn_sublayer(p, x, cfg: ModelConfig, positions,
+                  stats: cm.StatsCollector = cm.NO_STATS):
+    """The attention half of a block: norm, (stage-2 ReLU), attention.
+    Returns (the residual update (b, s, d), (k, v))."""
     h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
-    a, kv = apply_attn_full(p["attn"], h, cfg, positions, stats=stats)
-    x = x + a
+    return apply_attn_full(p["attn"], h, cfg, positions, stats=stats)
+
+
+def ffn_sublayer(p, x, cfg: ModelConfig,
+                 stats: cm.StatsCollector = cm.NO_STATS):
+    """The FFN half of a block: norm, (stage-2 ReLU), the dense FFN over
+    the b * s tokens. Returns the residual update (b, s, d)."""
     h = post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
     b, s, d = h.shape
-    f = apply_ffn(p["ffn"], h.reshape(b * s, d), cfg, stats=stats)
-    return x + f.reshape(b, s, d), kv
+    return apply_ffn(p["ffn"], h.reshape(b * s, d), cfg,
+                     stats=stats).reshape(b, s, d)
+
+
+def apply_block(p, x, cfg: ModelConfig, positions,
+                stats: cm.StatsCollector = cm.NO_STATS, sublayer=cm.call):
+    """Full-sequence block: x + attention, then + FFN. Returns (x, (k, v)).
+    ``sublayer(fn, *args)`` runs each half (``common.wrap_block``'s
+    "save_ars" policy checkpoints them apart)."""
+    a, kv = sublayer(attn_sublayer, p, x, cfg, positions, stats)
+    x = x + a
+    return x + sublayer(ffn_sublayer, p, x, cfg, stats), kv
 
 
 def apply_attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
@@ -321,16 +340,22 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     each layer's sites under ``layer{i}/`` (with ``raw=True`` also the FFN
     input, ``layer{i}/ffn_x`` (b * s, d)). ``block(p, x, cfg, positions,
     stats)`` -> (x, (k, v)) is the layer function (the reference's
-    ``remat_block``), by default the dense ``apply_block``."""
+    ``remat_block``), by default the dense ``apply_block``.
+
+    f32 master params (training) are cast to the compute dtype first
+    (``common.cast_params``; serving params pass through), and the stacked
+    layer leaves are split once (``common.unstack_layers``), so a backward
+    through the forward stacks each leaf's gradient once."""
     block = block or apply_block
+    params = cm.cast_params(params, cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_tokens(params, tokens, cfg, positions)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
+    layers = cm.unstack_layers(params["layers"], cfg.n_layers)
+    for i, p_i in enumerate(layers):
         sub = cm.StatsCollector(True, raw=stats.raw) if stats.active else stats
-        x, (k, v) = block(cm.layer_params(params, i), x, cfg, positions,
-                          stats=sub)
+        x, (k, v) = block(p_i, x, cfg, positions, stats=sub)
         if stats.active:
             for key, val in sub.stats.items():
                 stats.stats[f"layer{i}/{key}"] = val

@@ -297,3 +297,71 @@ def test_legacy_engine_runs_with_jax_and_reference_unimportable():
     r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                        text=True, timeout=300, env=env, cwd=ROOT)
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
+TRAINING_MODULES = ["configs/base.py", "tree.py", "optim/adamw.py",
+                    "optim/schedules.py", "train/step.py", "train/loop.py",
+                    "data/pipeline.py", "checkpoint/manager.py",
+                    "launch/train.py", "core/sparsity.py",
+                    "core/relufication.py", "core/flops.py"]
+
+
+def test_scan_covers_the_training_modules():
+    scanned = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(TRAINING_MODULES) <= scanned
+
+
+def test_training_runs_with_jax_and_reference_unimportable(tmp_path):
+    """The Trainer (async checkpoints, resume), the train step under every
+    remat policy, the forward statistics, calibrate_shift, the FLOP
+    accounting and the train CLI need nothing of JAX or the JAX package."""
+    prog = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        from repro_torch.configs import SHAPES, TrainConfig, get_config
+        from repro_torch.core import flops, relufication as rf
+        from repro_torch.core.sparsity import measure_site_sparsity
+        from repro_torch.data.pipeline import DataConfig, eval_batches
+        from repro_torch.launch import train as train_cli
+        from repro_torch.models import moe
+        from repro_torch.optim import adamw
+        from repro_torch.train.loop import Trainer
+        from repro_torch.train.step import make_train_step
+        cfg = rf.relufy_stage2(get_config("tiny").replace(
+            compute_dtype="float32"))
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, batch_size=2)
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                         num_microbatches=2)
+        quiet = dict(log=lambda *_: None, device="cpu")
+        rep = Trainer(cfg, tc, dc, ckpt_dir={str(tmp_path)!r},
+                      ckpt_every=2, **quiet).run(3)
+        assert rep.steps == 3 and rep.skipped_steps == 0
+        tr = Trainer(cfg, tc, dc, ckpt_dir={str(tmp_path)!r}, **quiet)
+        assert tr.run(4).resumed_from == 3
+        batch = {{k: torch.as_tensor(v)
+                 for k, v in eval_batches(dc, 1)[0].items()}}
+        sp = measure_site_sparsity(tr.params, batch, cfg)
+        assert sp["mean/qkv"] > 0 and sp["mean/up"] > 0
+        assert np.isfinite(rf.calibrate_shift(tr.params, batch, cfg, 0.9))
+        mcfg = get_config("tiny-moe").replace(compute_dtype="float32")
+        mp = moe.init_params(mcfg, device="cpu", dtype=torch.float32)
+        for pol in ("none", "minimal", "full", "save_ars"):
+            step = make_train_step(mcfg, TrainConfig(remat_policy=pol))
+            _, _, m = step(mp, adamw.init_opt_state(mp), batch)
+            assert float(m["step_ok"]) == 1.0
+        assert flops.model_flops(get_config("llama-7b"),
+                                 SHAPES["train_4k"]) > 0
+        train_cli.main(["--arch", "tiny-relu", "--smoke", "--steps", "2",
+                        "--device", "cpu"])
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
