@@ -117,7 +117,28 @@ device and build always run):
             batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
             128, timed per call and on the card beside the dispatch
             einsums.
-7. train    relufication training and the forward statistics, with the
+7. families the four other model families through the legacy ServeEngine
+            (their registry entries declare no paged serving), with the
+            launch counts set to 0 before each run and read after it.
+            f32 parity: the smoke configs of falcon-mamba-7b (Mamba-1),
+            zamba2-7b (Mamba-2 + a shared attention block), whisper-small
+            (encoder-decoder, stub frames) and internvl2-1b (stub vision
+            patches), seeded params, 4 prompts x 8 new tokens, card
+            against CPU, dense and relufied to stage 2 at static
+            capacities 0.5 / 0.75 with a tile of 16 (kernel 5 must launch
+            as often as the decode steps' gathered products count). Full
+            width and depth, bf16, random weights from a seed: each model
+            (64, 81 + 13 shared, 12 + 12, 24 layers; 1500 stub frames, 256
+            stub patches) with 4 prompts of 32 tokens and 16 new, dense and
+            relufied at 0.25 / 0.75: prefill ms, decode step ms ((generate -
+            prefill) / 16), tokens/s, peak GiB, one decode step per call
+            and on the card, the modeled weight bytes of a step, and kernel
+            5's launches (16 x the gathered products of a step; none in
+            the dense run). Then kernel 5 at the four gathered
+            down-projections (T = 4, the top tiles at 0.25): timed per
+            call and on the card against its bound, the plain version and
+            x @ w.
+8. train    relufication training and the forward statistics, with the
             launch counts set to 0 before and read after (the path runs
             none of the ten kernels: its forward is dense and the
             reference has no backward kernel, so every count must stay
@@ -164,7 +185,7 @@ TOL_F32 = 1e-5
 # intermediates (h before the down-projection, p before P@V, the output)
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
-PHASES = ("kernels", "parity", "api", "serve", "train")  # device and build always run
+PHASES = ("kernels", "parity", "api", "serve", "families", "train")  # device and build always run
 
 
 def log(msg: str) -> None:
@@ -3007,8 +3028,328 @@ def profile_train_step(tr, batch, unprofiled_ms: float, n: int = 2) -> None:
         "top_kernels_ms": [[k[:80], ms] for k, ms in top]}))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the other model families through the legacy ServeEngine
+
+FAMILY_ARCHS = ("falcon-mamba-7b", "zamba2-7b", "whisper-small",
+                "internvl2-1b")
+
+
+def family_batch(cfg, b: int, s: int, seed: int, dev=None) -> dict:
+    """Tokens (b, s) and the family's stub input (vision patches / audio
+    frames, normal * 0.02 in the compute dtype) from a numpy seed; on
+    ``dev`` when given, else numpy."""
+    rng = np.random.RandomState(seed)
+    out = {"tokens": rng.randint(0, cfg.vocab_size, (b, s))}
+    n = {"vlm": cfg.n_vision_tokens, "encdec": cfg.n_audio_frames}.get(
+        cfg.family)
+    if n:
+        stub = (rng.standard_normal((b, n, cfg.d_model)) * 0.02).astype(
+            np.float32)
+        out["patches" if cfg.family == "vlm" else "frames"] = stub
+    if dev is None:
+        return out
+    cdt = getattr(torch, cfg.compute_dtype)
+    return {k: torch.as_tensor(v, device=dev).to(
+        cdt if v.dtype == np.float32 else torch.int64)
+        for k, v in out.items()}
+
+
+def kernel5_per_step(cfg) -> int:
+    """kernel 5's launches in one legacy decode step at capacities below 1:
+    mamba's out_proj a layer; an attention block's q, k, v, the up
+    projection(s) and wd (the cross-attention query and the output
+    projections stay dense); the hybrid's Mamba-2 out_proj a layer and the
+    shared block at each application."""
+    from repro_torch.models import hybrid
+
+    block = 3 + (3 if cfg.ffn_kind == "glu" else 2)
+    return {"mamba": cfg.n_layers,
+            "hybrid": cfg.n_layers + hybrid.n_attn_applications(cfg) * block,
+            "encdec": cfg.n_layers * block,
+            "vlm": cfg.n_layers * block}[cfg.family]
+
+
+def family_weight_bytes(cfg, dens_in: float, dens_ffn: float) -> float:
+    """Modeled weight bytes one legacy decode step reads at static tile
+    capacities (dens_in, dens_ffn): every matrix the step multiplies by
+    (norms, biases and per-channel vectors left out) and the unembedding;
+    a gathered product reads only its selected input rows
+    (``legacy_weight_bytes`` for an attention block). The hybrid reads its
+    shared block once per application; the encoder-decoder's decoder adds
+    the cross-attention query and output (its cross K/V are cached)."""
+    import math
+
+    from repro_torch.models import common as cm
+    from repro_torch.models import hybrid
+    from repro_torch.models import mamba
+    from repro_torch.models.transformer import attn_geometry
+
+    item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    tile, d, L = cfg.sparsity.tile_size, cfg.d_model, cfg.n_layers
+
+    def rows(n, dens):
+        return n if dens >= 1.0 else max(1, math.ceil(dens * (n // tile))) * tile
+
+    unembed = item * cm.padded_vocab(cfg.vocab_size) * d
+    di, st, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    if cfg.family == "mamba":
+        dr = mamba.dt_rank(cfg)
+        layer = (d * 2 * di + k * di + di * (dr + 2 * st) + dr * di + di * st
+                 + rows(di, dens_ffn) * d)
+        return item * L * layer + unembed
+    block = legacy_weight_bytes(cfg, dens_in, dens_ffn)
+    if cfg.family == "hybrid":
+        layer = (d * (2 * di + 2 * st + cfg.n_ssm_heads) + k * di
+                 + rows(di, dens_ffn) * d)
+        return (item * L * layer + hybrid.n_attn_applications(cfg) * block
+                + unembed)
+    if cfg.family == "encdec":
+        g = attn_geometry(cfg)
+        return L * (block + item * 2 * g.hp * g.head_dim * d) + unembed
+    return L * block + unembed
+
+
+def gathered_products(cfg, params) -> list:
+    """The products a legacy decode step gathers at static capacities, read
+    off the params' shapes: (name, input width F, output width D, side),
+    side "in" for a product over the block's normed input (q, k, v and the
+    up projection(s), at the input tile capacity) and "ffn" for the down
+    projection or out_proj (at the FFN tile capacity)."""
+    def attn_block(pre, p):
+        a, f = p["attn"], p["ffn"]
+        out = [(pre + n, a[n].shape[-3], a[n].shape[-2] * a[n].shape[-1],
+                "in") for n in ("wq", "wk", "wv")]
+        out += [(pre + n, f[n].shape[-2], f[n].shape[-1],
+                 "ffn" if n == "wd" else "in")
+                for n in ("wg", "wu", "wd") if n in f]
+        return out
+
+    name = cfg.name + " "
+    if cfg.family in ("mamba", "hybrid"):
+        w = params["layers"]["ssm"]["out_proj"]
+        out = [(name + "out_proj", w.shape[-2], w.shape[-1], "ffn")]
+        if cfg.family == "hybrid":
+            out += attn_block(name + "shared ", params["shared"])
+        return out
+    return attn_block(name, params["dec_layers" if cfg.family == "encdec"
+                                   else "layers"])
+
+
+def family_generate(cfg, params, device, batch, max_new: int):
+    from repro_torch.serving import ServeEngine
+    off = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    eng = ServeEngine(cfg, params, max_len=off + batch["tokens"].shape[1]
+                      + max_new, device=device)
+    return eng.generate(batch, max_new=max_new)
+
+
+def families_parity(dev, counters) -> None:
+    """f32 greedy streams of the four families' smoke configs (seeded
+    params, the same on both), card against CPU: 4 prompts x 8 new tokens
+    with their stub patches / frames, dense and relufied to stage 2 at
+    static capacities 0.5 / 0.75 with a tile of 16. Tokens exactly,
+    logprobs within 1e-5. The card's run is counted: the static run must
+    launch kernel 5 8 x ``kernel5_per_step`` times and no other kernel,
+    the dense run none."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.models import registry
+
+    for arch in FAMILY_ARCHS:
+        base = smoke_config(arch).replace(compute_dtype="float32")
+        p_cpu = registry.get_family(base).init_params(base, seed=0,
+                                                      device="cpu")
+        p_dev = _to(p_cpu, dev)
+        batch = family_batch(base, 4, 10, seed=7)
+        static = rf.enable_sparse_serving(
+            rf.relufy_stage2(base).replace_sparsity(tile_size=16), 0.5, 0.75)
+        for what, cfg in (("dense", base),
+                          ("stage 2, static 0.5 / 0.75, tile 16", static)):
+            want = family_generate(cfg, p_cpu, "cpu", batch, 8)
+            expect = 8 * kernel5_per_step(cfg) if cfg.sparsity.enabled else 0
+            got, launches = counted(
+                f"{cfg.name} f32 {what}", counters,
+                ("sparse_matmul",) if expect else (),
+                lambda: family_generate(cfg, p_dev, dev, batch, 8))
+            if launches["sparse_matmul"] != expect or any(
+                    n for k, n in launches.items() if k != "sparse_matmul"):
+                fail(f"{cfg.name} {what}: launches {launches}, expected "
+                     f"kernel 5 x {expect} and no other kernel")
+            d = same_streams(f"{cfg.name} {what}",
+                             (got.tokens.tolist(), got.logprobs),
+                             (want.tokens.tolist(), want.logprobs))
+            log(f"  ok parity {cfg.name} {what}: {got.tokens.size} tokens "
+                f"identical, max|dlogprob| {d:.2e}, kernel 5 launches "
+                f"{launches['sparse_matmul']}")
+
+
+def family_serve(dev, counters, add, cfg) -> list:
+    """One family at full width, bf16, random weights from a seed: 4
+    prompts of 32 tokens (with 256 stub patches or 1500 stub frames) and
+    16 new tokens through the legacy ServeEngine, dense and relufied to
+    stage 2 at static capacities 0.25 / 0.75. Each run is warmed once,
+    then counted (kernel 5 must launch 16 x ``kernel5_per_step`` times in
+    the static run and never in the dense one) and timed as
+    ``legacy_serve`` times OPT-6.7B. Returns ``gathered_products``."""
+    from repro_torch.core import relufication as rf
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import flatten
+
+    fam = registry.get_family(cfg)
+    t0 = time.perf_counter()
+    params = fam.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flatten(params))
+    log(f"  {cfg.name}: {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 2 ** 30:.2f} GiB bf16), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    products = gathered_products(cfg, params)
+    log(f"  {cfg.name}: kernel 5's products at static capacities (F -> "
+        f"D): " + ", ".join(f"{n} {f} -> {d_}" for n, f, d_, _ in products))
+    batch = family_batch(cfg, 4, 32, seed=8, dev=dev)
+    off = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    static = rf.enable_sparse_serving(rf.relufy_stage2(cfg), 0.25, 0.75)
+    for what, c in (("dense", cfg), ("static 0.25 / 0.75", static)):
+        expect = 16 * kernel5_per_step(c) if c.sparsity.enabled else 0
+        eng = ServeEngine(c, params, max_len=off + 48, device=dev)
+
+        def gen():
+            return eng.generate(batch, max_new=16)
+
+        a = time.perf_counter()
+        gen()  # warm-up
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - a) * 1e3
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = time.perf_counter()
+        res, launches = counted(f"{cfg.name} legacy {what}", counters,
+                                ("sparse_matmul",) if expect else (), gen)
+        gen_ms = (time.perf_counter() - a) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        add(launches)
+        if launches["sparse_matmul"] != expect or any(
+                n for k, n in launches.items() if k != "sparse_matmul"):
+            fail(f"{cfg.name} {what}: launches {launches}, expected kernel 5 "
+                 f"x {expect} and no other kernel")
+        a = time.perf_counter()
+        with torch.inference_mode():
+            _, cache = eng.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - a) * 1e3
+        with torch.inference_mode():  # one decode step alone
+            tok = torch.as_tensor(res.tokens[:, 0], device=dev)
+            pos = torch.full((4,), off + 32, dtype=torch.int32, device=dev)
+            step = lambda: eng.decode(cache, tok, pos)  # noqa: E731
+            call_ms, card_ms = time_ms(step, reps=10), device_ms(step)
+        if (res.tokens.shape != (4, 16) or res.tokens.min() < 0
+                or res.tokens.max() >= c.vocab_size
+                or not np.isfinite(res.logprobs).all()
+                or (res.logprobs > 0).any()):
+            fail(f"{cfg.name} {what}: bad tokens or logprobs")
+        step_ms = (gen_ms - prefill_ms) / 16
+        dens_in, dens_ffn = ((0.75, 0.25) if c.sparsity.enabled
+                             else (1.0, 1.0))
+        log("  serve " + json.dumps(dict(
+            mode=f"{cfg.name} legacy {what}", layers=cfg.n_layers,
+            batch=4, prompt=32, stub_positions=off or (
+                cfg.n_audio_frames if cfg.family == "encdec" else 0),
+            new_tokens=16, first_generate_ms=first_ms, generate_ms=gen_ms,
+            prefill_ms=prefill_ms, decode_step_ms=step_ms,
+            decode_tokens_per_s=4e3 / step_ms, decode_call_ms=call_ms,
+            decode_device_ms=card_ms,
+            peak_gib_generate=peak,
+            modeled_weight_gb_per_step=family_weight_bytes(
+                c, dens_in, dens_ffn) / 1e9,
+            kernel5_launches=launches["sparse_matmul"],
+            kernel5_per_step=expect // 16)))
+        del eng, cache
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return products
+
+
+def kernel5_family_rows(dev, products) -> None:
+    """Kernel 5 at every product the families' static decode gathers
+    (``gathered_products``), one check a distinct (F, D, side): T = 4 relu
+    rows, the top tiles select_active_tiles keeps at 0.75 on the input
+    side and at 0.25 for a down projection / out_proj, bf16, against the
+    plain version. The down-projection shapes are then timed per call and
+    on the card beside the plain version and x @ w (all tiles), with their
+    bytes bound."""
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import common as cm
+
+    shapes = {}
+    for name, F_, D_, side in products:
+        shapes.setdefault((F_, D_, side), []).append(name)
+    rng = np.random.RandomState(9)
+    for (F_, D_, side), names in shapes.items():
+        dens = 0.25 if side == "ffn" else 0.75
+        name = " / ".join(names)
+        h = torch.relu(torch.as_tensor(rng.standard_normal((4, F_)),
+                                       dtype=torch.bfloat16, device=dev))
+        w = torch.as_tensor(rng.standard_normal((F_, D_)) / np.sqrt(F_),
+                            dtype=torch.bfloat16, device=dev)
+        idx, mask = cm.select_active_tiles(cm.tile_scores(h, 128), dens)
+        nv = mask.sum(dtype=torch.int32)
+        args = (h, w, idx, nv)
+        err = compare(f"sparse_matmul {name} T=4 F={F_} D={D_} K="
+                      f"{idx.numel()} of {F_ // 128} (density {dens})",
+                      [ksm.sparse_matmul(*args)],
+                      [ksm.sparse_matmul_plain(*args)], torch.bfloat16)
+        if side != "ffn":
+            continue
+        k = int(nv)
+        n_bytes = 4 * k * 128 * 2 + k * 128 * D_ * 2 + idx.numel() * 4 + 4 \
+            + 4 * D_ * 4
+        b_ms, b_by = bound(n_bytes, 2.0 * 4 * k * 128 * D_, torch.bfloat16)
+        row = dict(shape=f"{name} T=4 F={F_} D={D_}, {k} of {F_ // 128} "
+                         f"tiles (density 0.25) bf16", max_abs_err=err,
+                   **timings(lambda: ksm.sparse_matmul(*args),
+                             lambda: ksm.sparse_matmul_plain(*args),
+                             lambda: h @ w),
+                   bound_ms=b_ms, bound_by=b_by)
+        row["card_over_bound"] = row["device_ms"] / b_ms
+        log("  kernel5 " + json.dumps(row))
+    log(f"  kernel 5 checked at {len(shapes)} shapes of the families' "
+        f"{len(products)} gathered products")
+
+
+def families_phase(dev, counters) -> dict:
+    """Phase 7: the mamba, hybrid, encdec and vlm families through the
+    legacy ServeEngine: f32 card = CPU parity at smoke size, then each
+    model at full width and depth (``family_serve``), then kernel 5 at
+    every shape their static decode gathers. Returns the launches summed
+    over the full-width runs."""
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    t0 = time.perf_counter()
+    families_parity(dev, counters)
+    log(f"  parity took {time.perf_counter() - t0:.1f} s")
+    products = []
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        products += family_serve(dev, counters, add, get_config(arch).replace(
+            compute_dtype="bfloat16"))
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s")
+    kernel5_family_rows(dev, products)
+    log(f"  launches summed over the full-width runs: {json.dumps(total)}")
+    return total
+
+
 def train_phase(dev, counters) -> dict:
-    """Phase 7: f32 card = CPU parity of the train step, then the
+    """Phase 8: f32 card = CPU parity of the train step, then the
     full-width relufication run. The path runs none of the ten kernels
     (training's forward is dense and the reference has no backward
     kernel): the counts must stay 0."""
@@ -3071,12 +3412,12 @@ def main(argv=None) -> int:
                 "expert_down_matmul": ksm.expert_down_matmul}
     launches = {name: 0 for name in counters}
     for phase, run in (("api", api_phase), ("serve", serve_phase),
-                       ("train", train_phase)):
+                       ("families", families_phase), ("train", train_phase)):
         if phase in phases:
             log(f"[{phase}]")
             for name, n in run(dev, counters).items():
                 launches[name] += n
-    if {"api", "serve"} & set(phases):
+    if {"api", "serve", "families"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -66,6 +66,11 @@ _GATED_BETA = {"silu": 1.0, "swish": 1.0, "silu_b1": 1.0, "gelu_b1.7": 1.7,
                "gated_b8": 8.0}
 
 
+def register(name: str, fn: Act) -> None:
+    """Add (or replace) a named activation."""
+    _REGISTRY[name] = fn
+
+
 def get(name: str, shift: float = 0.0) -> Act:
     """Resolve an activation by name: registry keys, ``beta=<float>``,
     ``shifted_relu`` (uses ``shift``), ``shifted_relu:<b>``, ``fatrelu:<t>``."""
@@ -122,3 +127,9 @@ def firing_threshold(name: str, shift: float = 0.0) -> Optional[float]:
     if name.startswith("fatrelu:"):
         return float(name.split(":", 1)[1])
     return None
+
+
+def sparsity_of(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Fraction of entries that are (exactly or nearly) zero, an f32
+    scalar on x's device."""
+    return (x.abs() <= eps).float().mean()

@@ -19,8 +19,12 @@ no ``--device cpu`` it raises. ``--sparse-density d > 0`` relufies the
 model (stage 2) and serves it at static tile capacities d (FFN) and
 min(1, 3 d) (inputs), on both engines. Not ported, raising
 NotImplementedError (ROADMAP.md): ``--mesh`` (sharded serving) and the
-pod-mesh compile path (no ``--smoke``). A family whose modules the port
-does not have yet raises on either engine.
+pod-mesh compile path (no ``--smoke``). The mamba, hybrid, encdec and
+vlm archs (falcon-mamba-7b, zamba2-7b, whisper-small, internvl2-1b) serve
+on the legacy engine only, with zero stub patches / frames in the compute
+dtype; the continuous engine raises for them, as the reference's does.
+
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke
 """
 from __future__ import annotations
 
@@ -86,6 +90,7 @@ def main(argv=None) -> None:
                                   "is not ported to PyTorch (ROADMAP.md)")
 
     import numpy as np
+    import torch
 
     from repro_torch.configs import smoke_config
     from repro_torch.core import relufication
@@ -111,6 +116,13 @@ def main(argv=None) -> None:
                           track_sparsity=True, device=device)
         batch = {"tokens": np.random.RandomState(1).randint(
             0, cfg.vocab_size, (2, 8))}
+        cdt = getattr(torch, cfg.compute_dtype)
+        if cfg.family == "vlm":  # the stub frontends' embeddings
+            batch["patches"] = torch.zeros(
+                (2, cfg.n_vision_tokens, cfg.d_model), dtype=cdt)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (2, cfg.n_audio_frames, cfg.d_model), dtype=cdt)
         res = eng.generate(batch, max_new=args.tokens,
                            reuse_window=args.reuse_window)
         agg = (res.aggregated.aggregated_sparsity()

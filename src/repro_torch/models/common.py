@@ -41,6 +41,49 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     return (w * 0.02).to(dtype)
 
 
+class ParamInit:
+    """A seeded parameter maker on ``device``: one torch.Generator whose
+    draws follow the call order, with the reference's scaling. A family's
+    init builds its tree leaf by leaf through it; ``stack(n, make)`` fills
+    an (n, ...) layer-stacked leaf one layer at a time, so a full-width
+    model never holds a second f32 copy."""
+
+    def __init__(self, seed: int, device, dtype):
+        self.device, self.dtype = device, dtype
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(self, shape, fan_in: int) -> torch.Tensor:
+        return dense_init(self.gen, shape, fan_in, self.dtype, self.device)
+
+    def embed(self, shape) -> torch.Tensor:
+        return embed_init(self.gen, shape, self.dtype, self.device)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+
+    def stack(self, n: Optional[int], make: Callable) -> torch.Tensor:
+        """``make()`` drawn n times into one (n, ...) leaf; None: one
+        unstacked ``make()``."""
+        if n is None:
+            return make()
+        first = make()
+        out = torch.empty((n,) + tuple(first.shape), dtype=first.dtype,
+                          device=self.device)
+        out[0] = first
+        for i in range(1, n):
+            out[i] = make()
+        return out
+
+    def norm(self, cfg: ModelConfig, n: Optional[int] = None) -> Dict:
+        """A norm's params (scale ones, layernorm bias zeros), with an
+        (n,) leading axis when n is given."""
+        shape = ((n,) if n is not None else ()) + (cfg.d_model,)
+        p = {"scale": self.full(shape, 1.0)}
+        if cfg.norm_kind == "layernorm":
+            p["bias"] = self.full(shape, 0.0)
+        return p
+
+
 # ---------------------------------------------------------------------------
 # normalization
 

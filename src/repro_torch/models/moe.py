@@ -45,13 +45,13 @@ from repro_torch.models import serving_protocol as sp
 from repro_torch.models import transformer as T
 
 
-def _init_moe(cfg: ModelConfig, stacked, dense):
+def _init_moe(cfg: ModelConfig, ini: cm.ParamInit, n):
     d, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    p = {"router": stacked(lambda: dense((d, E), d)),
-         "wu": stacked(lambda: dense((E, d, F), d)),
-         "wd": stacked(lambda: dense((E, F, d), F))}
+    p = {"router": ini.stack(n, lambda: ini.dense((d, E), d)),
+         "wu": ini.stack(n, lambda: ini.dense((E, d, F), d)),
+         "wd": ini.stack(n, lambda: ini.dense((E, F, d), F))}
     if cfg.ffn_kind == "glu":
-        p["wg"] = stacked(lambda: dense((E, d, F), d))
+        p["wg"] = ini.stack(n, lambda: ini.dense((E, d, F), d))
     return "moe", p
 
 

@@ -10,15 +10,16 @@ Uniform interface per family (duck-typed module), as in the reference:
   model_decode(params, cache, token, pos, cfg, stats=NO_STATS)
       -> (logits, cache)
 
-batch is a dict: {"tokens": (b, s) int}; NO_STATS is ``common.NO_STATS``,
+batch is a dict: {"tokens": (b, s) int} plus the modality stubs
+"patches" (vlm) and "frames" (encdec); NO_STATS is ``common.NO_STATS``,
 the shared inactive collector.
 
-The dense and MoE families are ported; each declares the paged-serving
-capabilities it serves, as the reference's do (MoE has no predictor mode
-and cannot draft; it verifies a dense draft's windows). The reference's other
-families are known by name with an empty capability set, so serving one
-raises the uniform ``ServingCaps.require`` error, and asking for its module
-raises NotImplementedError.
+All six of the reference's families are ported. Dense and MoE declare
+the paged-serving capabilities they serve, as the reference's do (MoE has
+no predictor mode and cannot draft; it verifies a dense draft's windows).
+Mamba, hybrid, encdec and vlm declare none, as in the reference: they
+serve through the legacy ``ServeEngine``, and the continuous engine
+raises the uniform ``ServingCaps.require`` error for them.
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ from repro_torch.models.serving_protocol import ServingCaps, validate_caps
 
 _FAMILIES: Dict[str, Any] = {}
 _CAPS: Dict[str, ServingCaps] = {}
-_NOT_PORTED = ("mamba", "hybrid", "encdec", "vlm")
 
 
 def register_family(name: str, module, caps: Iterable[str] = ()) -> None:
@@ -46,9 +46,6 @@ def get_family(cfg_or_name) -> Any:
     name = _name(cfg_or_name)
     if name not in _FAMILIES:
         _load_builtin(name)
-    if _FAMILIES[name] is None:
-        raise NotImplementedError(f"model family {name!r} is not ported to "
-                                  "PyTorch yet (ROADMAP.md)")
     return _FAMILIES[name]
 
 
@@ -69,8 +66,17 @@ def _load_builtin(name: str) -> None:
         from repro_torch.models import moe
         register_family("moe", moe, caps=("paged_decode", "chunked_prefill",
                                           "spec_verify"))
-    elif name in _NOT_PORTED:
-        _FAMILIES[name] = None
-        _CAPS[name] = ServingCaps()
+    elif name == "vlm":
+        from repro_torch.models import vlm
+        register_family("vlm", vlm)
+    elif name == "mamba":
+        from repro_torch.models import mamba
+        register_family("mamba", mamba)
+    elif name == "hybrid":
+        from repro_torch.models import hybrid
+        register_family("hybrid", hybrid)
+    elif name == "encdec":
+        from repro_torch.models import encdec
+        register_family("encdec", encdec)
     else:
         raise KeyError(f"unknown model family {name!r}")

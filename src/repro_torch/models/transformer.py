@@ -70,6 +70,66 @@ def densities(cfg: ModelConfig):
 # init
 
 
+def init_attn(cfg: ModelConfig, ini: cm.ParamInit,
+              n: Optional[int] = None) -> Params:
+    """An attention sublayer's params (``wq (d, hp, hd)``, ``wk``/``wv
+    (d, kvp, hd)``, ``wo (hp, hd, d)``, biases, qk-norm scales), the real
+    heads scattered into the padded layout with zero padded slots (MHA
+    padding zeroes the padded K/V heads too); each leaf stacked over n
+    layers (``ParamInit.stack``)."""
+    g = attn_geometry(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    lead = () if n is None else (n,)
+
+    def kv_proj():
+        if g.kvp == g.n_kv:
+            return ini.dense((d, g.kvp, hd), d)
+        w = ini.full((d, g.kvp, hd), 0.0)
+        w[:, :g.n_kv] = ini.dense((d, g.n_kv, hd), d)
+        return w
+
+    attn = {
+        "wq": ini.stack(n, lambda: g.scatter_q(
+            ini.dense((d, cfg.n_heads, hd), d), 1)),
+        "wk": ini.stack(n, kv_proj),
+        "wv": ini.stack(n, kv_proj),
+        "wo": ini.stack(n, lambda: g.scatter_q(
+            ini.dense((cfg.n_heads, hd, d), cfg.n_heads * hd), 0)),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = ini.full(lead + (g.hp, hd), 0.0)
+        attn["bk"] = ini.full(lead + (g.kvp, hd), 0.0)
+        attn["bv"] = ini.full(lead + (g.kvp, hd), 0.0)
+    if cfg.qk_norm:
+        attn["q_norm"] = ini.full(lead + (hd,), 1.0)
+        attn["k_norm"] = ini.full(lead + (hd,), 1.0)
+    return attn
+
+
+def init_ffn(cfg: ModelConfig, ini: cm.ParamInit, n: Optional[int] = None,
+             d_ff: Optional[int] = None) -> Params:
+    """The dense FFN's ``wu (d, F)``, ``wd (F, d)`` (and ``wg`` for a
+    GLU), F = d_ff or cfg.d_ff, each stacked over n layers."""
+    d, F = cfg.d_model, d_ff or cfg.d_ff
+    ffn = {"wu": ini.stack(n, lambda: ini.dense((d, F), d)),
+           "wd": ini.stack(n, lambda: ini.dense((F, d), F))}
+    if cfg.ffn_kind == "glu":
+        ffn["wg"] = ini.stack(n, lambda: ini.dense((d, F), d))
+    return ffn
+
+
+def init_block(cfg: ModelConfig, ini: cm.ParamInit, n: Optional[int] = None,
+               ffn: Optional[Callable] = None) -> Params:
+    """A decoder block's params {ln1, attn, ln2, <ffn>}, each leaf stacked
+    over n layers. ``ffn(cfg, ini, n)`` -> (name, tree) builds the FFN
+    subtree, by default the dense FFN under ``"ffn"``."""
+    attn = init_attn(cfg, ini, n)
+    ffn_name, ffn_tree = (ffn(cfg, ini, n) if ffn is not None
+                          else ("ffn", init_ffn(cfg, ini, n)))
+    return {"ln1": ini.norm(cfg, n), "attn": attn, "ln2": ini.norm(cfg, n),
+            ffn_name: ffn_tree}
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype: Optional[torch.dtype] = None,
                 ffn: Optional[Callable] = None) -> Params:
@@ -77,77 +137,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     with the reference's scaling (``dense_init`` 1/sqrt(fan_in),
     ``embed_init`` 0.02) and head padding. Layer leaves are filled one layer
     at a time so a full-width model never holds a second f32 copy.
-
-    ``ffn(cfg, stacked, dense)`` builds the layers' FFN subtree as
-    ``(name, tree)`` from two helpers: ``stacked(make)`` fills an (L, ...)
-    leaf one layer at a time, ``dense(shape, fan_in)`` draws one weight.
-    The default is the dense FFN under ``"ffn"``."""
+    ``ffn`` builds the layers' FFN subtree (``init_block``)."""
     device = cm.resolve_device(device)
-    dtype = dtype or compute_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    g = attn_geometry(cfg)
-    d, hd, F, L = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers
+    ini = cm.ParamInit(seed, device, dtype or compute_dtype(cfg))
     vp = cm.padded_vocab(cfg.vocab_size)
-
-    def dense(shape, fan_in):
-        return cm.dense_init(gen, shape, fan_in, dtype, device)
-
-    def stacked(make):
-        first = make()
-        out = torch.empty((L,) + tuple(first.shape), dtype=dtype, device=device)
-        out[0] = first
-        for i in range(1, L):
-            out[i] = make()
-        return out
-
-    def kv_proj():
-        if g.kvp == g.n_kv:
-            return dense((d, g.kvp, hd), d)
-        w = torch.zeros((d, g.kvp, hd), dtype=dtype, device=device)
-        w[:, :g.n_kv] = dense((d, g.n_kv, hd), d)
-        return w
-
-    def norm(*lead):
-        p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
-        if cfg.norm_kind == "layernorm":
-            p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
-        return p
-
-    attn = {
-        "wq": stacked(lambda: g.scatter_q(dense((d, cfg.n_heads, hd), d), 1)),
-        "wk": stacked(kv_proj),
-        "wv": stacked(kv_proj),
-        "wo": stacked(lambda: g.scatter_q(
-            dense((cfg.n_heads, hd, d), cfg.n_heads * hd), 0)),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((L, g.hp, hd), dtype=dtype, device=device)
-        attn["bk"] = torch.zeros((L, g.kvp, hd), dtype=dtype, device=device)
-        attn["bv"] = torch.zeros((L, g.kvp, hd), dtype=dtype, device=device)
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
-        attn["k_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
-    ffn_name, ffn_tree = (ffn or _init_ffn)(cfg, stacked, dense)
-    p = {
-        "embed": cm.embed_init(gen, (vp, d), dtype, device),
-        "layers": {"ln1": norm(L), "attn": attn, "ln2": norm(L),
-                   ffn_name: ffn_tree},
-        "final_norm": norm(),
-    }
+    layers = init_block(cfg, ini, cfg.n_layers, ffn)
+    p = {"embed": ini.embed((vp, cfg.d_model)), "layers": layers,
+         "final_norm": ini.norm(cfg)}
     if not cfg.tie_embeddings:
-        p["unembed"] = cm.embed_init(gen, (vp, d), dtype, device)
+        p["unembed"] = ini.embed((vp, cfg.d_model))
     if not cfg.use_rope:
-        p["pos_embed"] = cm.embed_init(gen, (cfg.max_seq_len, d), dtype, device)
+        p["pos_embed"] = ini.embed((cfg.max_seq_len, cfg.d_model))
     return p
-
-
-def _init_ffn(cfg: ModelConfig, stacked, dense):
-    d, F = cfg.d_model, cfg.d_ff
-    ffn = {"wu": stacked(lambda: dense((d, F), d)),
-           "wd": stacked(lambda: dense((F, d), F))}
-    if cfg.ffn_kind == "glu":
-        ffn["wg"] = stacked(lambda: dense((d, F), d))
-    return "ffn", ffn
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +227,12 @@ def apply_ffn(p, x, cfg: ModelConfig, *, stats: cm.StatsCollector = cm.NO_STATS,
 
 
 def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
-                    stats: cm.StatsCollector = cm.NO_STATS):
-    """Full-sequence causal attention (prefill / forward). Returns
-    (out (b, s, d), (k, v) (b, s, kvp, hd) for the cache). GQA K/V are
-    replicated to 16 heads as the reference does."""
+                    stats: cm.StatsCollector = cm.NO_STATS,
+                    causal: bool = True):
+    """Full-sequence attention (prefill / forward), causal unless asked
+    (the encoder's is bidirectional). Returns (out (b, s, d), (k, v)
+    (b, s, kvp, hd) for the cache). GQA K/V are replicated to 16 heads as
+    the reference does."""
     g = attn_geometry(cfg)
     b, s = x.shape[:2]
     q, k, v = _qkv(p, x, cfg, positions, stats=stats)
@@ -240,16 +243,18 @@ def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
         v = v.repeat_interleave(r, dim=2)
     kv_eff = g.kvp * r
     qg = q.reshape(b, s, kv_eff, g.hp // kv_eff, g.head_dim)
-    o = cm.flash_attention(qg, k, v, causal=True, window=cfg.sliding_window)
+    o = cm.flash_attention(qg, k, v, causal=causal, window=cfg.sliding_window)
     return _attn_out(p, o.reshape(b, s, g.hp, g.head_dim), cfg), kv
 
 
 def attn_sublayer(p, x, cfg: ModelConfig, positions,
-                  stats: cm.StatsCollector = cm.NO_STATS):
+                  stats: cm.StatsCollector = cm.NO_STATS,
+                  causal: bool = True):
     """The attention half of a block: norm, (stage-2 ReLU), attention.
     Returns (the residual update (b, s, d), (k, v))."""
     h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
-    return apply_attn_full(p["attn"], h, cfg, positions, stats=stats)
+    return apply_attn_full(p["attn"], h, cfg, positions, stats=stats,
+                           causal=causal)
 
 
 def ffn_sublayer(p, x, cfg: ModelConfig,
@@ -263,11 +268,12 @@ def ffn_sublayer(p, x, cfg: ModelConfig,
 
 
 def apply_block(p, x, cfg: ModelConfig, positions,
-                stats: cm.StatsCollector = cm.NO_STATS, sublayer=cm.call):
-    """Full-sequence block: x + attention, then + FFN. Returns (x, (k, v)).
-    ``sublayer(fn, *args)`` runs each half (``common.wrap_block``'s
-    "save_ars" policy checkpoints them apart)."""
-    a, kv = sublayer(attn_sublayer, p, x, cfg, positions, stats)
+                stats: cm.StatsCollector = cm.NO_STATS, sublayer=cm.call,
+                causal: bool = True):
+    """Full-sequence block: x + attention (causal unless asked), then +
+    FFN. Returns (x, (k, v)). ``sublayer(fn, *args)`` runs each half
+    (``common.wrap_block``'s "save_ars" policy checkpoints them apart)."""
+    a, kv = sublayer(attn_sublayer, p, x, cfg, positions, stats, causal)
     x = x + a
     return x + sublayer(ffn_sublayer, p, x, cfg, stats), kv
 
@@ -332,9 +338,13 @@ def logits_from(params, x, cfg: ModelConfig):
 def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
             last_index: Optional[int] = None,
             stats: cm.StatsCollector = cm.NO_STATS,
-            block: Optional[Callable] = None):
+            block: Optional[Callable] = None,
+            extra_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward, dense at any tile capacity (as the
-    reference's). tokens (b, s) -> logits (b, s, vocab_p). With
+    reference's). tokens (b, s) -> logits (b, s, vocab_p). extra_embeds
+    (b, n, d): modality-frontend stubs (vision patches) prepended to the
+    token embeddings, positions running over the whole n + s sequence
+    (the logits and K/V then cover it too). With
     ``return_kv``: (logits (b, 1, vocab_p) at ``last_index`` (default
     s - 1), (k, v) each (L, b, s, kvp, hd)). An active ``stats`` collects
     each layer's sites under ``layer{i}/`` (with ``raw=True`` also the FFN
@@ -351,6 +361,10 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_tokens(params, tokens, cfg, positions)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        s = x.shape[1]
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
     ks, vs = [], []
     layers = cm.unstack_layers(params["layers"], cfg.n_layers)
     for i, p_i in enumerate(layers):
@@ -378,6 +392,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero cache {"k", "v"} each (L, batch, kvp, max_len, hd), head-major
     (the decode attention reads it untransposed)."""
+    device = cm.resolve_device(device)
     g = attn_geometry(cfg)
     dtype = dtype or compute_dtype(cfg)
     shape = (cfg.n_layers, batch, g.kvp, max_len, g.head_dim)

@@ -365,3 +365,57 @@ def test_training_runs_with_jax_and_reference_unimportable(tmp_path):
     r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                        text=True, timeout=300, env=env, cwd=ROOT)
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
+FAMILY_MODULES = ["models/mamba.py", "models/hybrid.py", "models/encdec.py",
+                  "models/vlm.py", "configs/other_families.py"]
+
+
+def test_scan_covers_the_family_modules():
+    scanned = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(FAMILY_MODULES) <= scanned
+
+
+def test_other_families_serve_with_jax_and_reference_unimportable():
+    """The legacy CLI serves falcon-mamba (smoke) and whisper (smoke,
+    stub frames) with JAX and the JAX package made unimportable."""
+    prog = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        from repro_torch.launch import serve
+        for arch in ("falcon-mamba-7b", "whisper-small"):
+            serve.main(["--arch", arch, "--smoke", "--tokens", "4",
+                        "--device", "cpu"])
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+    assert r.stdout.count("generated (2, 4) tokens") == 2, r.stdout
+
+
+@pytest.mark.parametrize("family", ["mamba", "hybrid", "encdec", "vlm"])
+def test_other_family_entry_points_raise_without_cuda(monkeypatch, family):
+    """No device given means CUDA: each family's init and cache raise
+    without it, and so does the legacy engine on CPU params."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine
+
+    arch = {"mamba": "falcon-mamba-7b", "hybrid": "zamba2-7b",
+            "encdec": "whisper-small", "vlm": "internvl2-1b"}[family]
+    cfg = smoke_config(arch).replace(compute_dtype="float32")
+    fam = registry.get_family(cfg)
+    params = fam.init_params(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fam.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fam.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, params)
