@@ -157,6 +157,28 @@ device and build always run):
             sparse), calibrate_shift(0.9) and the shifted model's down
             sparsity. Prints the step's and the host data's median ms,
             tokens/s, peak GiB and MFU (model_flops over 989 TFLOP/s).
+9. sharded  tensor-parallel serving, ranks sharing the card: each group of
+            ranks (sharding/comm.py spawn, one timeout for the group; the
+            backend rule picks gloo, since NCCL refuses two ranks on one
+            device) builds nothing (the build phase did). f32 parity: the
+            CPU tests' cases (tiny-relu / tiny-opt plain whole and
+            chunked, spec with a 1-layer draft, sign predictor at tile 1,
+            tiny-moe whole and chunked, tiny-relu at static capacities
+            0.5 / 0.75, which must launch kernel 5 on every rank) at 2
+            and 4 ranks against the one-card engine and the CPU: tokens
+            exactly, logprobs within 1e-5, metrics within 1e-9,
+            per-device weight bytes the one-card figure / ffn_tp and
+            their total over the ranks the one-card figure. Full width,
+            bf16: OPT-6.7B (32 layers), Mixtral-8x22B (4 layers) and
+            OPT-6.7B (8 layers) at static capacities 0.25 / 0.75 (kernel
+            5 must launch on every rank) on 2 ranks, the serve
+            phase's 8 greedy requests: the ranks' streams identical, the
+            first prefill's last-position logits within
+            TOL_SHARD_LOGITS of the one-card engine's; per rank the
+            launches (added to the kernels line), step ms, tokens/s,
+            peak GiB, modeled per-device FFN bytes and all-reduces a
+            step (count and host ms); kernels 1-3 against their plain
+            versions at the rank's shapes on its layer 0.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -185,7 +207,8 @@ TOL_F32 = 1e-5
 # intermediates (h before the down-projection, p before P@V, the output)
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
-PHASES = ("kernels", "parity", "api", "serve", "families", "train")  # device and build always run
+PHASES = ("kernels", "parity", "api", "serve", "families", "train",
+          "sharded")  # device and build always run
 
 
 def log(msg: str) -> None:
@@ -3362,6 +3385,372 @@ def train_phase(dev, counters) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: tensor-parallel sharded serving, ranks sharing the card
+
+
+# (arch, mode, prefill chunk) of the f32 parity cases
+SHARD_CASES = (("tiny-relu", "plain", 0), ("tiny-relu", "plain", 4),
+               ("tiny-opt", "plain", 0), ("tiny-opt", "plain", 4),
+               ("tiny-relu", "spec", 0), ("tiny-opt", "spec", 0),
+               ("tiny-relu", "predictor", 0), ("tiny-opt", "predictor", 0),
+               ("tiny-moe", "plain", 0), ("tiny-moe", "plain", 4),
+               ("tiny-relu", "static", 0))
+SHARD_WORLDS = (2, 4)
+# the first prefill's last-position logits, TP = 2 against one card, bf16:
+# max |diff| over max |single-device logit| (PERF.md states it before the
+# run that tests it)
+TOL_SHARD_LOGITS = 3e-2
+SHARD_GEOM = dict(n_slots=8, block_size=16, max_blocks_per_seq=16,
+                  prefill_chunk=16)
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper by name (its ``launches`` counts the launches)."""
+    from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import fused_ffn as kff
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import sparse_matmul as ksm
+    return {"fused_sparse_ffn": kfd.fused_sparse_ffn,
+            "paged_window_attention": kpa.paged_window_attention,
+            "sparse_matmul_tokens": ksm.sparse_matmul_tokens,
+            "sparse_up_matmul": ksm.sparse_up_matmul,
+            "fused_up_relu": kff.fused_up_relu,
+            "sparse_matmul": ksm.sparse_matmul,
+            "fused_up_relu_tokens": kff.fused_up_relu_tokens,
+            "fused_up_relu_window": kff.fused_up_relu_window,
+            "expert_up_matmul": ksm.expert_up_matmul,
+            "expert_down_matmul": ksm.expert_down_matmul}
+
+
+def shard_case(case, device):
+    """(cfg, params, EngineConfig fields, prompts) of an f32 parity case on
+    ``device``: numpy-seeded weights (target seed 0, 1-layer draft seed 2),
+    a sign predictor at an f32 probe and tile 1; static capacities 0.5
+    (FFN) / 0.75 (inputs) at tile 16 and the config's one group (at TP = 4
+    tiny-relu's K/V rows split over d_model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.predictor import sign_predictor
+    arch, mode, chunk = case
+    cfg = get_config(arch).replace(compute_dtype="float32")
+    if mode == "static":
+        cfg = rf.enable_sparse_serving(cfg.replace_sparsity(tile_size=16),
+                                       0.5, 0.75)
+    params = _to(numpy_params(cfg, seed=0), device)
+    kw = dict(prefill_chunk=chunk)
+    if mode == "spec":
+        dcfg = cfg.replace(name=f"{arch}-draft", n_layers=1)
+        kw.update(draft_cfg=dcfg, gamma=4,
+                  draft_params=_to(numpy_params(dcfg, seed=2), device))
+    if mode == "predictor":
+        kw["predictor"] = sign_predictor(params, cfg, probe_dtype="float32",
+                                         tile=1)
+    prompts = [np.random.RandomState(s).randint(0, cfg.vocab_size, n)
+               for s, n in ((1, 9), (2, 5), (3, 13), (4, 21), (5, 3))]
+    return cfg, params, kw, prompts
+
+
+def shard_streams(case, device, mesh=None) -> dict:
+    """An f32 parity case through a fresh engine (on ``mesh`` when given):
+    streams, logprobs and the metrics, with what it read and the launches
+    of kernel 5 (``sparse_matmul``) in its run."""
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    cfg, params, kw, prompts = shard_case(case, device)
+    eng = ContinuousBatchingEngine(
+        cfg, params, EngineConfig(n_slots=4, block_size=8,
+                                  max_blocks_per_seq=6, mesh=mesh, **kw),
+        device=device)
+    if device.type == "cuda" and not eng.fast_kernels:
+        fail(f"{case}: the engine on the card did not take the kernel path")
+    uids = [eng.submit(p, 10, reuse_window=4) for p in prompts]
+    k0 = ksm.sparse_matmul.launches
+    res = eng.run()
+    return dict(kernel5=ksm.sparse_matmul.launches - k0,
+                tokens=[res[u].tokens.tolist() for u in uids],
+                logprobs=np.concatenate([res[u].logprobs for u in uids]),
+                accepted=[res[u].draft_accepted for u in uids],
+                misses=[res[u].pred_misses for u in uids],
+                metrics=eng.metrics_snapshot(), ffn_tp=eng.ffn_tp,
+                total=eng.weight_io_bytes_per_step(per_device=False))
+
+
+def rank_mesh(world: int, device_type: str):
+    """This rank's (1, world) mesh, on its card (or the CPU, rehearsing)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(1, world, strict=True,
+                          device=None if device_type == "cuda" else "cpu")
+
+
+def sharded_parity_rank(rank: int, world: int, device_type: str) -> dict:
+    """One rank of the f32 parity group: every case on a (1, world) mesh."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = rank_mesh(world, device_type)
+    return {case: shard_streams(case, mesh.device, mesh)
+            for case in SHARD_CASES}
+
+
+def sharded_parity(dev) -> None:
+    """The f32 cases at (1, 2) and (1, 4) ranks on the card against the
+    single-device card engine and the CPU engine: tokens exactly, logprobs
+    within 1e-5, the metrics within 1e-9 (weight bytes per device = the
+    single-device figure / ffn_tp, the total over the ranks its figure),
+    speculative acceptance and predictor misses equal, on every rank; the
+    static case launches kernel 5 on every rank."""
+    from repro_torch.sharding import comm
+    want = {}
+    for case in SHARD_CASES:
+        one = shard_streams(case, dev)
+        cpu = shard_streams(case, torch.device("cpu"))
+        same_streams(f"{case} card vs CPU", (one["tokens"], one["logprobs"]),
+                     (cpu["tokens"], cpu["logprobs"]))
+        want[case] = one
+    for world in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = comm.spawn(sharded_parity_rank, world, timeout=420,
+                           args=(dev.type,), device=dev.type)
+        for rank, got in enumerate(ranks):
+            for case, w in want.items():
+                g = got[case]
+                what = f"{case} TP={world} rank {rank}"
+                d = same_streams(what, (g["tokens"], g["logprobs"]),
+                                 (w["tokens"], w["logprobs"]))
+                if g["ffn_tp"] != world:
+                    fail(f"{what}: ffn_tp {g['ffn_tp']}")
+                if abs(g["total"] - w["total"]) > 1e-9 * max(1, w["total"]):
+                    fail(f"{what}: FFN bytes over the ranks {g['total']} != "
+                         f"the one-card engine's {w['total']}")
+                if case[1] == "static" and g["kernel5"] <= 0:
+                    fail(f"{what}: kernel 5 was not launched on the rank")
+                for k, v in w["metrics"].items():
+                    v = v / world if k == "weight_io_bytes_per_step" else v
+                    got_k = g["metrics"].get(k, np.inf)
+                    if abs(got_k - v) > 1e-9 * max(1, abs(v)):
+                        fail(f"{what}: {k} {got_k} != {v}")
+                if (g["accepted"], g["misses"]) != (w["accepted"],
+                                                    w["misses"]):
+                    fail(f"{what}: acceptance / misses differ")
+        log(f"  ok sharded f32 parity TP={world}: {len(SHARD_CASES)} cases x "
+            f"{world} ranks equal the one-card engine and the CPU (last max"
+            f"|dlogprob| {d:.2e}); {time.perf_counter() - t0:.1f} s")
+
+
+def first_prefill_logits(eng, cfg, prompt) -> torch.Tensor:
+    """The whole-prompt prefill of ``prompt`` through ``eng``'s model and
+    params (its mesh, if any) into the first blocks of its pool: the last
+    position's logits over the real vocabulary, f32, on the host."""
+    from repro_torch.sharding import comm
+    bs = eng.block_size
+    s = len(prompt)
+    nb = -(-s // bs)
+    toks = np.zeros((1, nb * bs), np.int64)
+    toks[0, :s] = prompt
+    blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=eng.device)
+    with torch.inference_mode(), comm.serving(eng.mesh):
+        last, _ = eng.fam.model_prefill_paged(
+            eng.params, {"tokens": torch.as_tensor(toks, device=eng.device)},
+            cfg, eng.pages, blocks, bs, true_len=s)
+    return last[0, :cfg.vocab_size].float().cpu()
+
+
+def shard_kernel_checks(eng, cfg, dev) -> None:
+    """Kernels 1 to 3 against their plain versions at this rank's shapes on
+    its layer-0 weights and pool: the decode FFN over tile lists of its
+    d_ff slice, the W = 1 attention over its kv heads, the window-union
+    down-projection."""
+    from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import common as cm
+    from repro_torch.predictor import predictors as preds
+    from repro_torch.sharding import comm
+    rng = np.random.RandomState(9)
+    bf = torch.bfloat16
+    with comm.serving(eng.mesh):
+        g, lay = cm.local_heads(cfg), cm.shard_layout(cfg)
+        tile = cm.ffn_gather_tile(cfg)
+    rank = eng.mesh.coords["model"]
+    kp, vp = eng.pages["k"][0], eng.pages["v"][0]
+    b, nb = 8, 4
+    table = torch.as_tensor(rng.randint(1, kp.shape[0], (b, nb)),
+                            dtype=torch.int32, device=dev)
+    pos = torch.as_tensor(rng.randint(1, nb * eng.block_size, b),
+                          dtype=torch.int32, device=dev)
+    q = torch.as_tensor(rng.randn(b, 1, g.kvp, g.group, g.head_dim),
+                        dtype=bf, device=dev)
+    args = (q, kp, vp, table, pos[:, None])
+    compare(f"rank {rank} kernel 2 q {tuple(q.shape)} pages "
+            f"{tuple(kp.shape)}",
+            [kpa.paged_window_attention(*args, window=cfg.sliding_window)],
+            [kpa.paged_window_attention_plain(*args,
+                                              window=cfg.sliding_window)], bf)
+    if "ffn" not in eng.params["layers"]:
+        return
+    pf = {k: v[0] for k, v in eng.params["layers"]["ffn"].items()}
+    fl = lay.ffn[1]
+    x = torch.as_tensor(rng.randn(b, cfg.d_model), dtype=bf, device=dev)
+    mask = torch.as_tensor(rng.rand(b, fl) < 0.5, device=dev)
+    idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(mask, tile),
+                                          fl // tile)
+    glu = cfg.ffn_kind == "glu"
+    args = (x, pf["wg"] if glu else pf["wu"], pf["wd"], idx, nvalid)
+    kw = dict(w_up=pf["wu"] if glu else None, unit_mask=mask,
+              activation=cfg.activation, tile=tile)
+    compare(f"rank {rank} kernel 1 d {cfg.d_model} F {fl} tile {tile}",
+            kfd.fused_sparse_ffn(*args, **kw),
+            kfd.fused_sparse_ffn_plain(*args, **kw), bf)
+    h = torch.as_tensor(rng.randn(b * 5, fl) * (rng.rand(b * 5, fl) < 0.3),
+                        dtype=bf, device=dev)
+    hidx, hnv = preds.pack_tile_indices(
+        preds.units_to_tiles(h != 0, tile), fl // tile)
+    args = (h, pf["wd"], hidx, hnv)
+    compare(f"rank {rank} kernel 3 x {tuple(h.shape)} w "
+            f"{tuple(pf['wd'].shape)}",
+            [ksm.sparse_matmul_tokens(*args, tile=tile)],
+            [ksm.sparse_matmul_tokens_plain(*args, tile=tile)], bf)
+
+
+def sharded_full_rank(rank: int, world: int, cfg, seed: int,
+                      device_type: str) -> dict:
+    """One rank of a full-width bf16 model on a (1, world) mesh sharing the
+    card: the ranks build the seeded tree one after the other (at most one
+    whole tree on the card), each keeping its blocks; then the first
+    prefill's logits, the serve run of ``serve_run`` with every kernel
+    counted from 0 and the all-reduces counted, and kernels 1 to 3 at this
+    rank's shapes."""
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.sharding import comm
+    mesh = rank_mesh(world, device_type)
+    dev = mesh.device
+    eng = None
+    for r in range(world):
+        if r == rank:
+            params = registry.get_family(cfg).init_params(cfg, seed=0,
+                                                          device=dev)
+            eng = ContinuousBatchingEngine(
+                cfg, params, EngineConfig(mesh=mesh, **SHARD_GEOM), device=dev)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        comm.barrier(mesh)
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    logits = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
+    counters = kernel_counters()
+    comm.STATS.reset()
+    static = T.densities(cfg) != (1.0, 1.0)
+    out, launches = counted(
+        f"rank {rank} sharded {cfg.name}{' static' if static else ''}",
+        counters, ("paged_window_attention",) + (("sparse_matmul",) if static
+                                                 else ()),
+        lambda: serve_run(eng, cfg, seed=seed))
+    n_ar, ar_s = comm.STATS.count, comm.STATS.seconds
+    steps = out["prefill_steps"] + out["decode_steps"]
+    shard_kernel_checks(eng, cfg, dev)
+    return dict(
+        rank=rank, params_gib=held, launches=launches,
+        streams=out.pop("_streams"), logprobs=out.pop("_logprobs"),
+        logits=logits.numpy(), serve=out,
+        ffn_bytes_per_device=eng.weight_io_bytes_per_step(),
+        ffn_bytes_total=eng.weight_io_bytes_per_step(per_device=False),
+        ffn_tp=eng.ffn_tp, all_reduces_per_step=n_ar / steps,
+        all_reduce_ms_per_step=ar_s * 1e3 / steps)
+
+
+def sharded_full_width(dev, counters, add, cfg, seed: int) -> None:
+    """``cfg`` (full width, bf16), plain greedy with
+    the serve phase's 8 requests, on 2 ranks sharing the card: the ranks
+    agree on every token; the first prefill's last-position logits are
+    within TOL_SHARD_LOGITS of the one-card engine's; per rank the launches
+    (added to the kernels line), step times, tokens/s, peak memory,
+    modeled per-device FFN bytes and the all-reduces a step."""
+    from repro_torch.models import registry
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.sharding import comm
+    arch = cfg.name
+    params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**SHARD_GEOM),
+                                   device=dev)
+    want = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(sharded_full_rank, 2, timeout=600,
+                       args=(cfg, seed, dev.type), device=dev.type)
+    for r in ranks[1:]:
+        if r["streams"] != ranks[0]["streams"]:
+            fail(f"{arch}: rank {r['rank']}'s streams differ from rank 0's")
+    for r in ranks:
+        got = torch.from_numpy(r["logits"])
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if (not np.isfinite(r["logprobs"]).all()
+                or err > TOL_SHARD_LOGITS * scale):
+            fail(f"{arch} rank {r['rank']}: first prefill logits max|diff| "
+                 f"{err:.3e} > {TOL_SHARD_LOGITS} x {scale:.3e}")
+        add(r["launches"])
+        log("  sharded " + json.dumps(dict(
+            r["serve"], model=arch, layers=cfg.n_layers, tp=2, rank=r["rank"],
+            static_densities=[cfg.sparsity.input_tile_density,
+                              cfg.sparsity.ffn_tile_density]
+            if cfg.sparsity.enabled else None,
+            backend=comm.backend_for(dev, 2),
+            first_prefill_logits_max_abs_diff=err,
+            first_prefill_logits_max_abs=scale,
+            argmax_equal=bool(got.argmax() == want.argmax()),
+            params_gib_per_rank=r["params_gib"],
+            ffn_bytes_per_device=r["ffn_bytes_per_device"],
+            ffn_bytes_total=r["ffn_bytes_total"], ffn_tp=r["ffn_tp"],
+            all_reduces_per_step=r["all_reduces_per_step"],
+            all_reduce_ms_per_step=r["all_reduce_ms_per_step"],
+            launches=r["launches"])))
+    log(f"  {arch} ({cfg.n_layers} layers) at TP=2 took "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"(streams of the 2 ranks identical)")
+
+
+def sharded_phase(dev, counters) -> dict:
+    """Phase 9: tensor-parallel serving with ranks sharing the one card
+    (``comm.backend_for``: gloo, since NCCL refuses two ranks on one
+    device). f32 parity at TP = 2 and 4 (``sharded_parity``), then
+    OPT-6.7B (32 layers) and Mixtral-8x22B (4 of 56 layers) at full width
+    and TP = 2 (``sharded_full_width``), then OPT-6.7B (8 layers) at the
+    legacy phase's static capacities 0.25 (FFN) / 0.75 (inputs), where
+    every rank must launch kernel 5. Returns the ranks' launches,
+    summed."""
+    from repro_torch.sharding import comm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  backend for 2 ranks on this card: {comm.backend_for(dev, 2)}")
+    total = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    t0 = time.perf_counter()
+    sharded_parity(dev)
+    log(f"  parity took {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs import get_config
+    sharded_full_width(dev, counters, add, get_config("opt-6.7b").replace(
+        compute_dtype="bfloat16"), seed=0)
+    sharded_full_width(dev, counters, add, get_config("mixtral-8x22b").replace(
+        n_layers=4, compute_dtype="bfloat16"), seed=4)
+    from repro_torch.core import relufication as rf
+    sharded_full_width(dev, counters, add, rf.enable_sparse_serving(
+        get_config("opt-6.7b").replace(compute_dtype="bfloat16", n_layers=8),
+        0.25, 0.75), seed=0)
+    for name in ("fused_sparse_ffn", "paged_window_attention",
+                 "sparse_matmul_tokens", "sparse_matmul"):
+        if total[name] <= 0:
+            fail(f"kernel {name} was not launched on the sharded path")
+    log(f"  launches summed over the ranks: {json.dumps(total)}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3377,11 +3766,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import fused_decode as kfd
-    from repro_torch.kernels import fused_ffn as kff
-    from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import runtime as rt
-    from repro_torch.kernels import sparse_matmul as ksm
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3400,24 +3785,16 @@ def main(argv=None) -> int:
     if "parity" in phases:
         log("[parity]")
         parity_phase(dev)
-    counters = {"fused_sparse_ffn": kfd.fused_sparse_ffn,
-                "paged_window_attention": kpa.paged_window_attention,
-                "sparse_matmul_tokens": ksm.sparse_matmul_tokens,
-                "sparse_up_matmul": ksm.sparse_up_matmul,
-                "fused_up_relu": kff.fused_up_relu,
-                "sparse_matmul": ksm.sparse_matmul,
-                "fused_up_relu_tokens": kff.fused_up_relu_tokens,
-                "fused_up_relu_window": kff.fused_up_relu_window,
-                "expert_up_matmul": ksm.expert_up_matmul,
-                "expert_down_matmul": ksm.expert_down_matmul}
+    counters = kernel_counters()
     launches = {name: 0 for name in counters}
     for phase, run in (("api", api_phase), ("serve", serve_phase),
-                       ("families", families_phase), ("train", train_phase)):
+                       ("families", families_phase), ("train", train_phase),
+                       ("sharded", sharded_phase)):
         if phase in phases:
             log(f"[{phase}]")
             for name, n in run(dev, counters).items():
                 launches[name] += n
-    if {"api", "serve", "families"} & set(phases):
+    if {"api", "serve", "families", "sharded"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

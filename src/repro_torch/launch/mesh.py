@@ -1,0 +1,87 @@
+"""Serving meshes of the port (the reference's ``launch/mesh.py``): a
+``("data", "model")`` grid over the ranks of an initialised
+``torch.distributed`` world, one rank a process.
+
+Rank r sits at data index r // model and model index r % model; the ranks
+of one data index form that row's model-axis process group, over which the
+tensor-parallel collectives of ``sharding/comm.py`` run.
+
+``make_production_mesh`` (the pod compile path) is not ported: the port
+has no pod to compile for.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+AXES = ("data", "model")
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This rank's view of a (data, model) mesh: the axis sizes
+    (``shape``), its coordinates on them (``coords``), the process group of
+    its model-axis row (None when the row is the whole world, or a world
+    of one) and the device its tensors live on."""
+
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    group: Any = None
+    device: Optional[torch.device] = None
+    axis_names: Tuple[str, ...] = AXES
+
+    @property
+    def rank(self) -> int:
+        return self.coords["data"] * self.shape["model"] + self.coords["model"]
+
+
+def world() -> Tuple[int, int]:
+    """(rank, world size) of the initialised torch.distributed world, or
+    (0, 1) when none is."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, strict: bool = False,
+                   device=None) -> Mesh:
+    """A (data, model) mesh over the ranks of the initialised world (one
+    rank when no world is initialised).
+
+    When fewer ranks exist than ``data * model`` the shape is clamped, with
+    a warning that says "degenerating"; ``strict=True`` (the launcher's
+    ``--mesh``) raises instead: an unsatisfiable mesh is an operator error,
+    not a fallback. Ranks past the clamped grid get no mesh (ValueError).
+    ``device``: where this rank's tensors live (default: the model-axis
+    group's device, ``comm.rank_device``)."""
+    import torch.distributed as dist
+    rank, n = world()
+    data_eff = min(data, n)
+    model_eff = min(model, max(1, n // data_eff))
+    if (data_eff, model_eff) != (data, model):
+        msg = (f"mesh shape ({data}, {model}) needs {data * model} ranks "
+               f"but only {n} exist; degenerating to "
+               f"({data_eff}, {model_eff})")
+        if strict:
+            raise ValueError(msg)
+        warnings.warn(msg, stacklevel=2)
+    if rank >= data_eff * model_eff:
+        raise ValueError(f"rank {rank} lies outside the ({data_eff}, "
+                         f"{model_eff}) mesh")
+    group = None
+    if n > 1 and model_eff < n:
+        # every rank builds every row's group, as new_group requires
+        for d in range(data_eff):
+            g = dist.new_group(list(range(d * model_eff, (d + 1) * model_eff)))
+            if d == rank // model_eff:
+                group = g
+    if device is None:
+        from repro_torch.sharding import comm
+        device = comm.rank_device(rank)
+    return Mesh(shape={"data": data_eff, "model": model_eff},
+                coords={"data": rank // model_eff, "model": rank % model_eff},
+                group=group, device=torch.device(device))

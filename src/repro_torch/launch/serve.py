@@ -13,14 +13,24 @@ continuous-batching engine), with the same report lines.
       --prefill-chunk 16 --prefix-cache   # chunked prefill + prefix reuse
   python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \\
       --continuous   # MoE through the engine: routed experts as sparsity
+  python -m repro_torch.launch.serve --arch tiny-relu --smoke \\
+      --continuous --mesh 1,2   # tensor-parallel sharded serving, 2 ranks
 
 The engine runs on CUDA unless ``--device cpu`` is given; with no CUDA and
 no ``--device cpu`` it raises. ``--sparse-density d > 0`` relufies the
 model (stage 2) and serves it at static tile capacities d (FFN) and
-min(1, 3 d) (inputs), on both engines. Not ported, raising
-NotImplementedError (ROADMAP.md): ``--mesh`` (sharded serving) and the
-pod-mesh compile path (no ``--smoke``). The mamba, hybrid, encdec and
-vlm archs (falcon-mamba-7b, zamba2-7b, whisper-small, internvl2-1b) serve
+min(1, 3 d) (inputs), on both engines.
+
+``--mesh DATA,MODEL`` serves the continuous engine tensor-parallel over
+DATA x MODEL torch.distributed ranks (``EngineConfig(mesh=)``): launched
+under a torch.distributed launcher (``WORLD_SIZE`` set) the command joins
+that world, whose size must hold the mesh (``make_host_mesh(strict=True)``
+raises otherwise); launched alone it spawns the ranks itself
+(``sharding.comm.spawn``, NCCL when each rank has a card of its own, gloo
+when they share one or run on the CPU). Rank 0 prints the report. DATA > 1
+raises NotImplementedError (ROADMAP.md). Not ported, raising
+NotImplementedError: the pod-mesh compile path (no ``--smoke``). The
+mamba, hybrid, encdec and vlm archs (falcon-mamba-7b, zamba2-7b, whisper-small, internvl2-1b) serve
 on the legacy engine only, with zero stub patches / frames in the compute
 dtype; the continuous engine raises for them, as the reference's does.
 
@@ -31,7 +41,11 @@ from __future__ import annotations
 import argparse
 
 
-def main(argv=None) -> None:
+# seconds the ranks --mesh spawns may take before all are killed
+MESH_TIMEOUT_S = 600.0
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--sparse-density", type=float, default=0.0,
@@ -67,10 +81,19 @@ def main(argv=None) -> None:
                          "then shares a system prompt; implies "
                          "--prefill-chunk 16 unless set)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="sharded serving: not ported (raises)")
+                    help="serve the continuous-batching engine on a "
+                         "(data, model) mesh of torch.distributed ranks: "
+                         "weights tensor-parallel over 'model' by the "
+                         "serve-mode rules (implies --continuous; raises "
+                         "when the world cannot hold the shape)")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when CUDA is absent) or cpu")
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = _parser()
     args = ap.parse_args(argv)
     if args.prefix_cache and args.prefill_chunk == 0:
         args.prefill_chunk = 16
@@ -82,13 +105,63 @@ def main(argv=None) -> None:
                  "serving modes")
     if args.continuous and not args.smoke:
         ap.error("--continuous requires --smoke")
+    mesh_shape = None
     if args.mesh:
-        raise NotImplementedError("--mesh (sharded serving) is not ported "
-                                  "to PyTorch yet (ROADMAP.md)")
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+            assert len(mesh_shape) == 2 and min(mesh_shape) >= 1
+        except (ValueError, AssertionError):
+            ap.error(f"--mesh expects DATA,MODEL (two positive ints), "
+                     f"got {args.mesh!r}")
     if not args.smoke:
         raise NotImplementedError("the pod-mesh compile path (no --smoke) "
                                   "is not ported to PyTorch (ROADMAP.md)")
+    if mesh_shape is not None:
+        if mesh_shape[0] > 1:
+            raise NotImplementedError(
+                "--mesh with DATA > 1 (the paged pool split over data "
+                "shards) is not ported (ROADMAP.md)")
+        _serve_on_mesh(args, mesh_shape)
+        return
+    _serve(args)
 
+
+def _serve_on_mesh(args, mesh_shape) -> None:
+    """The continuous smoke on a (data, model) mesh of ranks: joining the
+    launcher's world when there is one, else spawning the ranks."""
+    import os
+
+    from repro_torch.sharding import comm
+
+    if "WORLD_SIZE" in os.environ:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        device = (comm.rank_device(int(os.environ.get("LOCAL_RANK", rank)))
+                  if args.device == "cuda" else args.device)
+        comm.init_ranks(rank, world, "env://", device)
+        try:
+            _mesh_rank(rank, world, args, mesh_shape)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        return
+    world = mesh_shape[0] * mesh_shape[1]
+    if args.device == "cuda":  # one build, before the ranks load it
+        from repro_torch.kernels import runtime as rt
+        rt.build()
+    comm.spawn(_mesh_rank, world, timeout=MESH_TIMEOUT_S,
+               args=(args, mesh_shape), device=args.device)
+
+
+def _mesh_rank(rank: int, world: int, args, mesh_shape) -> None:
+    from repro_torch.launch.mesh import make_host_mesh
+
+    device = None if args.device == "cuda" else args.device
+    mesh = make_host_mesh(*mesh_shape, strict=True, device=device)
+    _serve(args, mesh)
+
+
+def _serve(args, mesh=None) -> None:
+    """The smoke run of ``args``; under a mesh only its rank 0 prints."""
     import numpy as np
     import torch
 
@@ -102,7 +175,8 @@ def main(argv=None) -> None:
                                      ServeEngine)
     from repro_torch.serving.spec_decode import spec_metrics
 
-    device = cm.resolve_device(args.device)
+    device = cm.resolve_device(args.device) if mesh is None else mesh.device
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     cfg = smoke_config(args.arch)
     if args.sparse_density > 0:
         cfg = relufication.relufy_stage2(cfg)
@@ -127,8 +201,8 @@ def main(argv=None) -> None:
                            reuse_window=args.reuse_window)
         agg = (res.aggregated.aggregated_sparsity()
                if res.aggregated is not None else float("nan"))
-        print(f"generated {res.tokens.shape} tokens; aggregated FFN sparsity "
-              f"{agg:.3f}")
+        say(f"generated {res.tokens.shape} tokens; aggregated FFN sparsity "
+            f"{agg:.3f}")
         return
     if args.predictor != "none":
         from repro_torch.core.activations import is_sparse_activation
@@ -164,45 +238,51 @@ def main(argv=None) -> None:
         spec_kw.update(predictor=smoke_predictor(params, cfg, device))
     eng = ContinuousBatchingEngine(cfg, params, config=EngineConfig(
         n_slots=2, block_size=16, max_blocks_per_seq=max_bps,
-        track_sparsity=True, **spec_kw), device=device)
+        track_sparsity=True, mesh=mesh, **spec_kw), device=device)
     uids = [eng.submit(p, args.tokens, reuse_window=args.reuse_window)
             for p in prompts]
     res = eng.run()
     aggs = [eng.trackers[u].aggregated_sparsity() for u in uids]
-    print(f"continuous batching served {len(uids)} requests "
-          f"({sum(len(res[u].tokens) for u in uids)} tokens); "
-          f"per-request aggregated FFN sparsity "
-          f"{', '.join(f'{a:.3f}' for a in aggs)}; "
-          f"weight I/O saved {eng.weight_io_saved():.1%}")
+    say(f"continuous batching served {len(uids)} requests "
+        f"({sum(len(res[u].tokens) for u in uids)} tokens); "
+        f"per-request aggregated FFN sparsity "
+        f"{', '.join(f'{a:.3f}' for a in aggs)}; "
+        f"weight I/O saved {eng.weight_io_saved():.1%}")
     if cfg.n_experts:
-        print(f"moe routing: {cfg.top_k}/{cfg.n_experts} experts per "
-              f"token (expert I/O fraction "
-              f"{eng.expert_io_fraction():.3f}); activated-expert FFN "
-              f"weight read {eng.weight_io_bytes_per_step():.0f} B/step")
+        say(f"moe routing: {cfg.top_k}/{cfg.n_experts} experts per "
+            f"token (expert I/O fraction "
+            f"{eng.expert_io_fraction():.3f}); activated-expert FFN "
+            f"weight read {eng.weight_io_bytes_per_step():.0f} B/step")
+    if mesh is not None:
+        say(f"sharded serving on mesh {dict(eng.mesh.shape)}: "
+            f"TP={eng.tp}; per-device FFN weight read "
+            f"{eng.weight_io_bytes_per_step():.0f} B/step "
+            f"(= {eng.weight_io_bytes_per_step(per_device=False):.0f} "
+            f"B total x 1/{eng.ffn_tp})")
     if args.prefix_cache:
-        print(f"prefix cache: hit rate {eng.prefix_hit_rate():.1%}; "
-              f"prefill tokens saved {eng.prefill_tokens_saved()} "
-              f"(chunked prefill, chunk={args.prefill_chunk})")
+        say(f"prefix cache: hit rate {eng.prefix_hit_rate():.1%}; "
+            f"prefill tokens saved {eng.prefill_tokens_saved()} "
+            f"(chunked prefill, chunk={args.prefill_chunk})")
     if args.predictor != "none":
-        print(f"predictor={args.predictor} "
-              f"(target recall {args.target_recall}): "
-              f"tile density {eng.predictor_density():.3f}; "
-              f"realized recall {eng.predictor_recall():.4f}; "
-              f"up+down weight I/O saved {eng.weight_io_saved():.1%}; "
-              f"per-request misses "
-              f"{', '.join(str(res[u].pred_misses) for u in uids)}")
+        say(f"predictor={args.predictor} "
+            f"(target recall {args.target_recall}): "
+            f"tile density {eng.predictor_density():.3f}; "
+            f"realized recall {eng.predictor_recall():.4f}; "
+            f"up+down weight I/O saved {eng.weight_io_saved():.1%}; "
+            f"per-request misses "
+            f"{', '.join(str(res[u].pred_misses) for u in uids)}")
     if args.speculative:
         ms = [spec_metrics(res[u], gamma=args.gamma, c=0.1,
                            s_agg=eng.s_agg_window()) for u in uids]
-        print(f"speculative gamma={args.gamma}: "
-              f"alpha={np.mean([m.accept_rate for m in ms]):.3f}; "
-              f"target-call reduction "
-              f"{np.mean([m.target_call_reduction for m in ms]):.2f}x; "
-              f"window s_agg={eng.s_agg_window():.3f}; "
-              f"Thm1 sparse-verify speedup "
-              f"{np.mean([m.thm1_speedup for m in ms]):.3f}x")
-    print("-- final observability snapshot --")
-    print(format_statusz(eng), end="")
+        say(f"speculative gamma={args.gamma}: "
+            f"alpha={np.mean([m.accept_rate for m in ms]):.3f}; "
+            f"target-call reduction "
+            f"{np.mean([m.target_call_reduction for m in ms]):.2f}x; "
+            f"window s_agg={eng.s_agg_window():.3f}; "
+            f"Thm1 sparse-verify speedup "
+            f"{np.mean([m.thm1_speedup for m in ms]):.3f}x")
+    say("-- final observability snapshot --")
+    say(format_statusz(eng), end="")
 
 
 if __name__ == "__main__":

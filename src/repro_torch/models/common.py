@@ -15,6 +15,7 @@ card and must never be copied per token.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Callable, Dict, Optional
@@ -24,6 +25,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import comm
+from repro_torch.sharding import rules
 
 # ---------------------------------------------------------------------------
 # init helpers (torch.Generator; the numbers differ from jax.random's)
@@ -192,9 +195,168 @@ def padded_vocab(vocab: int) -> int:
     return round_up(vocab, VOCAB_MULTIPLE)
 
 
-def vocab_logit_mask(vocab: int, vocab_p: int, device=None) -> torch.Tensor:
-    ar = torch.arange(vocab_p, device=device)
+def vocab_logit_mask(vocab: int, vocab_p: int, device=None,
+                     offset: int = 0, width: Optional[int] = None
+                     ) -> torch.Tensor:
+    """0 for real vocabulary entries, -1e9 for the padding; with ``offset``
+    / ``width`` the slice of one vocabulary shard."""
+    ar = torch.arange(offset, offset + (vocab_p if width is None else width),
+                      device=device)
     return torch.where(ar < vocab, 0.0, -1e9).float()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: what one rank of a (1, M) mesh holds
+
+
+class LocalHeads:
+    """One rank's share of a ``HeadGeometry`` (its duck type for the paged
+    steps): ``hp`` q slots starting at global slot ``q0``, reading ``kvp``
+    kv heads in groups of ``group`` slots, and the global slot mask's
+    slice."""
+
+    def __init__(self, g: HeadGeometry, q0: int, hp: int, kvp: int,
+                 group: int):
+        self.full, self.q0 = g, q0
+        self.hp, self.kvp, self.group = hp, kvp, group
+        self.head_dim = g.head_dim
+
+    def q_slot_mask(self, device=None, dtype=torch.float32) -> torch.Tensor:
+        return self.full.q_slot_mask(device, dtype)[self.q0:self.q0 + self.hp]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Where one rank of a (1, M) serving mesh sits in each split axis of a
+    config's weights, read off the serve-mode rules (``rules.param_pspec``):
+    each pair is (first index, count) of the rank's block, the whole axis
+    when the rule replicates it.
+
+    q: padded q slots (``wq``'s heads, ``wo``'s rows). kv_split: how
+    ``wk``/``wv`` are split — "heads" (column-split over kv heads, each
+    rank's K/V its own heads), "embed" (row-split over d_model: K/V are
+    summed over the ranks, the GQA case kvp < TP) or "none"; kv: the kv
+    heads this rank's q slots read, the heads its paged pool keeps, with
+    ``heads.group`` slots each (a rank whose slots are part of one group
+    reads one head). d: d_model rows of row-split ``wk``/``wv``. vocab:
+    embedding rows. ffn: d_ff units (``wu``/``wg`` columns, ``wd`` rows,
+    the γ-masks). experts: MoE experts."""
+
+    tp: int
+    q: tuple
+    kv_split: str
+    kv: tuple
+    d: tuple
+    vocab: tuple
+    ffn: tuple
+    experts: tuple
+    d_ff: int
+    vocab_size: int
+    heads: LocalHeads = dataclasses.field(compare=False)
+
+    @property
+    def q_split(self) -> bool:
+        return self.q[1] < self.heads.full.hp
+
+    @property
+    def vocab_split(self) -> bool:
+        return self.vocab[1] < padded_vocab(self.vocab_size)
+
+    @property
+    def ffn_split(self) -> bool:
+        """d_ff split over the ranks: FFN activity, masks and their
+        statistics are per-rank slices."""
+        return self.ffn[1] < self.d_ff
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(cfg: ModelConfig, tp: int, rank: int) -> ShardLayout:
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(shape={"data": 1, "model": tp},
+                coords={"data": 0, "model": rank})
+    g = HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    L, d, hd = cfg.n_layers, cfg.d_model, g.head_dim
+
+    def split(path, shape, dim):
+        return rules.param_pspec(path, shape, mesh, "serve")[dim] == "model"
+
+    def block(n, is_split):
+        return (rank * (n // tp), n // tp) if is_split else (0, n)
+
+    q0, hq = block(g.hp, split("layers/attn/wq", (L, d, g.hp, hd), 2))
+    kshape = (L, d, g.kvp, hd)
+    kv_split = ("heads" if split("layers/attn/wk", kshape, 2) else
+                "embed" if split("layers/attn/wk", kshape, 1) else "none")
+    if kv_split == "heads":
+        kv, group = block(g.kvp, True), g.group
+    elif hq == g.hp:
+        kv, group = (0, g.kvp), g.group
+    elif hq % g.group == 0:
+        kv, group = (q0 // g.group, hq // g.group), g.group
+    elif g.group % hq == 0:
+        kv, group = (q0 // g.group, 1), hq
+    else:
+        raise NotImplementedError(
+            f"{cfg.name} at TP={tp}: {hq} q slots a rank straddle its "
+            f"groups of {g.group} slots per kv head")
+    vp = padded_vocab(cfg.vocab_size)
+    F = cfg.d_ff
+    if cfg.n_experts:
+        wshape = (L, cfg.n_experts, d, F)
+        experts = block(cfg.n_experts, split("layers/moe/wu", wshape, 1))
+        ffn = block(F, split("layers/moe/wu", wshape, 3))
+    else:
+        experts = (0, 0)
+        ffn = block(F, bool(F) and split("layers/ffn/wu", (L, d, F), 2))
+    return ShardLayout(
+        tp=tp, q=(q0, hq), kv_split=kv_split, kv=kv,
+        d=block(d, kv_split == "embed"),
+        vocab=block(vp, split("embed", (vp, d), 0)),
+        ffn=ffn, experts=experts, d_ff=F, vocab_size=cfg.vocab_size,
+        heads=LocalHeads(g, q0, hq, kv[1], group))
+
+
+def shard_layout(cfg: ModelConfig) -> Optional[ShardLayout]:
+    """This rank's ``ShardLayout`` of ``cfg`` under the active serving mesh
+    (``comm.serving``); None when no mesh is active."""
+    mesh = comm.active()
+    if mesh is None:
+        return None
+    return _layout(cfg, mesh.shape["model"], mesh.coords["model"])
+
+
+def local_heads(cfg: ModelConfig):
+    """The head layout the paged steps run: the config's ``HeadGeometry``,
+    or this rank's ``LocalHeads`` under a mesh."""
+    lay = shard_layout(cfg)
+    if lay is None:
+        return HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return lay.heads
+
+
+def local_d_ff(cfg: ModelConfig) -> int:
+    """The d_ff units this rank's FFN weights and γ-masks hold."""
+    lay = shard_layout(cfg)
+    return cfg.d_ff if lay is None else lay.ffn[1]
+
+
+def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with an f32 result, unrounded: a rank's partial of a product
+    whose contraction is split over the ranks, summed in f32 before the one
+    cast, as a single-device product rounds once. x (..., k), w (k, n)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(x.shape[:-1] + (w.shape[1],))
+
+
+def reduce_partial(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' f32 partials ``y`` summed and cast once to ``dtype``."""
+    return comm.all_reduce_sum(y).to(dtype)
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:
@@ -306,8 +468,9 @@ SCRATCH_BLOCK = 0
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
     """Block pool (L, n_blocks, kvp, block_size, hd), head-major within a
-    block, zero-initialised."""
-    g = HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    block, zero-initialised; under a serving mesh kvp is the rank's kv
+    heads (``ShardLayout.kv``)."""
+    g = local_heads(cfg)
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     shape = (cfg.n_layers, n_blocks, g.kvp, block_size, g.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -329,13 +492,29 @@ def paged_write_window(pages: torch.Tensor, layer: int, table: torch.Tensor,
     """Scatter a W-token window's K or V per request through the block
     table, IN PLACE. pages (L, n_blocks, kvp, bs, hd); table (b, nb); pos
     (b, W); val (b, W, kvp, hd); enable (b, W) bool — disabled tokens go to
-    the scratch block. Returns ``pages`` itself."""
+    the scratch block. Returns ``pages`` itself.
+
+    Idle slots and disabled tokens may write the same scratch position.
+    Each such write carries the value of the last of them in (b, W) order,
+    which a serial scatter (the CPU's, the reference's) leaves there: a
+    CUDA scatter keeps any one of them, and what the idle rows then read
+    reaches the live rows wherever the batch is coupled (the union of a
+    static tile capacity)."""
     nb = table.shape[1]
     blk = torch.gather(table.long(), 1,
                        torch.clamp(pos.long() // block_size, 0, nb - 1))
     if enable is not None:
         blk = torch.where(enable, blk, torch.full_like(blk, SCRATCH_BLOCK))
     off = pos.long() % block_size
+    n = blk.numel()
+    # write i is entry bs + i, a scratch write the entry of its offset; the
+    # largest i in an entry is the value every write to it carries
+    own = torch.arange(block_size, block_size + n, device=blk.device)
+    tgt = torch.where((blk == SCRATCH_BLOCK).reshape(-1), off.reshape(-1), own)
+    src = torch.empty(block_size + n, dtype=torch.long, device=blk.device
+                      ).scatter_reduce_(0, tgt, own, "amax",
+                                        include_self=False)[tgt] - block_size
+    val = val.reshape((n,) + val.shape[2:])[src].reshape(val.shape)
     pages[layer][blk, :, off, :] = val.to(pages.dtype)
     return pages
 
@@ -401,10 +580,11 @@ def select_active_tiles(scores: torch.Tensor, density: float,
 
 
 def gathered_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                    mask: torch.Tensor, tile: int) -> torch.Tensor:
+                    mask: torch.Tensor, tile: int, out_dtype=None
+                    ) -> torch.Tensor:
     """y = x @ w over the selected F tiles only: x (t, F), w (F, D), idx
-    (k,) tile ids, mask (k,) validity. Returns (t, D) in x's dtype, summed
-    in f32.
+    (k,) tile ids, mask (k,) validity. Returns (t, D) in ``out_dtype``
+    (default x's dtype), summed in f32.
 
     On CUDA tensors it is kernel 5 (``kernels.sparse_matmul.sparse_matmul``)
     with nvalid = mask.sum() kept on the device: ``select_active_tiles``
@@ -416,7 +596,7 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
         from repro_torch.kernels import sparse_matmul as ksm
         nvalid = mask.sum(dtype=torch.int32)
         return ksm.sparse_matmul(x.contiguous(), w.contiguous(), idx, nvalid,
-                                 tile=tile).to(x.dtype)
+                                 tile=tile).to(out_dtype or x.dtype)
     t, F = x.shape
     D = w.shape[1]
     k = idx.shape[0]
@@ -424,7 +604,7 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     xg = x.reshape(t, F // tile, tile)[:, il] * mask[None, :, None].to(x.dtype)
     wg = w.reshape(F // tile, tile, D)[il]
     return (xg.reshape(t, k * tile).float()
-            @ wg.reshape(k * tile, D).float()).to(x.dtype)
+            @ wg.reshape(k * tile, D).float()).to(out_dtype or x.dtype)
 
 
 def pick_group_tile(F: int, n_groups: int) -> int:
@@ -441,12 +621,35 @@ def pick_group_tile(F: int, n_groups: int) -> int:
     return per
 
 
-def ffn_gather_tile(cfg: ModelConfig) -> int:
-    """FFN weight-gather tile width: cfg.sparsity.tile_size when it divides
-    d_ff, else the aligned fallback (the reference's single source of truth
-    for the serving steps' tile lists and scores)."""
+def ffn_gather_tile(cfg: ModelConfig, d_ff: Optional[int] = None) -> int:
+    """FFN weight-gather tile width over ``d_ff`` units (default: the units
+    this rank holds, ``local_d_ff``): cfg.sparsity.tile_size when it
+    divides them, else the aligned fallback (the reference's single source
+    of truth for the serving steps' tile lists and scores)."""
+    d_ff = local_d_ff(cfg) if d_ff is None else d_ff
     ts = cfg.sparsity.tile_size
-    return ts if cfg.d_ff % ts == 0 else pick_group_tile(cfg.d_ff, 1)
+    return ts if d_ff % ts == 0 else pick_group_tile(d_ff, 1)
+
+
+def static_plan(F: int, cfg: ModelConfig, n_groups: int = 0):
+    """(tile, groups) of the static-capacity selection over F units:
+    ``n_groups`` (default cfg.sparsity.n_groups) groups of
+    ``pick_group_tile`` tiles when above 1 and dividing F, else one group
+    of cfg.sparsity.tile_size tiles."""
+    n_groups = n_groups or cfg.sparsity.n_groups
+    if n_groups > 1 and F % n_groups == 0:
+        return pick_group_tile(F, n_groups), n_groups
+    return cfg.sparsity.tile_size, 1
+
+
+def static_tiles(x: torch.Tensor, cfg: ModelConfig, density: float,
+                 n_groups: int = 0):
+    """The tile selection ``maybe_sparse_matmuls`` makes for x (t, F) at
+    ``density`` < 1, by ``static_plan``: (idx (k,) int32 tile ids, mask
+    (k,), tile)."""
+    tile, groups = static_plan(x.shape[1], cfg, n_groups)
+    idx, mask = select_active_tiles(tile_scores(x, tile), density, groups)
+    return idx, mask, tile
 
 
 def grouped_sparse_matmul(x: torch.Tensor, w: torch.Tensor, density: float,
@@ -459,14 +662,11 @@ def grouped_sparse_matmul(x: torch.Tensor, w: torch.Tensor, density: float,
     t, F = x.shape
     D = w.shape[1]
     tile = pick_group_tile(F, n_groups)
-    tiles_g = F // n_groups // tile
-    k_g = max(1, int(math.ceil(density * tiles_g)))
-    xt = x.reshape(t, n_groups, tiles_g, tile)
-    top, idx = _top_sorted(xt.abs().amax(dim=(0, 3)), k_g)  # (G, k_g)
-    mask = (top > 0).to(x.dtype)
-    groups = torch.arange(n_groups, device=x.device)[:, None]
-    xg = xt[:, groups, idx] * mask[None, :, :, None]  # (t, G, k_g, tile)
-    wg = w.reshape(n_groups, tiles_g, tile, D)[groups, idx]  # (G, k_g, tile, D)
+    idx, mask = select_active_tiles(tile_scores(x, tile), density, n_groups)
+    il = idx.long().reshape(n_groups, -1)  # (G, k_g)
+    xg = (x.reshape(t, F // tile, tile)[:, il]
+          * mask.reshape(n_groups, -1)[None, :, :, None])  # (t, G, k_g, tile)
+    wg = w.reshape(F // tile, tile, D)[il]  # (G, k_g, tile, D)
     return torch.einsum("tgkc,gkcd->td", xg.float(), wg.float()).to(x.dtype)
 
 
@@ -487,12 +687,44 @@ def maybe_sparse_matmuls(x: torch.Tensor, ws, cfg: ModelConfig,
     reference selects again for each product; the results are the same)."""
     if density >= 1.0:
         return [x @ w for w in ws]
-    n_groups = n_groups or cfg.sparsity.n_groups
-    if n_groups > 1 and x.shape[1] % n_groups == 0:
-        return [grouped_sparse_matmul(x, w, density, n_groups) for w in ws]
-    tile = cfg.sparsity.tile_size
-    idx, mask = select_active_tiles(tile_scores(x, tile), density, 1)
+    _, groups = static_plan(x.shape[1], cfg, n_groups)
+    if groups > 1:
+        return [grouped_sparse_matmul(x, w, density, groups) for w in ws]
+    idx, mask, tile = static_tiles(x, cfg, density, n_groups)
     return [gathered_matmul(x, w, idx, mask, tile) for w in ws]
+
+
+def rank_tile_scores(x: torch.Tensor, tile: int, start: int,
+                     total: int) -> torch.Tensor:
+    """The (total // tile,) tile scores of a product input split over the
+    ranks, from this rank's units [start, start + x.shape[1]) of x: each
+    rank scores its slice at the tile that also divides the slice bounds,
+    the slices are put together over the ranks (``comm.gather_last``) and
+    the maxima taken over each tile, exactly as one device scores it."""
+    s = math.gcd(tile, math.gcd(x.shape[1], start))
+    sub = tile_scores(x, s).amax(0)
+    full = comm.gather_last(sub, total // s, start // s)
+    return full.reshape(-1, tile // s).amax(-1)
+
+
+def rank_tiles(idx: torch.Tensor, mask: torch.Tensor, tile: int, start: int,
+               count: int, most: int = 0):
+    """This rank's part of a tile list (idx, mask) over all units: the
+    listed units in [start, start + count), as a list over those units at
+    tile s = gcd(tile, count, start[, most]) (``most``: a tile the kernel
+    takes, e.g. cfg.sparsity.tile_size under a group tile of thousands),
+    the valid entries first in list order (``gathered_matmul`` reads
+    kernel 5's idx[:mask.sum()]). Returns (idx (n,) int32, mask (n,), s),
+    n at most count // s."""
+    s = math.gcd(math.gcd(tile, most), math.gcd(count, start))
+    r, lo, n = tile // s, start // s, count // s
+    sub = (idx.long()[:, None] * r
+           + torch.arange(r, device=idx.device)).reshape(-1)
+    keep = (sub >= lo) & (sub < lo + n) & (mask > 0).repeat_interleave(r)
+    order = torch.sort(keep.to(torch.uint8), descending=True,
+                       stable=True).indices[:n]
+    return ((sub[order] - lo).clamp(0, n - 1).to(torch.int32),
+            keep[order].to(mask.dtype), s)
 
 
 def site_sparsity(x: torch.Tensor) -> torch.Tensor:

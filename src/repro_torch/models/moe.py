@@ -18,6 +18,14 @@ router's top-k lists each token's experts' weight tiles
 point of its own; the serving steps keep the dispatch einsums, as the
 reference's do.
 
+Under a serving mesh the experts are split over the ranks (the serve
+rules' priority axis): the router's logits are gathered, every rank
+routes every token the same way, runs its own experts on their slots and
+combines them in f32, and the ranks' sums are summed (exact: a token's
+output has top_k nonzero terms); the window's activity is OR-ed over the
+ranks. Where the experts do not divide the model axis, d_ff is split
+instead, as in the dense family.
+
 Exactness: under drop-free capacity (capacity_factor >= n_experts, so cap
 >= tg * top_k) every token's experts take it whatever tokens share the
 batch, and each expert slot holds an exact copy of one token's row. The
@@ -43,6 +51,8 @@ from repro_torch.kernels.fused_ffn import window_tile_activity
 from repro_torch.models import common as cm
 from repro_torch.models import serving_protocol as sp
 from repro_torch.models import transformer as T
+from repro_torch.predictor import predictors as preds
+from repro_torch.sharding import comm
 
 
 def _init_moe(cfg: ModelConfig, ini: cm.ParamInit, n):
@@ -90,7 +100,11 @@ def _route(p, x, cfg: ModelConfig,
     cap = max(1, int(-(-tg * k * cfg.capacity_factor // E)))
 
     xg = x.reshape(G, tg, d)
-    logits = (xg @ p["router"]).float()
+    lay = cm.shard_layout(cfg)
+    if lay is None or lay.experts[1] == E:
+        logits = (xg @ p["router"]).float()
+    else:  # the router holds the rank's experts' columns: gather them all
+        logits = comm.gather_last(xg @ p["router"], E, lay.experts[0]).float()
     gates_all = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(gates_all, dim=-1, descending=True, stable=True)
     topv, topi = topv[..., :k], topi[..., :k]
@@ -117,6 +131,29 @@ def _route(p, x, cfg: ModelConfig,
     return xg, dispatch, combine, (G, tg, cap), (topi, topv)
 
 
+def _local_experts(cfg: ModelConfig, dispatch, combine):
+    """The routing tensors' slices of the experts this rank holds (all of
+    them without a serving mesh, or where the rules replicate experts)."""
+    lay = cm.shard_layout(cfg)
+    if lay is None or lay.experts[1] == cfg.n_experts:
+        return dispatch, combine
+    e0, el = lay.experts
+    return dispatch[:, :, e0:e0 + el], combine[:, :, e0:e0 + el]
+
+
+def _combine(cfg: ModelConfig, combine, ye, x):
+    """The gate-weighted combine of the expert outputs ye (G, E, cap, d)
+    into (G, tg, d) in x's dtype. Under a serving mesh each rank combines
+    its experts in f32 and the ranks' sums are summed, then cast once: a
+    token's output has top_k nonzero terms, so the sum is the one device's
+    whatever rank holds each (x + 0 = x exactly)."""
+    lay = cm.shard_layout(cfg)
+    if lay is None or not (lay.experts[1] < cfg.n_experts or lay.ffn_split):
+        return torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+    y = torch.einsum("gtec,gecd->gtd", combine, ye.float())
+    return cm.reduce_partial(y, x.dtype)
+
+
 def _expert_hidden(p, xe, cfg: ModelConfig,
                    stats: cm.StatsCollector = cm.NO_STATS):
     """act(xe @ Wg) [* (xe @ Wu)] per expert slot: xe (G, E, cap, d);
@@ -137,13 +174,13 @@ def apply_moe(p, x, cfg: ModelConfig,
     records the routing's sites, ``moe_pre`` and ``down_in`` (no
     ``down_act``: as in the reference, expert units feed no tracker)."""
     xg, dispatch, combine, _, _ = _route(p, x, cfg, stats)
+    dispatch, combine = _local_experts(cfg, dispatch, combine)
     dd = dispatch.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dd, xg)
     h = _expert_hidden(p, xe, cfg, stats)
     stats.add_sparsity("down_in", h)
     ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
-    return y.reshape(x.shape)
+    return _combine(cfg, combine, ye, x).reshape(x.shape)
 
 
 def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
@@ -294,9 +331,10 @@ def apply_moe_window(p, x, cfg: ModelConfig, *, mask, refresh, valid):
              union_density (b,) fraction of the (E, F) expert-unit grid in
                  the window's read union)."""
     b, W, d = x.shape
-    E, F = cfg.n_experts, cfg.d_ff
+    E, F = cfg.n_experts, mask.shape[-1]
     xg, dispatch, combine, (G, tg, _), _ = _route(p, x.reshape(b * W, d), cfg)
-    dd = dispatch.to(x.dtype)
+    ldisp, lcomb = _local_experts(cfg, dispatch, combine)
+    dd = ldisp.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dd, xg)
     h = _expert_hidden(p, xe, cfg)
 
@@ -308,16 +346,24 @@ def apply_moe_window(p, x, cfg: ModelConfig, *, mask, refresh, valid):
     h = h * torch.einsum("gtec,gtf->gecf", dd, eff_tok.to(h.dtype))
 
     ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
-    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
-    out = out.reshape(b, W, d)
+    out = _combine(cfg, lcomb, ye, x).reshape(b, W, d)
 
     # telemetry: a token's within-expert activity unioned over its routed
     # experts (the slot-level γ-mask is shared across experts)
-    ddf = dispatch.float()
+    ddf = ldisp.float()
     act_tok = torch.einsum("gtec,gecf->gtf", ddf, (h != 0).float())
     act_tok = (act_tok.reshape(b, W, F) > 0) & valid[:, :, None]
     act = act_tok.any(1)
-    scores = window_tile_activity(act_tok.float(), cm.ffn_gather_tile(cfg))
+    lay = cm.shard_layout(cfg)
+    if lay is None or lay.experts[1] == E:
+        scores = window_tile_activity(act_tok.float(), cm.ffn_gather_tile(cfg))
+    else:
+        # the other ranks' experts' activity: OR over the ranks, once a
+        # layer; a tile's score is 1 where any of its units fired in the
+        # window (the values window_tile_activity gives 0/1 activity)
+        act = comm.any_reduce(act)
+        tile = cm.ffn_gather_tile(cfg)
+        scores = preds.units_to_tiles(act, tile).to(torch.float32)
 
     texp = dispatch.any(3).reshape(b, W, E)  # each token's experts
     efrac = texp.float().mean(-1)  # (b, W)

@@ -12,6 +12,10 @@
    by the family's per-layer block function. Where the reference scans
    over stacked layers, this is a Python loop over layer views.
 
+Under a serving mesh the skeleton is unchanged: the masks it carries and
+refreshes are the rank's d_ff slice (the FFN weights' split), and the
+layer functions put the collectives in.
+
 Family hook with a default: ``prompt_token_offset(cfg) -> int``, the extra
 non-text positions a family prepends to the prompt; the legacy
 ``ServeEngine`` offsets decode positions by it. Default 0.

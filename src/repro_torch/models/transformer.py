@@ -30,9 +30,18 @@ the reference gates them. The predictor FFN's unfused lowering
 (``_ffn_decode_predicted(fused=False)``) runs ``sparse_up_matmul`` and
 ``sparse_matmul_tokens`` instead of the fused kernel. The contiguous
 cache's attention is plain torch ops, as the reference's is XLA.
+
+Under a serving mesh (``sharding.comm.serving``; the engine's ``mesh=``)
+the paged steps and the whole-prompt forward run on one rank's blocks
+(``common.ShardLayout``): its q slots and kv heads (``_qkv``,
+``_attn_out``), its d_ff slice with tile lists in its own tile ids
+(``_down_proj``, ``_ffn_out``, ``_pack_predicted``) and its vocabulary
+rows (``embed_tokens``, ``logits_from``), with an all-reduce where the
+split products meet — the same kernels at the rank's shapes.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -46,6 +55,7 @@ from repro_torch.kernels.fused_ffn import tile_activity, window_tile_activity
 from repro_torch.models import common as cm
 from repro_torch.models import serving_protocol as sp
 from repro_torch.predictor import predictors as preds
+from repro_torch.sharding import comm
 
 Params = Dict
 
@@ -159,14 +169,42 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
          stats: cm.StatsCollector = cm.NO_STATS, decode: bool = False):
     """x (b, s, d) -> q (b, s, hp, hd), k/v (b, s, kvp, hd); RoPE applied.
     ``decode`` applies the static input tile capacity (``densities``): one
-    selection of the input's top d_model tiles for the three products."""
+    selection of the input's top d_model tiles for the three products.
+
+    Under a serving mesh (``common.ShardLayout``) q holds the rank's q
+    slots and k/v its kv heads: column-split weights give them directly;
+    where ``wk``/``wv`` are row-split over d_model (GQA with fewer kv heads
+    than ranks) each rank's product over its rows is a partial sum, summed
+    over the ranks in f32 before the replicated biases are added once;
+    below the input capacity 1 it gathers its rows' part of q's tile list
+    (``common.rank_tiles``, kernel 5 on the card)."""
     g = attn_geometry(cfg)
     stats.add_sparsity("qkv_in", x)
     b, s, d = x.shape
+    hd = g.head_dim
     dens = densities(cfg)[0] if decode else 1.0
-    ws = [p[n].reshape(d, -1) for n in ("wq", "wk", "wv")]
-    q, k, v = (y.reshape(b, s, -1, g.head_dim) for y in
-               cm.maybe_sparse_matmuls(x.reshape(b * s, d), ws, cfg, dens))
+    lay = cm.shard_layout(cfg)
+    x2 = x.reshape(b * s, d)
+    if lay is None or lay.kv_split != "embed":
+        ws = [p[n].reshape(d, -1) for n in ("wq", "wk", "wv")]
+        q, k, v = (y.reshape(b, s, -1, hd) for y in
+                   cm.maybe_sparse_matmuls(x2, ws, cfg, dens))
+    else:
+        q = cm.maybe_sparse_matmul(x2, p["wq"].reshape(d, -1), cfg,
+                                   dens).reshape(b, s, -1, hd)
+        d0, dl = lay.d
+        xl = x2[:, d0:d0 + dl]
+        ws = [p[n].reshape(dl, -1) for n in ("wk", "wv")]
+        if dens >= 1.0:
+            parts = [cm.partial_matmul(xl, w) for w in ws]
+        else:
+            # q's selection over the whole input, this rank's rows of it
+            sel = cm.rank_tiles(*cm.static_tiles(x2, cfg, dens), d0, dl,
+                                cfg.sparsity.tile_size)
+            parts = [cm.gathered_matmul(xl, w, *sel, out_dtype=torch.float32)
+                     for w in ws]
+        k, v = (cm.reduce_partial(y, x.dtype).reshape(b, s, -1, hd)
+                for y in parts)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -175,16 +213,65 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
     if cfg.use_rope:
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
+    if lay is not None and lay.kv_split != "heads":
+        # every kv head is here; keep those the rank's q slots read
+        kv0, nkv = lay.kv
+        k, v = k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
     return q, k, v
 
 
 def _attn_out(p, o, cfg: ModelConfig):
-    """o (b, s, hp, hd) -> (b, s, d), padded head slots masked."""
-    g = attn_geometry(cfg)
+    """o (b, s, hp, hd) -> (b, s, d), padded head slots masked. Under a
+    serving mesh o holds the rank's q slots and ``wo`` their rows: the
+    ranks' products are summed in f32, then cast once."""
+    g = cm.local_heads(cfg)
     b, s = o.shape[:2]
     o = o * g.q_slot_mask(o.device, o.dtype)[None, None, :, None]
-    return o.reshape(b, s, g.hp * g.head_dim) @ p["wo"].reshape(
-        g.hp * g.head_dim, -1)
+    o2 = o.reshape(b, s, g.hp * g.head_dim)
+    w = p["wo"].reshape(g.hp * g.head_dim, -1)
+    lay = cm.shard_layout(cfg)
+    if lay is None or not lay.q_split:
+        return o2 @ w
+    return cm.reduce_partial(cm.partial_matmul(o2, w), o.dtype)
+
+
+def _down_proj(h, wd, cfg: ModelConfig, density: float):
+    """The FFN's down-projection h (t, F) @ wd at the static capacity
+    ``density`` (``common.maybe_sparse_matmul``). Where a serving mesh
+    splits d_ff, h and wd hold the rank's units and the ranks' f32
+    partials are summed, then cast once. Below density 1 the selection is
+    one device's (``common.static_plan`` over all of d_ff): each rank
+    selects alone when every group lies in one rank's slice, else from
+    the tile scores put together over the ranks; then it runs its part of
+    the list (``common.rank_tiles``) through ``gathered_matmul``, kernel
+    5 on the card."""
+    lay = cm.shard_layout(cfg)
+    if lay is None or not lay.ffn_split:
+        return cm.maybe_sparse_matmul(h, wd, cfg, density)
+    if density >= 1.0:
+        return cm.reduce_partial(cm.partial_matmul(h, wd), h.dtype)
+    f0, fl = lay.ffn
+    tile, groups = cm.static_plan(cfg.d_ff, cfg)
+    if groups % lay.tp == 0:
+        idx, mask = cm.select_active_tiles(cm.tile_scores(h, tile), density,
+                                           groups // lay.tp)
+        f0 = 0  # the list is over this rank's units already
+    else:
+        idx, mask = cm.select_active_tiles(
+            cm.rank_tile_scores(h, tile, f0, cfg.d_ff), density, groups)
+    y = cm.gathered_matmul(h, wd, *cm.rank_tiles(idx, mask, tile, f0, fl,
+                                                 cfg.sparsity.tile_size),
+                           out_dtype=torch.float32)
+    return cm.reduce_partial(y, h.dtype)
+
+
+def _ffn_out(y32, x, cfg: ModelConfig):
+    """A kernel's f32 FFN output (t, d) in x's dtype: summed over the ranks
+    first where a serving mesh splits d_ff."""
+    lay = cm.shard_layout(cfg)
+    if lay is not None and lay.ffn_split:
+        return cm.reduce_partial(y32, x.dtype)
+    return y32.to(x.dtype)
 
 
 def post_norm(x, cfg: ModelConfig):
@@ -223,7 +310,7 @@ def apply_ffn(p, x, cfg: ModelConfig, *, stats: cm.StatsCollector = cm.NO_STATS,
     stats.add_sparsity("down_in", h)
     if stats.active:
         stats.add("down_act", (h != 0).any(0))
-    return cm.maybe_sparse_matmul(h, p["wd"], cfg, dens_ffn)
+    return _down_proj(h, p["wd"], cfg, dens_ffn)
 
 
 def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
@@ -232,12 +319,14 @@ def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
     """Full-sequence attention (prefill / forward), causal unless asked
     (the encoder's is bidirectional). Returns (out (b, s, d), (k, v)
     (b, s, kvp, hd) for the cache). GQA K/V are replicated to 16 heads as
-    the reference does."""
-    g = attn_geometry(cfg)
+    the reference does (not under a serving mesh, where each rank groups
+    its q slots by the kv heads it holds)."""
+    g = cm.local_heads(cfg)
     b, s = x.shape[:2]
     q, k, v = _qkv(p, x, cfg, positions, stats=stats)
     kv = (k, v)
-    r = 1 if g.kvp % cm.TP == 0 else cm.TP // g.kvp
+    r = (1 if g.kvp % cm.TP == 0 or cm.shard_layout(cfg) is not None
+         else cm.TP // g.kvp)
     if r > 1:
         k = k.repeat_interleave(r, dim=2)
         v = v.repeat_interleave(r, dim=2)
@@ -322,17 +411,40 @@ def apply_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, positions):
-    x = params["embed"][tokens.long()].to(compute_dtype(cfg))
+    """Token (and learned position) embeddings. Under a serving mesh the
+    embedding holds the rank's vocabulary rows: each token's row comes
+    from the rank that holds it, summed with the others' zeros (exact)."""
+    lay = cm.shard_layout(cfg)
+    emb = params["embed"]
+    if lay is None or not lay.vocab_split:
+        x = emb[tokens.long()].to(compute_dtype(cfg))
+    else:
+        v0, vl = lay.vocab
+        local = tokens.long() - v0
+        mine = (local >= 0) & (local < vl)
+        rows = torch.where(mine[..., None], emb[local.clamp(0, vl - 1)], 0.0)
+        x = comm.all_reduce_sum(rows).to(compute_dtype(cfg))
     if not cfg.use_rope:
         x = x + params["pos_embed"][positions.long()].to(x.dtype)
     return x
 
 
 def logits_from(params, x, cfg: ModelConfig):
+    """Logits over the padded vocabulary, its padding masked. Under a
+    serving mesh each rank computes its vocabulary shard's, and every rank
+    gets them all (``comm.gather_last``), so the sampling head runs the
+    same on every rank."""
     u = params.get("unembed", params["embed"])
     out = x @ u.to(x.dtype).T
-    mask = cm.vocab_logit_mask(cfg.vocab_size, u.shape[0], device=x.device)
-    return out + mask.to(out.dtype)
+    lay = cm.shard_layout(cfg)
+    if lay is None or not lay.vocab_split:
+        mask = cm.vocab_logit_mask(cfg.vocab_size, u.shape[0], device=x.device)
+        return out + mask.to(out.dtype)
+    v0, vl = lay.vocab
+    vp = cm.padded_vocab(cfg.vocab_size)
+    mask = cm.vocab_logit_mask(cfg.vocab_size, vp, device=x.device,
+                               offset=v0, width=vl)
+    return comm.gather_last(out + mask.to(out.dtype), vp, v0)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
@@ -499,7 +611,7 @@ def apply_attn_window_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     the scratch block; table (b, nb). Causal within the window. K/V are
     written into the pool in place. Returns out (b, W, d)."""
     fast_kernels = kernel_path(fast_kernels, x)
-    g = attn_geometry(cfg)
+    g = cm.local_heads(cfg)
     b, W, _ = x.shape
     q, k, v = _qkv(p, x, cfg, pos, decode=True)
     q = q.reshape(b, W, g.kvp, g.group, g.head_dim).contiguous()
@@ -542,13 +654,12 @@ def apply_ffn_window(p, x, cfg: ModelConfig, *, mask, refresh, valid,
     if fast_kernels and dens_in >= 1.0 and dens_ffn >= 1.0:
         n_tiles = h.shape[-1] // tile
         idx, nvalid = preds.pack_tile_indices(scores > 0, n_tiles)
-        out = ksm.sparse_matmul_tokens(
+        out = _ffn_out(ksm.sparse_matmul_tokens(
             h.reshape(b * W, -1).to(p["wd"].dtype), p["wd"],
             idx.repeat_interleave(W, 0), nvalid.repeat_interleave(W),
-            tile=tile).to(x.dtype)
+            tile=tile), x, cfg)
     else:
-        out = cm.maybe_sparse_matmul(h.reshape(b * W, -1), p["wd"], cfg,
-                                     dens_ffn)
+        out = _down_proj(h.reshape(b * W, -1), p["wd"], cfg, dens_ffn)
     return out.reshape(b, W, d), act, scores, density, union_density
 
 
@@ -622,8 +733,8 @@ def draft_gamma_paged(params, pages, table, token, pos0, wlen,
 
     Returns (proposals (b, γ) int32, pages)."""
     b = token.shape[0]
-    masks = torch.zeros((cfg.n_layers, b, cfg.d_ff), dtype=torch.bool,
-                        device=token.device)
+    masks = torch.zeros((cfg.n_layers, b, cm.local_d_ff(cfg)),
+                        dtype=torch.bool, device=token.device)
     refresh = torch.ones((b,), dtype=torch.bool, device=token.device)
     tok, props = token, []
     for g in range(gamma + 1):
@@ -638,6 +749,45 @@ def draft_gamma_paged(params, pages, table, token, pos0, wlen,
             tok = next_fn(logits[:, 0], g)
         props.append(tok)
     return torch.stack(props[:gamma], 1), pages
+
+
+def _pack_predicted(eff_units, cfg: ModelConfig, tile: int, k_tiles: int):
+    """The predicted units' tile lists of the predictor FFN: (idx, nvalid,
+    cov_units (B, F) the units the lists gather, the lists' tile width,
+    density (B,) the fraction of weight tiles read).
+
+    Under a serving mesh that splits d_ff, eff_units holds the rank's
+    units. When the predictor's tiles divide over the ranks the packing is
+    model-axis-local: each rank packs its own ceil(k_tiles / TP) from its
+    slice (the reference's ``pack_tile_indices(n_groups=TP)``; at full
+    capacity the same tiles as one device). When they do not, the units
+    are gathered, packed globally as on one device, and each rank lists
+    the covered part of its slice at the tile width gcd(tile, its units),
+    which no global tile straddles."""
+    lay = cm.shard_layout(cfg)
+    F = eff_units.shape[-1]
+    if lay is not None and lay.ffn_split and (cfg.d_ff // tile) % lay.tp:
+        f0, fl = lay.ffn
+        full = comm.gather_last(eff_units.to(torch.uint8), cfg.d_ff, f0) > 0
+        nt = cfg.d_ff // tile
+        gidx, gnv = preds.pack_tile_indices(preds.units_to_tiles(full, tile),
+                                            k_tiles)
+        cov = preds.tiles_to_units(preds.covered_tiles(gidx, gnv, nt),
+                                   tile)[:, f0:f0 + fl]
+        tile = math.gcd(tile, fl)
+        idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(cov, tile),
+                                              fl // tile)
+        # this rank's share of the gathered units; their mean over the
+        # ranks is the global tile fraction gnv / nt
+        return idx, nvalid, cov, tile, cov.float().mean(-1)
+    n_tiles = F // tile
+    k = k_tiles
+    if lay is not None and lay.ffn_split:
+        k = min(n_tiles, -(-min(k_tiles, cfg.d_ff // tile) // lay.tp))
+    idx, nvalid = preds.pack_tile_indices(
+        preds.units_to_tiles(eff_units, tile), k)
+    cov = preds.tiles_to_units(preds.covered_tiles(idx, nvalid, n_tiles), tile)
+    return idx, nvalid, cov, tile, nvalid.float() / n_tiles
 
 
 def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
@@ -668,19 +818,21 @@ def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
     (telemetry only, never fed to the residual stream) re-reads the gate
     weight each step; measure=False returns zero counts.
 
+    Under a serving mesh that splits d_ff, everything here is the rank's
+    units (``_pack_predicted``): the counts, the density and f are its
+    shares, which the engine sums (f here, the rest once a step).
+
     Returns (f (B, d), act (B, F), scores (B, F // gather tile),
              density (B,) fraction of weight tiles read (up AND down),
              n_active (B,) int32, n_miss (B,) int32)."""
     act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
     glu = cfg.ffn_kind == "glu"
-    n_tiles = cfg.d_ff // tile
     h = h.contiguous()
     unit_pred = preds.predict_units(kind, pred_l, h)  # (B, F)
     eff_units = unit_pred | (mask & ~refresh[:, None])
-    idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(eff_units, tile),
-                                          k_tiles)
-    cov_units = preds.tiles_to_units(preds.covered_tiles(idx, nvalid, n_tiles),
-                                     tile)
+    idx, nvalid, cov_units, tile, density = _pack_predicted(
+        eff_units, cfg, tile, k_tiles)
+    n_tiles = eff_units.shape[-1] // tile
     gate_w = pf["wg"] if glu else pf["wu"]
     if fused:
         # cov_units is all ones inside every gathered tile, so the kernel
@@ -689,7 +841,6 @@ def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
             h, gate_w, pf["wd"], idx, nvalid, w_up=pf["wu"] if glu else None,
             activation=cfg.activation, shift=cfg.sparsity.shift, tile=tile)
         hh = kfd.scatter_compact(compact, idx, nvalid, n_tiles)
-        f = f32.to(h.dtype)
     else:
         pre = ksm.sparse_up_matmul(h, gate_w, idx, nvalid, tile=tile)
         # the covered mask keeps skipped tiles exactly zero even where
@@ -697,11 +848,11 @@ def _ffn_decode_predicted(pf, h, cfg: ModelConfig, pred_l, *, kind: str,
         hh = act_fn(pre) * cov_units.to(pre.dtype)
         if glu:
             hh = hh * ksm.sparse_up_matmul(h, pf["wu"], idx, nvalid, tile=tile)
-        f = ksm.sparse_matmul_tokens(hh.to(pf["wd"].dtype), pf["wd"], idx,
-                                     nvalid, tile=tile).to(h.dtype)
+        f32 = ksm.sparse_matmul_tokens(hh.to(pf["wd"].dtype), pf["wd"], idx,
+                                       nvalid, tile=tile)
+    f = _ffn_out(f32, h, cfg)
     act = hh != 0
     scores = tile_activity(hh, cm.ffn_gather_tile(cfg))
-    density = nvalid.float() / n_tiles
     if measure:
         thr = acts.firing_threshold(cfg.activation, cfg.sparsity.shift)
         true_act = (h @ gate_w).float() > thr  # telemetry only
@@ -731,7 +882,7 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     the kernel path), which appends (n_active, n_miss) recall telemetry to
     the return tuple."""
     fast_kernels = kernel_path(fast_kernels, x)
-    g = attn_geometry(cfg)
+    g = cm.local_heads(cfg)
     h = post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
     q, k, v = _qkv(p["attn"], h[:, None, :], cfg, pos[:, None], decode=True)
     q = q.reshape(q.shape[0], g.kvp, g.group, g.head_dim).contiguous()
@@ -760,7 +911,7 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     tile = cm.ffn_gather_tile(cfg)
     dens_in, dens_ffn = densities(cfg)
     if fast_kernels and dens_in >= 1.0 and dens_ffn >= 1.0:
-        n_tiles = cfg.d_ff // tile
+        n_tiles = eff.shape[-1] // tile
         idx, nvalid = preds.pack_tile_indices(preds.units_to_tiles(eff, tile),
                                               n_tiles)
         glu = cfg.ffn_kind == "glu"
@@ -769,10 +920,10 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
             nvalid, w_up=pf["wu"] if glu else None, unit_mask=eff,
             activation=cfg.activation, shift=cfg.sparsity.shift, tile=tile)
         hh = kfd.scatter_compact(compact, idx, nvalid, n_tiles)
-        f = f32.to(h.dtype)
+        f = _ffn_out(f32, h, cfg)
     else:
         hh = _ffn_hidden(pf, h, cfg, dens_in) * eff.to(h.dtype)
-        f = cm.maybe_sparse_matmul(hh, pf["wd"], cfg, dens_ffn)
+        f = _down_proj(hh, pf["wd"], cfg, dens_ffn)
     act = hh != 0
     scores = tile_activity(hh, tile)
     density = eff.float().mean(-1)

@@ -16,8 +16,10 @@ plan of both the up- and the down-projection.
 
 Parameters are stacked on a leading layer axis. The tile-list helpers
 (unit <-> tile masks, the fixed-capacity packing every gather kernel
-consumes) pack one group of tiles: the port has no mesh, so the
-reference's model-axis-local packing (``n_groups > 1``) raises.
+consumes) pack one group of tiles, or with ``n_groups > 1`` one group per
+model-axis shard (the reference's model-axis-local packing). A rank of
+the port's sharded engine holds only its own d_ff slice and packs it as
+one group of ceil(k / TP): that group's lists, in its local tile ids.
 """
 from __future__ import annotations
 
@@ -126,27 +128,55 @@ def tiles_to_units(tiles: torch.Tensor, tile: int) -> torch.Tensor:
     return tiles.repeat_interleave(tile, dim=-1)
 
 
+def _valid_first(mask: torch.Tensor) -> torch.Tensor:
+    """Indices ordering the last axis of a bool mask True first, each part
+    in ascending index (a stable sort: ``torch.topk`` promises no order
+    among equal scores, where the reference's ``lax.top_k`` keeps it)."""
+    return torch.argsort(mask.logical_not().to(torch.uint8), dim=-1,
+                         stable=True)
+
+
 def pack_tile_indices(tile_mask: torch.Tensor, k: int, n_groups: int = 1
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fixed-capacity packing (the reference's ``n_groups=1`` case; other
-    values raise: the port has no mesh to pack per shard for):
-    (T, nT) bool -> (idx (T, k') int32, nvalid (T,) int32), k' = min(k, nT).
+    """Fixed-capacity packing: (T, nT) bool -> (idx (T, k') int32, nvalid
+    (T,) int32), k' = min(k, nT) (n_groups rounds it up to a multiple).
 
     Active tiles come first in ascending tile id, then the pads, which
-    repeat the row's first entry. The reference gets that order from
-    ``lax.top_k`` being stable on {0, 1} scores; ``torch.topk`` is not
-    stable, so this uses a stable sort. Rows with more than k actives keep
-    their k lowest ids."""
-    if n_groups != 1:
-        raise NotImplementedError("model-axis-local tile packing (n_groups "
-                                  "> 1) is not ported: the port has no mesh")
+    repeat the row's first entry. Rows with more than k actives keep their
+    k lowest ids.
+
+    ``n_groups > 1`` packs model-axis-locally, as the reference does for a
+    d_ff split over n_groups shards: the tile axis is cut into n_groups
+    contiguous slices, each selecting (and truncating) its own
+    ceil(k / n_groups) from its slice. The groups are ascending ranges, so
+    the valid-first list is still globally ascending: at full capacity it
+    is the n_groups = 1 list."""
     T, nT = tile_mask.shape
     k = min(k, nT)
-    order = torch.argsort(tile_mask.logical_not().to(torch.uint8), dim=-1,
-                          stable=True)[:, :k]
-    nvalid = torch.clamp(tile_mask.sum(-1), max=k).to(torch.int32)
-    keep = torch.arange(k, device=tile_mask.device)[None, :] < nvalid[:, None]
-    idx = torch.where(keep, order, order[:, :1])
+    if n_groups <= 1:
+        order = _valid_first(tile_mask)[:, :k]
+        nvalid = torch.clamp(tile_mask.sum(-1), max=k).to(torch.int32)
+        keep = torch.arange(k, device=tile_mask.device)[None, :] < nvalid[:, None]
+        idx = torch.where(keep, order, order[:, :1])
+        return idx.to(torch.int32), nvalid
+    if nT % n_groups:
+        raise ValueError(f"n_tiles={nT} not divisible by "
+                         f"n_groups={n_groups} shards")
+    gsz = nT // n_groups
+    k_g = min(gsz, -(-k // n_groups))
+    mg = tile_mask.reshape(T, n_groups, gsz)
+    dev = tile_mask.device
+    idx = (_valid_first(mg)[..., :k_g]
+           + (torch.arange(n_groups, device=dev) * gsz)[None, :, None])
+    ng = torch.clamp(mg.sum(-1), max=k_g)  # (T, G)
+    valid = torch.arange(k_g, device=dev)[None, None, :] < ng[..., None]
+    kt = n_groups * k_g
+    # valid first across the groups, group-major: globally ascending
+    order = _valid_first(valid.reshape(T, kt))
+    idx = torch.gather(idx.reshape(T, kt), 1, order)
+    nvalid = ng.sum(-1).to(torch.int32)
+    keep = torch.arange(kt, device=dev)[None, :] < nvalid[:, None]
+    idx = torch.where(keep, idx, idx[:, :1])
     return idx.to(torch.int32), nvalid
 
 

@@ -3,9 +3,9 @@ continuous-batching engine — a copy of the reference's dataclass (same
 fields, defaults and ``validate()``), without its legacy-kwargs shim.
 
 ``validate()`` owns every rule decidable from the config alone; rules that
-need the model config or the device stay in the engine, which also raises
-NotImplementedError for the one field this port does not serve yet
-(``mesh``). ``obs`` takes a ``repro_torch.obs.EngineObs`` (None: the engine
+need the model config, the device or the mesh stay in the engine (``mesh``
+takes a ``repro_torch.launch.mesh.Mesh``; one with data > 1 raises
+NotImplementedError there). ``obs`` takes a ``repro_torch.obs.EngineObs`` (None: the engine
 makes an enabled one) and ``track_sparsity`` keeps a per-request
 ``AggregatedTracker``.
 """

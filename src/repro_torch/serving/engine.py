@@ -41,8 +41,25 @@ device: on CUDA the steps run the hand-written kernels (kernels/*.py) and
 plain path, or with ``fast_kernels=True`` the kernel path's structure with
 each wrapper's plain version. With an MoE config on the CPU,
 ``fast_kernels=True`` warns and serves the plain path, as the reference
-does; on CUDA its steps run the attention kernel. Not ported yet, and raising
-NotImplementedError: ``mesh=``.
+does; on CUDA its steps run the attention kernel.
+
+Tensor-parallel sharded serving (``EngineConfig(mesh=)``, a
+``repro_torch.launch.mesh.Mesh`` of shape (1, M) over M torch.distributed
+ranks, one engine a rank): the engine holds the rank's blocks of the
+target, draft and predictor params by the serve-mode rules
+(``sharding/rules.py``: attention heads, d_ff, MoE experts and the
+vocabulary split over "model"), its kv heads of the paged pools and its
+d_ff slice of the γ-masks, and runs every model call under
+``comm.serving(mesh)``, which puts the all-reduces where the split
+products meet. Each rank runs the same path as one device would — the
+kernels on the card, at the rank's shapes; the reference turns its kernels
+off under a mesh instead (GSPMD cannot partition them). Every rank runs
+the scheduler and the sampling head over the same all-gathered logits, so
+every rank picks the same tokens; once a step the ranks compare a checksum
+of them, and a mismatch raises. The FFN statistics are reduced over the
+ranks, so the metrics read as on one device, and
+``weight_io_bytes_per_step()`` is per device (1/``ffn_tp`` of the total).
+A mesh with data > 1 raises NotImplementedError (ROADMAP.md).
 
 Observability (``EngineConfig(obs=)``, an ``repro_torch.obs.EngineObs``;
 None makes an enabled one): every step is traced in five phases, as in
@@ -74,10 +91,13 @@ from repro_torch.models import common as cm
 from repro_torch.models import registry
 from repro_torch.models import serving_protocol as sp
 from repro_torch.obs import EngineObs
+from repro_torch.predictor import predictors as preds
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving import sampling as smp
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, RequestResult, Scheduler
+from repro_torch.sharding import comm
+from repro_torch.sharding import rules
 
 
 @dataclasses.dataclass
@@ -150,7 +170,10 @@ class ContinuousBatchingEngine:
     (``transformer.init_params`` or ``convert.params_from_jax``); config:
     the EngineConfig (field semantics as in the reference engine);
     device: "cuda" (default) or "cpu". With no CUDA available and no
-    ``device="cpu"``, construction raises."""
+    ``device="cpu"``, construction raises. With ``config.mesh`` the params
+    (and draft params) are the whole tree, on any device: the engine
+    copies the rank's blocks to ``device`` leaf by leaf and keeps no
+    reference to the tree."""
 
     def __init__(self, cfg: ModelConfig, params,
                  config: Optional[EngineConfig] = None, device="cuda"):
@@ -159,16 +182,40 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda" and config.fast_kernels is False:
             raise ValueError("fast_kernels=False on CUDA: on the card the "
                              "engine runs the hand-written kernels")
-        if config.mesh is not None:
-            raise NotImplementedError("mesh= (sharded serving) is not ported "
-                                      "to PyTorch yet (ROADMAP.md)")
+        mesh = config.mesh
+        if mesh is not None:
+            missing = {"data", "model"} - set(mesh.axis_names)
+            if missing:
+                raise ValueError("serving mesh needs ('data', 'model') "
+                                 f"axes; missing {sorted(missing)}")
+            if mesh.shape["data"] > 1:
+                raise NotImplementedError(
+                    "a serving mesh with data > 1 (the paged pool split "
+                    "over data shards) is not ported (ROADMAP.md)")
+            if torch.device(mesh.device) != self.device:
+                raise ValueError(f"the mesh's device {mesh.device} is not "
+                                 f"the engine's {self.device}")
+        self.mesh = mesh
+        self.tp = rules.tp_size(mesh)
+        # effective TP of the FFN weights: where d_ff (or, for MoE, the
+        # expert count) does not divide the model axis the rules replicate
+        # the FFN and every rank reads it whole
+        tp = max(1, self.tp)
+        if cfg.n_experts:
+            self.ffn_tp = tp if (cfg.n_experts % tp == 0
+                                 or cfg.d_ff % tp == 0) else 1
+        else:
+            self.ffn_tp = tp if cfg.d_ff and cfg.d_ff % tp == 0 else 1
         caps = registry.serving_caps(cfg)
         caps.require("paged_decode", cfg.family)
         if not cfg.d_ff:
             raise ValueError("continuous batching requires an FFN (d_ff > 0)")
         if config.prefill_chunk:
             caps.require("chunked_prefill", cfg.family)
-        self._require_on_device(params, "params")
+        if mesh is None:
+            self._require_on_device(params, "params")
+        else:
+            params = rules.shard_params(params, mesh, device=self.device)
         self.predictor = predictor = config.predictor
         self.predictor_telemetry = config.predictor_telemetry
         if predictor is not None:
@@ -177,7 +224,23 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"predictor geometry {predictor.n_tiles}x"
                     f"{predictor.tile} does not cover d_ff={cfg.d_ff}")
-            self._require_on_device(predictor.params, "predictor params")
+            if mesh is None:
+                self._require_on_device(predictor.params, "predictor params")
+            else:
+                # the probe's d_ff slice beside the FFN weights it shadows;
+                # never mutate the caller's Predictor (it may drive other
+                # engines)
+                self.predictor = predictor = dataclasses.replace(
+                    predictor, params=rules.shard_predictor_params(
+                        predictor.params, mesh, device=self.device))
+                n_tiles = cfg.d_ff // predictor.tile
+                if self.ffn_tp > 1 and n_tiles % self.tp:
+                    warnings.warn(
+                        f"predictor tile count {n_tiles} is not divisible "
+                        f"by the {self.tp}-way model axis: packed tile lists "
+                        "fall back to GLOBAL packing, gathered over the "
+                        "ranks (correct, but the shard-local weight-I/O "
+                        "property is lost)", stacklevel=2)
         self.config = config
         self.cfg = cfg
         self.params = params
@@ -195,8 +258,6 @@ class ContinuousBatchingEngine:
         self.warm_masks = config.warm_masks
         self.prefill_budget = config.prefill_budget
         self.track = config.track_sparsity
-        # one device: no mesh, so no tensor parallelism (format_statusz)
-        self.tp = 1
         self.obs = config.obs if config.obs is not None else EngineObs()
         n_blocks = config.resolved_n_blocks
         self.scheduler = Scheduler(
@@ -205,8 +266,13 @@ class ContinuousBatchingEngine:
             obs=self.obs,
             preemption=config.preemption and config.prefill_chunk > 0,
             aging_steps=config.aging_steps)
-        self.pages = self.fam.init_paged_cache(cfg, n_blocks, config.block_size,
-                                               device=self.device)
+        with comm.serving(mesh):
+            self.pages = self.fam.init_paged_cache(
+                cfg, n_blocks, config.block_size, device=self.device)
+            self._lay = cm.shard_layout(cfg)
+            self.masks = torch.zeros(
+                (cfg.n_layers, config.n_slots, cm.local_d_ff(cfg)),
+                dtype=torch.bool, device=self.device)
         self.base_seed = config.base_seed
         self.spec = config.draft_cfg is not None
         self.gamma = config.gamma
@@ -216,16 +282,19 @@ class ContinuousBatchingEngine:
                 raise ValueError("draft and target must share a vocabulary")
             caps.require("spec_verify", cfg.family)
             registry.serving_caps(dcfg).require("spec_draft", dcfg.family)
-            self._require_on_device(config.draft_params, "draft params")
+            dparams = config.draft_params
+            if mesh is None:
+                self._require_on_device(dparams, "draft params")
+            else:
+                dparams = rules.shard_params(dparams, mesh, device=self.device)
             self.draft_cfg = dcfg
-            self.draft_params = config.draft_params
+            self.draft_params = dparams
             self.dfam = registry.get_family(dcfg)
             # the draft shares the slots' block TABLES but has its own pool
             # (its layer count / head geometry differ from the target's)
-            self.draft_pages = self.dfam.init_paged_cache(
-                dcfg, n_blocks, config.block_size, device=self.device)
-        self.masks = torch.zeros((cfg.n_layers, config.n_slots, cfg.d_ff),
-                                 dtype=torch.bool, device=self.device)
+            with comm.serving(mesh):
+                self.draft_pages = self.dfam.init_paged_cache(
+                    dcfg, n_blocks, config.block_size, device=self.device)
         self.trackers: Dict[int, AggregatedTracker] = {}
         self.t = 0
         self._uid = 0
@@ -242,6 +311,7 @@ class ContinuousBatchingEngine:
         # the arrays it already holds, for obs.step_end (no extra fetch)
         self._step_density: Optional[float] = None
         self._step_tiles: Optional[float] = None
+        self._step_sum = 0  # the step's sampled-token checksum (mesh)
         self.obs.set_engine_info(
             arch=cfg.name,
             mode=("spec" if self.spec
@@ -343,7 +413,9 @@ class ContinuousBatchingEngine:
                 self.draft_params, batch, self.draft_cfg, self.draft_pages,
                 blocks, self.block_size, true_len=s)
         nxt, lp = one.head(last, self.cfg.vocab_size)
-        self.scheduler.seed(slot, int(nxt[0]), float(lp[0]), step=self.t)
+        tok = int(nxt[0])
+        self._sampled([tok])
+        self.scheduler.seed(slot, tok, float(lp[0]), step=self.t)
 
     def _prefill_one_chunk(self) -> None:
         sched = self.scheduler
@@ -374,7 +446,7 @@ class ContinuousBatchingEngine:
             dcfg = self.draft_cfg
             _, self.draft_pages, _, _ = self.dfam.model_verify_window_paged(
                 self.draft_params, self.draft_pages, jtable, jtok, jpos, jclen,
-                dcfg, torch.zeros((dcfg.n_layers, B, dcfg.d_ff),
+                dcfg, torch.zeros((dcfg.n_layers, B, cm.local_d_ff(dcfg)),
                                   dtype=torch.bool, device=self.device),
                 torch.ones((B,), dtype=torch.bool, device=self.device),
                 self.block_size, fast_kernels=self.fast_kernels)
@@ -389,6 +461,7 @@ class ContinuousBatchingEngine:
         lp_bc = np.zeros((B, C), np.float32)
         nxt_bc[np.arange(B), last] = nxt.cpu().numpy()
         lp_bc[np.arange(B), last] = lp.cpu().numpy()
+        self._sampled(nxt_bc)
         sched.record_prefill(nxt_bc, lp_bc, clen, warm=self.warm_masks,
                              step=self.t)
 
@@ -405,11 +478,13 @@ class ContinuousBatchingEngine:
                     self.masks, self._tensor(refresh), self.block_size,
                     fast_kernels=self.fast_kernels)
             nxt, lp = smpl.head(logits, self.cfg.vocab_size)
-            stats = torch.stack([lp, density.mean(0), _tile_activity(scores)])
+            ffn, act = self._ffn_stats(density.mean(0), scores, act)
+            stats = torch.stack([lp, *ffn])
         with st.phase("host_sync"):
             lp_np, dens_np, tiles_np = stats.cpu().numpy()
             nxt_np = nxt.cpu().numpy()
         with st.phase("sample"):
+            self._sampled(nxt_np)
             self._account(active, dens_np, tiles_np, act)
             sched.record(nxt_np, lp_np)
 
@@ -431,13 +506,16 @@ class ContinuousBatchingEngine:
                     pred.kind, pred.tile, pred.k_tiles, self.block_size,
                     self.predictor_telemetry, fast_kernels=self.fast_kernels)
             nxt, lp = smpl.head(logits, self.cfg.vocab_size)
-            stats = torch.stack([lp, density.mean(0), _tile_activity(scores)])
-            counts = torch.stack([n_act.sum(0), n_miss.sum(0)])
+            (dens, tiles, n_act, n_miss), act = self._ffn_stats(
+                density.mean(0), scores, act, n_act.sum(0), n_miss.sum(0))
+            stats = torch.stack([lp, dens, tiles])
+            counts = torch.stack([n_act, n_miss]).to(torch.int64)
         with st.phase("host_sync"):
             lp_np, dens_np, tiles_np = stats.cpu().numpy()
             na, nm = counts.cpu().numpy()
             nxt_np = nxt.cpu().numpy()
         with st.phase("sample"):
+            self._sampled(nxt_np)
             self._account(active, dens_np, tiles_np, act)
             step_act = int(sum(na[i] for i in active))
             step_miss = int(sum(nm[i] for i in active))
@@ -482,13 +560,52 @@ class ContinuousBatchingEngine:
                     self.cfg, self.masks, refresh, self.block_size,
                     fast_kernels=self.fast_kernels)
             target, lp = smpl.head(logits, vocab)
-            stats = torch.stack([udens.mean(0), _tile_activity(scores)])
+            ffn, act = self._ffn_stats(udens.mean(0), scores, act)
+            stats = torch.stack(ffn)
         with st.phase("host_sync"):
             dens_np, tiles_np = stats.cpu().numpy()
             target_np, lp_np = target.cpu().numpy(), lp.cpu().numpy()
         with st.phase("sample"):
+            self._sampled(np.concatenate([window.reshape(-1),
+                                          target_np.reshape(-1)]))
             self._account(active, dens_np, tiles_np, act)
             sched.record_spec(window, target_np, lp_np, wlen)
+
+    def _ffn_stats(self, density, scores, act, *counts):
+        """The step's FFN statistics as on one device: ([density (B,) mean
+        over layers, tile activity (B,), *counts (B,)], act (L, B, F)).
+        Where a mesh splits d_ff each rank measured its own units: the
+        density means and, when the rank's slice is whole gather tiles, the
+        tile-activity means are averaged over the ranks (equal slices) and
+        the counts summed, in one all-reduce; otherwise the tile activity is
+        read off the gathered activity. ``act`` comes back whole only when
+        it was gathered: for the tile activity or, with ``track_sparsity``,
+        for the trackers."""
+        lay = self._lay
+        if lay is None or not lay.ffn_split:
+            return [density, _tile_activity(scores), *counts], act
+        F, (f0, _) = self.cfg.d_ff, lay.ffn
+        tile = cm.ffn_gather_tile(self.cfg, F)
+        whole_tiles = cm.ffn_gather_tile(self.cfg) == tile
+        if self.track or not whole_tiles:
+            act = comm.gather_last(act.to(torch.uint8), F, f0) > 0
+        parts = [density] + ([_tile_activity(scores)] if whole_tiles else [])
+        summed = comm.all_reduce_sum(torch.stack(
+            parts + [c.to(torch.float32) for c in counts]))
+        density = summed[0] / lay.tp
+        if whole_tiles:
+            tiles = summed[1] / lay.tp
+        else:
+            L, B = act.shape[:2]
+            tiles = _tile_activity(preds.units_to_tiles(
+                act.reshape(L * B, F), tile).reshape(L, B, -1).float())
+        return [density, tiles, *summed[len(parts):]], act
+
+    def _sampled(self, tokens) -> None:
+        """Fold a step's sampled tokens into its checksum (compared over the
+        ranks at the end of the step)."""
+        if self.mesh is not None:
+            self._step_sum += comm.token_checksum(tokens)
 
     def _account(self, active, dens_np, tiles_np, act) -> None:
         """Per-(active slot, step) weight-read fraction, tile activity and,
@@ -518,16 +635,20 @@ class ContinuousBatchingEngine:
         thread stepping the engine (serving/api.py) is covered too."""
         st = self.obs.step_start()
         self._step_density = self._step_tiles = None
-        prefilled = self._admit(st)
-        active = self.scheduler.active_indices()
-        if active:
-            if self.spec:
-                self._advance_spec(active, st)
-            elif self.predictor is not None:
-                self._advance_pred(active, st)
-            else:
-                self._advance(active, st)
-        elif not prefilled:
+        self._step_sum = 0
+        with comm.serving(self.mesh):
+            prefilled = self._admit(st)
+            active = self.scheduler.active_indices()
+            if active:
+                if self.spec:
+                    self._advance_spec(active, st)
+                elif self.predictor is not None:
+                    self._advance_pred(active, st)
+                else:
+                    self._advance(active, st)
+            if self.mesh is not None and (active or prefilled):
+                comm.check_same(self._step_sum, self.mesh)
+        if not active and not prefilled:
             self._obs_step_end(st, False, active)
             return False
         self.t += 1
@@ -548,7 +669,7 @@ class ContinuousBatchingEngine:
             pool_total=sched.allocator.n_blocks - 1,
             density=dens, tiles=self._step_tiles,
             ffn_bytes=(None if dens is None
-                       else dens * self._mode_ffn_bytes() / self.tp))
+                       else dens * self._mode_ffn_bytes() / self.ffn_tp))
 
     def drain(self, max_steps: int = 1_000_000) -> Dict[int, RequestResult]:
         """Drive step() until every submitted request has finished; raises
@@ -612,11 +733,18 @@ class ContinuousBatchingEngine:
             return cfg.n_layers * n_all * proj
         return cfg.n_layers * proj
 
-    def weight_io_bytes_per_step(self) -> float:
+    def weight_io_bytes_per_step(self, per_device: bool = True) -> float:
         """Mean FFN weight bytes actually read per (active slot, step) over
-        the mode's skippable projections (``_mode_ffn_bytes``)."""
+        the mode's skippable projections (``_mode_ffn_bytes``). With a mesh
+        the default is the per-device figure, the total / ``ffn_tp``: each
+        rank reads its d_ff slice (or its experts) of the tiles the
+        sparsity machinery selects. ``ffn_tp`` is 1 where the rules
+        replicated the FFN, which every rank then reads whole.
+        per_device=False gives the total over the ranks (the one-device
+        engine's figure at equal density)."""
         dens = 1.0 if not self._dens_n else self._dens_sum / self._dens_n
-        return dens * self._mode_ffn_bytes()
+        total = dens * self._mode_ffn_bytes()
+        return total / self.ffn_tp if per_device else total
 
     def predictor_density(self) -> Optional[float]:
         """Mean fraction of FFN weight tiles gathered per (active slot,

@@ -1,0 +1,268 @@
+"""Tensor-parallel collectives of the port's sharded serving, and the ranks
+that run them.
+
+Ranks: ``spawn(fn, world, timeout=...)`` starts ``world`` processes, each
+joining one ``torch.distributed`` world (``init_ranks``) through a file
+store in a fresh temporary directory, so concurrent groups never meet, and
+calls ``fn(rank, world, *args)`` there. The whole group runs under one
+timeout: a collective that one rank never reaches would block the others
+forever, so on the timeout, or when any rank fails, every rank is killed
+and ``spawn`` raises.
+
+Backend rule: NCCL when every rank has a card of its own, gloo when ranks
+share a card (NCCL refuses two ranks on one device) or run on the CPU. It
+picks the transport by the cards present; no compute leaves the device
+(gloo stages a CUDA tensor's reduction through host memory).
+
+Collectives are all ``all_reduce``, over the model axis of the active mesh
+(``serving(mesh)``, set by the engine around its model calls):
+
+* ``all_reduce_sum``: partial products summed in f32 — the caller casts
+  once after the sum, as a single-device product rounds once;
+* ``gather_last``: a rank's slice of the last axis placed in a zero
+  buffer of the full width and summed, exact (every position is one
+  rank's value plus zeros) — the vocabulary's logits, the router's, and
+  the FFN activity where it is read whole;
+* ``any_reduce``: a boolean OR;
+* ``check_same``: every rank holds the same host value (a checksum of the
+  sampled tokens, once a step); a mismatch raises.
+
+With no active mesh, or a model axis of one, each is the identity.
+``STATS`` counts the all-reduces and the host time spent in them.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import queue as queue_mod
+import shutil
+import tempfile
+import threading
+import time
+import traceback
+from typing import Callable
+
+import numpy as np
+import torch
+
+_LOCAL = threading.local()
+
+
+class _Stats:
+    """All-reduces issued since ``reset()`` and the host seconds spent in
+    them (for a CUDA tensor under gloo this includes waiting for the card
+    to reach the call)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.count = 0
+        self.seconds = 0.0
+
+
+STATS = _Stats()
+
+
+def backend_for(device, world: int) -> str:
+    """"nccl" when ``device`` is a card and every one of the ``world`` ranks
+    has a card of its own; "gloo" otherwise (ranks sharing a card, or the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int) -> torch.device:
+    """The card of ``rank``: cuda:(rank mod the cards present). Raises when
+    CUDA is absent — the port never runs on the CPU unasked."""
+    from repro_torch.models.common import resolve_device
+    resolve_device("cuda")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def init_ranks(rank: int, world: int, init_method: str, device,
+               timeout_s: float = 300.0) -> str:
+    """Join the ``world``-rank torch.distributed world as ``rank`` through
+    ``init_method`` (a ``file://`` store or ``tcp://localhost:<port>``),
+    with the backend of ``backend_for(device, world)``; a collective that
+    waits longer than ``timeout_s`` fails. Returns the backend."""
+    import torch.distributed as dist
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = backend_for(device, world)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            **kw)
+    return backend
+
+
+def _child(fn, rank, world, init_method, device, timeout_s, args, results):
+    import torch.distributed as dist
+    try:
+        dev = torch.device(device) if device != "cuda" else rank_device(rank)
+        if dev.type == "cpu":  # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        init_ranks(rank, world, init_method, dev, timeout_s)
+        out = fn(rank, world, *args)
+        results.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, *, timeout: float, args=(),
+          device="cuda") -> list:
+    """Run ``fn(rank, world, *args)`` on ``world`` fresh processes joined in
+    one torch.distributed world; ``device`` "cuda" puts rank r on
+    ``rank_device(r)``, "cpu" on the CPU. ``fn`` and ``args`` must pickle
+    (``fn`` a module-level function). Returns the ranks' results in rank
+    order. Raises when a rank fails (with its traceback) or when the group
+    has not finished within ``timeout`` seconds; either way every rank
+    still running is killed first."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store_dir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    init_method = "file://" + os.path.join(store_dir, "store")
+    procs = [ctx.Process(target=_child, daemon=True,
+                         args=(fn, r, world, init_method, device, timeout,
+                               args, results))
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    got, error = {}, None
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world and error is None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                error = (f"rank group of {world} timed out after {timeout} s "
+                         f"({sorted(got)} finished)")
+                break
+            try:
+                rank, ok, out = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    error = f"ranks {dead} died without a result"
+                continue
+            if ok:
+                got[rank] = out
+            else:
+                error = f"rank {rank} failed:\n{out}"
+    except BaseException as e:
+        error = error or f"starting the rank group failed: {e!r}"
+        raise
+    finally:
+        for p in (p for p in procs if p.pid is not None):
+            if p.is_alive() and not error:
+                p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+        results.close()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if error:
+        raise RuntimeError(error)
+    return [got[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the active mesh
+
+
+@contextlib.contextmanager
+def serving(mesh):
+    """Run the block's model calls split over ``mesh``'s model axis (None,
+    or a model axis of one: unsplit). Per thread; the previous mesh comes
+    back on exit, so a sharded engine never leaks its mesh into another
+    engine's steps."""
+    from repro_torch.sharding.rules import tp_size
+    prev = getattr(_LOCAL, "mesh", None)
+    _LOCAL.mesh = mesh if tp_size(mesh) > 1 else None
+    try:
+        yield
+    finally:
+        _LOCAL.mesh = prev
+
+
+def active():
+    """The mesh the current model calls split over, or None."""
+    return getattr(_LOCAL, "mesh", None)
+
+
+def _all_reduce(t: torch.Tensor, mesh, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=mesh.group)
+    STATS.seconds += time.perf_counter() - t0
+    STATS.count += 1
+    return t
+
+
+def all_reduce_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum over the model axis of each rank's partial ``x``, in f32
+    (a new tensor; ``x`` is not changed). Without an active mesh: x in
+    f32."""
+    mesh = mesh or active()
+    y = x.to(torch.float32, copy=True)
+    return y if mesh is None else _all_reduce(y, mesh)
+
+
+def any_reduce(mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The OR over the model axis of each rank's boolean ``mask``."""
+    mesh = mesh or active()
+    if mesh is None:
+        return mask
+    return _all_reduce(mask.to(torch.uint8), mesh) > 0
+
+
+def gather_last(x: torch.Tensor, total: int, offset: int,
+                mesh=None) -> torch.Tensor:
+    """Every rank's slice of the last axis (this rank's at ``offset``) put
+    together into the full width ``total``, in x's dtype: a zero-padded f32
+    sum, exact."""
+    mesh = mesh or active()
+    if mesh is None:
+        return x
+    buf = x.new_zeros(x.shape[:-1] + (total,), dtype=torch.float32)
+    buf[..., offset:offset + x.shape[-1]] = x
+    return _all_reduce(buf, mesh).to(x.dtype)
+
+
+def token_checksum(tokens) -> int:
+    """A position-weighted checksum of sampled token ids (host values)."""
+    t = np.asarray(tokens, np.int64).reshape(-1)
+    w = np.arange(1, t.size + 1, dtype=np.int64)
+    return int((t * w).sum() % (2 ** 61 - 1))
+
+
+def check_same(value: int, mesh, what: str = "sampled tokens") -> None:
+    """Raise unless every rank of the model axis passed the same ``value``
+    (one all-reduce of (value, -value) under MAX)."""
+    import torch.distributed as dist
+    if mesh is None or mesh.shape["model"] == 1:
+        return
+    t = torch.tensor([value, -value], dtype=torch.int64, device=mesh.device)
+    _all_reduce(t, mesh, op=dist.ReduceOp.MAX)
+    hi, lo = int(t[0]), -int(t[1])
+    if hi != value or lo != value:
+        raise RuntimeError(f"ranks disagree on the {what}: checksums range "
+                           f"over [{lo}, {hi}], this rank {value}")
+
+
+def barrier(mesh=None) -> None:
+    """Wait for every rank of the model axis (a one-element all-reduce, so
+    it works on any backend and device)."""
+    mesh = mesh or active()
+    if mesh is not None and mesh.shape["model"] > 1:
+        _all_reduce(torch.zeros(1, device=mesh.device), mesh)

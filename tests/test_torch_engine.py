@@ -18,6 +18,7 @@ from repro.serving import ContinuousBatchingEngine as JEngine
 from repro.serving.config import EngineConfig as JConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
+from repro_torch.launch.mesh import Mesh
 from repro_torch.obs import EngineObs
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,
                                  SamplingParams)
@@ -191,10 +192,10 @@ def test_preempt_resume_streams_equal_reference(name, scenario):
 def test_unported_modes_raise():
     """Sampled requests and speculative mode are served; observability
     and sparsity tracking are accepted (the engine keeps the hub it was
-    given, and a tracker per request); sharded serving still raises
-    NotImplementedError; predictor with a draft raises the reference's
-    ValueError; a family with no paged serving raises the capability
-    error."""
+    given, and a tracker per request); sharded serving on a data axis
+    above 1 raises NotImplementedError; predictor with a draft raises the
+    reference's ValueError; a family with no paged serving raises the
+    capability error."""
     _, tcfg, _, tp = _params("tiny-opt")
     eng = ContinuousBatchingEngine(
         tcfg, tp, EngineConfig(draft_cfg=tcfg, draft_params=tp, gamma=2,
@@ -205,8 +206,10 @@ def test_unported_modes_raise():
     assert len(res[uids[0]].tokens) == 4
     assert res[uids[0]].accept_rate == 1.0  # the target drafts for itself
     assert res[uids[1]].finish_reason in ("length", "stop")
+    data_mesh = Mesh(shape={"data": 2, "model": 1},
+                     coords={"data": 0, "model": 0}, device=torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingEngine(tcfg, tp, EngineConfig(mesh=object()),
+        ContinuousBatchingEngine(tcfg, tp, EngineConfig(mesh=data_mesh),
                                  device="cpu")
     hub = EngineObs.disabled()
     eng = ContinuousBatchingEngine(

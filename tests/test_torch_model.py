@@ -209,4 +209,32 @@ def test_paged_helpers_match_reference():
            jcm.paged_gather(want[1], jnp.asarray(table)))
     assert tcm.ffn_gather_tile(get_config("tiny")) == jcm.ffn_gather_tile(
         jget_config("tiny"))
+
+
+def test_paged_write_duplicates_match_reference():
+    """Idle slots (their table all scratch) and disabled tokens write the
+    same scratch positions: each position ends with the last such write
+    in (slot, token) order, as the reference's scatter leaves it, and the
+    live slots' positions with their own values."""
+    rng = np.random.RandomState(4)
+    pages = rng.randn(2, 6, 2, BS, 4).astype(np.float32)
+    table = np.array([[2, 5, 0], [0, 0, 0], [1, 3, 4], [0, 0, 0]], np.int32)
+    pos = np.array([[9, 10], [0, 1], [3, 4], [1, 0]], np.int32)
+    val = rng.randn(4, 2, 2, 4).astype(np.float32)
+    enable = np.array([[True, False], [True, True], [False, True],
+                       [True, True]])
+    want = jcm.paged_write_window(jnp.asarray(pages), 0, jnp.asarray(table),
+                                  jnp.asarray(pos), jnp.asarray(val), BS,
+                                  jnp.asarray(enable))
+    got = tcm.paged_write_window(torch.as_tensor(pages.copy()), 0,
+                                 torch.as_tensor(table), torch.as_tensor(pos),
+                                 torch.as_tensor(val), BS,
+                                 torch.as_tensor(enable))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    serial = pages.copy()
+    for b in range(4):
+        for w in range(2):
+            blk = table[b, pos[b, w] // BS] if enable[b, w] else 0
+            serial[0, blk, :, pos[b, w] % BS] = val[b, w]
+    np.testing.assert_array_equal(got.numpy(), serial)
     assert tcm.pick_group_tile(11008, 1) == jcm.pick_group_tile(11008, 1)

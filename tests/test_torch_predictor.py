@@ -181,9 +181,9 @@ def test_calibrate_from_config_and_sign_predictor():
     assert sp.params["w"] is tp["layers"]["ffn"]["wg"]  # no copy at f32
     with pytest.raises(ValueError, match="firing threshold"):
         tpred.sign_predictor(tp, get_config("tiny"))
-    with pytest.raises(NotImplementedError, match="n_groups"):
+    with pytest.raises(ValueError, match="n_groups"):
         tpred.pack_tile_indices(torch.ones(2, 8, dtype=torch.bool), 8,
-                                n_groups=2)
+                                n_groups=3)
 
 
 # ---------------------------------------------------------------------------
