@@ -147,7 +147,8 @@ device and build always run):
             CPU on the same numpy params and batches (loss, grad_norm, lr,
             step_ok; params within 2 lr N, median 1e-6), and a fourth card
             step under set_sync_debug_mode("error"). Full width: llama-7b
-            relufied to stage 2, 4 of its 32 layers (1.08 B params), f32
+            relufied to stage 2, 2 of its 32 layers (0.67 B params; cut
+            from 4 for the whole script's time), f32
             masters and bf16 compute, 8 x 1024 tokens of the synthetic
             corpus (vocab 32000), 12 Trainer steps with async checkpoints
             every 6: finite losses, none skipped, the last 3 below the
@@ -165,11 +166,13 @@ device and build always run):
             chunked, spec with a 1-layer draft, sign predictor at tile 1,
             tiny-moe whole and chunked, tiny-relu at static capacities
             0.5 / 0.75, which must launch kernel 5 on every rank) at 2
-            and 4 ranks against the one-card engine and the CPU: tokens
+            ranks, and tiny-relu plain at 4 (its 2 kv heads do not divide
+            the model axis; the other cases at 4 are the CPU tests') against the
+            one-card engine and the CPU: tokens
             exactly, logprobs within 1e-5, metrics within 1e-9,
             per-device weight bytes the one-card figure / ffn_tp and
             their total over the ranks the one-card figure. Full width,
-            bf16: OPT-6.7B (32 layers), Mixtral-8x22B (4 layers) and
+            bf16: OPT-6.7B (8 layers), Mixtral-8x22B (4 layers) and
             OPT-6.7B (8 layers) at static capacities 0.25 / 0.75 (kernel
             5 must launch on every rank) on 2 ranks, the serve
             phase's 8 greedy requests: the ranks' streams identical, the
@@ -179,6 +182,41 @@ device and build always run):
             peak GiB, modeled per-device FFN bytes and all-reduces a
             step (count and host ms); kernels 1-3 against their plain
             versions at the rank's shapes on its layer 0.
+10. data    the data axis, ranks sharing the card over gloo. Kernel 2's
+            partial mode (each data row's pages of a split pool, the
+            partial softmax (acc, m, l) instead of o) and its fold: bf16
+            at OPT-6.7B decode (8 slots, 32 kv heads x 128, 1536 to 2048
+            tokens, the pool's blocks cut in two) and at the full-width
+            runs' own shapes (8 slots over 130 blocks: Mixtral decode,
+            split into S > 1 page runs, Mixtral and OPT-6.7B 16-token
+            chunks), f32 at the parity
+            shapes; each half's partials against the plain version, the
+            fold of the two against the whole-pool kernel call; timed per
+            call and on the card against the bound, the plain version and
+            SDPA over the half's keys. f32 parity on (2, 1) and (2, 2)
+            meshes (2 and 4 ranks): tiny-relu plain, chunked, static 0.5 /
+            0.75, speculative, sign predictor, and tiny-moe at capacity
+            1.0 with routing groups of 3 (it drops tokens; a decode
+            group spans both rows), 4 slots and 26 pool blocks: streams,
+            logprobs and metrics equal the one-device CPU engine's (the
+            weight bytes a step the one-card engine's / ffn_tp: their
+            scope follows the path), every rank holds 13 blocks and
+            launches the partial mode. Full
+            width at (2, 1), bf16: OPT-6.7B (32 layers) and Mixtral-8x22B
+            (4 layers), the serve phase's 8 greedy requests, 130 pool
+            blocks: the first prefill's logits within TOL_SHARD_LOGITS
+            of one card's, argmax equal; one decode step of the 8 slots
+            over pages in both halves of the pool (the partial mode, the
+            fold and the gathers), each rank's slots' logits within
+            TOL_SHARD_LOGITS of one card's; per rank step ms, tokens/s, peak GiB, the pool blocks it holds
+            (65), collectives a step by axis with their host ms, launches.
+            DDP: llama-7b relufied to stage 2, 2 of 32 layers, 8 x 1024
+            tokens a step cut 4 x 1024 a rank, 4 steps uncompressed (step
+            1's loss and grad norm within TOL_DDP of one card's
+            make_train_step over the same batch in 2 microbatches, the
+            same function), then 4 with int8 error feedback (finite,
+            falling losses); step ms, collective ms, peak GiB and the
+            bytes a rank puts on the wire a step.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -208,7 +246,7 @@ TOL_F32 = 1e-5
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
 PHASES = ("kernels", "parity", "api", "serve", "families", "train",
-          "sharded")  # device and build always run
+          "sharded", "data")  # device and build always run
 
 
 def log(msg: str) -> None:
@@ -1172,7 +1210,7 @@ def dense_expert_chain(pm, x, cfg):
     from repro_torch.models import moe
 
     t = x.shape[0]
-    _, dispatch, _, (_, _, cap), (topi, topv) = moe._route(pm, x, cfg)
+    _, dispatch, _, (_, _, cap), (topi, topv), _ = moe._route(pm, x, cfg)
     topi, topv = topi.reshape(t, -1), topv.reshape(t, -1)
     kept = dispatch.reshape(t, cfg.n_experts, cap).any(-1).gather(1, topi)
     act_fn = acts.get(cfg.activation, shift=cfg.sparsity.shift)
@@ -1252,7 +1290,7 @@ def expert_kernel_rows(dev, rng, cfg=None) -> dict:
     timed = {"expert_up_matmul": {}, "expert_down_matmul": {}}
     for T in (8, 128):
         x = t(rng.randn(T, d), torch.bfloat16)
-        _, _, _, _, (topi, _) = moe._route(pm, x, cfg)
+        _, _, _, _, (topi, _), _ = moe._route(pm, x, cfg)
         idx, nv = ksm.expert_tile_lists(topi.reshape(T, -1), tpe)
         K = idx.shape[1]
         errs = {}
@@ -2892,7 +2930,7 @@ def site_line(sp: dict) -> str:
 
 def train_full_width(dev, cfg=None, dc=None, steps: int = 12,
                      ckpt_every: int = 6) -> None:
-    """llama-7b relufied to stage 2 at 4 of its 32 layers (d 4096, 32
+    """llama-7b relufied to stage 2 at 2 of its 32 layers (d 4096, 32
     heads x 128, d_ff 11008, vocab 32000 padded to 32768, untied): f32
     masters, bf16 compute, ``steps`` steps of the Trainer with async
     checkpoints every ``ckpt_every`` steps. Checks: finite losses, no step
@@ -2917,8 +2955,9 @@ def train_full_width(dev, cfg=None, dc=None, steps: int = 12,
     from repro_torch.train.loop import Trainer
     from repro_torch.tree import flatten
 
+    # 2 layers: the checkpoints' I/O is most of the phase's time
     cfg = cfg or rf.relufy_stage2(get_config("llama-7b")).replace(
-        n_layers=4, compute_dtype="bfloat16")
+        n_layers=2, compute_dtype="bfloat16")
     dc = dc or DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
                           batch_size=8)
     tc = TrainConfig(num_microbatches=2, remat_policy="minimal",
@@ -3396,7 +3435,13 @@ SHARD_CASES = (("tiny-relu", "plain", 0), ("tiny-relu", "plain", 4),
                ("tiny-relu", "predictor", 0), ("tiny-opt", "predictor", 0),
                ("tiny-moe", "plain", 0), ("tiny-moe", "plain", 4),
                ("tiny-relu", "static", 0))
-SHARD_WORLDS = (2, 4)
+# (world, cases): TP = 2 over every case; TP = 4 over tiny-relu plain
+# alone, the card's one case whose kv heads (2) do not divide the model
+# axis (wk / wv row-parallel, the partial K/V all-reduced, kernel 2 on a
+# kv-head range). The CPU tests hold every case at TP = 4 and 8 against
+# the reference; the other TP = 4 cases (44 s of the card's time) gave
+# their time to the data phase
+SHARD_WORLDS = ((2, SHARD_CASES), (4, (("tiny-relu", "plain", 0),)))
 # the first prefill's last-position logits, TP = 2 against one card, bf16:
 # max |diff| over max |single-device logit| (PERF.md states it before the
 # run that tests it)
@@ -3413,6 +3458,9 @@ def kernel_counters() -> dict:
     from repro_torch.kernels import sparse_matmul as ksm
     return {"fused_sparse_ffn": kfd.fused_sparse_ffn,
             "paged_window_attention": kpa.paged_window_attention,
+            "paged_window_attention_partial":
+                kpa.paged_window_attention_partial,
+            "paged_attention_fold": kpa.fold_partials,
             "sparse_matmul_tokens": ksm.sparse_matmul_tokens,
             "sparse_up_matmul": ksm.sparse_up_matmul,
             "fused_up_relu": kff.fused_up_relu,
@@ -3483,17 +3531,18 @@ def rank_mesh(world: int, device_type: str):
                           device=None if device_type == "cuda" else "cpu")
 
 
-def sharded_parity_rank(rank: int, world: int, device_type: str) -> dict:
-    """One rank of the f32 parity group: every case on a (1, world) mesh."""
+def sharded_parity_rank(rank: int, world: int, device_type: str,
+                        cases) -> dict:
+    """One rank of the f32 parity group: ``cases`` on a (1, world) mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = rank_mesh(world, device_type)
-    return {case: shard_streams(case, mesh.device, mesh)
-            for case in SHARD_CASES}
+    return {case: shard_streams(case, mesh.device, mesh) for case in cases}
 
 
 def sharded_parity(dev) -> None:
-    """The f32 cases at (1, 2) and (1, 4) ranks on the card against the
-    single-device card engine and the CPU engine: tokens exactly, logprobs
+    """The f32 cases of SHARD_WORLDS on (1, world) ranks on the card
+    against the single-device card engine and the CPU engine: tokens
+    exactly, logprobs
     within 1e-5, the metrics within 1e-9 (weight bytes per device = the
     single-device figure / ffn_tp, the total over the ranks its figure),
     speculative acceptance and predictor misses equal, on every rank; the
@@ -3506,13 +3555,13 @@ def sharded_parity(dev) -> None:
         same_streams(f"{case} card vs CPU", (one["tokens"], one["logprobs"]),
                      (cpu["tokens"], cpu["logprobs"]))
         want[case] = one
-    for world in SHARD_WORLDS:
+    for world, cases in SHARD_WORLDS:
         t0 = time.perf_counter()
         ranks = comm.spawn(sharded_parity_rank, world, timeout=420,
-                           args=(dev.type,), device=dev.type)
+                           args=(dev.type, cases), device=dev.type)
         for rank, got in enumerate(ranks):
-            for case, w in want.items():
-                g = got[case]
+            for case in cases:
+                g, w = got[case], want[case]
                 what = f"{case} TP={world} rank {rank}"
                 d = same_streams(what, (g["tokens"], g["logprobs"]),
                                  (w["tokens"], w["logprobs"]))
@@ -3531,7 +3580,7 @@ def sharded_parity(dev) -> None:
                 if (g["accepted"], g["misses"]) != (w["accepted"],
                                                     w["misses"]):
                     fail(f"{what}: acceptance / misses differ")
-        log(f"  ok sharded f32 parity TP={world}: {len(SHARD_CASES)} cases x "
+        log(f"  ok sharded f32 parity TP={world}: {len(cases)} cases x "
             f"{world} ranks equal the one-card engine and the CPU (last max"
             f"|dlogprob| {d:.2e}); {time.perf_counter() - t0:.1f} s")
 
@@ -3547,11 +3596,51 @@ def first_prefill_logits(eng, cfg, prompt) -> torch.Tensor:
     toks = np.zeros((1, nb * bs), np.int64)
     toks[0, :s] = prompt
     blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=eng.device)
-    with torch.inference_mode(), comm.serving(eng.mesh):
+    data = eng.data.whole_batch() if eng.data is not None else None
+    with torch.inference_mode(), comm.serving(eng.mesh, data):
         last, _ = eng.fam.model_prefill_paged(
             eng.params, {"tokens": torch.as_tensor(toks, device=eng.device)},
             cfg, eng.pages, blocks, bs, true_len=s)
     return last[0, :cfg.vocab_size].float().cpu()
+
+
+def first_decode_logits(eng, cfg, prompts):
+    """Slot i's prompt prefilled whole (``model_prefill_paged``, every data
+    row keeping the blocks it holds) into pages that alternate between the
+    two halves of the pool (page j at global block 1 + 3 i + j // 2 for
+    even j, n_blocks // 2 + 3 i + j // 2 for odd j), then one decode step
+    of every slot (its prompt's last token at the next position) through
+    ``eng``'s model on its mesh and data split: (s0, the logits of the
+    slots s0 .. this rank computes over the real vocabulary, f32, on the
+    host). Needs prompts of at most 5 pages and at most 21 slots."""
+    from repro_torch.sharding import comm
+    bs, n = eng.block_size, len(prompts)
+    half = eng.scheduler.allocator.n_blocks // 2
+    table = np.zeros((n, eng.scheduler.max_blocks_per_seq), np.int32)
+    tokens = np.array([p[-1] for p in prompts], np.int32)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    data = eng.data
+    with torch.inference_mode():
+        for i, p in enumerate(prompts):
+            nb = -(-(len(p) + 1) // bs)
+            table[i, :nb] = [(1 if j % 2 == 0 else half) + 3 * i + j // 2
+                             for j in range(nb)]
+            toks = np.zeros((1, -(-len(p) // bs) * bs), np.int64)
+            toks[0, :len(p)] = p
+            with comm.serving(eng.mesh, data and data.whole_batch()):
+                eng.fam.model_prefill_paged(
+                    eng.params, {"tokens": eng._tensor(toks)}, cfg,
+                    eng.pages, eng._tensor(table[i, :toks.shape[1] // bs]),
+                    bs, true_len=len(p))
+        own = eng._own
+        with comm.serving(eng.mesh, data):
+            logits = eng.fam.model_decode_paged(
+                eng.params, eng.pages, eng._tensor(table[own]),
+                eng._tensor(tokens[own]), eng._tensor(pos[own]), cfg,
+                eng.masks, torch.ones(eng._n_own, dtype=torch.bool,
+                                      device=eng.device),
+                bs, fast_kernels=eng.fast_kernels)[0]
+    return own.start, logits[:, :cfg.vocab_size].float().cpu()
 
 
 def shard_kernel_checks(eng, cfg, dev) -> None:
@@ -3715,9 +3804,10 @@ def sharded_full_width(dev, counters, add, cfg, seed: int) -> None:
 def sharded_phase(dev, counters) -> dict:
     """Phase 9: tensor-parallel serving with ranks sharing the one card
     (``comm.backend_for``: gloo, since NCCL refuses two ranks on one
-    device). f32 parity at TP = 2 and 4 (``sharded_parity``), then
-    OPT-6.7B (32 layers) and Mixtral-8x22B (4 of 56 layers) at full width
-    and TP = 2 (``sharded_full_width``), then OPT-6.7B (8 layers) at the
+    device). f32 parity at TP = 2, and at TP = 4 in one case
+    (``sharded_parity``), then OPT-6.7B (8
+    layers) and Mixtral-8x22B (4 of 56 layers) at full width and TP = 2
+    (``sharded_full_width``), then OPT-6.7B (8 layers) at the
     legacy phase's static capacities 0.25 (FFN) / 0.75 (inputs), where
     every rank must launch kernel 5. Returns the ranks' launches,
     summed."""
@@ -3735,8 +3825,9 @@ def sharded_phase(dev, counters) -> dict:
     sharded_parity(dev)
     log(f"  parity took {time.perf_counter() - t0:.1f} s")
     from repro_torch.configs import get_config
+    # 8 of OPT-6.7B's 32 layers: the data phase serves all 32
     sharded_full_width(dev, counters, add, get_config("opt-6.7b").replace(
-        compute_dtype="bfloat16"), seed=0)
+        compute_dtype="bfloat16", n_layers=8), seed=0)
     sharded_full_width(dev, counters, add, get_config("mixtral-8x22b").replace(
         n_layers=4, compute_dtype="bfloat16"), seed=4)
     from repro_torch.core import relufication as rf
@@ -3747,6 +3838,531 @@ def sharded_phase(dev, counters) -> dict:
                  "sparse_matmul_tokens", "sparse_matmul"):
         if total[name] <= 0:
             fail(f"kernel {name} was not launched on the sharded path")
+    log(f"  launches summed over the ranks: {json.dumps(total)}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the data axis, ranks sharing the card
+
+
+# the partial mode's rows of the kernels line, filled by data_phase
+DATA_KERNEL_ROWS = {}
+# (arch, mode, prefill chunk) of the f32 data-axis parity cases ("drops":
+# tiny-moe at capacity 1.0 with routing groups of 3 tokens)
+DATA_CASES = (("tiny-relu", "plain", 0), ("tiny-relu", "plain", 4),
+              ("tiny-relu", "static", 4), ("tiny-relu", "spec", 0),
+              ("tiny-relu", "predictor", 0), ("tiny-moe", "drops", 0),
+              ("tiny-moe", "drops", 4))
+DATA_MESHES = ((2, 1), (2, 2))
+DATA_POOL = 26  # 4 slots x 6 blocks + scratch, rounded up to even
+DATA_FULL_POOL = 130  # SHARD_GEOM's 8 x 16 + scratch, rounded up to even
+# DDP step 1 against one card's 2-microbatch step (the same function: the
+# mean of two half-batch losses and gradients), relative: the two runs
+# differ only in where the halves' sum is taken
+TOL_DDP = 1e-4
+
+
+def partial_parts_check(name, got, want, dtype) -> float:
+    """The partial mode's (acc, m, l) rows against the plain version's: m
+    equal where no key is on the rank (-1e30), else each of acc, m, l
+    within the dtype's tolerance of its largest value."""
+    hd = got.shape[-1] - 2
+    gm, wm = got[..., hd], want[..., hd]
+    empty = wm <= -1e29
+    if not torch.equal(gm <= -1e29, empty):
+        fail(f"{name}: rows with no key on the rank differ")
+    err = compare(f"{name} (acc, l)", [got[..., :hd], got[..., hd + 1]],
+                  [want[..., :hd], want[..., hd + 1]], dtype)
+    return max(err, compare(f"{name} m", [gm[~empty]], [wm[~empty]], dtype))
+
+
+def partial_case(name, dev, rng, b, W, kvp, g, hd, bs, nb, n_blocks, dtype,
+                 min_end=None):
+    """A pool of ``n_blocks`` cut in two halves (two data rows' local
+    pools), each slot's pages drawn over the whole pool: each half's
+    partial attention against its plain version, and the fold of the two
+    against the whole-pool kernel call. Returns (max err, the arguments,
+    the halves' (lo, n))."""
+    from repro_torch.kernels import paged_attention as kpa
+
+    def t(a, dt):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dt)
+
+    q = t(rng.randn(b, W, kvp, g, hd), dtype)
+    kp = t(rng.randn(n_blocks, kvp, bs, hd), dtype)
+    vp = t(rng.randn(n_blocks, kvp, bs, hd), dtype)
+    perm = rng.permutation(np.arange(1, n_blocks))[: b * nb].reshape(b, nb)
+    end = rng.randint(min_end or W, nb * bs + 1, size=b)
+    table = np.where(np.arange(nb)[None, :] * bs < end[:, None], perm, 0)
+    table[0, :] = perm[0] % (n_blocks // 2)  # slot 0: the first half only
+    pos = end[:, None] - W + np.arange(W)[None, :]
+    table, pos = t(table, torch.int32), t(pos, torch.int32)
+    halves = ((0, n_blocks // 2), (n_blocks // 2, n_blocks - n_blocks // 2))
+    parts, err = [], 0.0
+    for lo, n in halves:
+        args = (q, kp[lo:lo + n], vp[lo:lo + n], table, pos)
+        got = kpa.paged_window_attention_partial(*args, blocks=(lo, n))
+        want = kpa.paged_window_attention_partial_plain(*args, blocks=(lo, n))
+        torch.cuda.synchronize()
+        err = max(err, partial_parts_check(
+            f"partial {name} blocks {lo}+{n}", got, want, dtype))
+        parts.append(got)
+    folded = kpa.fold_partials(torch.stack(parts), (0, b), dtype)
+    whole = kpa.paged_window_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    err = max(err, compare(f"fold {name} vs the whole-pool kernel",
+                           [folded], [whole], dtype))
+    return err, (q, kp, vp, table, pos), halves, parts
+
+
+def partial_kernel_rows(dev, kvp: int = 32, nb: int = 128,
+                        n_blocks: int = 1026) -> dict:
+    """Kernel 2's partial mode and its fold: f32 at the parity shapes
+    (tiny-relu / tiny-opt geometry, W = 1 and 5), bf16 at the data phase's
+    Mixtral decode and chunk and OPT-6.7B chunk shapes and at OPT-6.7B
+    decode over two halves of the pool; the OPT decode's second half's
+    call timed (per
+    call and on the card) with its bound, the plain version and SDPA over
+    the half's keys (K and V gathered and expanded before timing, a
+    boolean mask; it returns o, not the partials), and the fold of the
+    two halves."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models.common import paged_gather
+    rng = np.random.RandomState(25)
+    errs = {}
+    for W in (1, 5):
+        errs[f"f32 W={W}"] = partial_case(
+            f"tiny f32 W={W}", dev, rng, 4, W, 2, 2, 16, 8, 6, 26,
+            torch.float32)[0]
+        errs[f"f32 MHA W={W}"] = partial_case(
+            f"tiny-opt f32 W={W}", dev, rng, 4, W, 4, 1, 16, 8, 6, 26,
+            torch.float32)[0]
+    # bf16 at the data phase's other shapes (b = 8 slots gathered, nb =
+    # 16 pages, DATA_FULL_POOL blocks): Mixtral decode (split into S > 1
+    # runs, so the partials go through the split kernel's merge), the
+    # 16-token chunk steps of Mixtral (S > 1) and OPT-6.7B
+    splits, bf_errs = {}, {}
+    for what, W, kv, g in (("Mixtral decode", 1, 8, 6),
+                           ("Mixtral chunk", 16, 8, 6),
+                           ("OPT-6.7B chunk", 16, 32, 1)):
+        splits[what] = kpa.attention_splits(8, kv, 16, W * g, 128, 16,
+                                            kpa._sm_count(dev))
+        bf_errs[what] = partial_case(
+            f"{what} bf16 W={W} S={splits[what]}", dev, rng, 8, W, kv, g,
+            128, 16, 16, DATA_FULL_POOL, torch.bfloat16)[0]
+    if splits["Mixtral decode"] <= 1:
+        fail(f"the Mixtral decode case ran unsplit ({splits}): it is there "
+             f"to check the split kernel's partials")
+    err, (q, kp, vp, table, pos), halves, parts = partial_case(
+        "OPT-6.7B decode bf16 at 1536-2048 tokens", dev, rng, 8, 1, kvp, 1,
+        128, 16, nb, n_blocks, torch.bfloat16, min_end=nb * 12)
+    err = max([err] + list(bf_errs.values()))
+    b, W, kvp, g, hd = q.shape
+    bs, nb = kp.shape[2], table.shape[1]
+    lo, n = halves[1]
+    k2, v2 = kp[lo:lo + n], vp[lo:lo + n]
+    tab = table.cpu().numpy()
+    mine = (tab >= lo) & (tab < lo + n)
+    pos_np = pos.cpu().numpy()
+    pages = valid = 0
+    for t_ in range(b):
+        lo_p, hi_p = kpa.needed_pages(pos_np[t_].tolist(), 0, bs, nb)
+        for j in range(lo_p, hi_p + 1):
+            if mine[t_, j]:
+                pages += 1
+                valid += sum(max(0, min(bs, p + 1 - j * bs))
+                             for p in pos_np[t_])
+    n_bytes = (pages * kvp * bs * hd * 2 * 2 + q.numel() * 2
+               + table.numel() * 4 + pos.numel() * 4
+               + b * W * kvp * g * (hd + 2) * 4)
+    b_ms, b_by = bound(n_bytes, 4.0 * valid * g * kvp * hd, torch.bfloat16)
+    local = torch.where(torch.as_tensor(mine, device=dev), table - lo, 0)
+    keymask = torch.as_tensor(mine, device=dev).repeat_interleave(bs, 1)
+    kg = paged_gather(k2, local).repeat_interleave(g, dim=1)
+    vg = paged_gather(v2, local).repeat_interleave(g, dim=1)
+    keys = torch.arange(kg.shape[2], device=dev)[None, None, :]
+    am = ((keys <= pos[:, :, None]) & keymask[:, None, :])[:, None]
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvp * g, W, hd)
+    args = (q, k2, v2, table, pos)
+    same_bits("paged_window_attention_partial OPT-6.7B decode",
+              lambda: kpa.paged_window_attention_partial(*args,
+                                                         blocks=(lo, n)))
+    row = dict(
+        name="paged_window_attention_partial", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:87",
+        max_abs_err=err, max_abs_err_f32=max(errs.values()),
+        shape=f"b=8 W=1 kvp={kvp} g=1 hd=128 bs=16 nb={nb}, pool blocks "
+              f"{lo}..{lo + n - 1} of {n_blocks}, bf16",
+        pages_on_rank=pages, bound_ms=b_ms, bound_by=b_by,
+        splits=kpa.attention_splits(b, kvp, nb, W * g, hd, bs,
+                                    kpa._sm_count(dev)),
+        max_abs_err_bf16=bf_errs, splits_checked=splits,
+        **timings(lambda: kpa.paged_window_attention_partial(
+                      *args, blocks=(lo, n)),
+                  lambda: kpa.paged_window_attention_partial_plain(
+                      *args, blocks=(lo, n)),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qh, kg, vg, attn_mask=am)))
+    stacked = torch.stack(parts)
+    f_bytes = stacked.numel() * 4 + q.numel() * 2
+    f_ms, f_by = bound(f_bytes, 8.0 * stacked.numel(), torch.float32)
+    fold = dict(
+        name="paged_attention_fold", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:87",
+        max_abs_err=err,
+        shape=f"D=2 partials of b=8 W=1 kvp={kvp} g=1 hd=128",
+        bound_ms=f_ms, bound_by=f_by, library_ms=None,
+        **timings(lambda: kpa.fold_partials(stacked, (0, b), torch.bfloat16),
+                  lambda: kpa.fold_partials_plain(stacked, (0, b),
+                                                  torch.bfloat16)))
+    log("  partial mode " + json.dumps(row))
+    log("  fold " + json.dumps(fold))
+    log(f"  ok partial mode f32 {json.dumps(errs)}")
+    return {"paged_window_attention_partial": row,
+            "paged_attention_fold": fold}
+
+
+def data_case(case, device):
+    """``shard_case`` with the data phase's modes: "drops" is tiny-moe at
+    capacity 1.0 and routing groups of 3 tokens."""
+    from repro_torch.configs import get_config
+    arch, mode, chunk = case
+    if mode != "drops":
+        return shard_case(case, device)
+    cfg = get_config(arch).replace(compute_dtype="float32",
+                                   capacity_factor=1.0, moe_group_size=3)
+    params = _to(numpy_params(cfg, seed=0), device)
+    prompts = [np.random.RandomState(s).randint(0, cfg.vocab_size, n)
+               for s, n in ((1, 9), (2, 5), (3, 13), (4, 21), (5, 3))]
+    return cfg, params, dict(prefill_chunk=chunk), prompts
+
+
+def data_streams(case, device, mesh=None) -> dict:
+    """An f32 data-axis case through a fresh engine of 4 slots and
+    DATA_POOL blocks (on ``mesh`` when given): streams, logprobs, metrics,
+    the pool blocks it holds and its launches of the partial mode."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    cfg, params, kw, prompts = data_case(case, device)
+    eng = ContinuousBatchingEngine(
+        cfg, params, EngineConfig(n_slots=4, block_size=8,
+                                  max_blocks_per_seq=6, n_blocks=DATA_POOL,
+                                  mesh=mesh, **kw), device=device)
+    uids = [eng.submit(p, 10, reuse_window=4) for p in prompts]
+    n0 = kpa.paged_window_attention_partial.launches
+    res = eng.run()
+    return dict(partial=kpa.paged_window_attention_partial.launches - n0,
+                tokens=[res[u].tokens.tolist() for u in uids],
+                logprobs=np.concatenate([res[u].logprobs for u in uids]),
+                accepted=[res[u].draft_accepted for u in uids],
+                misses=[res[u].pred_misses for u in uids],
+                metrics=eng.metrics_snapshot(), ffn_tp=eng.ffn_tp,
+                blocks=eng.pages["k"].shape[1])
+
+
+def data_parity_rank(rank: int, world: int, data: int,
+                     device_type: str) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data, world // data, strict=True,
+                          device=None if device_type == "cuda" else "cpu")
+    return {case: data_streams(case, mesh.device, mesh)
+            for case in DATA_CASES}
+
+
+def data_parity(dev) -> None:
+    """The f32 cases on (2, 1) and (2, 2) meshes on the card against the
+    one-device CPU engine: tokens exactly, logprobs within 1e-5, the
+    metrics within 1e-9, acceptance and misses equal; the weight bytes a
+    step, whose scope depends on the path (the kernel path counts every
+    projection, ROADMAP section C), against the one-device engine on the
+    card, a rank's the figure / ffn_tp. Every rank holds DATA_POOL / 2
+    blocks and launched the partial mode."""
+    from repro_torch.sharding import comm
+    want = {case: data_streams(case, torch.device("cpu"))
+            for case in DATA_CASES}
+    for case, w in want.items():
+        w["metrics"]["weight_io_bytes_per_step"] = data_streams(
+            case, dev)["metrics"]["weight_io_bytes_per_step"]
+    for data, model in DATA_MESHES:
+        t0 = time.perf_counter()
+        ranks = comm.spawn(data_parity_rank, data * model, timeout=420,
+                           args=(data, dev.type), device=dev.type)
+        d = 0.0
+        for rank, got in enumerate(ranks):
+            for case, w in want.items():
+                g = got[case]
+                what = f"{case} mesh ({data}, {model}) rank {rank}"
+                d = max(d, same_streams(what, (g["tokens"], g["logprobs"]),
+                                        (w["tokens"], w["logprobs"])))
+                if g["blocks"] != DATA_POOL // data:
+                    fail(f"{what}: holds {g['blocks']} pool blocks")
+                if g["partial"] <= 0:
+                    fail(f"{what}: the partial mode was not launched")
+                for k, v in w["metrics"].items():
+                    v = v / g["ffn_tp"] if k == "weight_io_bytes_per_step" \
+                        else v
+                    got_k = g["metrics"].get(k, np.inf)
+                    if abs(got_k - v) > 1e-9 * max(1, abs(v)):
+                        fail(f"{what}: {k} {got_k} != {v}")
+                if (g["accepted"], g["misses"]) != (w["accepted"],
+                                                    w["misses"]):
+                    fail(f"{what}: acceptance / misses differ")
+        log(f"  ok data-axis f32 parity on ({data}, {model}): "
+            f"{len(DATA_CASES)} cases x {data * model} ranks equal the CPU "
+            f"engine (max|dlogprob| {d:.2e}); partial launches a rank "
+            f"{[sum(r[c]['partial'] for c in DATA_CASES) for r in ranks]}; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def data_full_rank(rank: int, world: int, cfg, seed: int,
+                   device_type: str) -> dict:
+    """One rank of a full-width bf16 model on a (world, 1) mesh sharing
+    the card: the ranks build the seeded tree one after the other, each
+    keeping its pool blocks; then the first prefill's logits and the
+    serve run with every kernel counted from 0 and the collectives
+    counted by axis."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.sharding import comm
+    mesh = make_host_mesh(world, 1, strict=True,
+                          device=None if device_type == "cuda" else "cpu")
+    dev = mesh.device
+    eng = None
+    for r in range(world):
+        if r == rank:
+            params = registry.get_family(cfg).init_params(cfg, seed=0,
+                                                          device=dev)
+            eng = ContinuousBatchingEngine(
+                cfg, params, EngineConfig(mesh=mesh, n_blocks=DATA_FULL_POOL,
+                                          **SHARD_GEOM), device=dev)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        comm.barrier(mesh)
+    logits = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
+    s0, decode = first_decode_logits(eng, cfg, serve_prompts(cfg, seed))
+    counters = kernel_counters()
+    comm.STATS.reset()
+    out, launches = counted(
+        f"rank {rank} data axis {cfg.name}", counters,
+        ("paged_window_attention_partial", "paged_attention_fold"),
+        lambda: serve_run(eng, cfg, seed=seed))
+    out.pop("_streams")
+    st = comm.STATS
+    steps = out["prefill_steps"] + out["decode_steps"]
+    return dict(
+        rank=rank, launches=launches, logprobs=out.pop("_logprobs"),
+        logits=logits.numpy(), serve=out, decode_s0=s0, decode_logits=decode.numpy(),
+        pool_blocks=eng.pages["k"].shape[1],
+        slots=list(eng.data.slots),
+        per_step={axis: dict(count=n / steps, host_ms=sec * 1e3 / steps)
+                  for axis, n, sec in (
+                      ("data", st.data_count, st.data_seconds),
+                      ("world", st.world_count, st.world_seconds),
+                      ("model", st.count, st.seconds))})
+
+
+def data_full_width(dev, add, cfg, seed: int) -> None:
+    """``cfg`` (full width, bf16), the serve phase's 8 greedy requests,
+    on 2 ranks of a (2, 1) mesh sharing the card: the first prefill's
+    last-position logits within TOL_SHARD_LOGITS of one card's with the
+    argmax equal; one decode step of the 8 slots over pages in both halves
+    of the pool (``first_decode_logits``: kernel 2's partial mode, the
+    fold, the data-axis gathers), each rank's slots' logits within
+    TOL_SHARD_LOGITS of one card's (the argmax agreement printed); each
+    rank holds half of the DATA_FULL_POOL blocks."""
+    from repro_torch.models import registry
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.sharding import comm
+    params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(
+        n_blocks=DATA_FULL_POOL, **SHARD_GEOM), device=dev)
+    want = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
+    _, want_dec = first_decode_logits(eng, cfg, serve_prompts(cfg, seed))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(data_full_rank, 2, timeout=600,
+                       args=(cfg, seed, dev.type), device=dev.type)
+    for r in ranks:
+        got = torch.from_numpy(r["decode_logits"])
+        ref = want_dec[r["decode_s0"]:r["decode_s0"] + got.shape[0]]
+        dec_err = (got - ref).abs().max().item()
+        dec_scale = ref.abs().max().item()
+        if (not torch.isfinite(got).all()
+                or dec_err > TOL_SHARD_LOGITS * dec_scale):
+            fail(f"{cfg.name} rank {r['rank']}: decode step logits of slots "
+                 f"{r['decode_s0']}.. max|diff| {dec_err:.3e} (tolerance "
+                 f"{TOL_SHARD_LOGITS} x {dec_scale:.3e})")
+        r["decode_check"] = dict(
+            slots=[r["decode_s0"], r["decode_s0"] + got.shape[0]],
+            max_abs_diff=dec_err, max_abs=dec_scale,
+            argmax_equal=int((got.argmax(-1) == ref.argmax(-1)).sum()))
+    for r in ranks:
+        got = torch.from_numpy(r["logits"])
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        argmax = bool(got.argmax() == want.argmax())
+        if (not np.isfinite(r["logprobs"]).all()
+                or err > TOL_SHARD_LOGITS * scale or not argmax):
+            fail(f"{cfg.name} rank {r['rank']}: first prefill logits max|diff|"
+                 f" {err:.3e} (tolerance {TOL_SHARD_LOGITS} x {scale:.3e}), "
+                 f"argmax equal {argmax}")
+        if r["pool_blocks"] != DATA_FULL_POOL // 2:
+            fail(f"{cfg.name} rank {r['rank']}: holds {r['pool_blocks']} "
+                 f"pool blocks, not {DATA_FULL_POOL // 2}")
+        add(r["launches"])
+        log("  data " + json.dumps(dict(
+            r["serve"], model=cfg.name, layers=cfg.n_layers, mesh=[2, 1],
+            rank=r["rank"], slots=r["slots"], pool_blocks=r["pool_blocks"],
+            of_pool_blocks=DATA_FULL_POOL,
+            first_prefill_logits_max_abs_diff=err,
+            first_prefill_logits_max_abs=scale, argmax_equal=argmax,
+            decode_step_logits=r["decode_check"],
+            collectives_per_step=r["per_step"], launches=r["launches"])))
+    log(f"  {cfg.name} ({cfg.n_layers} layers) on (2, 1) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
+    """One rank of the DDP run: 4 uncompressed steps, then 4 with int8
+    error feedback from the same initial params, each timed with the card
+    synchronised; the collectives and their host time (``comm.STATS``,
+    data axis) and the peak memory."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, compression
+    from repro_torch.sharding import comm
+    from repro_torch.train.ddp import make_ddp_train_step
+    from repro_torch.tree import flatten
+    mesh = make_host_mesh(world, 1, strict=True,
+                          device=None if device_type == "cuda" else "cpu")
+    dev = mesh.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    out = {}
+    for comp in ("none", "int8_ef"):
+        tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
+                         warmup_steps=2, grad_compression=comp)
+        params = T.init_params(cfg, seed=tc.seed, device=dev,
+                               dtype=torch.float32)
+        n = sum(p.numel() for p in flatten(params))
+        opt, ef = adamw.init_opt_state(params), compression.init_ef_state(
+            params)
+        if comp == "none":
+            ef = {}  # the uncompressed step leaves it untouched
+        step = make_ddp_train_step(cfg, tc, mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows, ms, coll, n_coll = [], [], [], []
+        for _ in range(4):
+            comm.STATS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, ef, m = step(params, opt, ef, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll.append(comm.STATS.data_seconds * 1e3)
+            n_coll.append(comm.STATS.data_count)
+            rows.append({k: float(v) for k, v in m.items()})
+        n_leaves = len(flatten(params))
+        out[comp] = dict(
+            metrics=rows, step_ms=ms, collective_ms=coll,
+            collectives=n_coll,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            params=n,
+            wire_bytes=(4 * (n + 1) if comp == "none"
+                        else n + 4 * (n_leaves + 1)))
+        del params, opt, ef
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_full_width(dev, cfg=None, dc=None) -> None:
+    """llama-7b relufied to stage 2 at 2 of its 32 layers, f32 masters and
+    bf16 compute, one 8 x 1024 batch of the synthetic corpus: one card's
+    make_train_step (2 microbatches) for its step-1 loss and grad norm,
+    then the DDP step on 2 ranks sharing the card (4 x 1024 a rank)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.data.pipeline import DataConfig, PackedIterator
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import comm
+    from repro_torch.train.step import make_train_step
+    cfg = cfg or rf.relufy_stage2(get_config("llama-7b")).replace(
+        n_layers=2, compute_dtype="bfloat16")
+    dc = dc or DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                          batch_size=8)
+    batch = next(PackedIterator(dc))
+    tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
+                     warmup_steps=2, num_microbatches=2)
+    params = T.init_params(cfg, seed=tc.seed, device=dev, dtype=torch.float32)
+    one = make_train_step(cfg, tc)(
+        params, adamw.init_opt_state(params),
+        {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})[2]
+    want = {k: float(one[k]) for k in ("loss", "grad_norm")}
+    del params, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = comm.spawn(ddp_rank, 2, timeout=600,
+                       args=(cfg, batch, dev.type), device=dev.type)
+    for r, got in enumerate(ranks):
+        first = got["none"]["metrics"][0]
+        for k, v in want.items():
+            if abs(first[k] - v) > TOL_DDP * max(1.0, abs(v)):
+                fail(f"DDP rank {r} step 1 {k} {first[k]} != one card's {v}")
+        for comp in ("none", "int8_ef"):
+            losses = [m["loss"] for m in got[comp]["metrics"]]
+            if not np.isfinite(losses).all():
+                fail(f"DDP rank {r} {comp}: non-finite losses {losses}")
+            if comp == "int8_ef" and not losses[-1] < losses[0]:
+                fail(f"DDP rank {r} int8_ef: losses do not fall {losses}")
+            log("  ddp " + json.dumps(dict(
+                got[comp], rank=r, compression=comp, layers=cfg.n_layers,
+                tokens_a_rank=4 * 1024, one_card_step1=want)))
+    log(f"  DDP on 2 ranks took {time.perf_counter() - t0:.1f} s")
+
+
+def data_phase(dev, counters) -> dict:
+    """Phase 10: the data axis (``rules.DataSplit``) with ranks sharing the
+    card over gloo: the partial mode's kernel rows, f32 parity on (2, 1)
+    and (2, 2), OPT-6.7B (32 layers) and Mixtral-8x22B (4 layers) at full
+    width on (2, 1), then the DDP step. Returns the ranks' launches,
+    summed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    t0 = time.perf_counter()
+    DATA_KERNEL_ROWS.update(partial_kernel_rows(dev))
+    log(f"  partial mode rows took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data_parity(dev)
+    log(f"  parity took {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs import get_config
+    data_full_width(dev, add, get_config("opt-6.7b").replace(
+        compute_dtype="bfloat16"), seed=0)
+    data_full_width(dev, add, get_config("mixtral-8x22b").replace(
+        n_layers=4, compute_dtype="bfloat16"), seed=4)
+    t0 = time.perf_counter()
+    ddp_full_width(dev)
+    log(f"  ddp took {time.perf_counter() - t0:.1f} s")
+    for name in ("fused_sparse_ffn", "paged_window_attention_partial",
+                 "paged_attention_fold", "sparse_matmul_tokens"):
+        if total[name] <= 0:
+            fail(f"kernel {name} was not launched on the data-axis path")
     log(f"  launches summed over the ranks: {json.dumps(total)}")
     return total
 
@@ -3777,30 +4393,39 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.perf_counter()
     log(f"[build] {rt.build():.1f} s")
     results = {}
     if "kernels" in phases:
         log("[kernels]")
+        t0 = time.perf_counter()
         results = kernel_phase(dev)
+        log(f"[kernels] took {time.perf_counter() - t0:.1f} s")
     if "parity" in phases:
         log("[parity]")
+        t0 = time.perf_counter()
         parity_phase(dev)
+        log(f"[parity] took {time.perf_counter() - t0:.1f} s")
     counters = kernel_counters()
     launches = {name: 0 for name in counters}
     for phase, run in (("api", api_phase), ("serve", serve_phase),
                        ("families", families_phase), ("train", train_phase),
-                       ("sharded", sharded_phase)):
+                       ("sharded", sharded_phase), ("data", data_phase)):
         if phase in phases:
             log(f"[{phase}]")
+            t0 = time.perf_counter()
             for name, n in run(dev, counters).items():
                 launches[name] += n
-    if {"api", "serve", "families", "sharded"} & set(phases):
+            log(f"[{phase}] took {time.perf_counter() - t0:.1f} s")
+    results.update(DATA_KERNEL_ROWS)
+    if {"api", "serve", "families", "sharded", "data"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms")
     line = {"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}
+    log(f"[all] {time.perf_counter() - start:.1f} s")
     log(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

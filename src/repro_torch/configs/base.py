@@ -163,11 +163,12 @@ SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The reference's fields and defaults. The port trains on one device:
-    ``zero_stage`` 0 (replicated optimizer state) and 1 (sharded over a
-    data axis of one) are the same there, and the other values of
-    ``zero_stage`` and ``grad_compression`` need a mesh the port does not
-    have, so they raise NotImplementedError."""
+    """The reference's fields and defaults. ``zero_stage`` 0 (replicated
+    optimizer state) and 1 (sharded over the data axis; the port keeps it
+    replicated, as the DDP step does) train alike; 3 (FSDP params) raises
+    NotImplementedError (ROADMAP.md). ``grad_compression`` "none" or
+    "int8_ef" (the DDP step's int8 wire with error feedback,
+    ``train/ddp.py``)."""
 
     learning_rate: float = 1.5e-5  # paper's fine-tuning LR
     warmup_steps: int = 100
@@ -188,9 +189,9 @@ class TrainConfig:
     def __post_init__(self):
         if self.zero_stage not in (0, 1):
             raise NotImplementedError(
-                f"zero_stage={self.zero_stage} shards over a mesh; the port "
-                "trains on one device (zero_stage 0 or 1)")
-        if self.grad_compression != "none":
-            raise NotImplementedError(
-                f"grad_compression={self.grad_compression!r} compresses a "
-                "data-parallel reduction; the port trains on one device")
+                f"zero_stage={self.zero_stage} (FSDP params over a (data, "
+                "model) mesh) is not ported (ROADMAP.md); the port trains "
+                "with zero_stage 0 or 1")
+        if self.grad_compression not in ("none", "int8_ef"):
+            raise ValueError(f"grad_compression={self.grad_compression!r}: "
+                             "'none' or 'int8_ef'")

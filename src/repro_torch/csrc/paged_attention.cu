@@ -55,17 +55,33 @@
 //
 // f32 (the engine's parity path; no time claimed): paged_window_attn, one
 // block per (slot, kv head) on CUDA cores, the pages in sequence.
+//
+// Partial mode (paged_window_attention_partial; serving on a data axis,
+// where each data row of the mesh holds its own range of the pool's
+// blocks): the pool is the rank's local blocks, global ids blk0 ..
+// blk0 + nloc - 1, the table holds global ids, and a page outside the
+// range is skipped (the producer zero-fills its slot of the ring instead of
+// loading it and the consumers mask its keys; a stage with no page of the
+// rank costs its barrier and the zero fill). Instead of o the call writes
+// each query row's partial softmax (acc, m, l) in f32 as one row of hd + 2
+// floats, unnormalised (the S runs of a slot merged by pa_merge's rule
+// first); a row with no key on the rank gives m = -1e30, l = 0, acc = 0.
+// paged_attention_fold folds the D rows' partials of a query row, gathered
+// over the data axis, in ascending data index by the same rule and divides
+// once.
 #include "tile_group.cuh"
 
 #define ATT_THREADS 128
 
 // grid (b, kvp); block ATT_THREADS. Dynamic shared memory (floats):
 // q[R*hd] acc[R*hd] k[bs*hd] v[bs*hd] s[R*bs] m[R] l[R] corr[R], R = W*g.
+// Partial mode: parts != nullptr (rows of hd + 2 floats: acc, m, l), pages
+// of global blocks blk0 .. blk0 + nloc - 1 only.
 __global__ void paged_window_attn(const float* __restrict__ q, const float* __restrict__ kp,
                                   const float* __restrict__ vp, const int* __restrict__ table,
                                   const int* __restrict__ pos, float* __restrict__ out, int W,
                                   int kvp, int g, int hd, int bs, int nb, int window,
-                                  float scale) {
+                                  float scale, int blk0, int nloc, float* __restrict__ parts) {
   extern __shared__ float sm[];
   const int R = W * g;
   float* qs = sm;
@@ -103,7 +119,9 @@ __global__ void paged_window_attn(const float* __restrict__ q, const float* __re
     const int k0 = j * bs;
     if (k0 > pmax) break;                               // wholly causal-masked
     if (window && k0 + bs - 1 <= pmin - window) continue;  // wholly before the window
-    const long base = (long)table[(long)t * nb + j] * blk_elems + (long)h * bs * hd;
+    const int lb = table[(long)t * nb + j] - blk0;
+    if (lb < 0 || lb >= nloc) continue;  // a page another rank holds
+    const long base = (long)lb * blk_elems + (long)h * bs * hd;
     for (int e = tid; e < bs * hd; e += blockDim.x) {
       ks[e] = kp[base + e];
       vs[e] = vp[base + e];
@@ -151,8 +169,13 @@ __global__ void paged_window_attn(const float* __restrict__ q, const float* __re
   }
   for (int e = tid; e < R * hd; e += blockDim.x) {
     const int r = e / hd, c = e % hd, w = r / g, gi = r % g;
-    const long oi = ((((long)t * W + w) * kvp + h) * g + gi) * hd + c;
-    out[oi] = acc[e] / fmaxf(lr[r], 1e-30f);
+    const long row = (((long)t * W + w) * kvp + h) * g + gi;
+    if (parts != nullptr) {
+      parts[row * (hd + 2) + c] = acc[e];
+      if (c == 0) parts[row * (hd + 2) + hd] = mr[r], parts[row * (hd + 2) + hd + 1] = lr[r];
+    } else {
+      out[row * hd + c] = acc[e] / fmaxf(lr[r], 1e-30f);
+    }
   }
 }
 
@@ -219,24 +242,30 @@ struct PaArgs {
   float* pl;               // partial l (b * kvp, S, R)
   int W, kvp, g, bs, nb, window;
   float scale;
+  float* parts;  // partial mode: (b, W, kvp, g, HD + 2) acc, m, l; else nullptr
+  int blk0, nloc;  // the pool's blocks: global ids blk0 .. blk0 + nloc - 1
 };
 
 // The consumer warp (m16 tile, key slice kw of KW): the online softmax of
 // its two rows over its keys of every stage; returns m, the quad's l, and
 // acc in the C fragments' layout.
+// own[slot]: bit p set where page p of the stage is the rank's (its keys
+// count; the producer zero-filled the others).
 template <int HD, int STAGES, int KW>
 __device__ __forceinline__ void pa_consume(const __nv_bfloat16* ring, unsigned long long* full,
-                                           unsigned long long* empty, int nst, int kpos0,
-                                           int kend, const unsigned (&qf)[HD / 16][4], int qp0,
+                                           unsigned long long* empty, const unsigned* own,
+                                           int nst, int kpos0, int kend, int bs,
+                                           const unsigned (&qf)[HD / 16][4], int qp0,
                                            int qp1, int window, bool live, int kw, int lane,
                                            float (&m)[2], float (&l)[2],
                                            float (&o)[HD / 8][4]) {
   constexpr int KSW = PA_KS / KW, NTS = KSW / 8;
-  const int q = lane & 3;
+  const int q = lane & 3, lbs = __ffs(bs) - 1;  // page sizes are powers of two
   for (int st = 0; st < nst; ++st) {
     const int slot = st % STAGES;
     tg_bar_wait(&full[slot], (st / STAGES) & 1);
-    if (live) {
+    const unsigned mine = own[slot];
+    if (live && mine != 0u) {
       const __nv_bfloat16* ks = ring + slot * 2 * PA_KS * HD;
       const __nv_bfloat16* vs = ks + PA_KS * HD;
       float sc[NTS][4];
@@ -264,8 +293,10 @@ __device__ __forceinline__ void pa_consume(const __nv_bfloat16* ring, unsigned l
       for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
+          const int kst = kw * KSW + nt * 8 + 2 * q + (j & 1);  // key of the stage
           const int key = kb + nt * 8 + 2 * q + (j & 1), qp = j < 2 ? qp0 : qp1;
-          if (key < kend && key <= qp && (!window || key > qp - window)) {
+          if (key < kend && key <= qp && (!window || key > qp - window) &&
+              ((mine >> (kst >> lbs)) & 1u)) {
             valid |= 1u << (nt * 4 + j);
             mx[j >> 1] = fmaxf(mx[j >> 1], sc[nt][j]);
           }
@@ -338,6 +369,7 @@ paged_attn_split(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   unsigned char* base = pa_smem + ((1024 - (tg_saddr(pa_smem) & 1023)) & 1023);
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base);  // [stage][K, V][SLAB]
   __shared__ unsigned long long full[STAGES], empty[STAGES];
+  __shared__ unsigned own[STAGES];  // the stage's pages that are the rank's
 
   const int rg = blockIdx.x, s = blockIdx.y, S = gridDim.y, bh = blockIdx.z;
   const int t = bh / a.kvp, h = bh % a.kvp, R = a.W * a.g, bs = a.bs;
@@ -383,21 +415,29 @@ paged_attn_split(const __grid_constant__ CUtensorMap kmap, const __grid_constant
         tb = tb_next;
         tb_next = j0 + pg0 + 32 + lane <= j1 ? a.table[trow + j0 + pg0 + 32 + lane] : 0;
       }
-      const int blk = __shfl_sync(0xffffffffu, tb, (pg0 & 31) + (lane < pps ? lane : 0));
+      const int blk = __shfl_sync(0xffffffffu, tb, (pg0 & 31) + (lane < pps ? lane : 0)) - a.blk0;
       const int np = min(pps, j1 - j0 - pg0 + 1);  // pages of the run in this stage
+      // the run's pages in this stage that are the rank's (all of them but
+      // in partial mode)
+      const bool mine = lane < np && blk >= 0 && blk < a.nloc;
+      const unsigned bits = __ballot_sync(0xffffffffu, mine);
       if (st >= STAGES) tg_bar_wait(&empty[slot], (st / STAGES - 1) & 1);
       __nv_bfloat16* ks = ring + slot * 2 * P::SLAB;
       __nv_bfloat16* vs = ks + P::SLAB;
-      for (int p = np; p < pps; ++p)  // past the run: zeros, before each lane arrives
-        for (int bx = 0; bx < HD / P::BOXC; ++bx)
-          for (int e = lane * 8; e < bs * P::BOXC; e += 256) {
-            const int off = (bx * PA_KS + p * bs) * P::BOXC + e;
-            *reinterpret_cast<uint4*>(ks + off) = make_uint4(0u, 0u, 0u, 0u);
-            *reinterpret_cast<uint4*>(vs + off) = make_uint4(0u, 0u, 0u, 0u);
-          }
-      if (lane == 0) tg_bar_arrive_tx(&full[slot], 2 * np * page_bytes);
+      for (int p = 0; p < pps; ++p)  // the others: zeros, before each lane arrives
+        if (!((bits >> p) & 1u))
+          for (int bx = 0; bx < HD / P::BOXC; ++bx)
+            for (int e = lane * 8; e < bs * P::BOXC; e += 256) {
+              const int off = (bx * PA_KS + p * bs) * P::BOXC + e;
+              *reinterpret_cast<uint4*>(ks + off) = make_uint4(0u, 0u, 0u, 0u);
+              *reinterpret_cast<uint4*>(vs + off) = make_uint4(0u, 0u, 0u, 0u);
+            }
+      if (lane == 0) {
+        own[slot] = bits;
+        tg_bar_arrive_tx(&full[slot], 2 * __popc(bits) * page_bytes);
+      }
       __syncwarp();  // the bytes are expected before any box lands
-      if (lane < np) {
+      if (mine) {
         const int row = (blk * a.kvp + h) * bs;
 #pragma unroll
         for (int bx = 0; bx < HD / P::BOXC; ++bx) {
@@ -444,8 +484,8 @@ paged_attn_split(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  pa_consume<HD, STAGES, KW>(ring, full, empty, nst, j0 * bs, (j1 + 1) * bs, qf, qp0, qp1,
-                             a.window, live, kw, lane, m, l, o);
+  pa_consume<HD, STAGES, KW>(ring, full, empty, own, nst, j0 * bs, (j1 + 1) * bs, bs, qf,
+                             qp0, qp1, a.window, live, kw, lane, m, l, o);
 
   // -- the key slices of a tile merged in order, through the drained ring ---
   float* Mo = reinterpret_cast<float*>(base);  // [warp][16][HD]
@@ -481,7 +521,7 @@ paged_attn_split(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     }
     Rm[r] = mx, Rl[r] = ls;
     const int row = rg * NW * 16 + r, w = row / a.g;
-    Ro[r] = S == 1 ? ((((long)t * a.W + w) * a.kvp + h) * a.g + row % a.g) * HD
+    Ro[r] = S == 1 ? (((long)t * a.W + w) * a.kvp + h) * a.g + row % a.g  // the query row
                    : (((long)bh * S + s) * R + row);
   }
   pa_consumer_sync(CONS);
@@ -491,8 +531,11 @@ paged_attn_split(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     const int w0 = (r >> 4) * KW, i = r & 15;
     float acc = 0.f;
     for (int k = 0; k < KW; ++k) acc += Mo[((w0 + k) * 16 + i) * HD + c] * Mm[(w0 + k) * 16 + i];
-    if (S == 1) {
-      a.out[Ro[r] + c] = __float2bfloat16(acc / fmaxf(Rl[r], 1e-30f));
+    if (S == 1 && a.parts != nullptr) {
+      a.parts[Ro[r] * (HD + 2) + c] = acc;
+      if (c == 0) a.parts[Ro[r] * (HD + 2) + HD] = Rm[r], a.parts[Ro[r] * (HD + 2) + HD + 1] = Rl[r];
+    } else if (S == 1) {
+      a.out[Ro[r] * HD + c] = __float2bfloat16(acc / fmaxf(Rl[r], 1e-30f));
     } else {
       a.po[Ro[r] * HD + c] = acc;
       if (c == 0) a.pm[Ro[r]] = Rm[r], a.pl[Ro[r]] = Rl[r];
@@ -501,7 +544,8 @@ paged_attn_split(const __grid_constant__ CUtensorMap kmap, const __grid_constant
 }
 
 // out = the S partials of each (slot x kv head, row) folded in ascending
-// split order. grid (R, b * kvp); block HD.
+// split order (partial mode: the folded acc, m and l, undivided). grid
+// (R, b * kvp); block HD.
 __global__ void pa_merge(const PaArgs a, int S, int HD) {
   const int row = blockIdx.x, bh = blockIdx.y, c = threadIdx.x, R = a.W * a.g;
   const long p0 = (long)bh * S * R + row;
@@ -515,8 +559,37 @@ __global__ void pa_merge(const PaArgs a, int S, int HD) {
     acc += a.po[pr * HD + c] * f;
   }
   const int t = bh / a.kvp, h = bh % a.kvp, w = row / a.g;
-  a.out[((((long)t * a.W + w) * a.kvp + h) * a.g + row % a.g) * HD + c] =
-      __float2bfloat16(acc / fmaxf(ls, 1e-30f));
+  const long qr = (((long)t * a.W + w) * a.kvp + h) * a.g + row % a.g;
+  if (a.parts != nullptr) {
+    a.parts[qr * (HD + 2) + c] = acc;
+    if (c == 0) a.parts[qr * (HD + 2) + HD] = mx, a.parts[qr * (HD + 2) + HD + 1] = ls;
+  } else {
+    a.out[qr * HD + c] = __float2bfloat16(acc / fmaxf(ls, 1e-30f));
+  }
+}
+
+// out (n, HD) = the D partials of query rows row0 .. row0 + n - 1, parts
+// (D, rows, HD + 2) f32, folded in ascending order: m = max m_d, l and acc
+// each rescaled by exp(m_d - m) and summed, divided once (as pa_merge).
+// grid (n); block HD.
+__global__ void pa_fold(const float* __restrict__ parts, void* __restrict__ out, int D,
+                        long rows, long row0, int HD, int dtype) {
+  const long r = blockIdx.x, stride = rows * (HD + 2);
+  const int c = threadIdx.x;
+  const float* p = parts + (row0 + r) * (HD + 2);
+  float mx = -1e30f;
+  for (int d = 0; d < D; ++d) mx = fmaxf(mx, p[d * stride + HD]);
+  float ls = 0.f, acc = 0.f;
+  for (int d = 0; d < D; ++d) {
+    const float f = expf(p[d * stride + HD] - mx);
+    ls += p[d * stride + HD + 1] * f;
+    acc += p[d * stride + c] * f;
+  }
+  const float o = acc / fmaxf(ls, 1e-30f);
+  if (dtype == DT_F32)
+    static_cast<float*>(out)[r * HD + c] = o;
+  else
+    static_cast<__nv_bfloat16*>(out)[r * HD + c] = __float2bfloat16(o);
 }
 
 template <int HD, int NW, int KW>
@@ -559,16 +632,10 @@ static cudaError_t launch_split(const void* kp, const void* vp, const PaArgs& a,
   return cudaGetLastError();
 }
 
-// q (b, W, kvp, g, hd); k/v pages (n_blocks, kvp, bs, hd); table (b, nb) i32;
-// pos (b, W) i32 -> out (b, W, kvp, g, hd). q, pages and out share one dtype.
-// bf16: hd in {16, 32, 64, 80, 128}, bs in {8, 16, 32, 64}, pages 16-byte
-// aligned, S splits; scratch (b * kvp * S * R * (hd + 2) f32) when S > 1.
-// f32: S must be 1, no scratch.
-extern "C" int paged_window_attention(const void* q, const void* k_pages, const void* v_pages,
-                                      const void* table, const void* pos, void* out,
-                                      void* scratch, int b, int W, int kvp, int g, int hd,
-                                      int bs, int nb, int n_blocks, int window, int S,
-                                      float scale, int dtype, void* stream) {
+static int attention(const void* q, const void* k_pages, const void* v_pages,
+                     const void* table, const void* pos, void* out, void* scratch, int b,
+                     int W, int kvp, int g, int hd, int bs, int nb, int n_blocks, int window,
+                     int S, float scale, int dtype, float* parts, int blk0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (b <= 0 || kvp <= 0 || W <= 0 || g <= 0) return (int)cudaGetLastError();
   if (dtype == DT_F32) {
@@ -582,7 +649,8 @@ extern "C" int paged_window_attention(const void* q, const void* k_pages, const 
     }
     paged_window_attn<<<dim3(b, kvp), ATT_THREADS, smem, s>>>(
         (const float*)q, (const float*)k_pages, (const float*)v_pages, (const int*)table,
-        (const int*)pos, (float*)out, W, kvp, g, hd, bs, nb, window, scale);
+        (const int*)pos, (float*)out, W, kvp, g, hd, bs, nb, window, scale, blk0, n_blocks,
+        parts);
     return (int)cudaGetLastError();
   }
   if (dtype != DT_BF16 || bs < 8 || PA_KS % bs || S < 1 || (S > 1 && scratch == nullptr))
@@ -591,7 +659,7 @@ extern "C" int paged_window_attention(const void* q, const void* k_pages, const 
   float* po = (float*)scratch;
   PaArgs a{(const __nv_bfloat16*)q, (const int*)table, (const int*)pos, (__nv_bfloat16*)out,
            po, po ? po + part * hd : nullptr, po ? po + part * (hd + 1) : nullptr,
-           W, kvp, g, bs, nb, window, scale};
+           W, kvp, g, bs, nb, window, scale, parts, blk0, n_blocks};
   switch (hd) {
     case 16: return (int)launch_split<16>(k_pages, v_pages, a, b, n_blocks, S, s);
     case 32: return (int)launch_split<32>(k_pages, v_pages, a, b, n_blocks, S, s);
@@ -600,4 +668,43 @@ extern "C" int paged_window_attention(const void* q, const void* k_pages, const 
     case 128: return (int)launch_split<128>(k_pages, v_pages, a, b, n_blocks, S, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// q (b, W, kvp, g, hd); k/v pages (n_blocks, kvp, bs, hd); table (b, nb) i32;
+// pos (b, W) i32 -> out (b, W, kvp, g, hd). q, pages and out share one dtype.
+// bf16: hd in {16, 32, 64, 80, 128}, bs in {8, 16, 32, 64}, pages 16-byte
+// aligned, S splits; scratch (b * kvp * S * R * (hd + 2) f32) when S > 1.
+// f32: S must be 1, no scratch.
+extern "C" int paged_window_attention(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* table, const void* pos, void* out,
+                                      void* scratch, int b, int W, int kvp, int g, int hd,
+                                      int bs, int nb, int n_blocks, int window, int S,
+                                      float scale, int dtype, void* stream) {
+  return attention(q, k_pages, v_pages, table, pos, out, scratch, b, W, kvp, g, hd, bs, nb,
+                   n_blocks, window, S, scale, dtype, nullptr, 0, stream);
+}
+
+// The partial mode: the pages are global blocks blk0 .. blk0 + n_blocks - 1
+// (the table's other ids are skipped), and parts (b, W, kvp, g, hd + 2) f32
+// receives each query row's acc, m and l instead of o. Shapes and scratch
+// as paged_window_attention.
+extern "C" int paged_window_attention_partial(
+    const void* q, const void* k_pages, const void* v_pages, const void* table, const void* pos,
+    void* parts, void* scratch, int b, int W, int kvp, int g, int hd, int bs, int nb,
+    int n_blocks, int blk0, int window, int S, float scale, int dtype, void* stream) {
+  if (parts == nullptr) return (int)cudaErrorInvalidValue;
+  return attention(q, k_pages, v_pages, table, pos, nullptr, scratch, b, W, kvp, g, hd, bs, nb,
+                   n_blocks, window, S, scale, dtype, (float*)parts, blk0, stream);
+}
+
+// parts (D, rows, hd + 2) f32 -> out (n, hd) in dtype: query rows row0 ..
+// row0 + n - 1 folded over the D partials.
+extern "C" int paged_attention_fold(const void* parts, void* out, int D, long rows, long row0,
+                                    long n, int hd, int dtype, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (hd > 1024 || D <= 0 || (dtype != DT_F32 && dtype != DT_BF16))
+    return (int)cudaErrorInvalidValue;
+  pa_fold<<<dim3((unsigned)n), hd, 0, (cudaStream_t)stream>>>((const float*)parts, out, D, rows,
+                                                              row0, hd, dtype);
+  return (int)cudaGetLastError();
 }

@@ -12,6 +12,15 @@ block per (slot, kv head) walks the pages on CUDA cores.
 
 The plain version is the reference's frozen path: ``paged_gather`` the
 slot's blocks into a contiguous cache, then ``window_attention``.
+
+Partial mode (``paged_window_attention_partial``), for serving on a data
+axis where each data row holds a range of the pool's blocks: every slot's
+queries against the pages of the rank's range only (the others skipped),
+returning each query row's partial softmax (acc, m, l) in f32 instead of
+o; ``fold_partials`` folds the rows' partials, gathered over the data
+axis, in ascending data index by the rule the bf16 kernel merges its page
+runs with, and divides once. Each has its plain version here and its own
+launch counter.
 """
 from __future__ import annotations
 
@@ -26,6 +35,12 @@ from repro_torch.models import common as cm
 
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_PARTIAL_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_FOLD_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_long,
+                                       ctypes.c_long, ctypes.c_long,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p])
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 # csrc/paged_attention.cu, bf16: keys a ring stage holds, the head dims
@@ -89,18 +104,9 @@ def paged_window_attention_plain(q, k_pages, v_pages, table, pos, *,
     return cm.window_attention(q, kg, vg, pos, window=window)
 
 
-def paged_window_attention(q, k_pages, v_pages, table, pos, *,
-                           window: int = 0) -> torch.Tensor:
-    """Windowed grouped attention straight off one layer's paged pool.
-
-    q (b, W, kvp, g, hd); k/v_pages (n_blocks, kvp, bs, hd); table (b, nb)
-    int32 (pads -> scratch block); pos (b, W) int32 absolute position of
-    each window token (causal within the window). Returns (b, W, kvp, g, hd)
-    in q's dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (``paged_window_attention.launches`` counts them)."""
-    if rt.on_cpu(q, k_pages, v_pages, table, pos):
-        return paged_window_attention_plain(q, k_pages, v_pages, table, pos,
-                                            window=window)
+def _check_shapes(q, k_pages, v_pages, table, pos) -> int:
+    """The kernel's shape, dtype and layout contract; returns its dtype
+    code."""
     b, W, kvp, g, hd = q.shape
     n_blocks, kvp2, bs, hd2 = k_pages.shape
     nb = table.shape[1]
@@ -115,7 +121,6 @@ def paged_window_attention(q, k_pages, v_pages, table, pos, *,
     rt.require_contiguous(q=q, k_pages=k_pages, v_pages=v_pages, table=table,
                           pos=pos)
     R = W * g
-    S, scratch = 1, None
     if code == rt.DTYPE_CODES[torch.float32]:
         smem = (2 * R * hd + 2 * bs * hd + R * bs + 3 * R) * 4
         rt.require(smem <= _SMEM_LIMIT,
@@ -128,22 +133,164 @@ def paged_window_attention(q, k_pages, v_pages, table, pos, *,
                            f"and pages of {ATTN_PAGE_SIZES} tokens; got q "
                            f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}")
         rt.require_aligned(k_pages=k_pages, v_pages=v_pages)
-        S = attention_splits(b, kvp, nb, R, hd, bs, _sm_count(q.device))
-        if S > 1:
-            scratch = torch.empty(b * kvp * S * R * (hd + 2),
-                                  dtype=torch.float32, device=q.device)
+    return code
+
+
+def _splits(q, k_pages, table, code):
+    """(S, scratch) of a call: the bf16 kernel's page runs and their
+    partials' buffer; (1, None) in f32."""
+    if code == rt.DTYPE_CODES[torch.float32]:
+        return 1, None
+    b, W, kvp, g, hd = q.shape
+    S = attention_splits(b, kvp, table.shape[1], W * g, hd, k_pages.shape[2],
+                         _sm_count(q.device))
+    if S == 1:
+        return 1, None
+    return S, torch.empty(b * kvp * S * W * g * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+
+
+def paged_window_attention(q, k_pages, v_pages, table, pos, *,
+                           window: int = 0) -> torch.Tensor:
+    """Windowed grouped attention straight off one layer's paged pool.
+
+    q (b, W, kvp, g, hd); k/v_pages (n_blocks, kvp, bs, hd); table (b, nb)
+    int32 (pads -> scratch block); pos (b, W) int32 absolute position of
+    each window token (causal within the window). Returns (b, W, kvp, g, hd)
+    in q's dtype. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (``paged_window_attention.launches`` counts them)."""
+    if rt.on_cpu(q, k_pages, v_pages, table, pos):
+        return paged_window_attention_plain(q, k_pages, v_pages, table, pos,
+                                            window=window)
+    code = _check_shapes(q, k_pages, v_pages, table, pos)
+    b, W, kvp, g, hd = q.shape
+    n_blocks, _, bs, _ = k_pages.shape
+    S, scratch = _splits(q, k_pages, table, code)
     out = torch.empty_like(q)
     fn = rt.entry("paged_attention", "paged_window_attention", _ARGS)
     rc = fn(rt.ptr(q), rt.ptr(k_pages), rt.ptr(v_pages), rt.ptr(table),
             rt.ptr(pos), rt.ptr(out), rt.ptr(scratch), b, W, kvp, g, hd, bs,
-            nb, n_blocks, int(window), S, 1.0 / math.sqrt(hd), code,
-            rt.stream_ptr(q.device))
+            table.shape[1], n_blocks, int(window), S, 1.0 / math.sqrt(hd),
+            code, rt.stream_ptr(q.device))
     rt.check(rc, "paged_attention")
     paged_window_attention.launches += 1
     return out
 
 
 paged_window_attention.launches = 0
+
+
+def paged_window_attention_partial_plain(q, k_pages, v_pages, table, pos, *,
+                                         blocks, window: int = 0
+                                         ) -> torch.Tensor:
+    """The partial mode's plain version: the rank's pages gathered through
+    the table (a page of another rank masked), then the reference's
+    windowed attention up to the softmax's sum (same rounding placement: q
+    scaled in its dtype and cast to the pages' dtype, p cast to it before
+    p @ v, f32 accumulation)."""
+    b0, nloc = blocks
+    b, W, kvp, g, hd = q.shape
+    nb, bs = table.shape[1], k_pages.shape[2]
+    t = table.long()
+    mine = (t >= b0) & (t < b0 + nloc)
+    local = torch.where(mine, t - b0, 0)
+    kg = cm.paged_gather(k_pages, local).float()  # (b, kvp, nb * bs, hd)
+    vg = cm.paged_gather(v_pages, local).float()
+    qs = (q * cm._in_dtype(1.0 / math.sqrt(hd), q.dtype)).to(k_pages.dtype)
+    logits = torch.einsum("bqhgd,bhsd->bhgqs", qs.float(), kg)
+    ar = torch.arange(nb * bs, device=q.device)
+    valid = ar[None, None, :] <= pos[:, :, None]
+    if window:
+        valid &= ar[None, None, :] > pos[:, :, None] - window
+    valid &= mine.repeat_interleave(bs, 1)[:, None, :]  # (b, W, nb * bs)
+    valid = valid[:, None, None]
+    logits = torch.where(valid, logits, -1e30)
+    m = logits.amax(-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    acc = torch.einsum("bhgqs,bhsd->bqhgd", p.to(k_pages.dtype).float(), vg)
+    ml = torch.stack([m, p.sum(-1)], -1).permute(0, 3, 1, 2, 4)
+    return torch.cat([acc, ml], -1)
+
+
+def paged_window_attention_partial(q, k_pages, v_pages, table, pos, *,
+                                   blocks, window: int = 0) -> torch.Tensor:
+    """Kernel 2's partial mode. q (b, W, kvp, g, hd); k/v_pages (nloc, kvp,
+    bs, hd), the global blocks ``blocks`` = (b0, nloc) as local blocks 0 ..
+    nloc - 1; table (b, nb) int32 global block ids (the others' pages are
+    skipped); pos (b, W) int32. Returns (b, W, kvp, g, hd + 2) f32: each
+    query row's acc (hd), m and l over the rank's pages; m = -1e30, l = 0
+    and acc = 0 where none of its keys lies there. CPU tensors take the
+    plain version; CUDA tensors launch the kernel
+    (``paged_window_attention_partial.launches`` counts them)."""
+    rt.require(k_pages.shape[0] == blocks[1],
+               lambda: f"{k_pages.shape[0]} local pages for the range "
+                       f"{blocks}")
+    if rt.on_cpu(q, k_pages, v_pages, table, pos):
+        return paged_window_attention_partial_plain(
+            q, k_pages, v_pages, table, pos, blocks=blocks, window=window)
+    code = _check_shapes(q, k_pages, v_pages, table, pos)
+    b, W, kvp, g, hd = q.shape
+    bs = k_pages.shape[2]
+    S, scratch = _splits(q, k_pages, table, code)
+    parts = torch.empty((b, W, kvp, g, hd + 2), dtype=torch.float32,
+                        device=q.device)
+    fn = rt.entry("paged_attention", "paged_window_attention_partial",
+                  _PARTIAL_ARGS)
+    rc = fn(rt.ptr(q), rt.ptr(k_pages), rt.ptr(v_pages), rt.ptr(table),
+            rt.ptr(pos), rt.ptr(parts), rt.ptr(scratch), b, W, kvp, g, hd, bs,
+            table.shape[1], int(blocks[1]), int(blocks[0]), int(window), S,
+            1.0 / math.sqrt(hd), code, rt.stream_ptr(q.device))
+    rt.check(rc, "paged_attention (partial)")
+    paged_window_attention_partial.launches += 1
+    return parts
+
+
+paged_window_attention_partial.launches = 0
+
+
+def fold_partials_plain(parts, slots, dtype) -> torch.Tensor:
+    """The fold's plain version: over the D rows in order, m = max m_d, l
+    and acc rescaled by exp(m_d - m) and summed, then divided once."""
+    s0, n = slots
+    hd = parts.shape[-1] - 2
+    p = parts[:, s0:s0 + n]
+    m, l, acc = p[..., hd], p[..., hd + 1], p[..., :hd]
+    mx = m.amax(0)
+    ls, out = torch.zeros_like(mx), torch.zeros_like(acc[0])
+    for d in range(parts.shape[0]):
+        f = torch.exp(m[d] - mx)
+        ls = ls + l[d] * f
+        out = out + acc[d] * f[..., None]
+    return (out / torch.clamp(ls, min=1e-30)[..., None]).to(dtype)
+
+
+def fold_partials(parts, slots, dtype) -> torch.Tensor:
+    """The partial attentions of D data rows folded into o. parts (D, b, W,
+    kvp, g, hd + 2) f32 (``paged_window_attention_partial`` of each row,
+    gathered in data-index order); slots (s0, n) the slots to fold. Returns
+    (n, W, kvp, g, hd) in ``dtype`` (f32 or bf16). CPU tensors take the
+    plain version; CUDA tensors launch the fold kernel
+    (``fold_partials.launches``)."""
+    if rt.on_cpu(parts):
+        return fold_partials_plain(parts, slots, dtype)
+    D, b, W, kvp, g, hd2 = parts.shape
+    hd = hd2 - 2
+    code = rt.DTYPE_CODES.get(dtype)
+    rt.require(code is not None and parts.dtype == torch.float32,
+               "fold: f32 partials into f32 or bf16")
+    rt.require_contiguous(parts=parts)
+    s0, n = slots
+    rows = W * kvp * g
+    out = torch.empty((n, W, kvp, g, hd), dtype=dtype, device=parts.device)
+    fn = rt.entry("paged_attention", "paged_attention_fold", _FOLD_ARGS)
+    rc = fn(rt.ptr(parts), rt.ptr(out), D, b * rows, s0 * rows, n * rows, hd,
+            code, rt.stream_ptr(parts.device))
+    rt.check(rc, "paged_attention (fold)")
+    fold_partials.launches += 1
+    return out
+
+
+fold_partials.launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, table, pos, *,

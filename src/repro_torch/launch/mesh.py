@@ -4,7 +4,10 @@
 
 Rank r sits at data index r // model and model index r % model; the ranks
 of one data index form that row's model-axis process group, over which the
-tensor-parallel collectives of ``sharding/comm.py`` run.
+tensor-parallel collectives of ``sharding/comm.py`` run; the ranks of one
+model index form that column's data-axis group (ranks {d * model + m}),
+over which the data-axis gathers run; and the world group spans the
+mesh.
 
 ``make_production_mesh`` (the pod compile path) is not ported: the port
 has no pod to compile for.
@@ -23,19 +26,31 @@ AXES = ("data", "model")
 @dataclasses.dataclass
 class Mesh:
     """This rank's view of a (data, model) mesh: the axis sizes
-    (``shape``), its coordinates on them (``coords``), the process group of
-    its model-axis row (None when the row is the whole world, or a world
-    of one) and the device its tensors live on."""
+    (``shape``), its coordinates on them (``coords``), the process groups
+    of its model-axis row (``group``), its data-axis column
+    (``data_group``) and the whole mesh (``world_group``) — each None when
+    it is the whole world, or a world of one — and the device its tensors
+    live on."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     group: Any = None
     device: Optional[torch.device] = None
     axis_names: Tuple[str, ...] = AXES
+    data_group: Any = None
+    world_group: Any = None
 
     @property
     def rank(self) -> int:
         return self.coords["data"] * self.shape["model"] + self.coords["model"]
+
+    def model_row(self) -> "Mesh":
+        """This rank's model-axis row as a (1, model) mesh: what the
+        weights are split over (the data axis replicates them)."""
+        return dataclasses.replace(
+            self, shape={"data": 1, "model": self.shape["model"]},
+            coords={"data": 0, "model": self.coords["model"]},
+            data_group=None, world_group=self.group)
 
 
 def world() -> Tuple[int, int]:
@@ -72,16 +87,24 @@ def make_host_mesh(data: int = 1, model: int = 1, *, strict: bool = False,
     if rank >= data_eff * model_eff:
         raise ValueError(f"rank {rank} lies outside the ({data_eff}, "
                          f"{model_eff}) mesh")
-    group = None
+    group = data_group = world_group = None
+    # every rank builds every group, in the same order, as new_group requires
     if n > 1 and model_eff < n:
-        # every rank builds every row's group, as new_group requires
         for d in range(data_eff):
             g = dist.new_group(list(range(d * model_eff, (d + 1) * model_eff)))
             if d == rank // model_eff:
                 group = g
+    if n > 1 and data_eff < n:
+        for m in range(model_eff):
+            g = dist.new_group(list(range(m, data_eff * model_eff, model_eff)))
+            if m == rank % model_eff:
+                data_group = g
+    if n > data_eff * model_eff:
+        world_group = dist.new_group(list(range(data_eff * model_eff)))
     if device is None:
         from repro_torch.sharding import comm
         device = comm.rank_device(rank)
     return Mesh(shape={"data": data_eff, "model": model_eff},
                 coords={"data": rank // model_eff, "model": rank % model_eff},
-                group=group, device=torch.device(device))
+                group=group, device=torch.device(device),
+                data_group=data_group, world_group=world_group)

@@ -15,20 +15,24 @@ continuous-batching engine), with the same report lines.
       --continuous   # MoE through the engine: routed experts as sparsity
   python -m repro_torch.launch.serve --arch tiny-relu --smoke \\
       --continuous --mesh 1,2   # tensor-parallel sharded serving, 2 ranks
+  python -m repro_torch.launch.serve --arch tiny-relu --smoke \\
+      --continuous --mesh 2,4   # and the pool split over 2 data rows
 
 The engine runs on CUDA unless ``--device cpu`` is given; with no CUDA and
 no ``--device cpu`` it raises. ``--sparse-density d > 0`` relufies the
 model (stage 2) and serves it at static tile capacities d (FFN) and
 min(1, 3 d) (inputs), on both engines.
 
-``--mesh DATA,MODEL`` serves the continuous engine tensor-parallel over
-DATA x MODEL torch.distributed ranks (``EngineConfig(mesh=)``): launched
+``--mesh DATA,MODEL`` serves the continuous engine over DATA x MODEL
+torch.distributed ranks (``EngineConfig(mesh=)``): the weights
+tensor-parallel over MODEL, the slots and the paged pool's blocks split
+over DATA where they divide it. Launched
 under a torch.distributed launcher (``WORLD_SIZE`` set) the command joins
 that world, whose size must hold the mesh (``make_host_mesh(strict=True)``
 raises otherwise); launched alone it spawns the ranks itself
 (``sharding.comm.spawn``, NCCL when each rank has a card of its own, gloo
-when they share one or run on the CPU). Rank 0 prints the report. DATA > 1
-raises NotImplementedError (ROADMAP.md). Not ported, raising
+when they share one or run on the CPU). Rank 0 prints the report. Not
+ported, raising
 NotImplementedError: the pod-mesh compile path (no ``--smoke``). The
 mamba, hybrid, encdec and vlm archs (falcon-mamba-7b, zamba2-7b, whisper-small, internvl2-1b) serve
 on the legacy engine only, with zero stub patches / frames in the compute
@@ -84,8 +88,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve the continuous-batching engine on a "
                          "(data, model) mesh of torch.distributed ranks: "
                          "weights tensor-parallel over 'model' by the "
-                         "serve-mode rules (implies --continuous; raises "
-                         "when the world cannot hold the shape)")
+                         "serve-mode rules, slots and pool blocks over "
+                         "'data' (implies --continuous; raises when the "
+                         "world cannot hold the shape)")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when CUDA is absent) or cpu")
@@ -117,10 +122,6 @@ def main(argv=None) -> None:
         raise NotImplementedError("the pod-mesh compile path (no --smoke) "
                                   "is not ported to PyTorch (ROADMAP.md)")
     if mesh_shape is not None:
-        if mesh_shape[0] > 1:
-            raise NotImplementedError(
-                "--mesh with DATA > 1 (the paged pool split over data "
-                "shards) is not ported (ROADMAP.md)")
         _serve_on_mesh(args, mesh_shape)
         return
     _serve(args)
@@ -236,6 +237,10 @@ def _serve(args, mesh=None) -> None:
                        gamma=args.gamma)
     if args.predictor != "none":
         spec_kw.update(predictor=smoke_predictor(params, cfg, device))
+    if mesh is not None:
+        # a pool the data axis divides: each data row holds its blocks
+        n_blocks = 1 + 2 * max_bps
+        spec_kw["n_blocks"] = n_blocks + -n_blocks % mesh.shape["data"]
     eng = ContinuousBatchingEngine(cfg, params, config=EngineConfig(
         n_slots=2, block_size=16, max_blocks_per_seq=max_bps,
         track_sparsity=True, mesh=mesh, **spec_kw), device=device)
@@ -259,6 +264,10 @@ def _serve(args, mesh=None) -> None:
             f"{eng.weight_io_bytes_per_step():.0f} B/step "
             f"(= {eng.weight_io_bytes_per_step(per_device=False):.0f} "
             f"B total x 1/{eng.ffn_tp})")
+        if eng.data is not None:
+            say(f"data axis: a rank holds {eng.pages['k'].shape[1]} of "
+                f"{eng.data.n_blocks} pool blocks and computes "
+                f"{eng.data.slots[1]} of {eng.data.n_slots} slots")
     if args.prefix_cache:
         say(f"prefix cache: hit rate {eng.prefix_hit_rate():.1%}; "
             f"prefill tokens saved {eng.prefill_tokens_saved()} "

@@ -488,7 +488,8 @@ def paged_gather(pages_l: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def paged_write_window(pages: torch.Tensor, layer: int, table: torch.Tensor,
                        pos: torch.Tensor, val: torch.Tensor, block_size: int,
-                       enable: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       enable: Optional[torch.Tensor] = None,
+                       blocks: Optional[tuple] = None) -> torch.Tensor:
     """Scatter a W-token window's K or V per request through the block
     table, IN PLACE. pages (L, n_blocks, kvp, bs, hd); table (b, nb); pos
     (b, W); val (b, W, kvp, hd); enable (b, W) bool — disabled tokens go to
@@ -499,7 +500,15 @@ def paged_write_window(pages: torch.Tensor, layer: int, table: torch.Tensor,
     which a serial scatter (the CPU's, the reference's) leaves there: a
     CUDA scatter keeps any one of them, and what the idle rows then read
     reaches the live rows wherever the batch is coupled (the union of a
-    static tile capacity)."""
+    static tile capacity).
+
+    ``blocks`` (b0, n): the pool holds global blocks b0 .. b0 + n - 1 only
+    (one data row's range; the table holds global ids). The writes to
+    them land at their local block, the others nowhere: each is sent to
+    the entry of this rank's last write, carrying its value (or, with no
+    write of this rank in the call, to local entry (0, 0) carrying what
+    it holds), so every write to an entry carries one value and the
+    scatter needs no host sync."""
     nb = table.shape[1]
     blk = torch.gather(table.long(), 1,
                        torch.clamp(pos.long() // block_size, 0, nb - 1))
@@ -511,19 +520,93 @@ def paged_write_window(pages: torch.Tensor, layer: int, table: torch.Tensor,
     # largest i in an entry is the value every write to it carries
     own = torch.arange(block_size, block_size + n, device=blk.device)
     tgt = torch.where((blk == SCRATCH_BLOCK).reshape(-1), off.reshape(-1), own)
+    writer = own
+    if blocks is not None:
+        b0, nloc = blocks
+        mine = ((blk >= b0) & (blk < b0 + nloc)).reshape(-1)
+        writer = torch.where(mine, own, -1)  # only this rank's writes count
     src = torch.empty(block_size + n, dtype=torch.long, device=blk.device
-                      ).scatter_reduce_(0, tgt, own, "amax",
+                      ).scatter_reduce_(0, tgt, writer, "amax",
                                         include_self=False)[tgt] - block_size
-    val = val.reshape((n,) + val.shape[2:])[src].reshape(val.shape)
-    pages[layer][blk, :, off, :] = val.to(pages.dtype)
+    val = val.reshape((n,) + val.shape[2:])
+    if blocks is None:
+        pages[layer][blk, :, off, :] = val[src].reshape(
+            blk.shape + val.shape[1:]).to(pages.dtype)
+        return pages
+    blk, off = blk.reshape(-1) - b0, off.reshape(-1)
+    last = torch.where(mine, torch.arange(n, device=blk.device), -1).max()
+    has, a = last >= 0, last.clamp(min=0)
+    blk = torch.where(mine, blk, torch.where(has, blk[a], 0))
+    off = torch.where(mine, off, torch.where(has, off[a], 0))
+    v = val[torch.where(mine, src, src[a].clamp(min=0))].to(pages.dtype)
+    v = torch.where(has, v, pages[layer][0, :, 0, :][None])
+    pages[layer][blk, :, off, :] = v
     return pages
 
 
-def paged_write_token(pages, layer, table, pos, val, block_size: int):
-    """One token per request — ``paged_write_window`` at W = 1, in place.
-    pos (b,); val (b, kvp, hd)."""
-    return paged_write_window(pages, layer, table, pos[:, None], val[:, None],
-                              block_size)
+def paged_attend(q, k, v, k_pages, v_pages, layer: int, table, pos, valid,
+                 block_size: int, window: int, kernels: bool) -> torch.Tensor:
+    """One layer's paged attention step: the window's K/V written into the
+    pool (in place), then its attention. q (b, W, kvp, g, hd); k, v (b, W,
+    kvp, hd); table (b, nb); pos (b, W) write positions, causal within the
+    window; valid (b, W) bool, None for all (invalid tokens write the
+    scratch block). ``kernels``: kernel 2 (``paged_window_attention``,
+    its partial mode and the fold; their plain versions on CPU tensors),
+    else the reference's frozen gather (the partial mode's and the fold's
+    plain versions on a split pool). Returns o (b, W, kvp, g, hd) in q's
+    dtype.
+
+    Under a data split (``comm.data_split``): where the split cuts the
+    batch, q, the new K/V, the table, positions and validity of the data
+    column's slots are put together first, in global slot order (one
+    gather). Every row writes the window rows whose blocks it holds
+    (``paged_write_window(blocks=)``; all of them with the pool whole).
+    With the pool whole each row then attends its own slots as one device
+    would; with the pool split each row attends every slot against its
+    own pages (``paged_window_attention_partial``), the rows' partials are
+    put together (a second gather) and each row folds its slots' in data
+    order (``fold_partials``): q and (m, l, acc) cross the data axis, never
+    the pages."""
+    from repro_torch.kernels import paged_attention as kpa
+
+    def attend(q, table, pos):
+        kl, vl = k_pages[layer], v_pages[layer]
+        if kernels:
+            return kpa.paged_window_attention(q, kl, vl, table, pos,
+                                              window=window)
+        return window_attention(q, paged_gather(kl, table),
+                                paged_gather(vl, table), pos, window=window)
+
+    split = comm.data_split()
+    if split is None:
+        paged_write_window(k_pages, layer, table, pos, k, block_size, valid)
+        paged_write_window(v_pages, layer, table, pos, v, block_size, valid)
+        return attend(q, table, pos)
+    s0, ns = split.slots
+    q_own, table_own, pos_own = q, table, pos
+    if split.slots_split:
+        if valid is None:
+            valid = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
+        q, k, v, table, pos, valid = (
+            t.reshape((-1,) + tuple(t.shape[2:])) for t in
+            comm.data_gather([q, k, v, table, pos, valid]))
+    blocks = split.blocks if split.pool_split else None
+    paged_write_window(k_pages, layer, table, pos, k, block_size, valid,
+                       blocks=blocks)
+    paged_write_window(v_pages, layer, table, pos, v, block_size, valid,
+                       blocks=blocks)
+    if not split.pool_split:
+        if not split.slots_split:
+            return attend(q, table, pos)
+        return attend(q_own, table_own, pos_own)
+    partial, fold = ((kpa.paged_window_attention_partial, kpa.fold_partials)
+                     if kernels else
+                     (kpa.paged_window_attention_partial_plain,
+                      kpa.fold_partials_plain))
+    parts = partial(q.contiguous(), k_pages[layer], v_pages[layer],
+                    table.contiguous(), pos.contiguous(), blocks=split.blocks,
+                    window=window)
+    return fold(comm.data_gather([parts])[0], (s0, ns), q.dtype)
 
 
 def paged_write_prefill(pages: torch.Tensor, kv: torch.Tensor,
@@ -536,6 +619,18 @@ def paged_write_prefill(pages: torch.Tensor, kv: torch.Tensor,
     pad = nb * block_size - s
     kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
     tiles = kv.reshape(L, nb, block_size, kvp, hd).permute(0, 1, 3, 2, 4)
+    split = comm.data_split()
+    if split is not None and split.pool_split:
+        # a data row holds a range of the pool: the blocks of its range, at
+        # their local ids (one host read of the request's block ids)
+        b0, nloc = split.blocks
+        keep = [(i, b - b0) for i, b in enumerate(blocks.tolist())
+                if b0 <= b < b0 + nloc]
+        if not keep:
+            return pages
+        i, local = (torch.tensor(c, device=pages.device) for c in zip(*keep))
+        pages[:, local] = tiles[:, i].to(pages.dtype)
+        return pages
     pages[:, blocks.long()] = tiles.to(pages.dtype)
     return pages
 
@@ -642,13 +737,22 @@ def static_plan(F: int, cfg: ModelConfig, n_groups: int = 0):
     return cfg.sparsity.tile_size, 1
 
 
+def batch_tile_scores(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """The (F // tile,) scores of x (t, F) over the batch's rows (the max
+    over rows: co-batched rows change a static selection), over every row
+    of the batch where a data split cuts it (``comm.data_max``), so each
+    data row selects what one device selects."""
+    return comm.data_max(tile_scores(x, tile).amax(0))
+
+
 def static_tiles(x: torch.Tensor, cfg: ModelConfig, density: float,
                  n_groups: int = 0):
     """The tile selection ``maybe_sparse_matmuls`` makes for x (t, F) at
     ``density`` < 1, by ``static_plan``: (idx (k,) int32 tile ids, mask
     (k,), tile)."""
     tile, groups = static_plan(x.shape[1], cfg, n_groups)
-    idx, mask = select_active_tiles(tile_scores(x, tile), density, groups)
+    idx, mask = select_active_tiles(batch_tile_scores(x, tile), density,
+                                    groups)
     return idx, mask, tile
 
 
@@ -662,7 +766,8 @@ def grouped_sparse_matmul(x: torch.Tensor, w: torch.Tensor, density: float,
     t, F = x.shape
     D = w.shape[1]
     tile = pick_group_tile(F, n_groups)
-    idx, mask = select_active_tiles(tile_scores(x, tile), density, n_groups)
+    idx, mask = select_active_tiles(batch_tile_scores(x, tile), density,
+                                    n_groups)
     il = idx.long().reshape(n_groups, -1)  # (G, k_g)
     xg = (x.reshape(t, F // tile, tile)[:, il]
           * mask.reshape(n_groups, -1)[None, :, :, None])  # (t, G, k_g, tile)
@@ -702,7 +807,7 @@ def rank_tile_scores(x: torch.Tensor, tile: int, start: int,
     the slices are put together over the ranks (``comm.gather_last``) and
     the maxima taken over each tile, exactly as one device scores it."""
     s = math.gcd(tile, math.gcd(x.shape[1], start))
-    sub = tile_scores(x, s).amax(0)
+    sub = batch_tile_scores(x, s)
     full = comm.gather_last(sub, total // s, start // s)
     return full.reshape(-1, tile // s).amax(-1)
 

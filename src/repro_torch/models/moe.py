@@ -26,6 +26,15 @@ output has top_k nonzero terms); the window's activity is OR-ed over the
 ranks. Where the experts do not divide the model axis, d_ff is split
 instead, as in the dense family.
 
+Under a data split that cuts the batch (``comm.data_split``: each data row
+of the mesh computes its own slots), the groups, the capacity and the
+routing are those of the whole batch, as on one device: where a group's
+tokens lie in one row, the row routes its groups alone; where a group
+spans rows, the router logits are put together over the data axis, every
+row routes every token the same way, and each row runs the groups its
+tokens touch with the other rows' tokens left out (their expert slots
+stay empty), so its tokens meet the capacity drops one device makes.
+
 Exactness: under drop-free capacity (capacity_factor >= n_experts, so cap
 >= tg * top_k) every token's experts take it whatever tokens share the
 batch, and each expert slot holds an exact copy of one token's row. The
@@ -90,21 +99,44 @@ def _route(p, x, cfg: ModelConfig,
     coefficient of variation of the gate mass each (group, expert) takes).
 
     Returns (xg (G, tg, d), dispatch (G, tg, E, cap) bool, combine
-    (G, tg, E, cap) f32, (G, tg, cap), (topi, topv) (G, tg, k))."""
+    (G, tg, E, cap) f32, (G, tg, cap), (topi, topv) (G, tg, k), own) with
+    own = (first, count): x's tokens among the G * tg rows (all of them but
+    under a data split whose groups span the data rows, module note)."""
     t, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    G = max(1, t // cfg.moe_group_size)
-    while t % G:
+    split = comm.data_split()
+    rows = split.size if split is not None and split.slots_split else 1
+    t_all = t * rows  # the whole batch's tokens
+    G = max(1, t_all // cfg.moe_group_size)
+    while t_all % G:
         G -= 1
-    tg = t // G
+    tg = t_all // G
     cap = max(1, int(-(-tg * k * cfg.capacity_factor // E)))
 
-    xg = x.reshape(G, tg, d)
     lay = cm.shard_layout(cfg)
-    if lay is None or lay.experts[1] == E:
-        logits = (xg @ p["router"]).float()
-    else:  # the router holds the rank's experts' columns: gather them all
-        logits = comm.gather_last(xg @ p["router"], E, lay.experts[0]).float()
+
+    def router(x):
+        if lay is None or lay.experts[1] == E:
+            return (x @ p["router"]).float()
+        # the router holds the rank's experts' columns: gather them all
+        return comm.gather_last(x @ p["router"], E, lay.experts[0]).float()
+
+    own = (0, t)
+    if rows == 1 or t % tg == 0:  # whole groups: this row's alone
+        G = t // tg
+        xg = x.reshape(G, tg, d)
+        logits = router(xg)
+    else:
+        # the groups of this row's tokens span rows: route every token
+        t0 = split.index * t
+        g0, g1 = t0 // tg, (t0 + t - 1) // tg + 1
+        logits = comm.data_gather([router(x)])[0].reshape(t_all, E)
+        logits = logits[g0 * tg:g1 * tg].reshape(g1 - g0, tg, E)
+        own = (t0 - g0 * tg, t)
+        G = g1 - g0
+        xg = torch.zeros((G * tg, d), dtype=x.dtype, device=x.device)
+        xg[own[0]:own[0] + t] = x
+        xg = xg.reshape(G, tg, d)
     gates_all = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(gates_all, dim=-1, descending=True, stable=True)
     topv, topi = topv[..., :k], topi[..., :k]
@@ -123,12 +155,24 @@ def _route(p, x, cfg: ModelConfig,
         dispatch |= sel > 0
         combine = combine + sel * topv[..., kk][..., None, None]
         counts = counts + oh.sum(1)
+    if own != (0, G * tg):  # the other rows' tokens take no slot here
+        keep = torch.zeros(G * tg, dtype=torch.bool, device=dev)
+        keep[own[0]:own[0] + own[1]] = True
+        keep = keep.reshape(G, tg, 1, 1)
+        dispatch = dispatch & keep
+        combine = combine * keep
     if stats.active:
         stats.add("moe_drop_frac", 1.0 - dispatch.sum() / (G * tg * k))
         load = combine.sum((1, 3))  # (G, E)
         stats.add("moe_load_cv",
                   load.std(unbiased=False) / (load.mean() + 1e-9))
-    return xg, dispatch, combine, (G, tg, cap), (topi, topv)
+    return xg, dispatch, combine, (G, tg, cap), (topi, topv), own
+
+
+def _own_tokens(y, own):
+    """The rows of x's tokens in a (G, tg, ...) routing-group tensor, as
+    (t, ...)."""
+    return y.reshape((-1,) + tuple(y.shape[2:]))[own[0]:own[0] + own[1]]
 
 
 def _local_experts(cfg: ModelConfig, dispatch, combine):
@@ -173,7 +217,7 @@ def apply_moe(p, x, cfg: ModelConfig,
     FFNs on their slots, and the gate-weighted combine. An active ``stats``
     records the routing's sites, ``moe_pre`` and ``down_in`` (no
     ``down_act``: as in the reference, expert units feed no tracker)."""
-    xg, dispatch, combine, _, _ = _route(p, x, cfg, stats)
+    xg, dispatch, combine, _, _, _ = _route(p, x, cfg, stats)
     dispatch, combine = _local_experts(cfg, dispatch, combine)
     dd = dispatch.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dd, xg)
@@ -203,7 +247,7 @@ def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
     t = x.shape[0]
     tile = cm.ffn_gather_tile(cfg)
     tpe = cfg.d_ff // tile
-    _, dispatch, _, (_, _, cap), (topi, topv) = _route(p, x, cfg)
+    _, dispatch, _, (_, _, cap), (topi, topv), _ = _route(p, x, cfg)
     topi, topv = topi.reshape(t, -1), topv.reshape(t, -1)
     kept = dispatch.reshape(t, cfg.n_experts, cap).any(-1).gather(1, topi)
     # kept assignments first, in routing order, so k_valid counts them
@@ -332,7 +376,8 @@ def apply_moe_window(p, x, cfg: ModelConfig, *, mask, refresh, valid):
                  the window's read union)."""
     b, W, d = x.shape
     E, F = cfg.n_experts, mask.shape[-1]
-    xg, dispatch, combine, (G, tg, _), _ = _route(p, x.reshape(b * W, d), cfg)
+    xg, dispatch, combine, (G, tg, _), _, own = _route(
+        p, x.reshape(b * W, d), cfg)
     ldisp, lcomb = _local_experts(cfg, dispatch, combine)
     dd = ldisp.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dd, xg)
@@ -342,17 +387,20 @@ def apply_moe_window(p, x, cfg: ModelConfig, *, mask, refresh, valid):
     # its token's (drop-free), so gating here equals gating per token — and
     # is x1.0 (bit-exact) under refresh
     eff = mask | refresh[:, None]  # (b, F)
-    eff_tok = eff[:, None, :].expand(b, W, F).reshape(G, tg, F)
-    h = h * torch.einsum("gtec,gtf->gecf", dd, eff_tok.to(h.dtype))
+    eff_tok = torch.zeros((G * tg, F), dtype=h.dtype, device=h.device)
+    eff_tok[own[0]:own[0] + own[1]] = eff[:, None, :].expand(
+        b, W, F).reshape(b * W, F).to(h.dtype)
+    h = h * torch.einsum("gtec,gtf->gecf", dd, eff_tok.reshape(G, tg, F))
 
     ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
-    out = _combine(cfg, lcomb, ye, x).reshape(b, W, d)
+    out = _own_tokens(_combine(cfg, lcomb, ye, x), own).reshape(b, W, d)
 
     # telemetry: a token's within-expert activity unioned over its routed
     # experts (the slot-level γ-mask is shared across experts)
     ddf = ldisp.float()
     act_tok = torch.einsum("gtec,gecf->gtf", ddf, (h != 0).float())
-    act_tok = (act_tok.reshape(b, W, F) > 0) & valid[:, :, None]
+    act_tok = (_own_tokens(act_tok, own).reshape(b, W, F) > 0) \
+        & valid[:, :, None]
     act = act_tok.any(1)
     lay = cm.shard_layout(cfg)
     if lay is None or lay.experts[1] == E:
@@ -365,7 +413,7 @@ def apply_moe_window(p, x, cfg: ModelConfig, *, mask, refresh, valid):
         tile = cm.ffn_gather_tile(cfg)
         scores = preds.units_to_tiles(act, tile).to(torch.float32)
 
-    texp = dispatch.any(3).reshape(b, W, E)  # each token's experts
+    texp = _own_tokens(dispatch.any(3), own).reshape(b, W, E)  # its experts
     efrac = texp.float().mean(-1)  # (b, W)
     tok_density = efrac * eff.float().mean(-1)[:, None]
     vf = valid.float()

@@ -49,7 +49,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import activations as acts
 from repro_torch.kernels import fused_decode as kfd
-from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import sparse_matmul as ksm
 from repro_torch.kernels.fused_ffn import tile_activity, window_tile_activity
 from repro_torch.models import common as cm
@@ -253,8 +252,8 @@ def _down_proj(h, wd, cfg: ModelConfig, density: float):
     f0, fl = lay.ffn
     tile, groups = cm.static_plan(cfg.d_ff, cfg)
     if groups % lay.tp == 0:
-        idx, mask = cm.select_active_tiles(cm.tile_scores(h, tile), density,
-                                           groups // lay.tp)
+        idx, mask = cm.select_active_tiles(cm.batch_tile_scores(h, tile),
+                                           density, groups // lay.tp)
         f0 = 0  # the list is over this rank's units already
     else:
         idx, mask = cm.select_active_tiles(
@@ -615,16 +614,8 @@ def apply_attn_window_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     b, W, _ = x.shape
     q, k, v = _qkv(p, x, cfg, pos, decode=True)
     q = q.reshape(b, W, g.kvp, g.group, g.head_dim).contiguous()
-    cm.paged_write_window(k_pages, layer, table, pos, k, block_size, valid)
-    cm.paged_write_window(v_pages, layer, table, pos, v, block_size, valid)
-    kl, vl = k_pages[layer], v_pages[layer]
-    if fast_kernels:
-        o = kpa.paged_window_attention(q, kl, vl, table, pos,
-                                       window=cfg.sliding_window)
-    else:
-        o = cm.window_attention(q, cm.paged_gather(kl, table),
-                                cm.paged_gather(vl, table), pos,
-                                window=cfg.sliding_window)
+    o = cm.paged_attend(q, k, v, k_pages, v_pages, layer, table, pos, valid,
+                        block_size, cfg.sliding_window, fast_kernels)
     return _attn_out(p, o.reshape(b, W, g.hp, g.head_dim), cfg)
 
 
@@ -885,17 +876,9 @@ def apply_block_decode_paged(p, x, cfg: ModelConfig, k_pages, v_pages, table,
     g = cm.local_heads(cfg)
     h = post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
     q, k, v = _qkv(p["attn"], h[:, None, :], cfg, pos[:, None], decode=True)
-    q = q.reshape(q.shape[0], g.kvp, g.group, g.head_dim).contiguous()
-    cm.paged_write_token(k_pages, layer, table, pos, k[:, 0], block_size)
-    cm.paged_write_token(v_pages, layer, table, pos, v[:, 0], block_size)
-    kl, vl = k_pages[layer], v_pages[layer]
-    if fast_kernels:
-        o = kpa.paged_decode_attention(q, kl, vl, table, pos,
-                                       window=cfg.sliding_window)
-    else:
-        o = cm.decode_attention(q, cm.paged_gather(kl, table),
-                                cm.paged_gather(vl, table), pos,
-                                window=cfg.sliding_window)
+    q = q.reshape(q.shape[0], 1, g.kvp, g.group, g.head_dim).contiguous()
+    o = cm.paged_attend(q, k, v, k_pages, v_pages, layer, table, pos[:, None],
+                        None, block_size, cfg.sliding_window, fast_kernels)
     x = x + _attn_out(p["attn"], o.reshape(o.shape[0], 1, g.hp, g.head_dim),
                       cfg)[:, 0]
 

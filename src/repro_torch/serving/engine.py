@@ -43,23 +43,33 @@ each wrapper's plain version. With an MoE config on the CPU,
 ``fast_kernels=True`` warns and serves the plain path, as the reference
 does; on CUDA its steps run the attention kernel.
 
-Tensor-parallel sharded serving (``EngineConfig(mesh=)``, a
-``repro_torch.launch.mesh.Mesh`` of shape (1, M) over M torch.distributed
-ranks, one engine a rank): the engine holds the rank's blocks of the
-target, draft and predictor params by the serve-mode rules
+Sharded serving (``EngineConfig(mesh=)``, a ``repro_torch.launch.mesh.Mesh``
+of shape (D, M) over D x M torch.distributed ranks, one engine a rank):
+the engine holds the rank's blocks of the target, draft and predictor
+params by the serve-mode rules over its model-axis row
 (``sharding/rules.py``: attention heads, d_ff, MoE experts and the
-vocabulary split over "model"), its kv heads of the paged pools and its
-d_ff slice of the γ-masks, and runs every model call under
-``comm.serving(mesh)``, which puts the all-reduces where the split
-products meet. Each rank runs the same path as one device would — the
-kernels on the card, at the rank's shapes; the reference turns its kernels
-off under a mesh instead (GSPMD cannot partition them). Every rank runs
-the scheduler and the sampling head over the same all-gathered logits, so
-every rank picks the same tokens; once a step the ranks compare a checksum
-of them, and a mismatch raises. The FFN statistics are reduced over the
-ranks, so the metrics read as on one device, and
-``weight_io_bytes_per_step()`` is per device (1/``ffn_tp`` of the total).
-A mesh with data > 1 raises NotImplementedError (ROADMAP.md).
+vocabulary split over "model"; the data axis replicates the weights), its
+kv heads of the paged pools and its d_ff slice of the γ-masks, and runs
+every model call under ``comm.serving(mesh, data)``, which puts the
+collectives where the split products meet. Each rank runs the same path as
+one device would — the kernels on the card, at the rank's shapes; the
+reference turns its kernels off under a mesh instead (GSPMD cannot
+partition them). On the data axis (``rules.DataSplit``) data row d holds
+global pool blocks [d nb/D, (d+1) nb/D) as its local blocks and computes
+the model step for slots [d n/D, (d+1) n/D), each where it divides D (else
+every row holds the whole pool, or computes every slot); the one-request
+whole-prompt prefill runs on every row. Attention on a split pool runs
+kernel 2's partial mode and folds the rows' partials
+(``common.paged_attend``). Every rank runs the one scheduler, and the
+sampling head over its slots' logits (all-gathered over the model axis,
+so every rank of a row picks the same tokens); the step's tokens and
+per-slot statistics come together over the mesh (``_step_rows``: a
+model-axis all-reduce, or one world sum where the slots are split, which
+carries each model rank's own tokens to be compared bit for bit), and
+once a step the ranks compare a checksum of the tokens; a mismatch
+raises. So the metrics read as on one device, and
+``weight_io_bytes_per_step()`` is per device (1/``ffn_tp`` of the total;
+the data axis divides nothing).
 
 Observability (``EngineConfig(obs=)``, an ``repro_torch.obs.EngineObs``;
 None makes an enabled one): every step is traced in five phases, as in
@@ -188,10 +198,6 @@ class ContinuousBatchingEngine:
             if missing:
                 raise ValueError("serving mesh needs ('data', 'model') "
                                  f"axes; missing {sorted(missing)}")
-            if mesh.shape["data"] > 1:
-                raise NotImplementedError(
-                    "a serving mesh with data > 1 (the paged pool split "
-                    "over data shards) is not ported (ROADMAP.md)")
             if torch.device(mesh.device) != self.device:
                 raise ValueError(f"the mesh's device {mesh.device} is not "
                                  f"the engine's {self.device}")
@@ -215,7 +221,8 @@ class ContinuousBatchingEngine:
         if mesh is None:
             self._require_on_device(params, "params")
         else:
-            params = rules.shard_params(params, mesh, device=self.device)
+            params = rules.shard_params(params, mesh.model_row(),
+                                        device=self.device)
         self.predictor = predictor = config.predictor
         self.predictor_telemetry = config.predictor_telemetry
         if predictor is not None:
@@ -260,6 +267,11 @@ class ContinuousBatchingEngine:
         self.track = config.track_sparsity
         self.obs = config.obs if config.obs is not None else EngineObs()
         n_blocks = config.resolved_n_blocks
+        self.data = rules.data_split(mesh, config.n_slots, n_blocks)
+        s0, ns = self.data.slots if self.data else (0, config.n_slots)
+        self._own = slice(s0, s0 + ns)  # the slots this rank computes
+        self._n_own = ns
+        local_blocks = self.data.blocks[1] if self.data else n_blocks
         self.scheduler = Scheduler(
             config.n_slots, n_blocks, config.block_size,
             config.max_blocks_per_seq, prefix_cache=config.prefix_cache,
@@ -268,10 +280,10 @@ class ContinuousBatchingEngine:
             aging_steps=config.aging_steps)
         with comm.serving(mesh):
             self.pages = self.fam.init_paged_cache(
-                cfg, n_blocks, config.block_size, device=self.device)
+                cfg, local_blocks, config.block_size, device=self.device)
             self._lay = cm.shard_layout(cfg)
             self.masks = torch.zeros(
-                (cfg.n_layers, config.n_slots, cm.local_d_ff(cfg)),
+                (cfg.n_layers, ns, cm.local_d_ff(cfg)),
                 dtype=torch.bool, device=self.device)
         self.base_seed = config.base_seed
         self.spec = config.draft_cfg is not None
@@ -286,7 +298,8 @@ class ContinuousBatchingEngine:
             if mesh is None:
                 self._require_on_device(dparams, "draft params")
             else:
-                dparams = rules.shard_params(dparams, mesh, device=self.device)
+                dparams = rules.shard_params(dparams, mesh.model_row(),
+                                             device=self.device)
             self.draft_cfg = dcfg
             self.draft_params = dparams
             self.dfam = registry.get_family(dcfg)
@@ -294,7 +307,7 @@ class ContinuousBatchingEngine:
             # (its layer count / head geometry differ from the target's)
             with comm.serving(mesh):
                 self.draft_pages = self.dfam.init_paged_cache(
-                    dcfg, n_blocks, config.block_size, device=self.device)
+                    dcfg, local_blocks, config.block_size, device=self.device)
         self.trackers: Dict[int, AggregatedTracker] = {}
         self.t = 0
         self._uid = 0
@@ -312,6 +325,7 @@ class ContinuousBatchingEngine:
         self._step_density: Optional[float] = None
         self._step_tiles: Optional[float] = None
         self._step_sum = 0  # the step's sampled-token checksum (mesh)
+        self._disagree = None  # model ranks' copies differ (device bool)
         self.obs.set_engine_info(
             arch=cfg.name,
             mode=("spec" if self.spec
@@ -387,17 +401,26 @@ class ContinuousBatchingEngine:
         return True
 
     def _sampling(self, slot: Optional[int] = None) -> _Sampling:
-        """The step's sampling state from the scheduler's
-        ``sampling_arrays``; with ``slot``, that slot's row alone, keyed at
-        generated index 0, where the reference keys the token a
-        whole-prompt prefill seeds (a resumed slot's too)."""
+        """The step's sampling state of this rank's slots from the
+        scheduler's ``sampling_arrays``; with ``slot``, that slot's row
+        alone, keyed at generated index 0, where the reference keys the
+        token a whole-prompt prefill seeds (a resumed slot's too)."""
         arrays = self.scheduler.sampling_arrays()
         if slot is not None:
             *row, gen = (a[slot:slot + 1] for a in arrays)
             arrays = (*row, np.zeros_like(gen))
+        else:
+            arrays = tuple(a[self._own] for a in arrays)
         return _Sampling(arrays, self._tensor)
 
     def _prefill_whole(self, i: int, slot) -> None:
+        """One request's whole prompt: its batch of one does not divide the
+        data axis, so every data row runs it (each keeping the blocks it
+        holds) and samples the same token."""
+        split = comm.data_split()
+        if split is not None and split.slots_split:
+            with comm.serving(self.mesh, split.whole_batch()):
+                return self._prefill_whole(i, slot)
         s = slot.prefill_len
         nb_eff = -(-s // self.block_size)
         toks = np.zeros((1, nb_eff * self.block_size), np.int32)
@@ -424,16 +447,18 @@ class ContinuousBatchingEngine:
         # prefilling slots run dense (refresh on) and harvest their union
         # activity into the mask row; continuing chunks OR into it
         refresh = clen > 0
-        keep = self._tensor(refresh & ~first)
-        jtok, jtable = self._tensor(tokens), self._tensor(table)
-        jpos, jclen = self._tensor(pos0), self._tensor(clen)
+        own = self._own
+        keep = self._tensor((refresh & ~first)[own])
+        jtok, jtable = self._tensor(tokens[own]), self._tensor(table[own])
+        jpos, jclen = self._tensor(pos0[own]), self._tensor(clen[own])
         B, C = tokens.shape
+        b = self._n_own
         last = np.maximum(clen - 1, 0)
-        jlast = self._tensor(last, torch.int64)
+        jlast = self._tensor(last[own], torch.int64)
         smpl = self._sampling()
         logits, self.pages, new_masks, aux = self.fam.model_prefill_chunk_paged(
             self.params, {"tokens": jtok}, self.cfg, self.pages, jtable, jpos,
-            jclen, self.masks, self._tensor(refresh), self.block_size,
+            jclen, self.masks, self._tensor(refresh[own]), self.block_size,
             fast_kernels=self.fast_kernels)
         self.masks = torch.where(keep[None, :, None], self.masks | aux[0],
                                  new_masks)
@@ -446,17 +471,18 @@ class ContinuousBatchingEngine:
             dcfg = self.draft_cfg
             _, self.draft_pages, _, _ = self.dfam.model_verify_window_paged(
                 self.draft_params, self.draft_pages, jtable, jtok, jpos, jclen,
-                dcfg, torch.zeros((dcfg.n_layers, B, cm.local_d_ff(dcfg)),
+                dcfg, torch.zeros((dcfg.n_layers, b, cm.local_d_ff(dcfg)),
                                   dtype=torch.bool, device=self.device),
-                torch.ones((B,), dtype=torch.bool, device=self.device),
+                torch.ones((b,), dtype=torch.bool, device=self.device),
                 self.block_size, fast_kernels=self.fast_kernels)
         # only a slot's last chunk position (clen - 1) can seed a token, so
         # the head runs on that row alone, keyed at the slot's CURRENT
         # generated index (0 for a fresh prompt; a resumed preempted slot
         # continues its schedule at len(out)). The reference samples every
         # position with that key and reads the same row.
-        rows = logits[torch.arange(B, device=self.device), jlast]
+        rows = logits[torch.arange(b, device=self.device), jlast]
         nxt, lp = smpl.head(rows, self.cfg.vocab_size)
+        nxt, lp = self._step_rows([(nxt, "same"), (lp, "same")])
         nxt_bc = np.zeros((B, C), np.int32)
         lp_bc = np.zeros((B, C), np.float32)
         nxt_bc[np.arange(B), last] = nxt.cpu().numpy()
@@ -469,7 +495,8 @@ class ContinuousBatchingEngine:
         """Decode one token for every active slot."""
         sched = self.scheduler
         with st.phase("dispatch"):
-            tokens, pos, table, refresh = sched.batch_arrays()
+            tokens, pos, table, refresh = (a[self._own]
+                                           for a in sched.batch_arrays())
             smpl = self._sampling()
             logits, self.pages, self.masks, (act, scores, density) = \
                 self.fam.model_decode_paged(
@@ -479,6 +506,8 @@ class ContinuousBatchingEngine:
                     fast_kernels=self.fast_kernels)
             nxt, lp = smpl.head(logits, self.cfg.vocab_size)
             ffn, act = self._ffn_stats(density.mean(0), scores, act)
+            nxt, lp, *ffn = self._step_rows([(nxt, "same"), (lp, "same")]
+                                            + ffn)
             stats = torch.stack([lp, *ffn])
         with st.phase("host_sync"):
             lp_np, dens_np, tiles_np = stats.cpu().numpy()
@@ -495,7 +524,8 @@ class ContinuousBatchingEngine:
         sched = self.scheduler
         pred = self.predictor
         with st.phase("dispatch"):
-            tokens, pos, table, refresh = sched.batch_arrays()
+            tokens, pos, table, refresh = (a[self._own]
+                                           for a in sched.batch_arrays())
             smpl = self._sampling()
             logits, self.pages, self.masks, (act, scores, density, n_act,
                                              n_miss) = \
@@ -506,8 +536,10 @@ class ContinuousBatchingEngine:
                     pred.kind, pred.tile, pred.k_tiles, self.block_size,
                     self.predictor_telemetry, fast_kernels=self.fast_kernels)
             nxt, lp = smpl.head(logits, self.cfg.vocab_size)
-            (dens, tiles, n_act, n_miss), act = self._ffn_stats(
-                density.mean(0), scores, act, n_act.sum(0), n_miss.sum(0))
+            ffn, act = self._ffn_stats(density.mean(0), scores, act,
+                                       n_act.sum(0), n_miss.sum(0))
+            nxt, lp, dens, tiles, n_act, n_miss = self._step_rows(
+                [(nxt, "same"), (lp, "same")] + ffn)
             stats = torch.stack([lp, dens, tiles])
             counts = torch.stack([n_act, n_miss]).to(torch.int64)
         with st.phase("host_sync"):
@@ -537,22 +569,25 @@ class ContinuousBatchingEngine:
         vocab = self.cfg.vocab_size
         with st.phase("dispatch"):
             tokens, pos0, table, wlen = sched.spec_batch(self.gamma + 1)
+            own = self._own
             smpl = self._sampling()
-            jt, jp, jw = (self._tensor(table), self._tensor(pos0),
-                          self._tensor(wlen))
+            jt, jp, jw = (self._tensor(table[own]), self._tensor(pos0[own]),
+                          self._tensor(wlen[own]))
 
             def next_fn(logits, g):
                 # proposal g is keyed at generated index gen0 + g
                 return smpl.head(logits, vocab, offset=g)[0]
 
             props, self.draft_pages = self.dfam.model_draft_gamma_paged(
-                self.draft_params, self.draft_pages, jt, self._tensor(tokens),
-                jp, jw, self.draft_cfg, self.gamma, self.block_size,
-                next_fn=next_fn, fast_kernels=self.fast_kernels)
+                self.draft_params, self.draft_pages, jt,
+                self._tensor(tokens[own]), jp, jw, self.draft_cfg, self.gamma,
+                self.block_size, next_fn=next_fn,
+                fast_kernels=self.fast_kernels)
             # the (B, γ) proposal fetch is pipeline-necessary (the verify
             # window is built from it), so it stays in "dispatch"
-            window = np.concatenate([tokens[:, None], props.cpu().numpy()], 1)
-            refresh = torch.ones((self.config.n_slots,), dtype=torch.bool,
+            window = np.concatenate([tokens[own][:, None],
+                                     props.cpu().numpy()], 1)
+            refresh = torch.ones((self._n_own,), dtype=torch.bool,
                                  device=self.device)
             logits, self.pages, self.masks, (act, scores, _, udens) = \
                 self.fam.model_verify_window_paged(
@@ -561,6 +596,11 @@ class ContinuousBatchingEngine:
                     fast_kernels=self.fast_kernels)
             target, lp = smpl.head(logits, vocab)
             ffn, act = self._ffn_stats(udens.mean(0), scores, act)
+            props, target, lp, *ffn = self._step_rows(
+                [(props, "same"), (target, "same"), (lp, "same")] + ffn)
+            if self.data is not None and self.data.slots_split:
+                window = np.concatenate([tokens[:, None],
+                                         props.cpu().numpy()], 1)
             stats = torch.stack(ffn)
         with st.phase("host_sync"):
             dens_np, tiles_np = stats.cpu().numpy()
@@ -572,34 +612,108 @@ class ContinuousBatchingEngine:
             sched.record_spec(window, target_np, lp_np, wlen)
 
     def _ffn_stats(self, density, scores, act, *counts):
-        """The step's FFN statistics as on one device: ([density (B,) mean
-        over layers, tile activity (B,), *counts (B,)], act (L, B, F)).
-        Where a mesh splits d_ff each rank measured its own units: the
-        density means and, when the rank's slice is whole gather tiles, the
-        tile-activity means are averaged over the ranks (equal slices) and
-        the counts summed, in one all-reduce; otherwise the tile activity is
-        read off the gathered activity. ``act`` comes back whole only when
-        it was gathered: for the tile activity or, with ``track_sparsity``,
-        for the trackers."""
+        """The step's FFN statistics of this rank's slots, for
+        ``_step_rows``: ([(density (b,) mean over layers, how), (tile
+        activity (b,), how), *(count (b,), how)], act (L, b, F)). ``how``
+        is "same" where every rank of the model axis holds the value;
+        where a mesh splits d_ff each rank measured its own units: the
+        density means and, when the rank's slice is whole gather tiles,
+        the tile-activity means are "avg" (averaged over the ranks: equal
+        slices) and the counts "sum"; otherwise the tile activity is read
+        off the gathered activity. ``act`` comes back whole over the model
+        axis only when it was gathered: for the tile activity or, with
+        ``track_sparsity``, for the trackers; with ``track_sparsity`` and
+        the slots split over the data axis it comes back for every slot
+        (gathered over the data axis)."""
         lay = self._lay
+        if self.track and self.data is not None and self.data.slots_split:
+            act = self._every_slot_act(act)
         if lay is None or not lay.ffn_split:
-            return [density, _tile_activity(scores), *counts], act
+            return [(density, "same"), (_tile_activity(scores), "same"),
+                    *((c, "same") for c in counts)], act
         F, (f0, _) = self.cfg.d_ff, lay.ffn
         tile = cm.ffn_gather_tile(self.cfg, F)
         whole_tiles = cm.ffn_gather_tile(self.cfg) == tile
         if self.track or not whole_tiles:
             act = comm.gather_last(act.to(torch.uint8), F, f0) > 0
-        parts = [density] + ([_tile_activity(scores)] if whole_tiles else [])
-        summed = comm.all_reduce_sum(torch.stack(
-            parts + [c.to(torch.float32) for c in counts]))
-        density = summed[0] / lay.tp
         if whole_tiles:
-            tiles = summed[1] / lay.tp
+            tiles = (_tile_activity(scores), "avg")
         else:
-            L, B = act.shape[:2]
-            tiles = _tile_activity(preds.units_to_tiles(
-                act.reshape(L * B, F), tile).reshape(L, B, -1).float())
-        return [density, tiles, *summed[len(parts):]], act
+            own = act[:, self._own] if act.shape[1] > self._n_own else act
+            L, B = own.shape[:2]
+            tiles = (_tile_activity(preds.units_to_tiles(
+                own.reshape(L * B, F), tile).reshape(L, B, -1).float()),
+                "same")
+        return [(density, "avg"), tiles,
+                *((c.to(torch.float32), "sum") for c in counts)], act
+
+    def _every_slot_act(self, act):
+        """(L, b, F) activity of this rank's slots -> (L, n_slots, F) of
+        every slot (a data-axis gather; the trackers' one extra
+        collective)."""
+        every = comm.data_gather([act])[0]  # (D, L, b, F)
+        return every.permute(1, 0, 2, 3).reshape(
+            act.shape[0], -1, act.shape[2])
+
+    def _step_rows(self, rows):
+        """The step's per-slot values for every slot, on the device: each
+        of ``rows`` is (value (b, ...) of this rank's slots, how) with how
+        as ``_ffn_stats`` gives it. Without a data split that cuts the
+        slots, the "avg" and "sum" rows are reduced over the model axis in
+        one all-reduce (f32) and the others pass as they are. Where the
+        slots are split over the data axis, every value goes into one f32
+        buffer of all the slots at this rank's slots (the "same" values in
+        a copy for each model rank, each rank filling its own) and the
+        buffer is summed over the whole mesh: one collective a step, exact
+        for the "same" values (token ids below 2**24 included), the
+        model-axis sum for the others; each comes back in its dtype, a
+        "same" value as the model axis's first rank gave it. Where the
+        model ranks' copies differ in any bit, ``step`` raises (every rank
+        sees the same sum, so every rank raises)."""
+        data = self.data
+        out = [v for v, _ in rows]
+        if data is None or not data.slots_split:
+            part = [i for i, (_, how) in enumerate(rows) if how != "same"]
+            if part:
+                summed = comm.all_reduce_sum(torch.stack([out[i]
+                                                          for i in part]))
+                for j, i in enumerate(part):
+                    out[i] = (summed[j] / self._lay.tp
+                              if rows[i][1] == "avg" else summed[j])
+            return out
+        s0, ns = data.slots
+        M, m = self.mesh.shape["model"], self.mesh.coords["model"]
+        cols = [v.reshape(ns, -1).to(torch.float32) for v, _ in rows]
+        same = [i for i, (_, how) in enumerate(rows) if how == "same"]
+        other = [i for i in range(len(rows)) if i not in same]
+        ws = sum(cols[i].shape[1] for i in same)
+        wo = sum(cols[i].shape[1] for i in other)
+        buf = torch.zeros((data.n_slots, M * ws + wo), dtype=torch.float32,
+                          device=self.device)
+        if same:
+            buf[s0:s0 + ns, m * ws:(m + 1) * ws] = torch.cat(
+                [cols[i] for i in same], 1)
+        if other:
+            buf[s0:s0 + ns, M * ws:] = torch.cat([cols[i] for i in other], 1)
+        comm.world_sum(buf, self.mesh)
+        copies = buf[:, :M * ws].reshape(data.n_slots, M, ws)
+        if M > 1:  # every model rank's copy, bit for bit
+            bits = copies.contiguous().view(torch.int32)
+            bad = (bits != bits[:, :1]).any()
+            self._disagree = bad if self._disagree is None \
+                else self._disagree | bad
+        at_same, at_other = 0, M * ws
+        for i, (v, how) in enumerate(rows):
+            w = cols[i].shape[1]
+            if how == "same":
+                col = copies[:, 0, at_same:at_same + w]
+                at_same += w
+            else:
+                col = buf[:, at_other:at_other + w]
+                at_other += w
+            col = col.reshape((data.n_slots,) + v.shape[1:])
+            out[i] = (col / self._lay.tp if how == "avg" else col).to(v.dtype)
+        return out
 
     def _sampled(self, tokens) -> None:
         """Fold a step's sampled tokens into its checksum (compared over the
@@ -636,7 +750,8 @@ class ContinuousBatchingEngine:
         st = self.obs.step_start()
         self._step_density = self._step_tiles = None
         self._step_sum = 0
-        with comm.serving(self.mesh):
+        self._disagree = None
+        with comm.serving(self.mesh, self.data):
             prefilled = self._admit(st)
             active = self.scheduler.active_indices()
             if active:
@@ -646,6 +761,10 @@ class ContinuousBatchingEngine:
                     self._advance_pred(active, st)
                 else:
                     self._advance(active, st)
+            if self._disagree is not None and bool(self._disagree):
+                raise RuntimeError("ranks disagree on the sampled tokens: "
+                                   "the model ranks of a data row sampled "
+                                   "different values for their slots")
             if self.mesh is not None and (active or prefilled):
                 comm.check_same(self._step_sum, self.mesh)
         if not active and not prefilled:

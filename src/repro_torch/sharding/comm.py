@@ -1,5 +1,4 @@
-"""Tensor-parallel collectives of the port's sharded serving, and the ranks
-that run them.
+"""Collectives of the port's sharded serving, and the ranks that run them.
 
 Ranks: ``spawn(fn, world, timeout=...)`` starts ``world`` processes, each
 joining one ``torch.distributed`` world (``init_ranks``) through a file
@@ -14,8 +13,8 @@ share a card (NCCL refuses two ranks on one device) or run on the CPU. It
 picks the transport by the cards present; no compute leaves the device
 (gloo stages a CUDA tensor's reduction through host memory).
 
-Collectives are all ``all_reduce``, over the model axis of the active mesh
-(``serving(mesh)``, set by the engine around its model calls):
+Model-axis collectives are ``all_reduce`` over the model axis of the
+active mesh (``serving(mesh)``, set by the engine around its model calls):
 
 * ``all_reduce_sum``: partial products summed in f32 — the caller casts
   once after the sum, as a single-device product rounds once;
@@ -23,12 +22,24 @@ Collectives are all ``all_reduce``, over the model axis of the active mesh
   buffer of the full width and summed, exact (every position is one
   rank's value plus zeros) — the vocabulary's logits, the router's, and
   the FFN activity where it is read whole;
-* ``any_reduce``: a boolean OR;
-* ``check_same``: every rank holds the same host value (a checksum of the
-  sampled tokens, once a step); a mismatch raises.
+* ``any_reduce``: a boolean OR.
 
 With no active mesh, or a model axis of one, each is the identity.
-``STATS`` counts the all-reduces and the host time spent in them.
+
+Data-axis collectives run over the active data split (``serving(mesh,
+data)``, a ``rules.DataSplit``): ``data_gather`` puts the tensors of every
+row of the rank's data column together in data-index order (one
+``all_gather`` of their bytes, exact), ``data_max`` takes the maximum
+over the rows (the batch union of a static tile selection), and
+``world_sum`` sums over every rank of the mesh (the step's per-slot
+values, once a step). ``data_gather`` and ``data_sum`` (an all-reduce
+over the data column) also take a mesh of their own: the DDP train
+step's gradient mean. ``check_same``: every rank of the mesh holds the
+same host value (a checksum of the sampled tokens, once a step); a
+mismatch raises.
+
+``STATS`` counts the collectives of each axis and the host time spent in
+them.
 """
 from __future__ import annotations
 
@@ -50,9 +61,11 @@ _LOCAL = threading.local()
 
 
 class _Stats:
-    """All-reduces issued since ``reset()`` and the host seconds spent in
+    """Collectives issued since ``reset()`` and the host seconds spent in
     them (for a CUDA tensor under gloo this includes waiting for the card
-    to reach the call)."""
+    to reach the call): ``count`` / ``seconds`` over the model axis,
+    ``data_count`` / ``data_seconds`` over the data axis, ``world_count``
+    / ``world_seconds`` over the whole mesh."""
 
     def __init__(self):
         self.reset()
@@ -60,6 +73,16 @@ class _Stats:
     def reset(self) -> None:
         self.count = 0
         self.seconds = 0.0
+        self.data_count = 0
+        self.data_seconds = 0.0
+        self.world_count = 0
+        self.world_seconds = 0.0
+
+    def add(self, axis: str, seconds: float) -> None:
+        prefix = "" if axis == "model" else axis + "_"
+        setattr(self, prefix + "count", getattr(self, prefix + "count") + 1)
+        setattr(self, prefix + "seconds",
+                getattr(self, prefix + "seconds") + seconds)
 
 
 STATS = _Stats()
@@ -181,18 +204,20 @@ def spawn(fn: Callable, world: int, *, timeout: float, args=(),
 
 
 @contextlib.contextmanager
-def serving(mesh):
+def serving(mesh, data=None):
     """Run the block's model calls split over ``mesh``'s model axis (None,
-    or a model axis of one: unsplit). Per thread; the previous mesh comes
-    back on exit, so a sharded engine never leaks its mesh into another
-    engine's steps."""
+    or a model axis of one: unsplit) and, with ``data`` (a
+    ``rules.DataSplit``), over its data axis: the rank's slots and pool
+    blocks. Per thread; the previous state comes back on exit, so a
+    sharded engine never leaks its mesh into another engine's steps."""
     from repro_torch.sharding.rules import tp_size
-    prev = getattr(_LOCAL, "mesh", None)
+    prev = getattr(_LOCAL, "mesh", None), getattr(_LOCAL, "data", None)
     _LOCAL.mesh = mesh if tp_size(mesh) > 1 else None
+    _LOCAL.data = None if data is None else (data, mesh)
     try:
         yield
     finally:
-        _LOCAL.mesh = prev
+        _LOCAL.mesh, _LOCAL.data = prev
 
 
 def active():
@@ -200,12 +225,21 @@ def active():
     return getattr(_LOCAL, "mesh", None)
 
 
-def _all_reduce(t: torch.Tensor, mesh, op=None) -> torch.Tensor:
+def data_split():
+    """The data split (``rules.DataSplit``) the current model calls run
+    under, or None."""
+    d = getattr(_LOCAL, "data", None)
+    return None if d is None else d[0]
+
+
+def _all_reduce(t: torch.Tensor, mesh, op=None, axis: str = "model"
+                ) -> torch.Tensor:
     import torch.distributed as dist
+    group = {"model": mesh.group, "data": mesh.data_group,
+             "world": mesh.world_group}[axis]
     t0 = time.perf_counter()
-    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=mesh.group)
-    STATS.seconds += time.perf_counter() - t0
-    STATS.count += 1
+    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+    STATS.add(axis, time.perf_counter() - t0)
     return t
 
 
@@ -239,6 +273,64 @@ def gather_last(x: torch.Tensor, total: int, offset: int,
     return _all_reduce(buf, mesh).to(x.dtype)
 
 
+def _pieces(tensors):
+    """Each tensor's bytes, padded to a multiple of 8 so that every piece
+    of the packed buffer starts aligned for any dtype."""
+    out = []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = -b.numel() % 8
+        out.append(torch.nn.functional.pad(b, (0, pad)) if pad else b)
+    return out
+
+
+def data_gather(tensors, mesh=None) -> list:
+    """Each of ``tensors`` (this rank's) from every row of its data column
+    of ``mesh`` (default: the active data split's), in data-index order:
+    a list of (D, *shape) tensors of the same dtypes. One all_gather of
+    the packed bytes, exact."""
+    import torch.distributed as dist
+    mesh = mesh or _LOCAL.data[1]
+    n = mesh.shape["data"]
+    if n == 1:
+        return [t[None] for t in tensors]
+    pieces = _pieces(tensors)
+    buf = torch.cat(pieces)
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, buf, group=mesh.data_group)
+    STATS.add("data", time.perf_counter() - t0)
+    every = torch.stack(parts)
+    out, at = [], 0
+    for t, piece in zip(tensors, pieces):
+        nbytes = t.numel() * t.element_size()
+        out.append(every[:, at:at + nbytes].contiguous().view(t.dtype)
+                   .reshape((n,) + tuple(t.shape)))
+        at += piece.numel()
+    return out
+
+
+def data_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the rows of the data axis when
+    the active split cuts the batch (the rows hold different slots), else
+    x."""
+    split = data_split()
+    if split is None or not split.slots_split:
+        return x
+    return data_gather([x])[0].amax(0)
+
+
+def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the rows of ``mesh``'s data axis (in
+    place)."""
+    return x if mesh.shape["data"] == 1 else _all_reduce(x, mesh, axis="data")
+
+
+def world_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over every rank of ``mesh`` (in place)."""
+    return _all_reduce(x, mesh, axis="world")
+
+
 def token_checksum(tokens) -> int:
     """A position-weighted checksum of sampled token ids (host values)."""
     t = np.asarray(tokens, np.int64).reshape(-1)
@@ -246,14 +338,18 @@ def token_checksum(tokens) -> int:
     return int((t * w).sum() % (2 ** 61 - 1))
 
 
+def _one_rank(mesh) -> bool:
+    return mesh is None or mesh.shape["model"] * mesh.shape["data"] == 1
+
+
 def check_same(value: int, mesh, what: str = "sampled tokens") -> None:
-    """Raise unless every rank of the model axis passed the same ``value``
-    (one all-reduce of (value, -value) under MAX)."""
+    """Raise unless every rank of the mesh passed the same ``value`` (one
+    all-reduce of (value, -value) under MAX over the whole mesh)."""
     import torch.distributed as dist
-    if mesh is None or mesh.shape["model"] == 1:
+    if _one_rank(mesh):
         return
     t = torch.tensor([value, -value], dtype=torch.int64, device=mesh.device)
-    _all_reduce(t, mesh, op=dist.ReduceOp.MAX)
+    _all_reduce(t, mesh, op=dist.ReduceOp.MAX, axis="world")
     hi, lo = int(t[0]), -int(t[1])
     if hi != value or lo != value:
         raise RuntimeError(f"ranks disagree on the {what}: checksums range "
@@ -261,8 +357,8 @@ def check_same(value: int, mesh, what: str = "sampled tokens") -> None:
 
 
 def barrier(mesh=None) -> None:
-    """Wait for every rank of the model axis (a one-element all-reduce, so
-    it works on any backend and device)."""
+    """Wait for every rank of the mesh (a one-element all-reduce, so it
+    works on any backend and device)."""
     mesh = mesh or active()
-    if mesh is not None and mesh.shape["model"] > 1:
-        _all_reduce(torch.zeros(1, device=mesh.device), mesh)
+    if not _one_rank(mesh):
+        _all_reduce(torch.zeros(1, device=mesh.device), mesh, axis="world")

@@ -26,6 +26,7 @@ would insert them (models/transformer.py, models/moe.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Optional, Tuple
 
@@ -221,6 +222,59 @@ def serve_masks_pspec(shape: Tuple[int, ...], mesh) -> Spec:
     faxis = "model" if _fits(shape[-1], mesh, "model") else None
     saxis = "data" if _fits(shape[-2], mesh, "data") else None
     return (None,) * (len(shape) - 2) + (saxis, faxis)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSplit:
+    """Where one row of a (D, M) serving mesh sits on the data axis, by the
+    guards of ``serve_masks_pspec`` (slots) and ``paged_cache_pspec``
+    (pool blocks): each pair is (first, count), the whole axis where it
+    does not divide D. Row ``index`` computes the model step for its slots
+    and holds its global blocks as local blocks 0 .. count - 1; the
+    scratch block (global block 0) lies on row 0."""
+
+    size: int
+    index: int
+    slots: Tuple[int, int]
+    blocks: Tuple[int, int]
+    n_slots: int
+    n_blocks: int
+
+    @property
+    def slots_split(self) -> bool:
+        """Each row computes its own slots (else every row computes all)."""
+        return self.slots[1] < self.n_slots
+
+    @property
+    def pool_split(self) -> bool:
+        """Each row holds its own pool blocks (else every row holds all)."""
+        return self.blocks[1] < self.n_blocks
+
+    def whole_batch(self) -> "DataSplit":
+        """The same pool split with every row computing every slot (a call
+        whose batch does not divide the data axis, such as the one-request
+        whole-prompt prefill)."""
+        return dataclasses.replace(self, slots=(0, self.n_slots))
+
+
+def data_split(mesh, n_slots: int, n_blocks: int) -> Optional[DataSplit]:
+    """This rank's ``DataSplit`` of a serving engine's ``n_slots`` slots
+    and ``n_blocks`` pool blocks on ``mesh``; None without a data axis
+    above 1."""
+    if mesh is None or "data" not in mesh.axis_names \
+            or mesh.shape["data"] == 1:
+        return None
+    n, d = mesh.shape["data"], mesh.coords["data"]
+
+    def block(total, spec):
+        return (d * (total // n), total // n) if spec == "data" else (0, total)
+
+    return DataSplit(
+        size=n, index=d,
+        slots=block(n_slots, serve_masks_pspec((n_slots, 1), mesh)[0]),
+        blocks=block(n_blocks, paged_cache_pspec((1, n_blocks, 1, 1, 1),
+                                                 mesh)[1]),
+        n_slots=n_slots, n_blocks=n_blocks)
 
 
 def ssm_cache_pspec(shape: Tuple[int, ...], mesh) -> Spec:

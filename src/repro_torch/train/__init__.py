@@ -1,1 +1,2 @@
-"""Training of the port: for now the forward-only LM loss (``step.py``)."""
+"""Training of the port: the LM loss and train step (``step.py``), the
+Trainer (``loop.py``) and the data-parallel step (``ddp.py``)."""

@@ -442,7 +442,7 @@ def test_serve_smoke_client_passes_on_the_cpu(tmp_path):
 def test_launchers_raise_without_cuda(monkeypatch):
     """No --device means CUDA; with none available every launcher raises
     instead of serving on the CPU. What the CLI does not port raises
-    NotImplementedError naming the roadmap (a mesh with data > 1)."""
+    NotImplementedError naming the roadmap (the pod-mesh compile path)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_engine(parse_args(BASE_ARGS))
@@ -451,6 +451,5 @@ def test_launchers_raise_without_cuda(monkeypatch):
             serve.main(["--arch", "tiny-relu"] + argv)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_smoke_client.main(["--mode", "plain"])
-    for argv in (["--smoke", "--continuous", "--mesh", "2,1"], []):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--arch", "tiny-relu", "--device", "cpu"] + argv)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--arch", "tiny-relu", "--device", "cpu"])

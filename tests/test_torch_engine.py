@@ -193,7 +193,8 @@ def test_unported_modes_raise():
     """Sampled requests and speculative mode are served; observability
     and sparsity tracking are accepted (the engine keeps the hub it was
     given, and a tracker per request); sharded serving on a data axis
-    above 1 raises NotImplementedError; predictor with a draft raises the
+    above 1 constructs (the data axis splits the slots and, where they
+    divide, the pool's blocks); predictor with a draft raises the
     reference's ValueError; a family with no paged serving raises the
     capability error."""
     _, tcfg, _, tp = _params("tiny-opt")
@@ -208,9 +209,11 @@ def test_unported_modes_raise():
     assert res[uids[1]].finish_reason in ("length", "stop")
     data_mesh = Mesh(shape={"data": 2, "model": 1},
                      coords={"data": 0, "model": 0}, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingEngine(tcfg, tp, EngineConfig(mesh=data_mesh),
-                                 device="cpu")
+    eng = ContinuousBatchingEngine(
+        tcfg, tp, EngineConfig(mesh=data_mesh, n_blocks=14, **GEOM),
+        device="cpu")
+    assert eng.data.slots_split == (GEOM["n_slots"] % 2 == 0)
+    assert eng.pages["k"].shape[1] == 7
     hub = EngineObs.disabled()
     eng = ContinuousBatchingEngine(
         tcfg, tp, EngineConfig(obs=hub, track_sparsity=True, **GEOM),

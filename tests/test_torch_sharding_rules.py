@@ -352,14 +352,15 @@ def test_engine_rejects_meshes_it_does_not_serve():
     with pytest.raises(ValueError, match="data.*model|model.*data"):
         ContinuousBatchingEngine(cfg, params, EngineConfig(mesh=rows),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="data > 1"):
-        ContinuousBatchingEngine(cfg, params, EngineConfig(
-            mesh=_rank_mesh(2, 2, 0, 0)), device="cpu")
+    # a data axis above 1 is served: the rank holds half the pool's blocks
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(
+        mesh=_rank_mesh(2, 2, 1, 0), n_blocks=14), device="cpu")
+    assert eng.data.blocks == (7, 7) and eng.pages["k"].shape[1] == 7
 
 
 def test_cli_mesh_raises_when_the_world_cannot_hold_it():
-    """Under a launcher's world of one rank, --mesh 1,2 raises (strict);
-    --mesh 2,2 raises NotImplementedError before any rank starts."""
+    """Under a launcher's world of one rank, --mesh 1,2 and --mesh 2,2
+    raise (strict); a mesh that is not two ints exits."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -369,13 +370,12 @@ def test_cli_mesh_raises_when_the_world_cannot_hold_it():
                + os.environ.get("PYTHONPATH", ""))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
            "tiny-relu", "--smoke", "--continuous", "--device", "cpu"]
-    r = subprocess.run(cmd + ["--mesh", "1,2"], env=env, capture_output=True,
-                       text=True, timeout=120)
-    assert r.returncode != 0 and "degenerating" in r.stderr, r.stderr[-2000:]
+    for mesh in ("1,2", "2,2"):
+        r = subprocess.run(cmd + ["--mesh", mesh], env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0 and "degenerating" in r.stderr, \
+            r.stderr[-2000:]
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "tiny-relu", "--smoke", "--mesh", "2,2",
-                    "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "tiny-relu", "--smoke", "--mesh", "4",
                     "--device", "cpu"])

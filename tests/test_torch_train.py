@@ -119,8 +119,9 @@ def test_train_config_defaults_and_single_device_values():
     assert TrainConfig(zero_stage=0).zero_stage == 0
     with pytest.raises(NotImplementedError, match="zero_stage"):
         TrainConfig(zero_stage=3)
-    with pytest.raises(NotImplementedError, match="grad_compression"):
-        TrainConfig(grad_compression="int8_ef")
+    assert TrainConfig(grad_compression="int8_ef").grad_compression == "int8_ef"
+    with pytest.raises(ValueError, match="grad_compression"):
+        TrainConfig(grad_compression="fp8")
 
 
 @pytest.mark.parametrize("kind", ["constant", "linear", "cosine"])
