@@ -172,9 +172,10 @@ device and build always run):
             exactly, logprobs within 1e-5, metrics within 1e-9,
             per-device weight bytes the one-card figure / ffn_tp and
             their total over the ranks the one-card figure. Full width,
-            bf16: OPT-6.7B (8 layers), Mixtral-8x22B (4 layers) and
-            OPT-6.7B (8 layers) at static capacities 0.25 / 0.75 (kernel
-            5 must launch on every rank) on 2 ranks, the serve
+            bf16: OPT-6.7B (4 layers, cut from 8 for the whole script's
+            time), Mixtral-8x22B (4 layers) and OPT-6.7B (4 layers) at
+            static capacities 0.25 / 0.75 (kernel 5 must launch on every
+            rank) on 2 ranks, the serve
             phase's 8 greedy requests: the ranks' streams identical, the
             first prefill's last-position logits within
             TOL_SHARD_LOGITS of the one-card engine's; per rank the
@@ -202,8 +203,9 @@ device and build always run):
             weight bytes a step the one-card engine's / ffn_tp: their
             scope follows the path), every rank holds 13 blocks and
             launches the partial mode. Full
-            width at (2, 1), bf16: OPT-6.7B (32 layers) and Mixtral-8x22B
-            (4 layers), the serve phase's 8 greedy requests, 130 pool
+            width at (2, 1), bf16: OPT-6.7B (16 layers, cut from 32 for the
+            whole script's time) and Mixtral-8x22B (4 layers), the serve
+            phase's 8 greedy requests, 130 pool
             blocks: the first prefill's logits within TOL_SHARD_LOGITS
             of one card's, argmax equal; one decode step of the 8 slots
             over pages in both halves of the pool (the partial mode, the
@@ -217,6 +219,35 @@ device and build always run):
             same function), then 4 with int8 error feedback (finite,
             falling losses); step ms, collective ms, peak GiB and the
             bytes a rank puts on the wire a step.
+11. fsdp    the FSDP + TP train step (train/fsdp.py) and the
+            sequence-sharded decode attention, ranks sharing the card over
+            gloo, with the launch counts set to 0 before and read after in
+            each rank. llama-7b relufied to stage 2, 2 of 32 layers, full
+            width (0.67 B params), f32 masters and bf16 compute, on a
+            (2, 2) mesh: 3 steps of 8 x 1024 tokens of the synthetic
+            corpus in 2 microbatches, "minimal" remat; step 1's loss and
+            grad norm within TOL_DDP of one card's make_train_step over
+            the same batch, and each rank's param and first-moment blocks
+            after step 1 held against the same blocks of that step's
+            (saved whole under build/fsdp_one_card/, deleted after, and
+            restored through the train specs): at most TOL_FSDP_FLIPS of
+            the params more than lr apart (an Adam step moves each by
+            about lr·sign(g), so there the gradients' signs differ), none
+            more than 2·lr, the first moment within TOL_FSDP_M relative;
+            the state saved sharded after step 2
+            (checkpoint/manager.py, under build/fsdp_ckpt/, deleted
+            after) and restored onto a (1, 2) mesh in a new 2-rank group,
+            whose step 3 loss is the (2, 2) run's within TOL_DDP; the
+            train path launches no kernel. Per rank: step ms, collectives
+            a step by axis (count, host ms, payload bytes), the state's
+            GiB (params + m + v blocks) and the peak GiB. Then, in the
+            (1, 2) group, common.decode_attention over a cache whose
+            sequence is split over its 2 model ranks, at OPT-6.7B decode
+            (8 rows, 32 heads x
+            128, S = 2048, bf16; positions in either half and on the
+            boundary): within one bf16 ulp of the unsharded call (the
+            ulp of each head's output vector's largest |value|), kernel
+            2f (the fold) launched; its ms against the unsharded call's.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -246,7 +277,7 @@ TOL_F32 = 1e-5
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
 PHASES = ("kernels", "parity", "api", "serve", "families", "train",
-          "sharded", "data")  # device and build always run
+          "sharded", "data", "fsdp")  # device and build always run
 
 
 def log(msg: str) -> None:
@@ -3827,12 +3858,12 @@ def sharded_phase(dev, counters) -> dict:
     from repro_torch.configs import get_config
     # 8 of OPT-6.7B's 32 layers: the data phase serves all 32
     sharded_full_width(dev, counters, add, get_config("opt-6.7b").replace(
-        compute_dtype="bfloat16", n_layers=8), seed=0)
+        compute_dtype="bfloat16", n_layers=4), seed=0)
     sharded_full_width(dev, counters, add, get_config("mixtral-8x22b").replace(
         n_layers=4, compute_dtype="bfloat16"), seed=4)
     from repro_torch.core import relufication as rf
     sharded_full_width(dev, counters, add, rf.enable_sparse_serving(
-        get_config("opt-6.7b").replace(compute_dtype="bfloat16", n_layers=8),
+        get_config("opt-6.7b").replace(compute_dtype="bfloat16", n_layers=4),
         0.25, 0.75), seed=0)
     for name in ("fused_sparse_ffn", "paged_window_attention",
                  "sparse_matmul_tokens", "sparse_matmul"):
@@ -3861,6 +3892,16 @@ DATA_FULL_POOL = 130  # SHARD_GEOM's 8 x 16 + scratch, rounded up to even
 # mean of two half-batch losses and gradients), relative: the two runs
 # differ only in where the halves' sum is taken
 TOL_DDP = 1e-4
+# FSDP blocks after step 1 against one card's, bf16 compute: the share of
+# params whose gradient's sign differs (Adam's first step moves them 2·lr
+# apart), and the first moment's relative error over a rank's blocks.
+# Read on the H100 at llama-7b stage 2, 2 layers, (2, 2): 2.9-3.1e-4 and
+# 2.8-2.9e-3 a rank; the limits are about 3x. A reduce-scatter that
+# hands a rank another data row's chunk gives m_rel near sqrt(2) (two
+# unrelated gradients of one size), a step that skips the clip
+# 1 - 1/||g|| (0.96 there).
+TOL_FSDP_FLIPS = 1e-3
+TOL_FSDP_M = 1e-2
 
 
 def partial_parts_check(name, got, want, dtype) -> float:
@@ -4230,6 +4271,36 @@ def data_full_width(dev, add, cfg, seed: int) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+_ONE_CARD_STEP1 = {}  # (config, batch) -> one card's step 1
+
+
+def one_card_step1(dev, cfg, tc, batch) -> tuple:
+    """One card's make_train_step over ``batch`` from params of seed
+    ``tc.seed``: the reference the DDP and FSDP steps are held to (the
+    same config, TrainConfig and batch in both phases, so it is computed
+    once). Returns (step 1's loss and grad norm, the params and the first
+    moment after it, on the host)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_map
+    key = (cfg.to_json(), repr(tc), batch["tokens"].tobytes())
+    if key not in _ONE_CARD_STEP1:
+        params = T.init_params(cfg, seed=tc.seed, device=dev,
+                               dtype=torch.float32)
+        params, opt, one = make_train_step(cfg, tc)(
+            params, adamw.init_opt_state(params),
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        host = tree_map(lambda t: t.to("cpu"), (params, opt.m))
+        _ONE_CARD_STEP1[key] = ({k: float(one[k]) for k in ("loss",
+                                                            "grad_norm")},
+                                host)
+        del params, opt, one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return _ONE_CARD_STEP1[key]
+
+
 def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
     """One rank of the DDP run: 4 uncompressed steps, then 4 with int8
     error feedback from the same initial params, each timed with the card
@@ -4292,10 +4363,7 @@ def ddp_full_width(dev, cfg=None, dc=None) -> None:
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core import relufication as rf
     from repro_torch.data.pipeline import DataConfig, PackedIterator
-    from repro_torch.models import transformer as T
-    from repro_torch.optim import adamw
     from repro_torch.sharding import comm
-    from repro_torch.train.step import make_train_step
     cfg = cfg or rf.relufy_stage2(get_config("llama-7b")).replace(
         n_layers=2, compute_dtype="bfloat16")
     dc = dc or DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
@@ -4303,14 +4371,7 @@ def ddp_full_width(dev, cfg=None, dc=None) -> None:
     batch = next(PackedIterator(dc))
     tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
                      warmup_steps=2, num_microbatches=2)
-    params = T.init_params(cfg, seed=tc.seed, device=dev, dtype=torch.float32)
-    one = make_train_step(cfg, tc)(
-        params, adamw.init_opt_state(params),
-        {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})[2]
-    want = {k: float(one[k]) for k in ("loss", "grad_norm")}
-    del params, one
-    gc.collect()
-    torch.cuda.empty_cache()
+    want = one_card_step1(dev, cfg, tc, batch)[0]
     t0 = time.perf_counter()
     ranks = comm.spawn(ddp_rank, 2, timeout=600,
                        args=(cfg, batch, dev.type), device=dev.type)
@@ -4353,7 +4414,7 @@ def data_phase(dev, counters) -> dict:
     log(f"  parity took {time.perf_counter() - t0:.1f} s")
     from repro_torch.configs import get_config
     data_full_width(dev, add, get_config("opt-6.7b").replace(
-        compute_dtype="bfloat16"), seed=0)
+        compute_dtype="bfloat16", n_layers=16), seed=0)
     data_full_width(dev, add, get_config("mixtral-8x22b").replace(
         n_layers=4, compute_dtype="bfloat16"), seed=4)
     t0 = time.perf_counter()
@@ -4363,6 +4424,283 @@ def data_phase(dev, counters) -> dict:
                  "paged_attention_fold", "sparse_matmul_tokens"):
         if total[name] <= 0:
             fail(f"kernel {name} was not launched on the data-axis path")
+    log(f"  launches summed over the ranks: {json.dumps(total)}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the FSDP + TP train step and the sequence-sharded decode
+
+
+def _stats() -> dict:
+    """``comm.STATS`` by axis: count, host ms and payload bytes."""
+    from repro_torch.sharding import comm
+    st = comm.STATS
+    return {axis: dict(count=getattr(st, p + "count"),
+                       host_ms=getattr(st, p + "seconds") * 1e3,
+                       payload_bytes=getattr(st, p + "bytes"))
+            for axis, p in (("model", ""), ("data", "data_"),
+                            ("world", "world_"))}
+
+
+def step1_vs_one_card(params, opt, lr: float, ref: str, shardings) -> dict:
+    """This rank's param and first-moment blocks after step 1 against the
+    same blocks of one card's (saved whole in ``ref``, restored through
+    ``shardings``). One Adam step moves a param by about lr·sign(g) (the
+    first step's update is g / (|g| + eps)), so a param whose gradient's
+    sign differs is 2·lr apart: ``flips`` counts the elements more than lr
+    apart, ``param_max`` is the largest difference over lr, and ``m_rel``
+    the first moment's relative error (its norm over the rank's blocks):
+    a block handed to another rank, a wrong clip or a wrong update shows
+    in these, where the loss and norm before the update cannot."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    (rp, rm), _ = CheckpointManager(ref).restore(
+        (shardings, shardings), 1, shardings=(shardings, shardings))
+    flips, n, worst, dm, mm = 0, 0, 0.0, 0.0, 0.0
+    for a, b in zip(flatten(params), flatten(rp)):
+        d = (a - b).abs()
+        flips += int((d > lr).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()) / lr)
+    for a, b in zip(flatten(opt.m), flatten(rm)):
+        dm += float((a - b).double().square().sum())
+        mm += float(b.double().square().sum())
+    return dict(flips=flips, elements=n, flip_share=flips / n,
+                param_max_over_lr=worst, m_rel=(dm / mm) ** 0.5,
+                seconds=time.perf_counter() - t0)
+
+
+def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
+              device_type: str, ckpt: str, resume: bool, ref=None) -> dict:
+    """One rank of the FSDP run on a (data, world / data) mesh: from seeded
+    params (or, with ``resume``, the step-2 checkpoint in ``ckpt``), one
+    step per batch, each timed with the card synchronised, its
+    collectives read from ``comm.STATS``, its peak memory; without
+    ``resume`` the state is saved sharded after step 2, and with ``ref``
+    its blocks after step 1 are held against one card's
+    (``step1_vs_one_card``). The kernels' launch counts are set to 0
+    first and returned. With ``resume`` (a (1, M) mesh) the rank then
+    frees the state and runs ``seq_decode_rank`` ("decode")."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import comm
+    from repro_torch.train import fsdp
+    from repro_torch.tree import flatten
+    started = time.time()
+    mesh = make_host_mesh(data, world // data, strict=True,
+                          device=None if device_type == "cuda" else "cpu")
+    dev = mesh.device
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
+                     warmup_steps=2, num_microbatches=2)
+    shardings = fsdp.state_shardings(cfg, mesh)
+    t0 = time.perf_counter()
+    if resume:
+        (params, opt), _ = CheckpointManager(ckpt).restore(
+            shardings, 2, shardings=shardings)
+    else:
+        whole = T.init_params(cfg, seed=tc.seed, device=dev,
+                              dtype=torch.float32)
+        params, opt = fsdp.shard_train_state(whole, mesh)
+        del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    state_gib = sum(x.numel() * x.element_size() for x in
+                    flatten((params, opt.m, opt.v))) / 2 ** 30
+    step = fsdp.make_fsdp_train_step(cfg, tc, mesh)
+    rows, ms, coll, save_s, peak, vs_one = [], [], [], None, 0.0, None
+    for i, b in enumerate(batches):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        comm.STATS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        coll.append(_stats())
+        rows.append({k: float(v) for k, v in m.items()})
+        if ref is not None and i == 0:
+            vs_one = step1_vs_one_card(params, opt, rows[0]["lr"], ref,
+                                       shardings[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not resume and i == 1:
+            t0 = time.perf_counter()
+            CheckpointManager(ckpt).save(2, (params, opt),
+                                         shardings=shardings)
+            save_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    decode = None
+    if resume:
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        decode = seq_decode_rank(rank, world, device_type, mesh)
+    return dict(mesh=[data, world // data], metrics=rows, step_ms=ms,
+                proc_start=os.stat(f"/proc/{os.getpid()}").st_ctime,
+                started=started, ended=time.time(), decode=decode,
+                collectives=coll, setup_s=setup_s, save_s=save_s,
+                state_gib=state_gib, peak_gib=peak, launches=launches,
+                step1_vs_one_card=vs_one)
+
+
+def seq_decode_rank(rank: int, world: int, device_type: str, mesh,
+                    b: int = 8, heads: int = 32, hd: int = 128,
+                    S: int = 2048) -> dict:
+    """One model rank of the sequence-sharded decode at OPT-6.7B decode
+    shapes, bf16, on ``mesh`` (1, world): every rank draws the same q,
+    caches and positions from one seed, keeps its slice of S and runs
+    ``decode_attention`` under the mesh (partials, one gather, the fold),
+    then the unsharded call on the whole caches. Returns the error in bf16 ulps of the
+    unsharded result (the ulp of each head's output vector's largest
+    |value|: the fold rounds p to bf16 before it divides, the unsharded
+    call after, so an output near zero can differ by many of its own
+    ulps), the fold's launches in the sharded call and both calls' ms."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models import common as cm
+    from repro_torch.sharding import comm
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    q = torch.randn((b, heads, 1, hd), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, heads, S, hd), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, heads, S, hd), generator=gen, device=dev).to(bf)
+    half = S // mesh.shape["model"]
+    # rows in the first half only, on the boundary, and in the second
+    pos = torch.tensor([5, S // 3, half - 1, half, half + 1, S - S // 6,
+                        S - 2, S - 1][:b], dtype=torch.int32, device=dev)
+    lo = mesh.coords["model"] * half
+    kl, vl = (t[:, :, lo:lo + half].contiguous() for t in (k, v))
+    kpa.fold_partials.launches = 0
+    with comm.serving(mesh):
+        got = cm.decode_attention(q, kl, vl, pos)
+    torch.cuda.synchronize()
+    launches = kpa.fold_partials.launches
+    want = cm.window_attention(q[:, None], k, v, pos[:, None])[:, 0]
+    wf = want.float()
+    top = wf.abs().amax(-1, keepdim=True).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    err_ulps = float(((got.float() - wf).abs() / ulp).max())
+    with comm.serving(mesh):
+        sharded_ms = time_ms(lambda: cm.decode_attention(q, kl, vl, pos),
+                             reps=10, warmup=2)
+    whole_ms = time_ms(lambda: cm.window_attention(q[:, None], k, v,
+                                                   pos[:, None]),
+                       reps=10, warmup=2)
+    return dict(err_ulps=err_ulps, finite=bool(torch.isfinite(got).all()),
+                fold_launches=launches, sharded_ms=sharded_ms,
+                unsharded_ms=whole_ms, shape=[b, heads, S, hd])
+
+
+def fsdp_full_width(dev, cfg=None, dc=None) -> list:
+    """llama-7b relufied to stage 2 at 2 of its 32 layers on a (2, 2) mesh
+    of ranks sharing the card: one card's make_train_step for step 1's
+    loss and grad norm, then 3 FSDP steps, saved after step 2, then step 3
+    again on a (1, 2) mesh restored from that save. The train steps must
+    launch no kernel. Returns the (1, 2) ranks' decode results
+    (``seq_decode_rank``)."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.data.pipeline import DataConfig, PackedIterator
+    from repro_torch.sharding import comm
+    cfg = cfg or rf.relufy_stage2(get_config("llama-7b")).replace(
+        n_layers=2, compute_dtype="bfloat16")
+    dc = dc or DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                          batch_size=8)
+    it = PackedIterator(dc)
+    batches = [next(it) for _ in range(3)]
+    tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
+                     warmup_steps=2, num_microbatches=2)
+    want, one_state = one_card_step1(dev, cfg, tc, batches[0])
+    ckpt = str(ROOT / "build" / "fsdp_ckpt")
+    ref = str(ROOT / "build" / "fsdp_one_card")
+    for d in (ckpt, ref):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def group(world, data, batches, resume):
+        t0 = time.time()
+        out = comm.spawn(fsdp_rank, world, timeout=400,
+                         args=(data, cfg, batches, dev.type, ckpt, resume,
+                               None if resume else ref),
+                         device=dev.type)
+        t1 = time.time()
+        log(f"  ({data}, {world // data}) took {t1 - t0:.1f} s: the "
+            f"processes began after "
+            f"{max(r['proc_start'] for r in out) - t0:.1f} s, the step "
+            f"function after {max(r['started'] for r in out) - t0:.1f} s, "
+            f"the group ended {t1 - max(r['ended'] for r in out):.1f} s "
+            "after the last rank returned")
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        CheckpointManager(ref).save(1, one_state)
+        log(f"  one card's step-1 params and first moment saved in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ranks = group(4, 2, batches, False)
+        resumed = group(2, 1, batches[2:], True)
+    finally:
+        for d in (ckpt, ref):
+            shutil.rmtree(d, ignore_errors=True)
+    step3 = ranks[0]["metrics"][2]
+    for r, got in enumerate(ranks + resumed):
+        first = got["metrics"][0]
+        if any(got["launches"].values()):
+            fail(f"FSDP rank {r} launched kernels: {got['launches']}")
+        losses = [m["loss"] for m in got["metrics"]]
+        if not np.isfinite(losses).all():
+            fail(f"FSDP rank {r}: non-finite losses {losses}")
+        if r < 4:
+            for k, v in want.items():
+                if abs(first[k] - v) > TOL_DDP * max(1.0, abs(v)):
+                    fail(f"FSDP rank {r} step 1 {k} {first[k]} != one "
+                         f"card's {v}")
+            vs = got["step1_vs_one_card"]
+            if (vs["flip_share"] > TOL_FSDP_FLIPS
+                    or vs["param_max_over_lr"] > 2.0 + 1e-3
+                    or vs["m_rel"] > TOL_FSDP_M):
+                fail(f"FSDP rank {r}: its blocks after step 1 are not one "
+                     f"card's: {vs}")
+        elif abs(first["loss"] - step3["loss"]) > TOL_DDP * abs(
+                step3["loss"]):
+            fail(f"FSDP resumed on (1, 2), rank {r - 4}: step 3 loss "
+                 f"{first['loss']} != the (2, 2) run's {step3['loss']}")
+        log("  fsdp " + json.dumps(dict(got, rank=r % 4, layers=cfg.n_layers,
+                                        one_card_step1=want)))
+    return [r["decode"] for r in resumed]
+
+
+def fsdp_phase(dev, counters) -> dict:
+    """Phase 11: the FSDP + TP train step on (2, 2) and its resume on
+    (1, 2), whose ranks then run the sequence-sharded decode. Returns the
+    ranks' launches, summed (the fold's, from the decode)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {name: 0 for name in counters}
+    t0 = time.perf_counter()
+    ranks = fsdp_full_width(dev)
+    log(f"  took {time.perf_counter() - t0:.1f} s")
+    for r, got in enumerate(ranks):
+        if not got["finite"] or got["err_ulps"] > 1.0:
+            fail(f"seq-sharded decode rank {r}: {got['err_ulps']} bf16 ulps "
+                 "from the unsharded call")
+        if got["fold_launches"] <= 0:
+            fail("kernel paged_attention_fold was not launched by the "
+                 "sequence-sharded decode")
+        total["paged_attention_fold"] += got["fold_launches"]
+        log("  seq-sharded decode " + json.dumps(dict(got, rank=r)))
     log(f"  launches summed over the ranks: {json.dumps(total)}")
     return total
 
@@ -4410,7 +4748,8 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in counters}
     for phase, run in (("api", api_phase), ("serve", serve_phase),
                        ("families", families_phase), ("train", train_phase),
-                       ("sharded", sharded_phase), ("data", data_phase)):
+                       ("sharded", sharded_phase), ("data", data_phase),
+                       ("fsdp", fsdp_phase)):
         if phase in phases:
             log(f"[{phase}]")
             t0 = time.perf_counter()
@@ -4418,7 +4757,7 @@ def main(argv=None) -> int:
                 launches[name] += n
             log(f"[{phase}] took {time.perf_counter() - t0:.1f} s")
     results.update(DATA_KERNEL_ROWS)
-    if {"api", "serve", "families", "sharded", "data"} & set(phases):
+    if {"api", "serve", "families", "sharded", "data", "fsdp"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

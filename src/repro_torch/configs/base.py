@@ -163,12 +163,13 @@ SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The reference's fields and defaults. ``zero_stage`` 0 (replicated
-    optimizer state) and 1 (sharded over the data axis; the port keeps it
-    replicated, as the DDP step does) train alike; 3 (FSDP params) raises
-    NotImplementedError (ROADMAP.md). ``grad_compression`` "none" or
-    "int8_ef" (the DDP step's int8 wire with error feedback,
-    ``train/ddp.py``)."""
+    """The reference's fields and defaults. As in the reference,
+    ``zero_stage`` selects nothing: the builder that is called decides the
+    layout (``make_train_step`` on one device, ``train/ddp.py`` replicated
+    over "data", ``train/fsdp.py`` by the rules' train mode: params and
+    moments split over (data, model), whatever the field holds).
+    ``grad_compression`` "none" or "int8_ef" (the DDP step's int8 wire
+    with error feedback, ``train/ddp.py``)."""
 
     learning_rate: float = 1.5e-5  # paper's fine-tuning LR
     warmup_steps: int = 100
@@ -187,11 +188,6 @@ class TrainConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.zero_stage not in (0, 1):
-            raise NotImplementedError(
-                f"zero_stage={self.zero_stage} (FSDP params over a (data, "
-                "model) mesh) is not ported (ROADMAP.md); the port trains "
-                "with zero_stage 0 or 1")
         if self.grad_compression not in ("none", "int8_ef"):
             raise ValueError(f"grad_compression={self.grad_compression!r}: "
                              "'none' or 'int8_ef'")

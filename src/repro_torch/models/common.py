@@ -49,11 +49,13 @@ class ParamInit:
     draws follow the call order, with the reference's scaling. A family's
     init builds its tree leaf by leaf through it; ``stack(n, make)`` fills
     an (n, ...) layer-stacked leaf one layer at a time, so a full-width
-    model never holds a second f32 copy."""
+    model never holds a second f32 copy. On the "meta" device it makes
+    the leaves' shapes and dtypes only (no storage, no draws)."""
 
     def __init__(self, seed: int, device, dtype):
         self.device, self.dtype = device, dtype
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        gen_device = "cpu" if torch.device(device).type == "meta" else device
+        self.gen = torch.Generator(device=gen_device).manual_seed(seed)
 
     def dense(self, shape, fan_in: int) -> torch.Tensor:
         return dense_init(self.gen, shape, fan_in, self.dtype, self.device)
@@ -228,9 +230,11 @@ class LocalHeads:
 @dataclasses.dataclass(frozen=True)
 class ShardLayout:
     """Where one rank of a (1, M) serving mesh sits in each split axis of a
-    config's weights, read off the serve-mode rules (``rules.param_pspec``):
-    each pair is (first index, count) of the rank's block, the whole axis
-    when the rule replicates it.
+    config's weights, read off the rules (``rules.param_pspec``) of the
+    mode the weights were sharded in (``comm.mode``: "serve", or "train"
+    for the FSDP step's model column, whose data-axis splits are gathered
+    first): each pair is (first index, count) of the rank's block, the
+    whole axis when the rule replicates it.
 
     q: padded q slots (``wq``'s heads, ``wo``'s rows). kv_split: how
     ``wk``/``wv`` are split — "heads" (column-split over kv heads, each
@@ -238,7 +242,9 @@ class ShardLayout:
     summed over the ranks, the GQA case kvp < TP) or "none"; kv: the kv
     heads this rank's q slots read, the heads its paged pool keeps, with
     ``heads.group`` slots each (a rank whose slots are part of one group
-    reads one head). d: d_model rows of row-split ``wk``/``wv``. vocab:
+    reads one head). Train mode never row-splits ``wk``/``wv``: where the
+    kv heads do not divide M they are whole ("none"; their d_model rows go
+    to "data"). d: d_model rows of row-split ``wk``/``wv``. vocab:
     embedding rows. ffn: d_ff units (``wu``/``wg`` columns, ``wd`` rows,
     the γ-masks). experts: MoE experts."""
 
@@ -270,7 +276,8 @@ class ShardLayout:
 
 
 @functools.lru_cache(maxsize=None)
-def _layout(cfg: ModelConfig, tp: int, rank: int) -> ShardLayout:
+def _layout(cfg: ModelConfig, tp: int, rank: int,
+            mode: str = "serve") -> ShardLayout:
     from repro_torch.launch.mesh import Mesh
     mesh = Mesh(shape={"data": 1, "model": tp},
                 coords={"data": 0, "model": rank})
@@ -278,7 +285,7 @@ def _layout(cfg: ModelConfig, tp: int, rank: int) -> ShardLayout:
     L, d, hd = cfg.n_layers, cfg.d_model, g.head_dim
 
     def split(path, shape, dim):
-        return rules.param_pspec(path, shape, mesh, "serve")[dim] == "model"
+        return rules.param_pspec(path, shape, mesh, mode)[dim] == "model"
 
     def block(n, is_split):
         return (rank * (n // tp), n // tp) if is_split else (0, n)
@@ -322,7 +329,8 @@ def shard_layout(cfg: ModelConfig) -> Optional[ShardLayout]:
     mesh = comm.active()
     if mesh is None:
         return None
-    return _layout(cfg, mesh.shape["model"], mesh.coords["model"])
+    return _layout(cfg, mesh.shape["model"], mesh.coords["model"],
+                   comm.mode())
 
 
 def local_heads(cfg: ModelConfig):
@@ -343,11 +351,15 @@ def local_d_ff(cfg: ModelConfig) -> int:
 def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an f32 result, unrounded: a rank's partial of a product
     whose contraction is split over the ranks, summed in f32 before the one
-    cast, as a single-device product rounds once. x (..., k), w (k, n)."""
+    cast, as a single-device product rounds once. x (..., k), w (k, n).
+    Under autograd, the f32 product of the upcast operands (the same
+    value: the products of two bf16 are exact in f32), which autograd
+    differentiates."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and not grad:
         y = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         y = x2.float() @ w.float()
@@ -451,9 +463,55 @@ def window_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     """Single-step grouped attention — ``window_attention`` at W = 1.
-    q (b, kvp, g, d); pos (b,)."""
-    return window_attention(q[:, None], k_cache, v_cache, pos[:, None],
-                            window)[:, 0]
+    q (b, kvp, g, d); pos (b,).
+
+    Under an active mesh (``comm.active``) the caches are sequence-sharded
+    as ``rules.cache_pspec`` lays them out: this rank's rows of the batch
+    (q, pos and the caches hold them: b over "data") and its slice of S
+    over "model", positions s0 .. s0 + S_l - 1 with s0 = model index ×
+    S_l. Each rank takes the partial softmax of its keys at their global
+    positions (``decode_partial``: acc, m and l; m = -1e30 and l = 0 where
+    none of its keys is valid), the model row's partials are put together
+    in rank order (one gather) and folded (``fold_partials``: kernel 2f on
+    CUDA tensors, its plain version on CPU tensors). The result is the
+    unsharded one up to the order of the f32 sums and, below f32, the
+    rounding of p to the cache dtype before the division (the fold
+    divides once, the unsharded softmax before p @ v)."""
+    mesh = comm.active()
+    if mesh is None:
+        return window_attention(q[:, None], k_cache, v_cache, pos[:, None],
+                                window)[:, 0]
+    from repro_torch.kernels import paged_attention as kpa
+    s0 = mesh.coords["model"] * k_cache.shape[2]
+    part = decode_partial(q, k_cache, v_cache, pos, s0, window)
+    parts = comm.model_gather([part[:, None]], mesh)[0]
+    return kpa.fold_partials(parts.contiguous(), (0, q.shape[0]),
+                             q.dtype)[:, 0]
+
+
+def decode_partial(q, k_cache, v_cache, pos, s0: int,
+                   window: int = 0) -> torch.Tensor:
+    """One rank's partial of ``decode_attention`` over a cache slice that
+    holds positions s0 .. s0 + S_l - 1: q (b, kvp, g, d), k/v_cache (b,
+    kvp, S_l, d), pos (b,) global. Returns (b, kvp, g, d + 2) f32: acc, m,
+    l (the partial mode's layout, ``paged_window_attention_partial``),
+    with ``window_attention``'s rounding placement (q scaled in its dtype
+    and cast to the cache's, p cast to it before p @ v, f32 sums)."""
+    b, kvp, g, d = q.shape
+    S = k_cache.shape[2]
+    qs = (q * _in_dtype(1.0 / math.sqrt(d), q.dtype)).to(k_cache.dtype)
+    logits = torch.einsum("bhgd,bhsd->bhgs", qs.float(), k_cache.float())
+    ar = s0 + torch.arange(S, device=q.device)
+    valid = ar[None, :] <= pos[:, None]
+    if window:
+        valid &= ar[None, :] > pos[:, None] - window
+    valid = valid[:, None, None]
+    logits = torch.where(valid, logits, -1e30)
+    m = logits.amax(-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    acc = torch.einsum("bhgs,bhsd->bhgd", p.to(k_cache.dtype).float(),
+                       v_cache.float())
+    return torch.cat([acc, m[..., None], p.sum(-1)[..., None]], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -882,8 +940,21 @@ def call(fn: Callable, *args):
     return fn(*args)
 
 
+def _in_state(fn: Callable) -> Callable:
+    """``fn`` run under the mesh state active now (``comm.snapshot``): a
+    recompute in the backward may run on autograd's own thread, where the
+    thread's state is not set, and must split as the forward did."""
+    state = comm.snapshot()
+
+    def run(*args):
+        with comm.restored(state):
+            return fn(*args)
+
+    return run
+
+
 def _checkpointed(fn: Callable, *args):
-    return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return ckpt.checkpoint(_in_state(fn), *args, use_reentrant=False)
 
 
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -919,7 +990,9 @@ def wrap_block(policy: str, block_fn: Callable) -> Callable:
       lies inside each.
 
     All four give the same gradients. A recompute calls an active stats
-    collector's ``add*`` again under the same keys with the same values."""
+    collector's ``add*`` again under the same keys with the same values,
+    and, under a mesh, issues the block's forward collectives again, on
+    every rank alike, in the mesh state of the forward."""
     if policy in (None, "none"):
         return block_fn
     if policy == "save_ars":
@@ -932,8 +1005,8 @@ def wrap_block(policy: str, block_fn: Callable) -> Callable:
     kw = {"context_fn": _products_saved} if policy == "minimal" else {}
 
     def block(p, x, cfg, positions, stats=NO_STATS):
-        return ckpt.checkpoint(block_fn, p, x, cfg, positions, stats,
-                               use_reentrant=False, **kw)
+        return ckpt.checkpoint(_in_state(block_fn), p, x, cfg, positions,
+                               stats, use_reentrant=False, **kw)
 
     return block
 
@@ -949,7 +1022,7 @@ def rms_norm_headdim(scale: torch.Tensor, x: torch.Tensor,
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU. Raises when CUDA is asked for and absent — the port never runs
-    on the CPU unasked."""
+    on the CPU unasked. "meta" (shapes without storage) passes through."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -957,7 +1030,7 @@ def resolve_device(device="cuda") -> torch.device:
                                "run the plain PyTorch versions on the CPU")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
+    elif device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device}")
     return device
 

@@ -119,7 +119,8 @@ def _route(p, x, cfg: ModelConfig,
         if lay is None or lay.experts[1] == E:
             return (x @ p["router"]).float()
         # the router holds the rank's experts' columns: gather them all
-        return comm.gather_last(x @ p["router"], E, lay.experts[0]).float()
+        return comm.gather_last(comm.copy_to_model(x) @ p["router"], E,
+                                lay.experts[0]).float()
 
     own = (0, t)
     if rows == 1 or t % tg == 0:  # whole groups: this row's alone
@@ -175,10 +176,24 @@ def _own_tokens(y, own):
     return y.reshape((-1,) + tuple(y.shape[2:]))[own[0]:own[0] + own[1]]
 
 
+def _split_ffn(cfg: ModelConfig) -> bool:
+    """The experts' products are split over the active mesh (by expert or
+    by d_ff): each rank's expert outputs are its part of the FFN's."""
+    lay = cm.shard_layout(cfg)
+    return lay is not None and (lay.experts[1] < cfg.n_experts
+                                or lay.ffn_split)
+
+
 def _local_experts(cfg: ModelConfig, dispatch, combine):
     """The routing tensors' slices of the experts this rank holds (all of
-    them without a serving mesh, or where the rules replicate experts)."""
+    them without a serving mesh, or where the rules replicate experts).
+    Under autograd, where the experts' products are split, ``combine``
+    passes ``comm.copy_to_model`` first: each rank's gradient of the gates
+    comes from its part of the expert outputs, and the router replicated
+    over the ranks takes their sum."""
     lay = cm.shard_layout(cfg)
+    if _split_ffn(cfg):
+        combine = comm.copy_to_model(combine)
     if lay is None or lay.experts[1] == cfg.n_experts:
         return dispatch, combine
     e0, el = lay.experts
@@ -220,6 +235,8 @@ def apply_moe(p, x, cfg: ModelConfig,
     xg, dispatch, combine, _, _, _ = _route(p, x, cfg, stats)
     dispatch, combine = _local_experts(cfg, dispatch, combine)
     dd = dispatch.to(x.dtype)
+    if _split_ffn(cfg):  # the experts' input; the router read xg whole
+        xg = comm.copy_to_model(xg)
     xe = torch.einsum("gtec,gtd->gecd", dd, xg)
     h = _expert_hidden(p, xe, cfg, stats)
     stats.add_sparsity("down_in", h)

@@ -176,7 +176,14 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
     than ranks) each rank's product over its rows is a partial sum, summed
     over the ranks in f32 before the replicated biases are added once;
     below the input capacity 1 it gathers its rows' part of q's tile list
-    (``common.rank_tiles``, kernel 5 on the card)."""
+    (``common.rank_tiles``, kernel 5 on the card).
+
+    Under autograd x enters each product split over the ranks through
+    ``comm.copy_to_model``, so its gradient sums the ranks' partials; where
+    the rank's q slots read part of a K/V computed whole (kv heads not
+    split), K/V pass ``copy_to_model`` before the slice, and so do the
+    qk-norm scales applied to split heads: every weight replicated over
+    the ranks gets the whole gradient on each."""
     g = attn_geometry(cfg)
     stats.add_sparsity("qkv_in", x)
     b, s, d = x.shape
@@ -184,15 +191,25 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
     dens = densities(cfg)[0] if decode else 1.0
     lay = cm.shard_layout(cfg)
     x2 = x.reshape(b * s, d)
+    xs = x2 if lay is None else comm.copy_to_model(x2)
     if lay is None or lay.kv_split != "embed":
+        # q split and K/V whole on every rank: only q's input is a copy
+        mixed = lay is not None and lay.q_split and lay.kv_split == "none"
         ws = [p[n].reshape(d, -1) for n in ("wq", "wk", "wv")]
-        q, k, v = (y.reshape(b, s, -1, hd) for y in
-                   cm.maybe_sparse_matmuls(x2, ws, cfg, dens))
+        if mixed and xs is not x2:
+            q = cm.maybe_sparse_matmul(xs, ws[0], cfg, dens)
+            k, v = cm.maybe_sparse_matmuls(x2, ws[1:], cfg, dens)
+        else:  # one selection for the three products
+            whole = lay is None or not lay.q_split or mixed
+            q, k, v = cm.maybe_sparse_matmuls(x2 if whole else xs, ws, cfg,
+                                              dens)
+        q, k, v = (y.reshape(b, s, -1, hd) for y in (q, k, v))
     else:
-        q = cm.maybe_sparse_matmul(x2, p["wq"].reshape(d, -1), cfg,
+        q = cm.maybe_sparse_matmul(xs if lay.q_split else x2,
+                                   p["wq"].reshape(d, -1), cfg,
                                    dens).reshape(b, s, -1, hd)
         d0, dl = lay.d
-        xl = x2[:, d0:d0 + dl]
+        xl = xs[:, d0:d0 + dl]
         ws = [p[n].reshape(dl, -1) for n in ("wk", "wv")]
         if dens >= 1.0:
             parts = [cm.partial_matmul(xl, w) for w in ws]
@@ -207,13 +224,19 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
-        q = cm.rms_norm_headdim(p["q_norm"], q)
-        k = cm.rms_norm_headdim(p["k_norm"], k)
+        q_split = lay is not None and lay.q_split
+        k_split = lay is not None and lay.kv_split == "heads"
+        q = cm.rms_norm_headdim(
+            comm.copy_to_model(p["q_norm"]) if q_split else p["q_norm"], q)
+        k = cm.rms_norm_headdim(
+            comm.copy_to_model(p["k_norm"]) if k_split else p["k_norm"], k)
     if cfg.use_rope:
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
     if lay is not None and lay.kv_split != "heads":
         # every kv head is here; keep those the rank's q slots read
+        if lay.q_split:
+            k, v = comm.copy_to_model(k), comm.copy_to_model(v)
         kv0, nkv = lay.kv
         k, v = k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
     return q, k, v
@@ -303,7 +326,9 @@ def apply_ffn(p, x, cfg: ModelConfig, *, stats: cm.StatsCollector = cm.NO_STATS,
     stats.add_sparsity("up_in", x)
     stats.add_raw("ffn_x", x)  # predictor-calibration capture
     dens_in, dens_ffn = densities(cfg) if decode else (1.0, 1.0)
-    h = _ffn_hidden(p, x, cfg, dens_in, stats)
+    lay = cm.shard_layout(cfg)
+    xin = comm.copy_to_model(x) if lay is not None and lay.ffn_split else x
+    h = _ffn_hidden(p, xin, cfg, dens_in, stats)
     if ffn_mask is not None:
         h = h * ffn_mask.to(h.dtype)
     stats.add_sparsity("down_in", h)
@@ -432,17 +457,22 @@ def logits_from(params, x, cfg: ModelConfig):
     """Logits over the padded vocabulary, its padding masked. Under a
     serving mesh each rank computes its vocabulary shard's, and every rank
     gets them all (``comm.gather_last``), so the sampling head runs the
-    same on every rank."""
+    same on every rank. Under the train mode (``comm.mode``) each rank
+    keeps its shard's (b, s, vl) logits, rows ``ShardLayout.vocab``: the
+    loss takes its log-sum-exp over the ranks (``train/fsdp.py``)."""
     u = params.get("unembed", params["embed"])
-    out = x @ u.to(x.dtype).T
     lay = cm.shard_layout(cfg)
     if lay is None or not lay.vocab_split:
+        out = x @ u.to(x.dtype).T
         mask = cm.vocab_logit_mask(cfg.vocab_size, u.shape[0], device=x.device)
         return out + mask.to(out.dtype)
+    out = comm.copy_to_model(x) @ u.to(x.dtype).T
     v0, vl = lay.vocab
     vp = cm.padded_vocab(cfg.vocab_size)
     mask = cm.vocab_logit_mask(cfg.vocab_size, vp, device=x.device,
                                offset=v0, width=vl)
+    if comm.mode() == "train":
+        return out + mask.to(out.dtype)
     return comm.gather_last(out + mask.to(out.dtype), vp, v0)
 
 

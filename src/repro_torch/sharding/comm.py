@@ -26,6 +26,34 @@ active mesh (``serving(mesh)``, set by the engine around its model calls):
 
 With no active mesh, or a model axis of one, each is the identity.
 
+Under autograd (the train step, ``train/fsdp.py``) the model-axis
+collectives are ``torch.autograd.Function``s whose forwards are the
+values above, bit for bit, so serving does not move:
+
+* ``all_reduce_sum`` (reduce): backward the identity — the replicated sum's
+  gradient is whole on every rank and enters each partial once;
+* ``copy_to_model`` (copy, Megatron's "copy to the model-parallel
+  region"): forward the identity, backward the all-reduce of the
+  gradient over "model" — where a replicated activation enters weights
+  split over "model" (the input of ``wq``/``wk``/``wv``, ``wu``/``wg``,
+  the unembedding and a split MoE router), each rank's gradient of it is
+  a partial;
+* ``gather_last``: backward the rank's slice of the gradient.
+
+Each always goes through its Function; with no gradient asked for (the
+serving paths run under ``torch.inference_mode``) autograd records
+nothing.
+``all_reduce_max`` is the vocabulary-parallel loss's maximum (no
+gradient).
+
+The model calls read the active state through ``active``, ``data_split``
+and ``mode`` ("serve", or "train" for the FSDP step's train-mode layout,
+``models/common.py::shard_layout``). The state is per thread; a block that
+autograd recomputes in the backward (remat) re-enters the state it ran
+under (``snapshot`` / ``restored``), and a Function's backward keeps its
+mesh from the forward, since autograd may run both on a thread of its
+own.
+
 Data-axis collectives run over the active data split (``serving(mesh,
 data)``, a ``rules.DataSplit``): ``data_gather`` puts the tensors of every
 row of the rank's data column together in data-index order (one
@@ -37,6 +65,16 @@ over the data column) also take a mesh of their own: the DDP train
 step's gradient mean. ``check_same``: every rank of the mesh holds the
 same host value (a checksum of the sampled tokens, once a step); a
 mismatch raises.
+
+The FSDP step's data-axis collectives are each issued once a step over
+one flat buffer: ``data_all_gather`` (every row's buffer, in
+data-index order) and ``data_reduce_scatter`` (the sum over the data
+column, this row's equal chunk); ``all_reduce_sum(x, mesh, "data")`` is
+the loss's masked sum and count over the data column, in the graph
+autograd differentiates (backward the identity). ``model_gather`` puts
+tensors of every rank of the model row together (the sequence-sharded decode
+attention's partial softmaxes); ``gather_to_first`` a tensor of every
+rank of the mesh on its rank 0 (the sharded checkpoint's save).
 
 ``STATS`` counts the collectives of each axis and the host time spent in
 them.
@@ -61,28 +99,27 @@ _LOCAL = threading.local()
 
 
 class _Stats:
-    """Collectives issued since ``reset()`` and the host seconds spent in
-    them (for a CUDA tensor under gloo this includes waiting for the card
-    to reach the call): ``count`` / ``seconds`` over the model axis,
-    ``data_count`` / ``data_seconds`` over the data axis, ``world_count``
-    / ``world_seconds`` over the whole mesh."""
+    """Collectives issued since ``reset()``, the host seconds spent in them
+    (for a CUDA tensor under gloo this includes waiting for the card to
+    reach the call) and their payload bytes (what the rank hands the call:
+    the reduced tensor, or the gathered pieces of every rank):
+    ``count`` / ``seconds`` / ``bytes`` over the model axis, ``data_*``
+    over the data axis, ``world_*`` over the whole mesh."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.count = 0
-        self.seconds = 0.0
-        self.data_count = 0
-        self.data_seconds = 0.0
-        self.world_count = 0
-        self.world_seconds = 0.0
+        for prefix in ("", "data_", "world_"):
+            setattr(self, prefix + "count", 0)
+            setattr(self, prefix + "seconds", 0.0)
+            setattr(self, prefix + "bytes", 0)
 
-    def add(self, axis: str, seconds: float) -> None:
+    def add(self, axis: str, seconds: float, nbytes: int = 0) -> None:
         prefix = "" if axis == "model" else axis + "_"
-        setattr(self, prefix + "count", getattr(self, prefix + "count") + 1)
-        setattr(self, prefix + "seconds",
-                getattr(self, prefix + "seconds") + seconds)
+        for key, value in (("count", 1), ("seconds", seconds),
+                           ("bytes", nbytes)):
+            setattr(self, prefix + key, getattr(self, prefix + key) + value)
 
 
 STATS = _Stats()
@@ -204,25 +241,48 @@ def spawn(fn: Callable, world: int, *, timeout: float, args=(),
 
 
 @contextlib.contextmanager
-def serving(mesh, data=None):
+def serving(mesh, data=None, mode: str = "serve"):
     """Run the block's model calls split over ``mesh``'s model axis (None,
     or a model axis of one: unsplit) and, with ``data`` (a
     ``rules.DataSplit``), over its data axis: the rank's slots and pool
-    blocks. Per thread; the previous state comes back on exit, so a
-    sharded engine never leaks its mesh into another engine's steps."""
+    blocks (or, in training, its rows of the batch). ``mode``: the rules'
+    mode the weights were sharded in, "serve" or "train". Per thread; the
+    previous state comes back on exit, so a sharded engine never leaks its
+    mesh into another engine's steps."""
     from repro_torch.sharding.rules import tp_size
-    prev = getattr(_LOCAL, "mesh", None), getattr(_LOCAL, "data", None)
-    _LOCAL.mesh = mesh if tp_size(mesh) > 1 else None
-    _LOCAL.data = None if data is None else (data, mesh)
+    if mode not in ("serve", "train"):
+        raise ValueError(f"mode {mode!r}: 'serve' or 'train'")
+    with restored((mesh if tp_size(mesh) > 1 else None,
+                   None if data is None else (data, mesh), mode)):
+        yield
+
+
+def snapshot() -> tuple:
+    """The active state of this thread (mesh, data split, mode)."""
+    return (getattr(_LOCAL, "mesh", None), getattr(_LOCAL, "data", None),
+            getattr(_LOCAL, "mode", "serve"))
+
+
+@contextlib.contextmanager
+def restored(state: tuple):
+    """Run the block under ``state`` (a ``snapshot``), on any thread; the
+    previous state comes back on exit."""
+    prev = snapshot()
+    _LOCAL.mesh, _LOCAL.data, _LOCAL.mode = state
     try:
         yield
     finally:
-        _LOCAL.mesh, _LOCAL.data = prev
+        _LOCAL.mesh, _LOCAL.data, _LOCAL.mode = prev
 
 
 def active():
     """The mesh the current model calls split over, or None."""
     return getattr(_LOCAL, "mesh", None)
+
+
+def mode() -> str:
+    """The rules' mode of the active mesh's weights: "serve" or "train"."""
+    return getattr(_LOCAL, "mode", "serve")
 
 
 def data_split():
@@ -239,17 +299,83 @@ def _all_reduce(t: torch.Tensor, mesh, op=None, axis: str = "model"
              "world": mesh.world_group}[axis]
     t0 = time.perf_counter()
     dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
-    STATS.add(axis, time.perf_counter() - t0)
+    STATS.add(axis, time.perf_counter() - t0, t.numel() * t.element_size())
     return t
 
 
-def all_reduce_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """The sum over the model axis of each rank's partial ``x``, in f32
-    (a new tensor; ``x`` is not changed). Without an active mesh: x in
-    f32."""
+class _ReduceSum(torch.autograd.Function):
+    """Forward: the f32 sum of each rank's x over ``axis``. Backward: the
+    identity, cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.dtype = x.dtype
+        return _all_reduce(x.to(torch.float32, copy=True), mesh, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity. Backward: the gradient summed over the model
+    axis in f32, cast back once."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.to(torch.float32, copy=True),
+                           ctx.mesh).to(g.dtype), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward: the ranks' slices of the last axis in a zero-padded f32
+    sum. Backward: this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, total, offset, mesh):
+        ctx.dtype, ctx.at = x.dtype, (offset, x.shape[-1])
+        buf = x.new_zeros(x.shape[:-1] + (total,), dtype=torch.float32)
+        buf[..., offset:offset + x.shape[-1]] = x
+        return _all_reduce(buf, mesh).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        offset, width = ctx.at
+        return g[..., offset:offset + width].to(ctx.dtype), None, None, None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh=None,
+                   axis: str = "model") -> torch.Tensor:
+    """The sum over ``mesh``'s ``axis`` ("model", or "data") of each rank's
+    partial ``x``, in f32 (a new tensor; ``x`` is not changed); the mesh
+    defaults to the active one. Without a mesh, or with an axis of one: x
+    in f32. Under autograd its backward is the identity."""
     mesh = mesh or active()
-    y = x.to(torch.float32, copy=True)
-    return y if mesh is None else _all_reduce(y, mesh)
+    if mesh is None or mesh.shape[axis] == 1:
+        return x.to(torch.float32, copy=True)
+    return _ReduceSum.apply(x, mesh, axis)
+
+
+def copy_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x``, replicated over the model axis, entering products split over
+    it: the identity, whose backward sums the ranks' partial gradients
+    (one all-reduce). Without an active mesh, x itself."""
+    mesh = mesh or active()
+    return x if mesh is None else _CopyToModel.apply(x, mesh)
+
+
+def all_reduce_max(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the model axis, in f32 (a new
+    tensor, no gradient)."""
+    import torch.distributed as dist
+    mesh = mesh or active()
+    y = x.detach().to(torch.float32, copy=True)
+    return y if mesh is None else _all_reduce(y, mesh, op=dist.ReduceOp.MAX)
 
 
 def any_reduce(mask: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -266,11 +392,7 @@ def gather_last(x: torch.Tensor, total: int, offset: int,
     together into the full width ``total``, in x's dtype: a zero-padded f32
     sum, exact."""
     mesh = mesh or active()
-    if mesh is None:
-        return x
-    buf = x.new_zeros(x.shape[:-1] + (total,), dtype=torch.float32)
-    buf[..., offset:offset + x.shape[-1]] = x
-    return _all_reduce(buf, mesh).to(x.dtype)
+    return x if mesh is None else _GatherLast.apply(x, total, offset, mesh)
 
 
 def _pieces(tensors):
@@ -284,22 +406,18 @@ def _pieces(tensors):
     return out
 
 
-def data_gather(tensors, mesh=None) -> list:
-    """Each of ``tensors`` (this rank's) from every row of its data column
-    of ``mesh`` (default: the active data split's), in data-index order:
-    a list of (D, *shape) tensors of the same dtypes. One all_gather of
-    the packed bytes, exact."""
+def _gather(tensors, n: int, group, axis: str) -> list:
+    """Each of ``tensors`` from the n ranks of ``group``, in rank order:
+    (n, *shape) tensors. One all_gather of the packed bytes, exact."""
     import torch.distributed as dist
-    mesh = mesh or _LOCAL.data[1]
-    n = mesh.shape["data"]
     if n == 1:
         return [t[None] for t in tensors]
     pieces = _pieces(tensors)
     buf = torch.cat(pieces)
     parts = [torch.empty_like(buf) for _ in range(n)]
     t0 = time.perf_counter()
-    dist.all_gather(parts, buf, group=mesh.data_group)
-    STATS.add("data", time.perf_counter() - t0)
+    dist.all_gather(parts, buf, group=group)
+    STATS.add(axis, time.perf_counter() - t0, n * buf.numel())
     every = torch.stack(parts)
     out, at = [], 0
     for t, piece in zip(tensors, pieces):
@@ -307,6 +425,71 @@ def data_gather(tensors, mesh=None) -> list:
         out.append(every[:, at:at + nbytes].contiguous().view(t.dtype)
                    .reshape((n,) + tuple(t.shape)))
         at += piece.numel()
+    return out
+
+
+def data_gather(tensors, mesh=None) -> list:
+    """Each of ``tensors`` (this rank's) from every row of its data column
+    of ``mesh`` (default: the active data split's), in data-index order:
+    a list of (D, *shape) tensors of the same dtypes. One all_gather of
+    the packed bytes, exact."""
+    mesh = mesh or _LOCAL.data[1]
+    return _gather(tensors, mesh.shape["data"], mesh.data_group, "data")
+
+
+def model_gather(tensors, mesh=None) -> list:
+    """Each of ``tensors`` from every rank of this rank's model row of
+    ``mesh`` (default: the active one), in model-index order: (M, *shape)
+    tensors. One all_gather, exact."""
+    mesh = mesh or active()
+    return _gather(tensors, mesh.shape["model"], mesh.group, "model")
+
+
+def gather_to_first(t: torch.Tensor, mesh):
+    """``t`` from every rank of ``mesh`` on its rank 0, in rank order:
+    (world, *shape) there, None on the others. One gather, exact."""
+    import torch.distributed as dist
+    world = mesh.shape["data"] * mesh.shape["model"]
+    if world == 1:
+        return t[None]
+    t = t.contiguous()
+    out = t.new_empty((world,) + tuple(t.shape)) if mesh.rank == 0 else None
+    t0 = time.perf_counter()
+    dist.gather(t, None if out is None else list(out.unbind(0)), dst=0,
+                group=mesh.world_group)
+    STATS.add("world", time.perf_counter() - t0,
+              t.numel() * t.element_size() * (world if out is not None else 1))
+    return out
+
+
+def data_all_gather(flat: torch.Tensor, mesh) -> torch.Tensor:
+    """Every row's 1-D ``flat`` of this rank's data column, in data-index
+    order: (D, n), one all_gather into one buffer."""
+    import torch.distributed as dist
+    n = mesh.shape["data"]
+    if n == 1:
+        return flat[None]
+    out = flat.new_empty((n,) + tuple(flat.shape))
+    t0 = time.perf_counter()
+    dist.all_gather(list(out.unbind(0)), flat.contiguous(),
+                    group=mesh.data_group)
+    STATS.add("data", time.perf_counter() - t0,
+              out.numel() * out.element_size())
+    return out
+
+
+def data_reduce_scatter(flat: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the data column of every row's 1-D ``flat`` (D equal
+    chunks, chunk j for row j): this row's chunk, one reduce_scatter."""
+    import torch.distributed as dist
+    n = mesh.shape["data"]
+    if n == 1:
+        return flat
+    out = flat.new_empty(flat.numel() // n)
+    t0 = time.perf_counter()
+    dist.reduce_scatter_tensor(out, flat.contiguous(), group=mesh.data_group)
+    STATS.add("data", time.perf_counter() - t0,
+              flat.numel() * flat.element_size())
     return out
 
 

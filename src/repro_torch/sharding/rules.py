@@ -17,12 +17,19 @@ reference's PartitionSpec writes it). The functions take any mesh with
 those blocks and runs the model steps on them, with the collectives of
 ``sharding/comm.py`` where the sharded products meet.
 
+``Sharding(mesh, spec)`` is the port's ``NamedSharding``: where a leaf
+lies on a mesh, which ``local_block`` cuts and ``full_from_blocks`` puts
+back together. ``params_shardings`` gives a tree of them (the reference's
+name); the checkpoint manager saves and restores sharded trees by them
+(``checkpoint/manager.py``), and the FSDP train step lays its state out by
+the train mode's (``train/fsdp.py``).
+
 Not ported, by design: ``constrain``, ``use_mesh``, ``set_mesh``,
-``get_mesh``, ``constrain_params_tree`` and the NamedSharding builders
-``params_shardings`` / ``predictor_shardings``. They are GSPMD layout
-hints, which have no counterpart in explicit SPMD: each rank of the port
-holds ordinary local tensors, and the collectives are written where GSPMD
-would insert them (models/transformer.py, models/moe.py).
+``get_mesh``, ``constrain_params_tree`` and ``predictor_shardings``. They
+are GSPMD layout hints, which have no counterpart in explicit SPMD: each
+rank of the port holds ordinary local tensors, and the collectives are
+written where GSPMD would insert them (models/transformer.py,
+models/moe.py, train/fsdp.py).
 """
 from __future__ import annotations
 
@@ -321,6 +328,75 @@ def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
             size = t.shape[dim] // count
             t = t.narrow(dim, index * size, size)
     return t
+
+
+def block_slices(spec: Spec, shape: Tuple[int, ...], mesh_shape,
+                 coords) -> Tuple[slice, ...]:
+    """The index of the block of a ``shape`` leaf under ``spec`` that the
+    rank at ``coords`` (axis name -> index) of a mesh of ``mesh_shape``
+    holds."""
+    out = []
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            out.append(slice(None))
+            continue
+        index, count = 0, 1
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            index = index * mesh_shape[a] + coords[a]
+            count *= mesh_shape[a]
+        size = shape[dim] // count
+        out.append(slice(index * size, (index + 1) * size))
+    return tuple(out)
+
+
+def full_from_blocks(blocks: torch.Tensor, spec: Spec, mesh,
+                     shape: Tuple[int, ...]) -> torch.Tensor:
+    """The whole ``shape`` leaf from every rank's block under ``spec``,
+    ``blocks`` (world, *block shape) in rank order (rank r at data index
+    r // model, model index r % model): each block placed at its index
+    (a block replicated over an axis is the same on every rank of it)."""
+    out = blocks.new_empty(shape)
+    M = mesh.shape["model"]
+    for r in range(blocks.shape[0]):
+        out[block_slices(spec, shape, mesh.shape,
+                         {"data": r // M, "model": r % M})] = blocks[r]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a leaf lies on ``mesh``: ``spec`` (one entry a dim, as
+    ``param_pspec`` gives it; () for a 0-d leaf). The port's
+    ``NamedSharding``: a rank holds ``local_block(leaf, spec, mesh)``."""
+
+    mesh: Any = dataclasses.field(compare=False)
+    spec: Spec = ()
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``t`` (a view)."""
+        return local_block(t, self.spec, self.mesh)
+
+    def full_shape(self, block_shape) -> Tuple[int, ...]:
+        """The whole leaf's shape of a rank's ``block_shape``."""
+        shape = list(block_shape)
+        for dim, axis in enumerate(self.spec):
+            if axis is not None:
+                shape[dim] *= axis_block(self.mesh, axis)[1]
+        return tuple(shape)
+
+
+def params_shardings(params, mesh, mode: str):
+    """A tree of ``Sharding`` in ``params``' structure, by ``param_pspec``
+    of each leaf's path and (whole) shape."""
+    def walk(tree, prefix):
+        out = {}
+        for key, leaf in tree.items():
+            path = f"{prefix}/{key}" if prefix else key
+            out[key] = (walk(leaf, path) if isinstance(leaf, dict) else
+                        Sharding(mesh, param_pspec(path, tuple(leaf.shape),
+                                                   mesh, mode)))
+        return out
+    return walk(params, "")
 
 
 def shard_params(params, mesh, mode: str = "serve", device=None):

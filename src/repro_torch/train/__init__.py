@@ -1,2 +1,3 @@
 """Training of the port: the LM loss and train step (``step.py``), the
-Trainer (``loop.py``) and the data-parallel step (``ddp.py``)."""
+Trainer (``loop.py``), the data-parallel step (``ddp.py``) and the
+FSDP + TP step on a (data, model) mesh (``fsdp.py``)."""

@@ -1,0 +1,322 @@
+"""The FSDP + TP train step on a (data, model) mesh: the reference's
+``launch/specs.py::build_train`` (``make_train_step`` under the rules'
+train-mode shardings), in explicit collectives over ``torch.distributed``
+ranks (``sharding/comm.py``).
+
+Layout. Every leaf of the params and of both AdamW moments is the rank's
+block under ``rules.param_pspec(path, shape, mesh, "train")``: "embed"
+over "data" (FSDP), ffn, heads, kv_heads and vocab over "model"; where a
+dim does not divide its axis, the leaf is replicated over that axis.
+``OptState.step`` is replicated. ``shard_train_state`` cuts whole params
+to these blocks and starts the moments at their size; ``state_shardings``
+says where each leaf lies (the checkpoint manager's ``shardings=``).
+
+A step (``make_fsdp_train_step``):
+
+1. gathers every leaf split over "data" into the rank's model column:
+   one all_gather of one flat buffer over the data column, in the compute
+   dtype (the forward casts the f32 masters to it at its entry, so it
+   computes with the same values), the column then held in f32 so that
+   its gradients come back in f32;
+2. cuts the global batch into ``tc.num_microbatches`` slices as
+   ``train/step.py`` does; the data rows split each slice's rows;
+3. runs each slice's forward and backward on the column under the mesh's
+   model axis in the train mode (``comm.serving(mesh, rows, "train")``:
+   the serving path's tensor parallelism, whose collectives autograd
+   differentiates). The loss (``fsdp_loss``) is the masked mean over the
+   whole slice: the masked sum and the count are summed over "data"
+   before the division, in the graph. The logits stay split over the
+   vocabulary, and the log-sum-exp runs over the model ranks (the
+   maximum, then the sum of exp and the target logit in one all-reduce):
+   the function of ``train/step.py::lm_loss`` with its per-element
+   roundings (the maximum subtracted in the compute dtype, exp in f32),
+   its sums in another order. No rank holds the whole (b, s, vocab)
+   logits;
+4. sums the f32 column gradients, accumulated over the slices, over the
+   data column and keeps the rank's block (one reduce_scatter of one flat
+   buffer, and one all-reduce of the leaves replicated over "data"),
+   divided by the slice count as the reference's mean divides;
+5. clips by the global norm with each element counted once: a rank adds
+   a leaf's squares only where it is the leaf's first holder along each
+   axis the spec replicates it over, then one sum over the mesh;
+6. runs the schedule and AdamW on the blocks; ``skip_nonfinite`` decides
+   on the global loss and norm, alike on every rank.
+
+Metrics {"loss", "grad_norm", "lr", "step_ok"} are 0-d f32 tensors on the
+mesh's device, equal on every rank. The step runs none of the ten
+kernels, as the reference's runs none. It trains the families whose
+forward the serving path splits over "model" (dense, MoE); an MoE
+routing group that would span data rows raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import common as cm
+from repro_torch.models import registry
+from repro_torch.optim import adamw, schedules
+from repro_torch.sharding import comm, rules
+from repro_torch.tree import flatten, tree_map, unflatten
+
+FAMILIES = ("dense", "moe")
+
+
+def param_shapes(cfg: ModelConfig):
+    """The whole parameter tree's shapes (f32 leaves on the "meta" device:
+    no storage)."""
+    return registry.get_family(cfg).init_params(cfg, device="meta",
+                                                dtype=torch.float32)
+
+
+def state_shardings(cfg: ModelConfig, mesh) -> Tuple[Dict, adamw.OptState]:
+    """(params, OptState) trees of ``rules.Sharding``: the train mode's
+    spec of every leaf, the optimizer step replicated."""
+    ps = rules.params_shardings(param_shapes(cfg), mesh, "train")
+    return ps, adamw.OptState(step=rules.Sharding(mesh, ()), m=ps, v=ps)
+
+
+def shard_train_state(params, mesh) -> Tuple[Dict, adamw.OptState]:
+    """This rank's blocks of whole ``params`` under the train mode's specs,
+    on the mesh's device (leaf by leaf: a block is copied out before the
+    next leaf is touched), and a fresh optimizer state of the blocks' size.
+    A trained state moves between meshes through the checkpoint
+    (``CheckpointManager.save`` / ``restore`` with ``shardings=``)."""
+    blocks = rules.shard_params(params, mesh, "train", device=mesh.device)
+    return blocks, adamw.init_opt_state(blocks)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """One leaf's layout on this rank: the shape of its block, the dim
+    split over "data" (None: replicated over it), and whether this rank
+    counts the leaf's squares in the global norm (it is the leaf's first
+    holder along each axis the spec replicates it over)."""
+
+    block: tuple
+    data_dim: Optional[int]
+    counted: bool
+
+
+def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    first = {a: mesh.coords[a] == 0 for a in ("data", "model")}
+    out = []
+    for shape, sh in zip(flatten(param_shapes(cfg)),
+                         flatten(state_shardings(cfg, mesh)[0])):
+        if any(a not in (None, "data", "model") for a in sh.spec):
+            raise NotImplementedError(f"spec {sh.spec}: the step takes "
+                                      "'data' and 'model' entries only")
+        column = [n // M if a == "model" else n
+                  for n, a in zip(shape.shape, sh.spec)]
+        block = [n // D if a == "data" else n
+                 for n, a in zip(column, sh.spec)]
+        out.append(_Leaf(tuple(block), sh.spec.index("data")
+                         if "data" in sh.spec else None,
+                         all(a in sh.spec or first[a] for a in first)))
+    return out
+
+
+def _check_groups(cfg: ModelConfig, rows: int, seq: int, D: int) -> None:
+    """An MoE slice's routing groups (``moe._route``: of the slice's whole
+    batch) must each lie in one data row's tokens."""
+    t_all = rows * seq
+    G = max(1, t_all // cfg.moe_group_size)
+    while t_all % G:
+        G -= 1
+    if (t_all // D) % (t_all // G):
+        raise NotImplementedError(
+            f"{cfg.name}: routing groups of {t_all // G} tokens span the "
+            f"data rows' {t_all // D} tokens; the FSDP step routes each "
+            "row's groups alone")
+
+
+def fsdp_loss(params, batch, cfg: ModelConfig, mesh,
+              remat_policy: str = "none") -> torch.Tensor:
+    """The next-token cross-entropy of the whole slice whose rows this
+    rank holds (``batch``), under the active train-mode mesh: the masked
+    sum of the rows' nll over every data row divided by their count
+    (``batch["loss_mask"]`` (b, s), all ones without it). The logits of a
+    vocabulary split over "model" stay split: the log-sum-exp takes the
+    maximum over the ranks (no gradient: it cancels), then the sum of exp
+    and the target logit (held by one rank) in one all-reduce."""
+    logits = registry.get_family(cfg).model_forward(
+        params, batch, cfg, remat_policy=remat_policy)
+    tgt = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1]
+    lay = cm.shard_layout(cfg)
+    if lay is None or not lay.vocab_split:
+        m = lg.amax(-1)
+        shifted = (lg - m[..., None]).float()
+        lse = m.float() + torch.log(torch.exp(shifted).sum(-1))
+        tl = lg.gather(-1, tgt[..., None])[..., 0].float()
+    else:
+        v0, vl = lay.vocab
+        m = comm.all_reduce_max(lg.detach().amax(-1)).to(lg.dtype)
+        shifted = (lg - m[..., None]).float()
+        local = tgt - v0
+        mine = (local >= 0) & (local < vl)
+        tl = torch.where(mine, lg.gather(-1, local.clamp(0, vl - 1)[..., None])
+                         [..., 0].float(), 0.0)
+        se, tl = comm.all_reduce_sum(torch.stack([torch.exp(shifted).sum(-1),
+                                                  tl]))
+        lse = m.float() + torch.log(se)
+    nll = lse - tl
+    mask = batch.get("loss_mask")
+    w = mask[:, 1:].float() if mask is not None else torch.ones_like(nll)
+    tot = comm.all_reduce_sum(torch.stack([(nll * w).sum(), w.sum()]), mesh,
+                              axis="data")
+    return tot[0] / torch.clamp(tot[1], min=1.0)
+
+
+def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
+    """Returns grads(params, batch) -> (loss, grads): steps 1 to 4 of the
+    module note on this rank of ``mesh``: the mean of the microbatches'
+    losses (equal on every rank) and the rank's f32 blocks of the mean
+    gradient, unclipped, in ``params``' structure. params: the rank's f32
+    blocks (``shard_train_state``); batch: the global batch (every rank
+    passes the same)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the FSDP step trains the {FAMILIES} families, not "
+            f"{cfg.family!r}: their forward has no split over 'model'")
+    D, d = mesh.shape["data"], mesh.coords["data"]
+    leaves = _layout(cfg, mesh)
+    split = [i for i, l in enumerate(leaves) if l.data_dim is not None]
+    whole = [i for i, l in enumerate(leaves) if l.data_dim is None]
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def gather(blocks) -> list:
+        out = list(blocks)
+        if D == 1 or not split:
+            return out
+        every = comm.data_all_gather(
+            torch.cat([blocks[i].reshape(-1) for i in split]).to(cdt), mesh)
+        at = 0
+        for i in split:
+            n = blocks[i].numel()
+            out[i] = torch.cat([every[j, at:at + n].view(leaves[i].block)
+                                for j in range(D)],
+                               dim=leaves[i].data_dim).float()
+            at += n
+        return out
+
+    def scatter(col_grads) -> list:
+        out = list(col_grads)
+        if D == 1:
+            return out
+        if split:
+            mine = comm.data_reduce_scatter(torch.cat([
+                col_grads[i].narrow(leaves[i].data_dim,
+                                    j * leaves[i].block[leaves[i].data_dim],
+                                    leaves[i].block[leaves[i].data_dim])
+                .reshape(-1) for j in range(D) for i in split]), mesh)
+            at = 0
+            for i in split:
+                n = col_grads[i].numel() // D
+                out[i] = mine[at:at + n].view(leaves[i].block)
+                at += n
+        if whole:
+            flat = comm.data_sum(torch.cat([col_grads[i].reshape(-1)
+                                            for i in whole]), mesh)
+            at = 0
+            for i in whole:
+                n = col_grads[i].numel()
+                out[i] = flat[at:at + n].view(leaves[i].block)
+                at += n
+        return out
+
+    def loss_and_grads(params, batch):
+        blocks = flatten(params)
+        for b, l in zip(blocks, leaves):
+            if tuple(b.shape) != l.block or b.dtype != torch.float32:
+                raise ValueError(
+                    f"a param block {tuple(b.shape)} {b.dtype}: the step "
+                    f"takes this rank's f32 blocks {l.block} "
+                    "(shard_train_state)")
+        b = batch["tokens"].shape[0]
+        nmb = max(1, tc.num_microbatches)
+        if b % nmb or (b // nmb) % D:
+            raise ValueError(f"batch {b} does not cut into {nmb} "
+                             f"microbatches split over {D} data rows")
+        b_mb = b // nmb
+        bl = b_mb // D
+        if cfg.n_experts and D > 1:
+            _check_groups(cfg, b_mb, batch["tokens"].shape[1], D)
+        col = [c.detach().requires_grad_(True)
+               for c in gather([p.detach() for p in blocks])]
+        tree = unflatten(params, col)
+        rows = (rules.DataSplit(size=D, index=d, slots=(d * bl, bl),
+                                blocks=(0, 1), n_slots=b_mb, n_blocks=1)
+                if D > 1 else None)
+        l_sum = torch.zeros((), dtype=torch.float32,
+                            device=batch["tokens"].device)
+        for i in range(nmb):
+            lo = i * b_mb + d * bl
+            mb = {k: v[lo:lo + bl] for k, v in batch.items()}
+            with comm.serving(mesh, rows, mode="train"), \
+                    torch.enable_grad():
+                loss_i = fsdp_loss(tree, mb, cfg, mesh, tc.remat_policy)
+                loss_i.backward()
+            l_sum = l_sum + loss_i.detach()
+        col_grads = [torch.zeros_like(c) if c.grad is None else c.grad
+                     for c in col]
+        del col, tree
+        grads = scatter(col_grads)
+        del col_grads
+        if nmb > 1:
+            grads = [g / nmb for g in grads]
+        return l_sum / nmb, unflatten(params, grads)
+
+    return loss_and_grads
+
+
+def make_fsdp_train_step(cfg: ModelConfig, tc: TrainConfig, mesh):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics) on this rank of ``mesh`` (``launch.mesh.Mesh``): params and
+    opt_state are the rank's blocks (``shard_train_state``; f32 masters),
+    batch the global batch on the mesh's device (every rank passes the
+    same), metrics as the module note says. The collectives are
+    ``comm``'s, counted in ``comm.STATS`` by axis. ``tc.zero_stage`` is not
+    read (the reference reads it nowhere either)."""
+    loss_and_grads = make_fsdp_grads(cfg, tc, mesh)
+    counted = [l.counted for l in _layout(cfg, mesh)]
+    world = mesh.shape["data"] * mesh.shape["model"]
+
+    def global_norm(grads) -> torch.Tensor:
+        total = torch.zeros(1, dtype=torch.float32, device=grads[0].device)
+        for g, c in zip(grads, counted):
+            if c:
+                total = total + g.float().square().sum()
+        if world > 1:
+            total = comm.world_sum(total, mesh)
+        return torch.sqrt(total[0])
+
+    def step(params, opt_state: adamw.OptState, batch):
+        loss, grads = loss_and_grads(params, batch)
+        grads = flatten(grads)
+        gnorm = global_norm(grads)
+        scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        grads = unflatten(params, [g * scale for g in grads])
+        lr = schedules.learning_rate(opt_state.step, tc)
+        new_params, new_opt = adamw.adamw_update(grads, opt_state, params,
+                                                 lr, tc)
+        del grads
+        if tc.skip_nonfinite:
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+
+            def keep(new, old):  # into the new tensor: no second copy
+                return torch.where(ok, new, old, out=new)
+
+            new_params = tree_map(keep, new_params, params)
+            new_opt = tree_map(keep, new_opt, opt_state)
+        else:
+            ok = torch.ones((), dtype=torch.bool, device=loss.device)
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm,
+                                     "lr": lr, "step_ok": ok.float()}
+
+    return step

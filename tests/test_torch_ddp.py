@@ -24,8 +24,9 @@ compression against the JAX reference, on the CPU, at f32.
   1e-6; with ``grad_compression="int8_ef"``, the losses
   of 4 steps within 1e-4, the last below the first, as the reference's own
   test asserts.
-* ``TrainConfig(grad_compression="int8_ef")`` constructs;
-  ``zero_stage=3`` still raises NotImplementedError."""
+* ``TrainConfig(grad_compression="int8_ef")`` constructs; so does
+  ``zero_stage=3``, as in the reference, where the field selects nothing:
+  ``train/fsdp.py``'s step accepts it on a one-rank mesh."""
 import os
 import pickle
 import tempfile
@@ -122,9 +123,16 @@ def _flat(tree):
 
 
 def test_train_config_accepts_int8_ef_and_not_zero_stage_3():
+    # the name predates the FSDP step: zero_stage=3 is accepted now
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.fsdp import make_fsdp_train_step
     assert TrainConfig(grad_compression="int8_ef").grad_compression == "int8_ef"
-    with pytest.raises(NotImplementedError, match="zero_stage.*ROADMAP"):
-        TrainConfig(zero_stage=3)
+    tc = TrainConfig(zero_stage=3)
+    assert tc.zero_stage == 3
+    step = make_fsdp_train_step(get_config("tiny-relu"), tc,
+                                make_host_mesh(1, 1, device="cpu"))
+    assert callable(step)
 
 
 _REFERENCE = """

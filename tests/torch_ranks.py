@@ -221,3 +221,241 @@ def ddp_steps(rank: int, world: int, ref: dict, compression: str,
         rows.append({k: float(v) for k, v in m.items()})
     return dict(metrics=rows,
                 params=[p.detach().numpy().copy() for p in flatten(params)])
+
+
+# -- the FSDP + TP train step, sharded checkpoints, seq-sharded decode -------
+
+
+def _full(tree, shardings) -> list:
+    """Every leaf of a tree of rank blocks put together in full on rank 0
+    (one gather a split leaf), as numpy, in flatten order (on the other
+    ranks the split leaves are None)."""
+    from repro_torch.sharding import comm, rules
+    from repro_torch.tree import flatten
+    out = []
+    for leaf, s in zip(flatten(tree), flatten(shardings)):
+        if any(a is not None for a in s.spec):
+            blocks = comm.gather_to_first(leaf, s.mesh)
+            leaf = None if blocks is None else rules.full_from_blocks(
+                blocks, s.spec, s.mesh, s.full_shape(leaf.shape))
+        out.append(None if leaf is None else leaf.detach().numpy().copy())
+    return out
+
+
+def fsdp_case_state(case, mesh, state=None):
+    """(cfg, TrainConfig, the rank's params and OptState blocks) of a case:
+    the whole f32 params from ``case["params"]`` (the reference's numpy
+    tree, ``convert.params_from_jax``) or made from seed 0, a fresh
+    optimizer state, cut to the train specs; or, with ``case["resume"]``
+    = (directory, step), that step's checkpoint restored onto the mesh; or
+    ``state`` = (params, (step, m, v)) of the reference, as numpy."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train import fsdp
+    cfg = ModelConfig.from_json(case["cfg"])
+    tc = TrainConfig(**case["tc"])
+    if "resume" in case:
+        directory, step = case["resume"]
+        shardings = fsdp.state_shardings(cfg, mesh)
+        (pb, ob), _ = CheckpointManager(directory).restore(
+            shardings, step, shardings=shardings)
+        return cfg, tc, pb, ob
+
+    def whole(tree):
+        return params_from_jax(tree, cfg, device="cpu", dtype=torch.float32)
+
+    if state is not None:
+        p, (t, m, v) = state
+        pb, _ = fsdp.shard_train_state(whole(p), mesh)
+        ob = adamw.OptState(step=torch.as_tensor(np.array(t)),
+                            m=rules.shard_params(whole(m), mesh, "train"),
+                            v=rules.shard_params(whole(v), mesh, "train"))
+        return cfg, tc, pb, ob
+    params = (whole(case["params"]) if "params" in case else
+              registry.get_family(cfg).init_params(
+                  cfg, seed=0, device="cpu", dtype=torch.float32))
+    pb, ob = fsdp.shard_train_state(params, mesh)
+    return cfg, tc, pb, ob
+
+
+def fsdp_steps(rank: int, world: int, data: int, case) -> dict:
+    """The port's FSDP step on this rank of a (data, world / data) mesh
+    over ``case["batches"]``: each step's metrics, the rank's block shapes
+    (params, m, v) before the first step, the whole params after each step
+    (rank 0; None elsewhere), and with ``case["save_after"]`` = (directory,
+    step) the state saved sharded after that step. With ``case["states"]``
+    (the reference's state before each step, numpy) each step also runs
+    from that state: its metrics are ``forced``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import fsdp
+    from repro_torch.tree import flatten
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(data, world // data, strict=True, device="cpu")
+    cfg, tc, params, opt = fsdp_case_state(case, mesh)
+    shardings = fsdp.state_shardings(cfg, mesh)
+    out = dict(shapes=[[tuple(x.shape) for x in flatten(t)]
+                       for t in (params, opt.m, opt.v)],
+               metrics=[], params=[])
+    step = fsdp.make_fsdp_train_step(cfg, tc, mesh)
+    for i, batch in enumerate(case["batches"]):
+        params, opt, m = step(params, opt, {k: torch.as_tensor(v)
+                                            for k, v in batch.items()})
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        full = _full(params, shardings[0])
+        out["params"].append(full if rank == 0 else None)
+        if case.get("save_after", (None, -1))[1] == i + 1:
+            CheckpointManager(case["save_after"][0]).save(
+                i + 1, (params, opt), shardings=shardings)
+    out["forced"], out["forced_params"] = [], []
+    for state, batch in zip(case.get("states", ()), case["batches"]):
+        _, _, p, o = fsdp_case_state(case, mesh, state)
+        p, _, m = step(p, o, {k: torch.as_tensor(v) for k, v in batch.items()})
+        out["forced"].append({k: float(v) for k, v in m.items()})
+        full = _full(p, shardings[0])
+        out["forced_params"].append(full if rank == 0 else None)
+    return out
+
+
+def fsdp_grads(rank: int, world: int, data: int, cases) -> list:
+    """For each case, the FSDP step's loss and mean gradient on
+    ``case["batches"][0]``, the gradient put together in full (rank 0;
+    None elsewhere)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import fsdp
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(data, world // data, strict=True, device="cpu")
+    out = []
+    for case in cases:
+        cfg, tc, params, _ = fsdp_case_state(case, mesh)
+        loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(
+            params, {k: torch.as_tensor(v)
+                     for k, v in case["batches"][0].items()})
+        full = _full(grads, fsdp.state_shardings(cfg, mesh)[0])
+        out.append(dict(loss=float(loss), grads=full if rank == 0 else None))
+    return out
+
+
+def collective_grads(rank: int, world: int, ops, seed: int) -> dict:
+    """{op: ``collective_grad``} for each of ``ops``, on meshes (1, world)
+    and (world, 1) of this rank."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    meshes = {axis: make_host_mesh(world if axis == "data" else 1,
+                                   1 if axis == "data" else world,
+                                   strict=True, device="cpu")
+              for axis in ("model", "data")}
+    return {op: collective_grad(
+        rank, world, op, seed,
+        meshes["data" if op.startswith("data") else "model"]) for op in ops}
+
+
+def collective_grad(rank: int, world: int, op: str, seed: int,
+                    mesh) -> dict:
+    """One autograd collective of ``comm`` on this rank of ``mesh``, from
+    inputs every rank draws alike from ``seed``: the forward's value and
+    the gradient of sum(y * c) with respect to this rank's input (every
+    rank the same objective; for "copy" each rank adds its own
+    product's)."""
+    from repro_torch.sharding import comm
+    rng = np.random.RandomState(seed)
+    xs = torch.as_tensor(rng.randn(world, 3, 4).astype(np.float32))
+    c = torch.as_tensor(rng.randn(3, 5 * world).astype(np.float32))
+    ws = torch.as_tensor(rng.randn(world, 4, 5).astype(np.float32))
+    if op == "data_all_gather":
+        return dict(y=comm.data_all_gather(xs[rank].reshape(-1), mesh).numpy())
+    if op == "data_reduce_scatter":
+        return dict(y=comm.data_reduce_scatter(xs[rank].reshape(-1),
+                                               mesh).numpy())
+    x = xs[0 if op == "copy" else rank].clone().requires_grad_(True)
+    with comm.serving(mesh, mode="train"):
+        if op == "reduce":
+            y = comm.all_reduce_sum(x)
+            loss = (y * c[:, :4]).sum()
+        elif op == "copy":
+            y = comm.copy_to_model(x) @ ws[rank]
+            loss = (y * c[:, 5 * rank:5 * rank + 5]).sum()
+        elif op == "gather_last":
+            y = comm.gather_last(x, 4 * world, 4 * rank)
+            loss = (y * c[:, :4 * world]).sum()
+        else:  # data_reduce
+            y = comm.all_reduce_sum(x, mesh, axis="data")
+            loss = (y * c[:, :4]).sum()
+        loss.backward()
+    return dict(y=y.detach().numpy(), grad=x.grad.numpy())
+
+
+def elastic_save(rank: int, world: int, saves, w) -> None:
+    """The reference's elastic case, saving side: rank r of a (world, 1)
+    mesh holds rows r of ``w`` split over "data" and saves step 5 into
+    each (directory, async_save) of ``saves`` (with ``async_save``,
+    written in the background; the rank then changes its block in place
+    before ``wait()``, which the step must not see)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+    mesh = make_host_mesh(world, 1, strict=True, device="cpu")
+    sh = {"w": rules.Sharding(mesh, ("data", None))}
+    for directory, async_save in saves:
+        block = sh["w"].block(torch.as_tensor(w)).clone()
+        mgr = CheckpointManager(directory, async_save=async_save)
+        mgr.save(5, {"w": block}, extras={"step": 5}, shardings=sh)
+        block.fill_(-1.0)
+        mgr.wait()
+
+
+def elastic_restore(rank: int, world: int, restores) -> list:
+    """The restoring side, for each (directory, spec) of ``restores``:
+    this rank's block of "w" under ``spec`` on a (world, 1) mesh, and the
+    extras."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+    mesh = make_host_mesh(world, 1, strict=True, device="cpu")
+    out = []
+    for directory, spec in restores:
+        got, extras = CheckpointManager(directory).restore(
+            {"w": 0}, shardings={"w": rules.Sharding(mesh, tuple(spec))})
+        out.append(dict(w=got["w"].numpy(), extras=extras,
+                        device=str(got["w"].device)))
+    return out
+
+
+def restore_state(rank: int, world: int, data: int, case) -> list:
+    """The rank's blocks (params, then OptState) of a train state restored
+    from ``case["resume"]`` onto a (data, world / data) mesh, as numpy in
+    flatten order."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import flatten
+    mesh = make_host_mesh(data, world // data, strict=True, device="cpu")
+    _, _, params, opt = fsdp_case_state(case, mesh)
+    return [x.numpy().copy() for x in flatten((params, opt))]
+
+
+def seq_decode(rank: int, world: int, data: int, cases) -> list:
+    """For each (q, k, v, pos, window) of ``cases``, ``decode_attention``
+    over a sequence-sharded cache on this rank of a (data, world / data)
+    mesh: its rows of the batch (b over "data") and its slice of S (over
+    "model"), the whole inputs given. Returns its rows of each output."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common as cm
+    from repro_torch.sharding import comm, rules
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(data, world // data, strict=True, device="cpu")
+    out = []
+    for q, k, v, pos, window in cases:
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        spec = rules.cache_pspec((1,) + tuple(k.shape), mesh)[1:]
+        assert spec == ("data", None, "model", None), spec
+        rows = rules.local_block(torch.as_tensor(q), spec[:1], mesh)
+        with comm.serving(mesh):
+            out.append(cm.decode_attention(
+                rows, rules.local_block(k, spec, mesh),
+                rules.local_block(v, spec, mesh),
+                rules.local_block(torch.as_tensor(pos), spec[:1], mesh),
+                window).numpy())
+    return out
