@@ -5,7 +5,20 @@
     python3 chip_smoke.py --phases kernels  # device, build + a subset
 
 Phases, in order (any failure exits non-zero and prints no result line;
-device and build always run):
+device and build always run). Each logs its seconds as "[phase] took";
+the first whole run with the examples phase (a slow host, NVIDIA H100
+80GB HBM3, 700.00 W; 1078.2 s in all) took: build 22.6, kernels 157.3,
+parity 19.3, api 41.4, serve 203.8, examples 19.1, families 63.5, train
+93.6, sharded 113.6, data 171.3, fsdp 172.5. After it the sharded and the
+data phase's full-width runs went into one rank group each, the data
+phase's OPT-6.7B to 8 layers, the train phase to 8 Trainer steps and the
+DDP run to 3 + 3 steps. The next whole run (816.8 s) took: build 16.1,
+kernels 155.6, parity 17.1, api 34.0, serve 142.9, examples 11.5,
+families 43.0, train 83.9, sharded 51.9, data 106.9, fsdp 153.9. With the
+gate's no-reuse AR serve and the examples' kernel calls held against
+their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
+32.9, serve 159.1, examples 12.9, families 49.4, train 82.7, sharded
+54.6, data 110.8, fsdp 133.3.
 
 1. device   the card's name and power limit (nvidia-smi) and CUDA version;
             TF32 off for f32 matmuls and convolutions.
@@ -69,9 +82,12 @@ device and build always run):
             (drop-free) in whole-prompt and chunked mode. Static tile
             capacities and the legacy ServeEngine (track_sparsity on):
             tiny-relu and tiny-moe generate dense with γ = 3, at
-            enable_sparse_serving(cfg, 0.5, 1.0) and at (0.5, 0.75) with a
-            tile of 16, then the continuous engine at (0.5, 1.0), whole
-            and chunked; kernel 5 (behind gathered_matmul) must launch.
+            enable_sparse_serving(cfg, 0.5, 1.0), at (0.5, 0.75) with a
+            tile of 16, and there with n_groups = 2 (the one-device
+            group-balanced selection, its list cut to tiles of 16 by
+            common.rank_tiles: kernel 5 must launch in that case), then
+            the continuous engine at (0.5, 1.0), whole and chunked;
+            kernel 5 (behind gathered_matmul) must launch.
 5. api      the serving front door and observability. tiny-relu at f32 on
             the card in plain, spec and predictor mode: AsyncServingEngine
             streams equal the same engine's offline engine.run() (greedy
@@ -96,8 +112,18 @@ device and build always run):
             engine in plain mode (chunked prefill, γ-window reuse) and in
             predictor mode (sign predictor, bf16 probe), 8 requests each,
             then 8 more through each engine under torch.profiler (device
-            time by kernel, and the busy share of that run's wall time); the
-            unfused predictor FFN on one layer for 8 tokens;
+            time by kernel, and the busy share of that run's wall time).
+            The serving roofline gate (launch/roofline.py): its AR
+            record from a new plain engine that serves the reference's
+            three prompts with no reuse window (counted), its predictor
+            record from the predictor run; then its ``roofline`` line:
+            per mode the measured, modeled and counted FFN weight bytes a
+            decode step (the count: one frozen decode step's
+            down-projection matmuls on "meta" tensors of the engine's
+            shapes, x 2 projections; dense in AR mode, x the predictor's
+            tile density in predictor mode), the density, t_mem(H100) at
+            3.35 TB/s, and the card's name and power limit; the run fails
+            on any check_serving violation at tol 0.15. Then the unfused predictor FFN on one layer for 8 tokens;
             ops.sparse_ffn_apply at T = 8 and 128, density 0.25; the
             per-token and window score kernels on layer 0. Sampled serving:
             the plain engine with 4 of the 8 requests sampled, twice, the
@@ -117,7 +143,19 @@ device and build always run):
             batch), and the grouped-gather MoE FFN on layer 0 at T = 8 and
             128, timed per call and on the card beside the dispatch
             einsums.
-7. families the four other model families through the legacy ServeEngine
+7. examples the three port examples' main() on the card, counted:
+            examples/quickstart_torch.py (kernels 6 and 5 against the same
+            call on CPU tensors, within TOL_F32), serve_sparse_torch.py
+            (trains its model for 30 steps and the draft for 20, then
+            serves it in plain, γ-reuse, speculative and predictor mode:
+            kernels 1, 2 and 3) and train_relufication_torch.py (30 + 20
+            + 20 Trainer steps; no kernel); then launch.roofline --serving
+            --check at tiny-relu f32 on the card. The first call of each
+            shape of kernels 1, 2 and 3 in these runs (bf16 at d_model 96
+            and head dim 16, the tile-1 predictor's kernel 1, f32 at
+            tiny-relu) is kept and, after the runs, held against its
+            plain version on the same inputs (TOL_BF16 / TOL_F32).
+8. families the four other model families through the legacy ServeEngine
             (their registry entries declare no paged serving), with the
             launch counts set to 0 before each run and read after it.
             f32 parity: the smoke configs of falcon-mamba-7b (Mamba-1),
@@ -138,7 +176,7 @@ device and build always run):
             down-projections (T = 4, the top tiles at 0.25): timed per
             call and on the card against its bound, the plain version and
             x @ w.
-8. train    relufication training and the forward statistics, with the
+9. train    relufication training and the forward statistics, with the
             launch counts set to 0 before and read after (the path runs
             none of the ten kernels: its forward is dense and the
             reference has no backward kernel, so every count must stay
@@ -150,15 +188,16 @@ device and build always run):
             relufied to stage 2, 2 of its 32 layers (0.67 B params; cut
             from 4 for the whole script's time), f32
             masters and bf16 compute, 8 x 1024 tokens of the synthetic
-            corpus (vocab 32000), 12 Trainer steps with async checkpoints
-            every 6: finite losses, none skipped, the last 3 below the
-            first; a second Trainer on a copy holding only the step-6
-            checkpoint restores that step's state (eval loss equal) and
-            runs to 12, its losses within 1e-2 of the first run's; measure_site_sparsity before and after (qkv and up
+            corpus (vocab 32000), 8 Trainer steps (cut from 12) with
+            async checkpoints every 4: finite losses, none skipped, the
+            last 3 below the first; a second Trainer on a copy holding
+            only the step-4 checkpoint restores that step's state (eval
+            loss equal) and runs to 8, its losses within 1e-2 of the
+            first run's; measure_site_sparsity before and after (qkv and up
             sparse), calibrate_shift(0.9) and the shifted model's down
             sparsity. Prints the step's and the host data's median ms,
             tokens/s, peak GiB and MFU (model_flops over 989 TFLOP/s).
-9. sharded  tensor-parallel serving, ranks sharing the card: each group of
+10. sharded tensor-parallel serving, ranks sharing the card: each group of
             ranks (sharding/comm.py spawn, one timeout for the group; the
             backend rule picks gloo, since NCCL refuses two ranks on one
             device) builds nothing (the build phase did). f32 parity: the
@@ -172,10 +211,11 @@ device and build always run):
             exactly, logprobs within 1e-5, metrics within 1e-9,
             per-device weight bytes the one-card figure / ffn_tp and
             their total over the ranks the one-card figure. Full width,
-            bf16: OPT-6.7B (4 layers, cut from 8 for the whole script's
-            time), Mixtral-8x22B (4 layers) and OPT-6.7B (4 layers) at
-            static capacities 0.25 / 0.75 (kernel 5 must launch on every
-            rank) on 2 ranks, the serve
+            bf16, one group of 2 ranks for the three (one group each
+            before): OPT-6.7B (4 layers, cut from 8 for the whole
+            script's time), Mixtral-8x22B (4 layers) and OPT-6.7B (4
+            layers) at static capacities 0.25 / 0.75 (kernel 5 must
+            launch on every rank), the serve
             phase's 8 greedy requests: the ranks' streams identical, the
             first prefill's last-position logits within
             TOL_SHARD_LOGITS of the one-card engine's; per rank the
@@ -183,7 +223,7 @@ device and build always run):
             peak GiB, modeled per-device FFN bytes and all-reduces a
             step (count and host ms); kernels 1-3 against their plain
             versions at the rank's shapes on its layer 0.
-10. data    the data axis, ranks sharing the card over gloo. Kernel 2's
+11. data    the data axis, ranks sharing the card over gloo. Kernel 2's
             partial mode (each data row's pages of a split pool, the
             partial softmax (acc, m, l) instead of o) and its fold: bf16
             at OPT-6.7B decode (8 slots, 32 kv heads x 128, 1536 to 2048
@@ -203,8 +243,9 @@ device and build always run):
             weight bytes a step the one-card engine's / ffn_tp: their
             scope follows the path), every rank holds 13 blocks and
             launches the partial mode. Full
-            width at (2, 1), bf16: OPT-6.7B (16 layers, cut from 32 for the
-            whole script's time) and Mixtral-8x22B (4 layers), the serve
+            width at (2, 1), bf16, one group of 2 ranks for both: OPT-6.7B
+            (8 layers, cut from 32, then 16, for the whole script's
+            time) and Mixtral-8x22B (4 layers), the serve
             phase's 8 greedy requests, 130 pool
             blocks: the first prefill's logits within TOL_SHARD_LOGITS
             of one card's, argmax equal; one decode step of the 8 slots
@@ -213,13 +254,13 @@ device and build always run):
             TOL_SHARD_LOGITS of one card's; per rank step ms, tokens/s, peak GiB, the pool blocks it holds
             (65), collectives a step by axis with their host ms, launches.
             DDP: llama-7b relufied to stage 2, 2 of 32 layers, 8 x 1024
-            tokens a step cut 4 x 1024 a rank, 4 steps uncompressed (step
+            tokens a step cut 4 x 1024 a rank, 3 steps uncompressed (step
             1's loss and grad norm within TOL_DDP of one card's
             make_train_step over the same batch in 2 microbatches, the
-            same function), then 4 with int8 error feedback (finite,
+            same function), then 3 with int8 error feedback (finite,
             falling losses); step ms, collective ms, peak GiB and the
             bytes a rank puts on the wire a step.
-11. fsdp    the FSDP + TP train step (train/fsdp.py) and the
+12. fsdp    the FSDP + TP train step (train/fsdp.py) and the
             sequence-sharded decode attention, ranks sharing the card over
             gloo, with the launch counts set to 0 before and read after in
             each rank. llama-7b relufied to stage 2, 2 of 32 layers, full
@@ -255,6 +296,7 @@ The line before the last is the kernels JSON object; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import json
@@ -268,7 +310,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
 # f32: only the order of the f32 sums differs from the plain version
 TOL_F32 = 1e-5
@@ -276,12 +317,21 @@ TOL_F32 = 1e-5
 # intermediates (h before the down-projection, p before P@V, the output)
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
-PHASES = ("kernels", "parity", "api", "serve", "families", "train",
-          "sharded", "data", "fsdp")  # device and build always run
+PHASES = ("kernels", "parity", "api", "serve", "examples", "families",
+          "train", "sharded", "data", "fsdp")  # device and build always run
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else "nvidia-smi failed")
 
 
 def fail(msg: str) -> None:
@@ -354,9 +404,9 @@ def timings(fn, plain=None, lib=None) -> dict:
     return out
 
 
-def compare(name: str, got, want, dtype) -> float:
+def compare(name: str, got, want, dtype, quiet: bool = False) -> float:
     """Max |got - want| over the outputs; fails beyond the dtype's
-    tolerance relative to max |want|."""
+    tolerance relative to max |want|; logs the pass unless ``quiet``."""
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
     err, scale = 0.0, 0.0
     for g, w in zip(got, want):
@@ -367,7 +417,9 @@ def compare(name: str, got, want, dtype) -> float:
         scale = max(scale, w.abs().max().item() if w.numel() else 0.0)
     if err > tol * max(scale, 1e-30):
         fail(f"{name}: max|diff| {err:.3e} > {tol} x max|ref| {scale:.3e}")
-    log(f"  ok {name}: max|diff| {err:.3e} (max|ref| {scale:.3e}, tol {tol})")
+    if not quiet:
+        log(f"  ok {name}: max|diff| {err:.3e} (max|ref| {scale:.3e}, "
+            f"tol {tol})")
     return err
 
 
@@ -391,7 +443,8 @@ def same_bits(name: str, fn) -> None:
 
 
 def bound(n_bytes: float, flops: float, dtype) -> tuple:
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.roofline import H100_HBM_BYTES_PER_S
+    t_b = n_bytes / H100_HBM_BYTES_PER_S * 1e3
     t_f = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -1670,6 +1723,9 @@ def legacy_generate(cfg, params, device, toks, reuse: int):
     return eng.generate({"tokens": toks}, max_new=12, reuse_window=reuse)
 
 
+GROUPED = "static 0.5 / 0.75, tile 16, 2 groups"
+
+
 def static_parity(dev) -> None:
     """The legacy ServeEngine and static tile capacities, f32 greedy, card
     (kernel 5 behind gathered_matmul) against CPU (the plain gather), on
@@ -1677,9 +1733,12 @@ def static_parity(dev) -> None:
     ``enable_sparse_serving(cfg, 0.5, 1.0)`` (the FFN down-projection keeps
     1 of 2 tiles; tiny-moe's experts have no capacity, so only its
     attention runs there) and at (0.5, 0.75) with a tile of 16 (QKV inputs
-    gathered too, so tiny-moe reaches kernel 5); then the continuous
-    engine at (0.5, 1.0), whole-prompt and chunked. Tokens exactly,
-    logprobs within 1e-5; fails unless kernel 5 launched."""
+    gathered too, so tiny-moe reaches kernel 5), and there with
+    ``n_groups=2`` (``GROUPED``: the group-balanced selection, its list
+    cut to tiles of 16 by ``common.rank_tiles`` and run through kernel 5,
+    which must launch in it); then the continuous engine at (0.5, 1.0),
+    whole-prompt and chunked. Tokens exactly, logprobs within 1e-5; fails
+    unless kernel 5 launched."""
     from repro_torch.configs import get_config
     from repro_torch.core import relufication as rf
     from repro_torch.kernels import sparse_matmul as ksm
@@ -1695,10 +1754,16 @@ def static_parity(dev) -> None:
                 ("dense, reuse_window=3", base, 3),
                 ("static 0.5 / 1.0", half, 0),
                 ("static 0.5 / 0.75, tile 16", rf.enable_sparse_serving(
-                    base.replace_sparsity(tile_size=16), 0.5, 0.75), 0)):
+                    base.replace_sparsity(tile_size=16), 0.5, 0.75), 0),
+                (GROUPED, rf.enable_sparse_serving(
+                    base.replace_sparsity(tile_size=16, n_groups=2), 0.5,
+                    0.75), 0)):
             k0 = ksm.sparse_matmul.launches
             want = legacy_generate(cfg, p_cpu, "cpu", toks, reuse)
             got = legacy_generate(cfg, p_dev, dev, toks, reuse)
+            if what == GROUPED and ksm.sparse_matmul.launches == k0:
+                fail(f"legacy {name} {what}: the group-balanced selection "
+                     f"never launched kernel 5")
             d = same_streams(f"legacy {name} {what}",
                              (got.tokens.tolist(), got.logprobs),
                              (want.tokens.tolist(), want.logprobs))
@@ -1722,6 +1787,35 @@ def static_parity(dev) -> None:
                 f"{ksm.sparse_matmul.launches - k0}")
     if ksm.sparse_matmul.launches == n0:
         fail("static capacities on the card never launched kernel 5")
+
+    grouped_product_check(dev)
+
+
+def grouped_product_check(dev) -> None:
+    """One group-balanced static product on the card (kernel 5 over the
+    ``rank_tiles`` list) against the reference's gather and einsum on the
+    same inputs on the CPU: OPT-6.7B's down-projection (F = 16384 in 4
+    groups of 1024-unit tiles, cut to 128) at T = 4, density 0.25, bf16
+    (TOL_BF16); each of the 4 rows has a third of its tiles all zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import common as cm
+
+    cfg = get_config("opt-6.7b").replace_sparsity(n_groups=4)
+    rng = np.random.RandomState(11)
+    F, D = cfg.d_ff, cfg.d_model
+    x = rng.randn(4, F).astype(np.float32) * (rng.rand(4, F) < 0.5)
+    x.reshape(4, F // 128, 128)[:, rng.rand(F // 128) < 1 / 3] = 0.0
+    x = torch.as_tensor(x, dtype=torch.bfloat16)
+    w = torch.as_tensor(rng.randn(F, D) / 128.0, dtype=torch.bfloat16)
+    want = cm.maybe_sparse_matmul(x, w, cfg, 0.25)
+    n0 = ksm.sparse_matmul.launches
+    got = cm.maybe_sparse_matmul(x.to(dev), w.to(dev), cfg, 0.25)
+    torch.cuda.synchronize()
+    if ksm.sparse_matmul.launches != n0 + 1:
+        fail("the grouped static product did not launch kernel 5 once")
+    compare("grouped static product OPT-6.7B wd T=4, 4 groups, 0.25",
+            [got.cpu()], [want], torch.bfloat16)
 
 
 def _to(tree, dev):
@@ -2123,16 +2217,20 @@ def timed_steps(eng) -> dict:
 def counted(path: str, counters, expect, fn):
     """Run one path of the port with every kernel's launch count set to 0
     just before and read just after; fails unless each kernel in
-    ``expect`` launched. Returns (fn's result, {kernel: launches})."""
+    ``expect`` launched; logs the launches and fn's seconds. Returns (fn's
+    result, {kernel: launches})."""
     for c in counters.values():
         c.launches = 0
+    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     for name in expect:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
-    log(f"  launches on the {path} path: {json.dumps(launches)}")
+    log(f"  launches on the {path} path ({secs:.1f} s): "
+        f"{json.dumps(launches)}")
     return out, launches
 
 
@@ -2248,6 +2346,58 @@ def log_serve(out: dict, **extra) -> None:
                                  if not k.startswith("_")}))
 
 
+def roofline_record(mode: str, eng) -> dict:
+    """The serving roofline gate's record (launch/roofline.py) of a served
+    full-width engine: measured and modeled FFN weight bytes a decode
+    step, and the count of one frozen decode step's down-projection
+    matmul operands on "meta" tensors of the engine's shapes (no card
+    memory) times the mode's projections. As in the reference, the count
+    is the anchor as it stands in AR mode, whose engine served with no
+    reuse window (``roofline_ar_serve``: the engine's own accounting must
+    come to a dense step), and is scaled by the predictor's tile density
+    in predictor mode, where the gate checks geometry and scale only."""
+    from repro_torch.launch import roofline as rl
+    cfg = eng.cfg
+    t0 = time.perf_counter()
+    dense = rl.counted_decode_ffn_bytes(eng, 3 if cfg.ffn_kind == "glu" else 2)
+    rec = rl.serve_record(mode, cfg.name, eng, dense if mode == "ar"
+                          else eng.predictor_density() * dense)
+    rec.update(layers=cfg.n_layers, dtype=cfg.compute_dtype,
+               counted_dense_bytes=dense,
+               count_s=time.perf_counter() - t0)
+    return rec
+
+
+def roofline_ar_serve(dev, counters, add, cfg, params, geom) -> dict:
+    """The gate's AR record: the reference's three prompts
+    (``launch.roofline.PROMPTS``), 8 new tokens each, no reuse window,
+    through a new plain engine of ``geom``, counted."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**geom),
+                                   device=dev)
+    for s, n in rl.PROMPTS:
+        eng.submit(np.random.RandomState(s).randint(0, cfg.vocab_size, n), 8)
+    _, launches = counted("roofline AR serving (no reuse)", counters,
+                          ("fused_sparse_ffn", "paged_window_attention"),
+                          eng.run)
+    add(launches)
+    return roofline_record("ar", eng)
+
+
+def roofline_gate(recs, tol: float = 0.15) -> None:
+    """One ``roofline`` line (the records, t_mem(H100), the card); fails on
+    any violation of ``check_serving`` at ``tol``."""
+    from repro_torch.launch import roofline as rl
+    log("  roofline " + json.dumps(dict(card=card_name(), tol=tol,
+                                        records=recs)))
+    bad = rl.check_serving(recs, tol)
+    if bad:
+        fail("roofline gate: " + "; ".join(bad))
+    log(f"  ok roofline gate at tol {tol}: modeled and counted within "
+        f"1±{tol} of measured in {len(recs)} modes")
+
+
 def serve_phase(dev, counters) -> dict:
     """Every path of the port at full width, each counted on its own: at
     OPT-6.7B the plain engine, the predictor engine, the unfused predictor
@@ -2289,6 +2439,7 @@ def serve_phase(dev, counters) -> dict:
                                 "decode": out["decode_step_ms_median"]},
                 "plain")
     del eng
+    roofline = [roofline_ar_serve(dev, counters, add, cfg, params, geom)]
     sampled_serve(dev, counters, add, cfg, params, geom, out)
 
     # -- predictor mode: the sign predictor at a bf16 probe ------------------
@@ -2310,6 +2461,8 @@ def serve_phase(dev, counters) -> dict:
     if eng.predictor_recall() != 1.0:
         fail(f"sign predictor at the compute dtype missed units: recall "
              f"{eng.predictor_recall()}")
+    roofline.append(roofline_record("predictor", eng))
+    roofline_gate(roofline)
     profile_run(eng, cfg, dev, {"prefill": out["prefill_step_ms_median"],
                                 "decode": out["decode_step_ms_median"]},
                 "predictor")
@@ -2878,7 +3031,188 @@ def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training (relufication fine-tuning) and the forward statistics
+# phase 7: the port's examples
+
+EXAMPLE_RUNS = (
+    ("quickstart", [], ("fused_up_relu", "sparse_matmul")),
+    ("serve_sparse", ["--train-steps", "30", "--draft-steps", "20"],
+     ("fused_sparse_ffn", "paged_window_attention", "sparse_matmul_tokens")),
+    ("train_relufication", ["--steps", "30", "--finetune-steps", "20"], ()),
+)
+
+
+def _floats(tree):
+    """The float leaves of nested dicts and lists."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _floats(v)
+    elif isinstance(tree, float):
+        yield tree
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py``'s ``main``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+# the kernels the examples' serving reaches: (module, wrapper); each
+# wrapper's plain version is ``<wrapper>_plain`` with the same arguments
+EXAMPLE_HELD = (("fused_decode", "fused_sparse_ffn"),
+                ("paged_attention", "paged_window_attention"),
+                ("sparse_matmul", "sparse_matmul_tokens"))
+
+
+def _signature(args, kwargs) -> tuple:
+    """A call's shapes and dtypes, and its other arguments."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape), str(v.dtype)
+        return repr(v)
+    return (tuple(one(a) for a in args),
+            tuple(sorted((k, one(v)) for k, v in kwargs.items())))
+
+
+class _Keeping:
+    """A kernel wrapper that keeps its first call of each ``_signature`` in
+    ``calls`` (tensors cloned before the call), then calls the wrapper.
+    Attributes are the wrapper's: it counts ``launches`` on itself through
+    its module's name, which this object takes while it stands there."""
+
+    def __init__(self, fn, key, calls):
+        object.__setattr__(self, "_own", (fn, key, calls))
+
+    def __call__(self, *args, **kwargs):
+        fn, key, calls = self._own
+        k = key + (_signature(args, kwargs),)
+        if k not in calls:
+            calls[k] = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args),
+                        {n: v.clone() if isinstance(v, torch.Tensor) else v
+                         for n, v in kwargs.items()})
+        return fn(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._own[0], name)
+
+    def __setattr__(self, name, value):
+        setattr(self._own[0], name, value)
+
+
+@contextlib.contextmanager
+def first_calls(held=EXAMPLE_HELD):
+    """While open, each wrapper of ``held`` stands in its kernels module
+    (where the models look it up) as a ``_Keeping``; yields
+    {(module, wrapper, signature): (args, kwargs)}. The wrapper runs and
+    counts its launches as before."""
+    import importlib
+    calls, saved = {}, []
+    for m, name in held:
+        mod = importlib.import_module(f"repro_torch.kernels.{m}")
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, _Keeping(fn, (mod.__name__, name), calls))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_first_calls(calls) -> dict:
+    """Each call ``first_calls`` kept, through its kernel and its plain
+    version on the same inputs (TOL_F32 for f32 inputs, else TOL_BF16;
+    these launches are not counted on any path). Returns, by wrapper, the
+    calls held, their dtypes and first arguments' shapes, and the largest
+    error relative to max |plain|."""
+    import importlib
+    out = {}
+    for (m, name, sig), (args, kwargs) in calls.items():
+        mod = importlib.import_module(m)
+        got = getattr(mod, name)(*args, **kwargs)
+        want = getattr(mod, f"{name}_plain")(*args, **kwargs)
+        got, want = ([got], [want]) if isinstance(got, torch.Tensor) else (
+            got, want)
+        dtype = args[0].dtype
+        err = compare(f"example call {name} {sig[0]}", got, want, dtype,
+                      quiet=True)
+        scale = max(w.float().abs().max().item() for w in want if w.numel())
+        row = out.setdefault(name, dict(calls=0, max_rel_err=0.0,
+                                        dtypes=[], first_arg=[]))
+        row["calls"] += 1
+        row["first_arg"].append(list(sig[0][0][0]))
+        row["max_rel_err"] = max(row["max_rel_err"], err / max(scale, 1e-30))
+        if str(dtype) not in row["dtypes"]:
+            row["dtypes"].append(str(dtype))
+    return out
+
+
+def examples_phase(dev, counters) -> dict:
+    """The three port examples' ``main`` on the card at the step counts of
+    ``EXAMPLE_RUNS`` (the reference example's 100 / 80 and 120 / 80 cut),
+    each counted: the quickstart (kernels 6 and 5 against the same call on
+    CPU tensors, within TOL_F32), serve_sparse (a model its Trainer just
+    trained, served in plain, γ-reuse, speculative and predictor mode:
+    kernels 1, 2 and 3; finite NLLs, predictor recall reported) and
+    train_relufication (three Trainer runs; no kernel). Then the gate's
+    own command, ``launch.roofline --serving --check``, at tiny-relu f32
+    on the card. Returns the launches summed over the runs."""
+    from repro_torch.launch import roofline as rl
+
+    total = {name: 0 for name in counters}
+    with first_calls() as calls:
+        examples_runs(dev, counters, total, rl)
+    held = check_first_calls(calls)
+    for name in ("fused_sparse_ffn", "paged_window_attention",
+                 "sparse_matmul_tokens"):
+        if name not in held or "torch.bfloat16" not in held[name]["dtypes"]:
+            fail(f"examples: no bf16 call of {name} was held against its "
+                 f"plain version")
+    log("  ok examples' kernel calls against their plain versions "
+        + json.dumps(held))
+    log(f"  launches summed over the examples: {json.dumps(total)}")
+    return total
+
+
+def examples_runs(dev, counters, total, rl) -> None:
+    """``examples_phase``'s runs, their launches added to ``total``."""
+    for name, argv, expect in EXAMPLE_RUNS:
+        main_fn = load_example(name)
+        t0 = time.perf_counter()
+        out, launches = counted(f"example {name}", counters, expect,
+                                lambda: main_fn(argv + ["--device", str(dev)]))
+        secs = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] += v
+        if name == "quickstart" and not out["max_abs_err"] <= TOL_F32:
+            fail(f"quickstart: sparse FFN on the card differs from the "
+                 f"plain versions by {out['max_abs_err']:.3e}")
+        if not all(np.isfinite(v) for v in _floats(out)):
+            fail(f"example {name}: a non-finite figure in {out}")
+        log(f"  example {name} " + json.dumps(dict(
+            argv=argv, seconds=secs,
+            **{k: v for k, v in out.items() if k != "sparsity"})))
+    t0 = time.perf_counter()
+    rc, launches = counted("roofline --serving --check (tiny-relu)", counters,
+                           ("fused_sparse_ffn", "paged_window_attention"),
+                           lambda: rl.main(["--serving", "--check",
+                                            "--device", str(dev)]))
+    for k, v in launches.items():
+        total[k] += v
+    if rc != 0:
+        fail(f"launch.roofline --serving --check exited {rc} on the card")
+    log(f"  ok roofline --serving --check on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training (relufication fine-tuning) and the forward statistics
 
 # params after N steps, card against CPU: an Adam update is close to
 # lr * sign(g), so an entry whose gradient is near zero may move by up to
@@ -2959,8 +3293,8 @@ def site_line(sp: dict) -> str:
                                                   "mean/down") if k in sp)
 
 
-def train_full_width(dev, cfg=None, dc=None, steps: int = 12,
-                     ckpt_every: int = 6) -> None:
+def train_full_width(dev, cfg=None, dc=None, steps: int = 8,
+                     ckpt_every: int = 4) -> None:
     """llama-7b relufied to stage 2 at 2 of its 32 layers (d 4096, 32
     heads x 128, d_ff 11008, vocab 32000 padded to 32768, untied): f32
     masters, bf16 compute, ``steps`` steps of the Trainer with async
@@ -3122,7 +3456,7 @@ def profile_train_step(tr, batch, unprofiled_ms: float, n: int = 2) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the other model families through the legacy ServeEngine
+# phase 8: the other model families through the legacy ServeEngine
 
 FAMILY_ARCHS = ("falcon-mamba-7b", "zamba2-7b", "whisper-small",
                 "internvl2-1b")
@@ -3456,7 +3790,7 @@ def train_phase(dev, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: tensor-parallel sharded serving, ranks sharing the card
+# phase 10: tensor-parallel sharded serving, ranks sharing the card
 
 
 # (arch, mode, prefill chunk) of the f32 parity cases
@@ -3731,19 +4065,26 @@ def shard_kernel_checks(eng, cfg, dev) -> None:
             [ksm.sparse_matmul_tokens_plain(*args, tile=tile)], bf)
 
 
-def sharded_full_rank(rank: int, world: int, cfg, seed: int,
-                      device_type: str) -> dict:
-    """One rank of a full-width bf16 model on a (1, world) mesh sharing the
-    card: the ranks build the seeded tree one after the other (at most one
-    whole tree on the card), each keeping its blocks; then the first
-    prefill's logits, the serve run of ``serve_run`` with every kernel
-    counted from 0 and the all-reduces counted, and kernels 1 to 3 at this
-    rank's shapes."""
+def sharded_full_rank(rank: int, world: int, cases,
+                      device_type: str) -> list:
+    """One rank of full-width bf16 models on a (1, world) mesh sharing the
+    card, one (cfg, seed) case after the other in one rank group: the
+    ranks build the seeded tree one after the other (at most one whole
+    tree on the card), each keeping its blocks; then the first prefill's
+    logits, the serve run of ``serve_run`` with every kernel counted from
+    0 and the all-reduces counted, and kernels 1 to 3 at this rank's
+    shapes; the engine is freed before the next case."""
+    mesh = rank_mesh(world, device_type)
+    return [sharded_full_case(rank, world, mesh, cfg, seed)
+            for cfg, seed in cases]
+
+
+def sharded_full_case(rank: int, world: int, mesh, cfg, seed: int) -> dict:
+    """One case of ``sharded_full_rank`` on this rank's mesh."""
     from repro_torch.models import registry
     from repro_torch.models import transformer as T
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     from repro_torch.sharding import comm
-    mesh = rank_mesh(world, device_type)
     dev = mesh.device
     eng = None
     for r in range(world):
@@ -3769,7 +4110,7 @@ def sharded_full_rank(rank: int, world: int, cfg, seed: int,
     n_ar, ar_s = comm.STATS.count, comm.STATS.seconds
     steps = out["prefill_steps"] + out["decode_steps"]
     shard_kernel_checks(eng, cfg, dev)
-    return dict(
+    res = dict(
         rank=rank, params_gib=held, launches=launches,
         streams=out.pop("_streams"), logprobs=out.pop("_logprobs"),
         logits=logits.numpy(), serve=out,
@@ -3777,68 +4118,82 @@ def sharded_full_rank(rank: int, world: int, cfg, seed: int,
         ffn_bytes_total=eng.weight_io_bytes_per_step(per_device=False),
         ffn_tp=eng.ffn_tp, all_reduces_per_step=n_ar / steps,
         all_reduce_ms_per_step=ar_s * 1e3 / steps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return res
 
 
-def sharded_full_width(dev, counters, add, cfg, seed: int) -> None:
-    """``cfg`` (full width, bf16), plain greedy with
-    the serve phase's 8 requests, on 2 ranks sharing the card: the ranks
-    agree on every token; the first prefill's last-position logits are
-    within TOL_SHARD_LOGITS of the one-card engine's; per rank the launches
+def sharded_full_width(dev, counters, add, cases) -> None:
+    """Each (cfg, seed) of ``cases`` (full width, bf16), plain greedy with
+    the serve phase's 8 requests, on 2 ranks sharing the card, the cases
+    one after the other in one rank group: the ranks agree on every
+    token; the first prefill's last-position logits are within
+    TOL_SHARD_LOGITS of the one-card engine's; per rank the launches
     (added to the kernels line), step times, tokens/s, peak memory,
     modeled per-device FFN bytes and the all-reduces a step."""
     from repro_torch.models import registry
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     from repro_torch.sharding import comm
-    arch = cfg.name
-    params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
-    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**SHARD_GEOM),
-                                   device=dev)
-    want = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
-    del eng, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    wants = []
+    for cfg, seed in cases:
+        params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**SHARD_GEOM),
+                                       device=dev)
+        wants.append(first_prefill_logits(eng, cfg,
+                                          serve_prompts(cfg, seed)[0]))
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.spawn(sharded_full_rank, 2, timeout=600,
-                       args=(cfg, seed, dev.type), device=dev.type)
-    for r in ranks[1:]:
-        if r["streams"] != ranks[0]["streams"]:
-            fail(f"{arch}: rank {r['rank']}'s streams differ from rank 0's")
-    for r in ranks:
-        got = torch.from_numpy(r["logits"])
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        if (not np.isfinite(r["logprobs"]).all()
-                or err > TOL_SHARD_LOGITS * scale):
-            fail(f"{arch} rank {r['rank']}: first prefill logits max|diff| "
-                 f"{err:.3e} > {TOL_SHARD_LOGITS} x {scale:.3e}")
-        add(r["launches"])
-        log("  sharded " + json.dumps(dict(
-            r["serve"], model=arch, layers=cfg.n_layers, tp=2, rank=r["rank"],
-            static_densities=[cfg.sparsity.input_tile_density,
-                              cfg.sparsity.ffn_tile_density]
-            if cfg.sparsity.enabled else None,
-            backend=comm.backend_for(dev, 2),
-            first_prefill_logits_max_abs_diff=err,
-            first_prefill_logits_max_abs=scale,
-            argmax_equal=bool(got.argmax() == want.argmax()),
-            params_gib_per_rank=r["params_gib"],
-            ffn_bytes_per_device=r["ffn_bytes_per_device"],
-            ffn_bytes_total=r["ffn_bytes_total"], ffn_tp=r["ffn_tp"],
-            all_reduces_per_step=r["all_reduces_per_step"],
-            all_reduce_ms_per_step=r["all_reduce_ms_per_step"],
-            launches=r["launches"])))
-    log(f"  {arch} ({cfg.n_layers} layers) at TP=2 took "
-        f"{time.perf_counter() - t0:.1f} s "
-        f"(streams of the 2 ranks identical)")
+    per_rank = comm.spawn(sharded_full_rank, 2, timeout=900,
+                          args=(list(cases), dev.type), device=dev.type)
+    log(f"  the {len(cases)} full-width cases at TP=2 took "
+        f"{time.perf_counter() - t0:.1f} s in one group of 2 ranks")
+    for i, ((cfg, _), want) in enumerate(zip(cases, wants)):
+        arch = cfg.name
+        ranks = [rr[i] for rr in per_rank]
+        for r in ranks[1:]:
+            if r["streams"] != ranks[0]["streams"]:
+                fail(f"{arch}: rank {r['rank']}'s streams differ from rank "
+                     f"0's")
+        for r in ranks:
+            got = torch.from_numpy(r["logits"])
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if (not np.isfinite(r["logprobs"]).all()
+                    or err > TOL_SHARD_LOGITS * scale):
+                fail(f"{arch} rank {r['rank']}: first prefill logits max|diff| "
+                     f"{err:.3e} > {TOL_SHARD_LOGITS} x {scale:.3e}")
+            add(r["launches"])
+            log("  sharded " + json.dumps(dict(
+                r["serve"], model=arch, layers=cfg.n_layers, tp=2,
+                rank=r["rank"],
+                static_densities=[cfg.sparsity.input_tile_density,
+                                  cfg.sparsity.ffn_tile_density]
+                if cfg.sparsity.enabled else None,
+                backend=comm.backend_for(dev, 2),
+                first_prefill_logits_max_abs_diff=err,
+                first_prefill_logits_max_abs=scale,
+                argmax_equal=bool(got.argmax() == want.argmax()),
+                params_gib_per_rank=r["params_gib"],
+                ffn_bytes_per_device=r["ffn_bytes_per_device"],
+                ffn_bytes_total=r["ffn_bytes_total"], ffn_tp=r["ffn_tp"],
+                all_reduces_per_step=r["all_reduces_per_step"],
+                all_reduce_ms_per_step=r["all_reduce_ms_per_step"],
+                launches=r["launches"])))
+        log(f"  {arch} ({cfg.n_layers} layers) at TP=2: streams of the 2 "
+            f"ranks identical")
 
 
 def sharded_phase(dev, counters) -> dict:
     """Phase 9: tensor-parallel serving with ranks sharing the one card
     (``comm.backend_for``: gloo, since NCCL refuses two ranks on one
     device). f32 parity at TP = 2, and at TP = 4 in one case
-    (``sharded_parity``), then OPT-6.7B (8
-    layers) and Mixtral-8x22B (4 of 56 layers) at full width and TP = 2
-    (``sharded_full_width``), then OPT-6.7B (8 layers) at the
+    (``sharded_parity``), then, in one group of 2 ranks
+    (``sharded_full_width``), OPT-6.7B (4 layers) and Mixtral-8x22B (4 of
+    56 layers) at full width and TP = 2, and OPT-6.7B (4 layers) at the
     legacy phase's static capacities 0.25 (FFN) / 0.75 (inputs), where
     every rank must launch kernel 5. Returns the ranks' launches,
     summed."""
@@ -3856,15 +4211,14 @@ def sharded_phase(dev, counters) -> dict:
     sharded_parity(dev)
     log(f"  parity took {time.perf_counter() - t0:.1f} s")
     from repro_torch.configs import get_config
-    # 8 of OPT-6.7B's 32 layers: the data phase serves all 32
-    sharded_full_width(dev, counters, add, get_config("opt-6.7b").replace(
-        compute_dtype="bfloat16", n_layers=4), seed=0)
-    sharded_full_width(dev, counters, add, get_config("mixtral-8x22b").replace(
-        n_layers=4, compute_dtype="bfloat16"), seed=4)
     from repro_torch.core import relufication as rf
-    sharded_full_width(dev, counters, add, rf.enable_sparse_serving(
-        get_config("opt-6.7b").replace(compute_dtype="bfloat16", n_layers=4),
-        0.25, 0.75), seed=0)
+    # 4 of OPT-6.7B's 32 layers: the serve phase serves all 32
+    opt = get_config("opt-6.7b").replace(compute_dtype="bfloat16", n_layers=4)
+    sharded_full_width(dev, counters, add, [
+        (opt, 0),
+        (get_config("mixtral-8x22b").replace(n_layers=4,
+                                             compute_dtype="bfloat16"), 4),
+        (rf.enable_sparse_serving(opt, 0.25, 0.75), 0)])
     for name in ("fused_sparse_ffn", "paged_window_attention",
                  "sparse_matmul_tokens", "sparse_matmul"):
         if total[name] <= 0:
@@ -3874,7 +4228,7 @@ def sharded_phase(dev, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the data axis, ranks sharing the card
+# phase 11: the data axis, ranks sharing the card
 
 
 # the partial mode's rows of the kernels line, filled by data_phase
@@ -4159,19 +4513,26 @@ def data_parity(dev) -> None:
             f"{time.perf_counter() - t0:.1f} s")
 
 
-def data_full_rank(rank: int, world: int, cfg, seed: int,
-                   device_type: str) -> dict:
-    """One rank of a full-width bf16 model on a (world, 1) mesh sharing
-    the card: the ranks build the seeded tree one after the other, each
-    keeping its pool blocks; then the first prefill's logits and the
-    serve run with every kernel counted from 0 and the collectives
-    counted by axis."""
+def data_full_rank(rank: int, world: int, cases,
+                   device_type: str) -> list:
+    """One rank of full-width bf16 models on a (world, 1) mesh sharing
+    the card, one (cfg, seed) case after the other in one rank group:
+    the ranks build the seeded tree one after the other, each keeping its
+    pool blocks; then the first prefill's logits, one decode step's and
+    the serve run with every kernel counted from 0 and the collectives
+    counted by axis; the engine is freed before the next case."""
     from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(world, 1, strict=True,
+                          device=None if device_type == "cuda" else "cpu")
+    return [data_full_case(rank, world, mesh, cfg, seed)
+            for cfg, seed in cases]
+
+
+def data_full_case(rank: int, world: int, mesh, cfg, seed: int) -> dict:
+    """One case of ``data_full_rank`` on this rank's mesh."""
     from repro_torch.models import registry
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     from repro_torch.sharding import comm
-    mesh = make_host_mesh(world, 1, strict=True,
-                          device=None if device_type == "cuda" else "cpu")
     dev = mesh.device
     eng = None
     for r in range(world):
@@ -4196,7 +4557,7 @@ def data_full_rank(rank: int, world: int, cfg, seed: int,
     out.pop("_streams")
     st = comm.STATS
     steps = out["prefill_steps"] + out["decode_steps"]
-    return dict(
+    res = dict(
         rank=rank, launches=launches, logprobs=out.pop("_logprobs"),
         logits=logits.numpy(), serve=out, decode_s0=s0, decode_logits=decode.numpy(),
         pool_blocks=eng.pages["k"].shape[1],
@@ -4206,11 +4567,17 @@ def data_full_rank(rank: int, world: int, cfg, seed: int,
                       ("data", st.data_count, st.data_seconds),
                       ("world", st.world_count, st.world_seconds),
                       ("model", st.count, st.seconds))})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return res
 
 
-def data_full_width(dev, add, cfg, seed: int) -> None:
-    """``cfg`` (full width, bf16), the serve phase's 8 greedy requests,
-    on 2 ranks of a (2, 1) mesh sharing the card: the first prefill's
+def data_full_width(dev, add, cases) -> None:
+    """Each (cfg, seed) of ``cases`` (full width, bf16), the serve phase's
+    8 greedy requests, on 2 ranks of a (2, 1) mesh sharing the card, the
+    cases one after the other in one rank group: the first prefill's
     last-position logits within TOL_SHARD_LOGITS of one card's with the
     argmax equal; one decode step of the 8 slots over pages in both halves
     of the pool (``first_decode_logits``: kernel 2's partial mode, the
@@ -4220,55 +4587,60 @@ def data_full_width(dev, add, cfg, seed: int) -> None:
     from repro_torch.models import registry
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     from repro_torch.sharding import comm
-    params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
-    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(
-        n_blocks=DATA_FULL_POOL, **SHARD_GEOM), device=dev)
-    want = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
-    _, want_dec = first_decode_logits(eng, cfg, serve_prompts(cfg, seed))
-    del eng, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    wants = []
+    for cfg, seed in cases:
+        params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
+        eng = ContinuousBatchingEngine(cfg, params, EngineConfig(
+            n_blocks=DATA_FULL_POOL, **SHARD_GEOM), device=dev)
+        want = first_prefill_logits(eng, cfg, serve_prompts(cfg, seed)[0])
+        _, want_dec = first_decode_logits(eng, cfg, serve_prompts(cfg, seed))
+        wants.append((want, want_dec))
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = comm.spawn(data_full_rank, 2, timeout=600,
-                       args=(cfg, seed, dev.type), device=dev.type)
-    for r in ranks:
-        got = torch.from_numpy(r["decode_logits"])
-        ref = want_dec[r["decode_s0"]:r["decode_s0"] + got.shape[0]]
-        dec_err = (got - ref).abs().max().item()
-        dec_scale = ref.abs().max().item()
-        if (not torch.isfinite(got).all()
-                or dec_err > TOL_SHARD_LOGITS * dec_scale):
-            fail(f"{cfg.name} rank {r['rank']}: decode step logits of slots "
-                 f"{r['decode_s0']}.. max|diff| {dec_err:.3e} (tolerance "
-                 f"{TOL_SHARD_LOGITS} x {dec_scale:.3e})")
-        r["decode_check"] = dict(
-            slots=[r["decode_s0"], r["decode_s0"] + got.shape[0]],
-            max_abs_diff=dec_err, max_abs=dec_scale,
-            argmax_equal=int((got.argmax(-1) == ref.argmax(-1)).sum()))
-    for r in ranks:
-        got = torch.from_numpy(r["logits"])
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        argmax = bool(got.argmax() == want.argmax())
-        if (not np.isfinite(r["logprobs"]).all()
-                or err > TOL_SHARD_LOGITS * scale or not argmax):
-            fail(f"{cfg.name} rank {r['rank']}: first prefill logits max|diff|"
-                 f" {err:.3e} (tolerance {TOL_SHARD_LOGITS} x {scale:.3e}), "
-                 f"argmax equal {argmax}")
-        if r["pool_blocks"] != DATA_FULL_POOL // 2:
-            fail(f"{cfg.name} rank {r['rank']}: holds {r['pool_blocks']} "
-                 f"pool blocks, not {DATA_FULL_POOL // 2}")
-        add(r["launches"])
-        log("  data " + json.dumps(dict(
-            r["serve"], model=cfg.name, layers=cfg.n_layers, mesh=[2, 1],
-            rank=r["rank"], slots=r["slots"], pool_blocks=r["pool_blocks"],
-            of_pool_blocks=DATA_FULL_POOL,
-            first_prefill_logits_max_abs_diff=err,
-            first_prefill_logits_max_abs=scale, argmax_equal=argmax,
-            decode_step_logits=r["decode_check"],
-            collectives_per_step=r["per_step"], launches=r["launches"])))
-    log(f"  {cfg.name} ({cfg.n_layers} layers) on (2, 1) took "
-        f"{time.perf_counter() - t0:.1f} s")
+    per_rank = comm.spawn(data_full_rank, 2, timeout=900,
+                          args=(list(cases), dev.type), device=dev.type)
+    log(f"  the {len(cases)} full-width cases on (2, 1) took "
+        f"{time.perf_counter() - t0:.1f} s in one group of 2 ranks")
+    for i, ((cfg, _), (want, want_dec)) in enumerate(zip(cases, wants)):
+        ranks = [rr[i] for rr in per_rank]
+        for r in ranks:
+            got = torch.from_numpy(r["decode_logits"])
+            ref = want_dec[r["decode_s0"]:r["decode_s0"] + got.shape[0]]
+            dec_err = (got - ref).abs().max().item()
+            dec_scale = ref.abs().max().item()
+            if (not torch.isfinite(got).all()
+                    or dec_err > TOL_SHARD_LOGITS * dec_scale):
+                fail(f"{cfg.name} rank {r['rank']}: decode step logits of "
+                     f"slots {r['decode_s0']}.. max|diff| {dec_err:.3e} "
+                     f"(tolerance {TOL_SHARD_LOGITS} x {dec_scale:.3e})")
+            r["decode_check"] = dict(
+                slots=[r["decode_s0"], r["decode_s0"] + got.shape[0]],
+                max_abs_diff=dec_err, max_abs=dec_scale,
+                argmax_equal=int((got.argmax(-1) == ref.argmax(-1)).sum()))
+        for r in ranks:
+            got = torch.from_numpy(r["logits"])
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            argmax = bool(got.argmax() == want.argmax())
+            if (not np.isfinite(r["logprobs"]).all()
+                    or err > TOL_SHARD_LOGITS * scale or not argmax):
+                fail(f"{cfg.name} rank {r['rank']}: first prefill logits "
+                     f"max|diff| {err:.3e} (tolerance {TOL_SHARD_LOGITS} x "
+                     f"{scale:.3e}), argmax equal {argmax}")
+            if r["pool_blocks"] != DATA_FULL_POOL // 2:
+                fail(f"{cfg.name} rank {r['rank']}: holds {r['pool_blocks']} "
+                     f"pool blocks, not {DATA_FULL_POOL // 2}")
+            add(r["launches"])
+            log("  data " + json.dumps(dict(
+                r["serve"], model=cfg.name, layers=cfg.n_layers, mesh=[2, 1],
+                rank=r["rank"], slots=r["slots"], pool_blocks=r["pool_blocks"],
+                of_pool_blocks=DATA_FULL_POOL,
+                first_prefill_logits_max_abs_diff=err,
+                first_prefill_logits_max_abs=scale, argmax_equal=argmax,
+                decode_step_logits=r["decode_check"],
+                collectives_per_step=r["per_step"], launches=r["launches"])))
 
 
 _ONE_CARD_STEP1 = {}  # (config, batch) -> one card's step 1
@@ -4302,7 +4674,7 @@ def one_card_step1(dev, cfg, tc, batch) -> tuple:
 
 
 def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
-    """One rank of the DDP run: 4 uncompressed steps, then 4 with int8
+    """One rank of the DDP run: 3 uncompressed steps, then 3 with int8
     error feedback from the same initial params, each timed with the card
     synchronised; the collectives and their host time (``comm.STATS``,
     data axis) and the peak memory."""
@@ -4331,7 +4703,7 @@ def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
         step = make_ddp_train_step(cfg, tc, mesh)
         torch.cuda.reset_peak_memory_stats(dev)
         rows, ms, coll, n_coll = [], [], [], []
-        for _ in range(4):
+        for _ in range(3):
             comm.STATS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4395,8 +4767,8 @@ def ddp_full_width(dev, cfg=None, dc=None) -> None:
 def data_phase(dev, counters) -> dict:
     """Phase 10: the data axis (``rules.DataSplit``) with ranks sharing the
     card over gloo: the partial mode's kernel rows, f32 parity on (2, 1)
-    and (2, 2), OPT-6.7B (32 layers) and Mixtral-8x22B (4 layers) at full
-    width on (2, 1), then the DDP step. Returns the ranks' launches,
+    and (2, 2), OPT-6.7B (8 layers) and Mixtral-8x22B (4 layers) at full
+    width on (2, 1) in one rank group, then the DDP step. Returns the ranks' launches,
     summed."""
     gc.collect()
     torch.cuda.empty_cache()
@@ -4413,10 +4785,11 @@ def data_phase(dev, counters) -> dict:
     data_parity(dev)
     log(f"  parity took {time.perf_counter() - t0:.1f} s")
     from repro_torch.configs import get_config
-    data_full_width(dev, add, get_config("opt-6.7b").replace(
-        compute_dtype="bfloat16", n_layers=16), seed=0)
-    data_full_width(dev, add, get_config("mixtral-8x22b").replace(
-        n_layers=4, compute_dtype="bfloat16"), seed=4)
+    data_full_width(dev, add, [
+        (get_config("opt-6.7b").replace(compute_dtype="bfloat16",
+                                        n_layers=8), 0),
+        (get_config("mixtral-8x22b").replace(n_layers=4,
+                                             compute_dtype="bfloat16"), 4)])
     t0 = time.perf_counter()
     ddp_full_width(dev)
     log(f"  ddp took {time.perf_counter() - t0:.1f} s")
@@ -4429,7 +4802,7 @@ def data_phase(dev, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the FSDP + TP train step and the sequence-sharded decode
+# phase 12: the FSDP + TP train step and the sequence-sharded decode
 
 
 def _stats() -> dict:
@@ -4723,10 +5096,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import runtime as rt
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = card_name()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4747,6 +5117,7 @@ def main(argv=None) -> int:
     counters = kernel_counters()
     launches = {name: 0 for name in counters}
     for phase, run in (("api", api_phase), ("serve", serve_phase),
+                       ("examples", examples_phase),
                        ("families", families_phase), ("train", train_phase),
                        ("sharded", sharded_phase), ("data", data_phase),
                        ("fsdp", fsdp_phase)):
@@ -4757,7 +5128,8 @@ def main(argv=None) -> int:
                 launches[name] += n
             log(f"[{phase}] took {time.perf_counter() - t0:.1f} s")
     results.update(DATA_KERNEL_ROWS)
-    if {"api", "serve", "families", "sharded", "data", "fsdp"} & set(phases):
+    if {"api", "serve", "examples", "families", "sharded", "data",
+            "fsdp"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -814,32 +814,37 @@ def static_tiles(x: torch.Tensor, cfg: ModelConfig, density: float,
     return idx, mask, tile
 
 
-def grouped_sparse_matmul(x: torch.Tensor, w: torch.Tensor, density: float,
-                          n_groups: int) -> torch.Tensor:
-    """Tile-gathered matmul with the F axis cut into ``n_groups`` groups,
-    each keeping its own top tiles (the reference's TP layout: each
-    shard's gather stays local). Plain torch ops, as the reference leaves
-    it to XLA; its group tile (``pick_group_tile``) need not suit a kernel.
-    x (t, F), w (F, D) -> (t, D) in x's dtype."""
+def grouped_matmuls(x: torch.Tensor, ws, idx: torch.Tensor,
+                    mask: torch.Tensor, tile: int, n_groups: int, most: int):
+    """``[x @ w for w in ws]`` over one group-balanced selection (idx,
+    mask) that ``select_active_tiles`` made at ``pick_group_tile``'s
+    ``tile`` (the reference's ``grouped_sparse_matmul``: each group keeps
+    its own top tiles, as each TP shard's gather stays local). On CUDA
+    tensors each product is kernel 5 (``gathered_matmul``) over the list
+    cut to tiles of at most ``most`` (``rank_tiles`` over all F units;
+    cfg.sparsity.tile_size caps a group tile of thousands), the valid
+    entries first: a masked tile's x is all zero, so the sum over the
+    valid entries is the reference's. On CPU tensors it is the
+    reference's gather and einsum over (group, tile)."""
     t, F = x.shape
-    D = w.shape[1]
-    tile = pick_group_tile(F, n_groups)
-    idx, mask = select_active_tiles(batch_tile_scores(x, tile), density,
-                                    n_groups)
+    if x.is_cuda:
+        sel = rank_tiles(idx, mask, tile, 0, F, most)
+        return [gathered_matmul(x, w, *sel) for w in ws]
     il = idx.long().reshape(n_groups, -1)  # (G, k_g)
     xg = (x.reshape(t, F // tile, tile)[:, il]
           * mask.reshape(n_groups, -1)[None, :, :, None])  # (t, G, k_g, tile)
-    wg = w.reshape(F // tile, tile, D)[il]  # (G, k_g, tile, D)
-    return torch.einsum("tgkc,gkcd->td", xg.float(), wg.float()).to(x.dtype)
+    return [torch.einsum("tgkc,gkcd->td", xg.float(),
+                         w.reshape(F // tile, tile, -1)[il].float()
+                         ).to(x.dtype) for w in ws]
 
 
 def maybe_sparse_matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
                         density: float, n_groups: int = 0) -> torch.Tensor:
     """Dense x @ w at density 1, else the tile-gathered product at the
-    static capacity ``density``: group-balanced (``grouped_sparse_matmul``)
-    when ``n_groups`` (default cfg.sparsity.n_groups) is above 1 and
-    divides F, else over the batch union's top tiles of
-    cfg.sparsity.tile_size (``gathered_matmul``)."""
+    static capacity ``density``: group-balanced (``grouped_matmuls``,
+    kernel 5 on the card as on the mesh path) when ``n_groups`` (default
+    cfg.sparsity.n_groups) is above 1 and divides F, else over the batch
+    union's top tiles of cfg.sparsity.tile_size (``gathered_matmul``)."""
     return maybe_sparse_matmuls(x, (w,), cfg, density, n_groups)[0]
 
 
@@ -850,10 +855,11 @@ def maybe_sparse_matmuls(x: torch.Tensor, ws, cfg: ModelConfig,
     reference selects again for each product; the results are the same)."""
     if density >= 1.0:
         return [x @ w for w in ws]
-    _, groups = static_plan(x.shape[1], cfg, n_groups)
-    if groups > 1:
-        return [grouped_sparse_matmul(x, w, density, groups) for w in ws]
     idx, mask, tile = static_tiles(x, cfg, density, n_groups)
+    groups = static_plan(x.shape[1], cfg, n_groups)[1]
+    if groups > 1:
+        return grouped_matmuls(x, ws, idx, mask, tile, groups,
+                               cfg.sparsity.tile_size)
     return [gathered_matmul(x, w, idx, mask, tile) for w in ws]
 
 

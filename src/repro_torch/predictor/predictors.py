@@ -75,6 +75,9 @@ class Predictor:
     probe_dtype: str = "float32"
     reports: List[LayerReport] = dataclasses.field(default_factory=list)
 
+    def layer_tau(self, layer: int) -> float:
+        return float(self.params["tau"][layer])
+
     def mean_report(self) -> Dict[str, float]:
         if not self.reports:
             return {}

@@ -1,6 +1,9 @@
 """EngineConfig: the validated configuration surface of the port's
 continuous-batching engine — a copy of the reference's dataclass (same
-fields, defaults and ``validate()``), without its legacy-kwargs shim.
+fields, defaults and ``validate()``). The historical keyword form
+``ContinuousBatchingEngine(cfg, params, n_slots=4, ...)`` still works
+through ``EngineConfig.from_legacy_kwargs``, which warns once per process
+and maps the keywords one to one onto the fields.
 
 ``validate()`` owns every rule decidable from the config alone; rules that
 need the model config, the device or the mesh stay in the engine (``mesh``
@@ -12,7 +15,10 @@ makes an enabled one) and ``track_sparsity`` keeps a per-request
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional
+
+_LEGACY_KWARGS_WARNED = False
 
 
 @dataclasses.dataclass
@@ -120,3 +126,24 @@ class EngineConfig:
             # (the default-on knob must not break prefill_chunk=0 users).
             pass
         return self
+
+    @staticmethod
+    def from_legacy_kwargs(**kwargs) -> "EngineConfig":
+        """Build an EngineConfig from the engine's old constructor keywords.
+        Warns once per process; unknown names raise TypeError, as the old
+        keyword signature did."""
+        global _LEGACY_KWARGS_WARNED
+        if not _LEGACY_KWARGS_WARNED:
+            _LEGACY_KWARGS_WARNED = True
+            warnings.warn(
+                "ContinuousBatchingEngine(cfg, params, **kwargs) is "
+                "deprecated: pass config=EngineConfig(...) instead "
+                "(serving/config.py; field names match the old kwargs "
+                "one to one)", DeprecationWarning, stacklevel=3)
+        known = {f.name for f in dataclasses.fields(EngineConfig)}
+        unknown = sorted(set(kwargs) - known)
+        if unknown:
+            raise TypeError(
+                f"unexpected engine keyword(s) {unknown}; EngineConfig "
+                f"fields are {sorted(known)}")
+        return EngineConfig(**kwargs)

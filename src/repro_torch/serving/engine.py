@@ -178,16 +178,26 @@ class ContinuousBatchingEngine:
 
     cfg: the model config; params: its parameter tree on ``device``
     (``transformer.init_params`` or ``convert.params_from_jax``); config:
-    the EngineConfig (field semantics as in the reference engine);
-    device: "cuda" (default) or "cpu". With no CUDA available and no
-    ``device="cpu"``, construction raises. With ``config.mesh`` the params
-    (and draft params) are the whole tree, on any device: the engine
-    copies the rank's blocks to ``device`` leaf by leaf and keeps no
-    reference to the tree."""
+    the EngineConfig (field semantics as in the reference engine), or
+    instead its fields as keywords (``legacy_kw``: deprecated, warns once
+    per process; both forms at once raise TypeError); device: "cuda"
+    (default) or "cpu". With no CUDA available and no ``device="cpu"``,
+    construction raises. With ``config.mesh`` the params (and draft
+    params) are the whole tree, on any device: the engine copies the
+    rank's blocks to ``device`` leaf by leaf and keeps no reference to
+    the tree."""
 
     def __init__(self, cfg: ModelConfig, params,
-                 config: Optional[EngineConfig] = None, device="cuda"):
-        config = (config or EngineConfig()).validate()
+                 config: Optional[EngineConfig] = None, device="cuda",
+                 **legacy_kw):
+        if config is None:
+            config = (EngineConfig.from_legacy_kwargs(**legacy_kw)
+                      if legacy_kw else EngineConfig())
+        elif legacy_kw:
+            raise TypeError(
+                "pass either config=EngineConfig(...) or legacy keyword "
+                f"arguments, not both (got {sorted(legacy_kw)})")
+        config = config.validate()
         self.device = cm.resolve_device(device)
         if self.device.type == "cuda" and config.fast_kernels is False:
             raise ValueError("fast_kernels=False on CUDA: on the card the "

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: nothing under src/repro_torch/, and not
-chip_smoke.py, imports jax or the JAX package ``repro``; the port serves
+"""The PyTorch port stands alone: nothing under src/repro_torch/, not the
+port's examples (examples/*_torch.py) and not chip_smoke.py imports jax or
+the JAX package ``repro``; the port serves
 with both made unimportable, through the engine and through the launcher's
 engine behind ``AsyncServingEngine``; and its entry points never fall back
 to the CPU when CUDA is absent."""
@@ -18,8 +19,9 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("*_torch.py"))
+              + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path: Path):
@@ -419,3 +421,64 @@ def test_other_family_entry_points_raise_without_cuda(monkeypatch, family):
         fam.init_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServeEngine(cfg, params)
+
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_examples_and_roofline_gate_run_with_jax_and_reference_unimportable():
+    """The three port examples (cut step counts) and the serving roofline
+    gate need nothing of JAX or the JAX package."""
+    prog = textwrap.dedent("""
+        import importlib.util, sys, warnings
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        warnings.simplefilter("ignore", DeprecationWarning)
+
+        def example(name):
+            spec = importlib.util.spec_from_file_location(
+                name, f"examples/{name}_torch.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod.main
+
+        example("quickstart")(["--device", "cpu"])
+        example("serve_sparse")(["--device", "cpu", "--train-steps", "2",
+                                 "--draft-steps", "1"])
+        example("train_relufication")(["--device", "cpu", "--steps", "2",
+                                       "--finetune-steps", "1"])
+        from repro_torch.launch import roofline
+        assert roofline.main(["--serving", "--check", "--device", "cpu"]) == 0
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ALL OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "ALL OK" in r.stdout, r.stderr[-3000:]
+    for name in ("quickstart", "serve_sparse", "train_relufication"):
+        assert f"{name} OK" in r.stdout
+
+
+def test_examples_and_roofline_gate_raise_without_cuda(monkeypatch):
+    """With no device given the examples and the gate run on the card;
+    with none available they raise instead of running on the CPU."""
+    from repro_torch.launch import roofline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, argv in (("quickstart", []),
+                       ("serve_sparse", ["--train-steps", "1"]),
+                       ("train_relufication", ["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _load_example(name).main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        roofline.main(["--serving", "--check"])

@@ -4,14 +4,19 @@ the CPU, at f32.
 * ``tile_scores``, and ``select_active_tiles``' indices and masks exactly:
   1-D and 2-D (batch-union) scores, all-zero and tied scores, one and two
   groups. Ties go to the lower index, as ``lax.top_k`` puts them.
-* ``gathered_matmul``, ``grouped_sparse_matmul`` and
-  ``maybe_sparse_matmul`` at densities 0.25, 0.5 and 1.0 (1e-5), and
+* ``gathered_matmul`` and ``maybe_sparse_matmul`` (one group, and
+  group-balanced against the reference's ``grouped_sparse_matmul``) at
+  densities 0.25, 0.5 and 1.0 (1e-5), and
   ``maybe_sparse_matmuls`` (one selection for several weights) against
   the reference's product for each weight.
 * The plain ``gathered_matmul`` is the contract of its CUDA route, kernel 5
   with nvalid = mask.sum(): the port's plain ``sparse_matmul`` and the
   reference's Pallas ``sparse_matmul`` (interpret mode) give the same
   product.
+* The one-device group-balanced selection's CUDA route: the list
+  ``rank_tiles`` cuts from it (tiles of at most 16 or 128, valid entries
+  first) through kernel 5's plain version equals the reference's
+  ``grouped_sparse_matmul`` at 2 and 4 groups (1e-5).
 * The continuous-batching engine at ``enable_sparse_serving(cfg, 0.5,
   0.75)`` against the JAX engine on converted weights, plain, chunked and
   speculative: tokens equal, logprobs within 1e-5. The tiny configs'
@@ -128,12 +133,16 @@ def test_gathered_matmul_matches_reference(density):
 @pytest.mark.parametrize("density", DENSITIES)
 @pytest.mark.parametrize("F,n_groups", [(256, 2), (360, 3)])
 def test_grouped_sparse_matmul_matches_reference(F, n_groups, density):
-    """(360, 3): a group tile of 40, no multiple of 16."""
+    """The port's group-balanced product (``maybe_sparse_matmul`` at
+    ``n_groups`` groups, its CPU einsum) against the reference's
+    ``grouped_sparse_matmul``. (360, 3): a group tile of 40, no multiple
+    of 16."""
     rng = np.random.RandomState(3)
     x = _sparse_x(rng, 4, F, tcm.pick_group_tile(F, n_groups))
     w = rng.randn(F, 24).astype(np.float32)
-    got = tcm.grouped_sparse_matmul(torch.as_tensor(x), torch.as_tensor(w),
-                                    density, n_groups)
+    cfg = _cfgs(16, n_groups)[1]
+    got = tcm.maybe_sparse_matmul(torch.as_tensor(x), torch.as_tensor(w), cfg,
+                                  density)
     want = jcm.grouped_sparse_matmul(jnp.asarray(x), jnp.asarray(w), density,
                                      n_groups)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
@@ -197,6 +206,37 @@ def test_gathered_matmul_is_kernel5_with_nvalid_mask_sum(density):
                                 tile=128)
     np.testing.assert_allclose(_np(got), _np(plain), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(_np(got), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("most", [16, 128])
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("n_groups", [2, 4])
+def test_grouped_selection_through_kernel5_matches_reference(n_groups,
+                                                             density, most):
+    """The one-device group-balanced selection's CUDA route: the list that
+    ``rank_tiles`` cuts from the selection (tiles of at most ``most``, the
+    valid entries first) through kernel 5's plain version with nvalid =
+    its mask's sum equals the reference's ``grouped_sparse_matmul``."""
+    rng = np.random.RandomState(9)
+    F = 512
+    tile = tcm.pick_group_tile(F, n_groups)
+    x = _sparse_x(rng, 5, F, tile, live=0.6)
+    w = rng.randn(F, 48).astype(np.float32)
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    idx, mask = tcm.select_active_tiles(tcm.batch_tile_scores(xt, tile),
+                                        density, n_groups)
+    sidx, smask, s = tcm.rank_tiles(idx, mask, tile, 0, F, most)
+    assert s == np.gcd(tile, most) and s % 16 == 0
+    nvalid = int(smask.sum())
+    assert nvalid == int(mask.sum()) * (tile // s)
+    assert bool((smask[:nvalid] > 0).all()) and not bool(smask[nvalid:].any())
+    got = tksm.sparse_matmul_plain(xt, wt, sidx,
+                                   torch.tensor(nvalid, dtype=torch.int32),
+                                   tile=s)
+    want = jcm.grouped_sparse_matmul(jnp.asarray(x), jnp.asarray(w), density,
+                                     n_groups)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 
 
