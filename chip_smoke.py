@@ -279,9 +279,14 @@ their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
             (checkpoint/manager.py, under build/fsdp_ckpt/, deleted
             after) and restored onto a (1, 2) mesh in a new 2-rank group,
             whose step 3 loss is the (2, 2) run's within TOL_DDP; the
-            train path launches no kernel. Per rank: step ms, collectives
-            a step by axis (count, host ms, payload bytes), the state's
-            GiB (params + m + v blocks) and the peak GiB. Then, in the
+            train path launches no kernel. The step gathers each layer
+            where it runs, forward and backward (train/fsdp.py, step 4):
+            fsdp.GAUGE's peak (the gathered layer columns alive at once)
+            must stay within two layers' columns. Per rank: step ms,
+            collectives a step by axis (count, host ms, payload bytes),
+            the layer gathers and reductions a step, the gauge's peak
+            beside one layer's column, the state's GiB (params + m + v
+            blocks) and the peak GiB. Then, in the
             (1, 2) group, common.decode_attention over a cache whose
             sequence is split over its 2 model ranks, at OPT-6.7B decode
             (8 rows, 32 heads x
@@ -4889,6 +4894,7 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
                     flatten((params, opt.m, opt.v))) / 2 ** 30
     step = fsdp.make_fsdp_train_step(cfg, tc, mesh)
     rows, ms, coll, save_s, peak, vs_one = [], [], [], None, 0.0, None
+    gauge = []
     for i, b in enumerate(batches):
         b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
         comm.STATS.reset()
@@ -4900,6 +4906,11 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
         ms.append((time.perf_counter() - t0) * 1e3)
         peak = max(peak, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
         coll.append(_stats())
+        gauge.append(dict(peak_bytes=fsdp.GAUGE.peak,
+                          live_bytes=fsdp.GAUGE.live,
+                          layer_gathers=len(fsdp.GAUGE.gathers),
+                          layer_gather_bytes=sum(fsdp.GAUGE.gathers),
+                          layer_reductions=fsdp.GAUGE.reductions))
         rows.append({k: float(v) for k, v in m.items()})
         if ref is not None and i == 0:
             vs_one = step1_vs_one_card(params, opt, rows[0]["lr"], ref,
@@ -4924,7 +4935,8 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
                 started=started, ended=time.time(), decode=decode,
                 collectives=coll, setup_s=setup_s, save_s=save_s,
                 state_gib=state_gib, peak_gib=peak, launches=launches,
-                step1_vs_one_card=vs_one)
+                step1_vs_one_card=vs_one, gauge=gauge,
+                column_bytes=fsdp.layer_column_bytes(cfg, mesh))
 
 
 def seq_decode_rank(rank: int, world: int, device_type: str, mesh,
@@ -5035,6 +5047,18 @@ def fsdp_full_width(dev, cfg=None, dc=None) -> list:
         losses = [m["loss"] for m in got["metrics"]]
         if not np.isfinite(losses).all():
             fail(f"FSDP rank {r}: non-finite losses {losses}")
+        gauge_peak = max(g["peak_bytes"] for g in got["gauge"])
+        if gauge_peak > 2 * got["column_bytes"]:
+            fail(f"FSDP rank {r}: {gauge_peak} bytes of gathered layers "
+                 f"alive at once, over two layers' columns "
+                 f"({got['column_bytes']} bytes each)")
+        log(f"  fsdp rank {r % 4} on {tuple(got['mesh'])}: peak "
+            f"{got['peak_gib']:.3f} GiB, gauge peak "
+            f"{gauge_peak / 2 ** 30:.3f} GiB (one layer's column "
+            f"{got['column_bytes'] / 2 ** 30:.3f} GiB), step ms "
+            f"{[round(t, 1) for t in got['step_ms']]}, data collectives a "
+            "step (count, host ms, bytes) "
+            f"{[(c['data']['count'], round(c['data']['host_ms'], 1), c['data']['payload_bytes']) for c in got['collectives']]}")
         if r < 4:
             for k, v in want.items():
                 if abs(first[k] - v) > TOL_DDP * max(1.0, abs(v)):
@@ -5056,7 +5080,7 @@ def fsdp_full_width(dev, cfg=None, dc=None) -> list:
 
 
 def fsdp_phase(dev, counters) -> dict:
-    """Phase 11: the FSDP + TP train step on (2, 2) and its resume on
+    """Phase 12: the FSDP + TP train step on (2, 2) and its resume on
     (1, 2), whose ranks then run the sequence-sharded decode. Returns the
     ranks' launches, summed (the fold's, from the decode)."""
     gc.collect()

@@ -27,6 +27,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import comm
 from repro_torch.sharding import rules
+from repro_torch.tree import flatten, unflatten
 
 # ---------------------------------------------------------------------------
 # init helpers (torch.Generator; the numbers differ from jax.random's)
@@ -909,12 +910,27 @@ def layer_params(params, i: int):
     return take(params["layers"])
 
 
+class LayerSource:
+    """Per-layer parameter trees made on demand, in place of a stacked
+    ``layers`` tree: ``transformer.forward`` takes layer i (``source[i]``)
+    just before the layer's block and calls ``release(i)`` when the block
+    returns. The FSDP step's per-layer gather is one (``train/fsdp.py``)."""
+
+    def __getitem__(self, i: int):
+        raise NotImplementedError
+
+    def release(self, i: int) -> None:
+        pass
+
+
 def unstack_layers(layers, n_layers: int):
     """The ``n_layers`` per-layer trees of a ``layers`` tree stacked on a
     leading axis (views, no copies), by one ``unbind`` a leaf. Under
     autograd its backward is one ``stack`` a leaf, where taking layer i
     of each leaf (``layer_params``) allocates a zero gradient of the whole
-    stacked leaf for every layer."""
+    stacked leaf for every layer. A ``LayerSource`` passes through."""
+    if isinstance(layers, LayerSource):
+        return layers
     if isinstance(layers, dict):
         subs = {k: unstack_layers(v, n_layers) for k, v in layers.items()}
         return [{k: subs[k][i] for k in subs} for i in range(n_layers)]
@@ -929,12 +945,15 @@ def cast_params(params, cfg: ModelConfig):
     """Mixed precision: f32 master leaves cast to the compute dtype at the
     model's entry, differentiably, so their gradients come back in f32.
     Leaves already in another dtype (serving params, stored once in the
-    compute dtype) pass through uncopied."""
+    compute dtype) pass through uncopied, as does a ``LayerSource`` (its
+    layers come in the compute dtype)."""
     cdt = getattr(torch, cfg.compute_dtype)
 
     def cast(t):
         if isinstance(t, dict):
             return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, LayerSource):
+            return t
         return t.to(cdt) if t.dtype == torch.float32 else t
 
     return cast(params)
@@ -959,8 +978,29 @@ def _in_state(fn: Callable) -> Callable:
     return run
 
 
-def _checkpointed(fn: Callable, *args):
-    return ckpt.checkpoint(_in_state(fn), *args, use_reentrant=False)
+def _checkpointed(fn: Callable, *args, **kw):
+    """``ckpt.checkpoint`` of ``fn(*args)`` with the leaves of a dict
+    argument (a layer's params) passed as inputs of their own: the
+    checkpoint saves its tensor inputs through the active saved-tensor
+    hooks (the FSDP step saves a gathered weight as a token there,
+    ``train/fsdp.py``), where it would keep a dict as it is."""
+    flat, parts = [], []
+    for a in args:
+        if isinstance(a, dict):
+            leaves = flatten(a)
+            parts.append(unflatten(a, list(range(len(leaves)))))
+            flat += leaves
+        else:
+            parts.append(None)
+            flat.append(a)
+
+    def run(*flat_args):
+        it = iter(flat_args)
+        return fn(*[next(it) if part is None
+                    else unflatten(part, [next(it) for _ in flatten(part)])
+                    for part in parts])
+
+    return ckpt.checkpoint(_in_state(run), *flat, use_reentrant=False, **kw)
 
 
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -1011,8 +1051,7 @@ def wrap_block(policy: str, block_fn: Callable) -> Callable:
     kw = {"context_fn": _products_saved} if policy == "minimal" else {}
 
     def block(p, x, cfg, positions, stats=NO_STATS):
-        return ckpt.checkpoint(_in_state(block_fn), p, x, cfg, positions,
-                               stats, use_reentrant=False, **kw)
+        return _checkpointed(block_fn, p, x, cfg, positions, stats, **kw)
 
     return block
 

@@ -496,7 +496,10 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     f32 master params (training) are cast to the compute dtype first
     (``common.cast_params``; serving params pass through), and the stacked
     layer leaves are split once (``common.unstack_layers``), so a backward
-    through the forward stacks each leaf's gradient once."""
+    through the forward stacks each leaf's gradient once. A
+    ``common.LayerSource`` in ``params["layers"]`` makes each layer's tree
+    just before its block and releases it after (the FSDP step's per-layer
+    gather)."""
     block = block or apply_block
     params = cm.cast_params(params, cfg)
     b, s = tokens.shape
@@ -508,9 +511,11 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     ks, vs = [], []
     layers = cm.unstack_layers(params["layers"], cfg.n_layers)
-    for i, p_i in enumerate(layers):
+    for i in range(cfg.n_layers):
         sub = cm.StatsCollector(True, raw=stats.raw) if stats.active else stats
-        x, (k, v) = block(p_i, x, cfg, positions, stats=sub)
+        x, (k, v) = block(layers[i], x, cfg, positions, stats=sub)
+        if isinstance(layers, cm.LayerSource):
+            layers.release(i)
         if stats.active:
             for key, val in sub.stats.items():
                 stats.stats[f"layer{i}/{key}"] = val

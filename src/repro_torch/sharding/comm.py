@@ -66,8 +66,9 @@ step's gradient mean. ``check_same``: every rank of the mesh holds the
 same host value (a checksum of the sampled tokens, once a step); a
 mismatch raises.
 
-The FSDP step's data-axis collectives are each issued once a step over
-one flat buffer: ``data_all_gather`` (every row's buffer, in
+The FSDP step's data-axis collectives each take one flat buffer, for
+the leaves outside the layers once a step and for each layer where it
+runs (``train/fsdp.py``): ``data_all_gather`` (every row's buffer, in
 data-index order) and ``data_reduce_scatter`` (the sum over the data
 column, this row's equal chunk); ``all_reduce_sum(x, mesh, "data")`` is
 the loss's masked sum and count over the data column, in the graph

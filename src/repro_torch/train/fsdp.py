@@ -13,29 +13,46 @@ says where each leaf lies (the checkpoint manager's ``shardings=``).
 
 A step (``make_fsdp_train_step``):
 
-1. gathers every leaf split over "data" into the rank's model column:
-   one all_gather of one flat buffer over the data column, in the compute
-   dtype (the forward casts the f32 masters to it at its entry, so it
-   computes with the same values), the column then held in f32 so that
-   its gradients come back in f32;
+1. gathers the leaves outside the layers (the embedding, the head, the
+   final norm) that are split over "data" into the rank's model column,
+   once a step: one all_gather of one flat buffer over the data column,
+   in the compute dtype (the forward casts the f32 masters to it at its
+   entry, so it computes with the same values), the column then held in
+   f32 so that its gradients come back in f32;
 2. cuts the global batch into ``tc.num_microbatches`` slices as
    ``train/step.py`` does; the data rows split each slice's rows;
-3. runs each slice's forward and backward on the column under the mesh's
-   model axis in the train mode (``comm.serving(mesh, rows, "train")``:
-   the serving path's tensor parallelism, whose collectives autograd
-   differentiates). The loss (``fsdp_loss``) is the masked mean over the
-   whole slice: the masked sum and the count are summed over "data"
-   before the division, in the graph. The logits stay split over the
-   vocabulary, and the log-sum-exp runs over the model ranks (the
-   maximum, then the sum of exp and the target logit in one all-reduce):
-   the function of ``train/step.py::lm_loss`` with its per-element
-   roundings (the maximum subtracted in the compute dtype, exp in f32),
-   its sums in another order. No rank holds the whole (b, s, vocab)
-   logits;
-4. sums the f32 column gradients, accumulated over the slices, over the
-   data column and keeps the rank's block (one reduce_scatter of one flat
-   buffer, and one all-reduce of the leaves replicated over "data"),
-   divided by the slice count as the reference's mean divides;
+3. runs each slice's forward and backward under the mesh's model axis in
+   the train mode (``comm.serving(mesh, rows, "train")``: the serving
+   path's tensor parallelism, whose collectives autograd differentiates).
+   The loss (``fsdp_loss``) is the masked mean over the whole slice: the
+   masked sum and the count are summed over "data" before the division,
+   in the graph. The logits stay split over the vocabulary, and the
+   log-sum-exp runs over the model ranks (the maximum, then the sum of
+   exp and the target logit in one all-reduce): the function of
+   ``train/step.py::lm_loss`` with its per-element roundings (the maximum
+   subtracted in the compute dtype, exp in f32), its sums in another
+   order. No rank holds the whole (b, s, vocab) logits;
+4. gathers each layer's leaves split over "data" where the layer runs,
+   as the reference's compiled step does (its forward and its backward
+   layer loops each gather the layer's leaves in their body):
+   ``transformer.forward`` takes layer i from ``_Layers`` just before its
+   block (one all_gather of the layer's blocks in the compute dtype,
+   ``_GatherLayer``) and releases it when the block returns. The slice's
+   saved-tensor hooks keep a token in the graph where a gathered weight
+   would be saved (a remat policy's checkpoint saves its inputs there
+   too), so the backward gathers the layer again at its first use; the
+   backward of ``_GatherLayer``, which runs once the layer's gradients
+   are all in, reduces them over the data column (one reduce_scatter, in
+   f32), adds them into the rank's f32 block gradients, which persist
+   over the slices as the reference's scan adds sharded gradients, and
+   drops the layer. No more than a layer's column is gathered at a time
+   (``GAUGE``). After the last slice, the step-long columns' f32
+   gradients are reduced to the rank's blocks (one reduce_scatter), those
+   of the leaves replicated over "data" summed (one all-reduce), and all
+   are divided by the slice count as the reference's mean divides. With
+   L layers, nmb slices and a data axis of more than one rank, a step
+   issues 1 + 2·L·nmb all_gathers and L·nmb + 1 reduce_scatters over
+   "data";
 5. clips by the global norm with each element counted once: a rank adds
    a leaf's squares only where it is the leaf's first holder along each
    axis the spec replicates it over, then one sum over the mesh;
@@ -51,6 +68,8 @@ routing group that would span data rows raises.
 from __future__ import annotations
 
 import dataclasses
+import math
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -92,21 +111,34 @@ def shard_train_state(params, mesh) -> Tuple[Dict, adamw.OptState]:
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     """One leaf's layout on this rank: the shape of its block, the dim
-    split over "data" (None: replicated over it), and whether this rank
-    counts the leaf's squares in the global norm (it is the leaf's first
-    holder along each axis the spec replicates it over)."""
+    split over "data" (None: replicated over it, or a data axis of one
+    rank), whether it is a layer leaf (under ``params["layers"]``, stacked
+    on dim 0: the step gathers it layer by layer, the other split leaves
+    once a step), and whether this rank counts the leaf's squares in the
+    global norm (it is the leaf's first holder along each axis the spec
+    replicates it over)."""
 
     block: tuple
     data_dim: Optional[int]
     counted: bool
+    layer: bool
+
+    def one_layer(self) -> "_Leaf":
+        """A layer leaf's layout at one layer (its stacked dim 0 taken)."""
+        return dataclasses.replace(self, block=self.block[1:],
+                                   data_dim=self.data_dim - 1)
 
 
 def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
     D, M = mesh.shape["data"], mesh.shape["model"]
     first = {a: mesh.coords[a] == 0 for a in ("data", "model")}
+    shapes = param_shapes(cfg)
+    in_layers = flatten({k: tree_map(lambda _, k=k: k == "layers", v)
+                         for k, v in shapes.items()})
     out = []
-    for shape, sh in zip(flatten(param_shapes(cfg)),
-                         flatten(state_shardings(cfg, mesh)[0])):
+    for shape, sh, layer in zip(flatten(shapes),
+                                flatten(state_shardings(cfg, mesh)[0]),
+                                in_layers):
         if any(a not in (None, "data", "model") for a in sh.spec):
             raise NotImplementedError(f"spec {sh.spec}: the step takes "
                                       "'data' and 'model' entries only")
@@ -115,9 +147,170 @@ def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
         block = [n // D if a == "data" else n
                  for n, a in zip(column, sh.spec)]
         out.append(_Leaf(tuple(block), sh.spec.index("data")
-                         if "data" in sh.spec else None,
-                         all(a in sh.spec or first[a] for a in first)))
+                         if "data" in sh.spec and D > 1 else None,
+                         all(a in sh.spec or first[a] for a in first),
+                         layer))
     return out
+
+
+def layer_column_bytes(cfg: ModelConfig, mesh) -> int:
+    """The bytes of one layer's gathered column on a rank of ``mesh``: its
+    leaves split over "data", whole along it, in the compute dtype (0 on a
+    data axis of one rank: nothing is gathered)."""
+    size = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                       ).element_size()
+    return sum(math.prod(l.block[1:]) * mesh.shape["data"] * size
+               for l in _layout(cfg, mesh)
+               if l.layer and l.data_dim is not None)
+
+
+def _columns(every: torch.Tensor, leaves: List[_Leaf]) -> List[torch.Tensor]:
+    """The leaves' columns in one gathered buffer (``comm.data_all_gather``:
+    row j holds data row j's blocks, in ``leaves``' order)."""
+    out, at = [], 0
+    for l in leaves:
+        n = math.prod(l.block)
+        out.append(torch.cat([row[at:at + n].view(l.block) for row in every],
+                             dim=l.data_dim))
+        at += n
+    return out
+
+
+def _row_chunks(cols: List[torch.Tensor], leaves: List[_Leaf], D: int
+                ) -> torch.Tensor:
+    """The columns laid out flat as D equal chunks, chunk j data row j's
+    blocks in ``leaves``' order (what ``comm.data_reduce_scatter`` hands
+    row j)."""
+    return torch.cat([c.narrow(l.data_dim, j * l.block[l.data_dim],
+                               l.block[l.data_dim]).reshape(-1)
+                      for j in range(D) for c, l in zip(cols, leaves)])
+
+
+def _cut(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """``flat`` cut into views of ``shapes``, in order."""
+    out, at = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[at:at + n].view(shape))
+        at += n
+    return out
+
+
+class _Gauge:
+    """The per-layer gather on this rank: ``live`` the bytes of gathered
+    layer columns alive now (a column counts until its last reference
+    dies, the step's own or any other), ``peak`` the most since
+    ``reset()``, ``gathers`` each layer gather's payload bytes since then
+    and ``reductions`` the layer reductions since then. The FSDP step
+    resets it at its start."""
+
+    def __init__(self):
+        self.live = 0
+        self.reset()
+
+    def reset(self) -> None:
+        self.peak = self.live
+        self.gathers: List[int] = []
+        self.reductions = 0
+
+    def hold(self, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(t, self._drop, n)
+
+    def _drop(self, n: int) -> None:
+        self.live -= n
+
+
+GAUGE = _Gauge()
+
+
+def _address(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+class _GatherLayer(torch.autograd.Function):
+    """Layer i's gathered columns (``_Layers.gather``); backward: their
+    gradients reduced into the rank's f32 blocks (``_Layers.reduce``).
+    ``anchor``, an empty tensor that requires grad, puts the node in the
+    graph."""
+
+    @staticmethod
+    def forward(ctx, layers: "_Layers", i: int, anchor):
+        ctx.layers, ctx.i = layers, i
+        return tuple(layers.gather(i))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.layers.reduce(ctx.i, list(grads))
+        return None, None, None
+
+
+class _Layers(cm.LayerSource):
+    """One slice's layers for ``transformer.forward`` (step 4 of the module
+    note): layer i's tree in the compute dtype, its leaves split over
+    "data" gathered (``_GatherLayer``), the others the rank's f32 blocks
+    (``whole``, requiring grad) cast. ``pack`` / ``unpack`` are the
+    slice's saved-tensor hooks; the gathered columns are held in ``live``
+    from their gather to ``release`` and nowhere else in the step."""
+
+    def __init__(self, template, split_mask: List[bool], blocks, whole,
+                 grads, leaves: List[_Leaf], cdt, mesh):
+        self.template = template  # the layer tree, leaves numbered
+        self.split_mask = split_mask
+        self.blocks = blocks  # the split leaves' f32 blocks (L, ...)
+        self.whole = [w.unbind(0) for w in whole]
+        self.grads = grads  # the split leaves' f32 block gradients (L, ...)
+        self.leaves = leaves  # the split leaves at one layer
+        self.cdt, self.mesh = cdt, mesh
+        self.live: Dict[int, List[torch.Tensor]] = {}
+        self.where: Dict[int, Tuple[int, int]] = {}
+        self.anchor = (torch.empty(0, device=blocks[0].device,
+                                   requires_grad=True) if blocks else None)
+
+    def __getitem__(self, i: int):
+        split = iter(_GatherLayer.apply(self, i, self.anchor)
+                     if self.blocks else ())
+        whole = iter([w[i].to(self.cdt) for w in self.whole])
+        return unflatten(self.template, [next(split) if s else next(whole)
+                                         for s in self.split_mask])
+
+    def gather(self, i: int) -> List[torch.Tensor]:
+        every = comm.data_all_gather(torch.cat(
+            [b[i].reshape(-1) for b in self.blocks]).to(self.cdt), self.mesh)
+        GAUGE.gathers.append(every.numel() * every.element_size())
+        cols = _columns(every, self.leaves)
+        for k, c in enumerate(cols):
+            self.where[_address(c)] = (i, k)
+            GAUGE.hold(c)
+        self.live[i] = cols
+        return cols
+
+    def reduce(self, i: int, grads: List[torch.Tensor]) -> None:
+        mine = comm.data_reduce_scatter(_row_chunks(
+            grads, self.leaves, self.mesh.shape["data"]).float(), self.mesh)
+        for g, piece in zip(self.grads,
+                            _cut(mine, [l.block for l in self.leaves])):
+            g[i] += piece
+        GAUGE.reductions += 1
+        self.release(i)
+
+    def release(self, i: int) -> None:
+        for c in self.live.pop(i, ()):
+            self.where.pop(_address(c), None)
+
+    def pack(self, t: torch.Tensor):
+        at = self.where.get(_address(t))
+        return t if at is None else (at, t.size(), t.stride(),
+                                     t.storage_offset())
+
+    def unpack(self, saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        (i, k), size, stride, offset = saved
+        cols = self.live.get(i) or self.gather(i)
+        return cols[k].as_strided(size, stride, offset)
 
 
 def _check_groups(cfg: ModelConfig, rows: int, seq: int, D: int) -> None:
@@ -176,57 +369,47 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
     """Returns grads(params, batch) -> (loss, grads): steps 1 to 4 of the
     module note on this rank of ``mesh``: the mean of the microbatches'
     losses (equal on every rank) and the rank's f32 blocks of the mean
-    gradient, unclipped, in ``params``' structure. params: the rank's f32
-    blocks (``shard_train_state``); batch: the global batch (every rank
-    passes the same)."""
+    gradient, unclipped, in ``params``' structure. The leaves outside the
+    layers are gathered once, each layer's where it runs, forward and
+    backward (``_Layers``); ``GAUGE`` is reset at the start. params: the
+    rank's f32 blocks (``shard_train_state``); batch: the global batch
+    (every rank passes the same)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the FSDP step trains the {FAMILIES} families, not "
             f"{cfg.family!r}: their forward has no split over 'model'")
     D, d = mesh.shape["data"], mesh.coords["data"]
     leaves = _layout(cfg, mesh)
-    split = [i for i, l in enumerate(leaves) if l.data_dim is not None]
+    entry = [i for i, l in enumerate(leaves)
+             if not l.layer and l.data_dim is not None]
+    layer = [i for i, l in enumerate(leaves) if l.layer]
+    split = [i for i in layer if leaves[i].data_dim is not None]
     whole = [i for i, l in enumerate(leaves) if l.data_dim is None]
+    layer_whole = [i for i in layer if i not in split]
+    split_mask = [leaves[i].data_dim is not None for i in layer]
+    one_layer = [leaves[i].one_layer() for i in split]
     cdt = getattr(torch, cfg.compute_dtype)
 
-    def gather(blocks) -> list:
-        out = list(blocks)
-        if D == 1 or not split:
-            return out
-        every = comm.data_all_gather(
-            torch.cat([blocks[i].reshape(-1) for i in split]).to(cdt), mesh)
-        at = 0
-        for i in split:
-            n = blocks[i].numel()
-            out[i] = torch.cat([every[j, at:at + n].view(leaves[i].block)
-                                for j in range(D)],
-                               dim=leaves[i].data_dim).float()
-            at += n
-        return out
+    def entry_columns(blocks) -> List[torch.Tensor]:
+        if not entry:
+            return []
+        return [c.float() for c in _columns(comm.data_all_gather(
+            torch.cat([blocks[i].reshape(-1) for i in entry]).to(cdt), mesh),
+            [leaves[i] for i in entry])]
 
-    def scatter(col_grads) -> list:
-        out = list(col_grads)
-        if D == 1:
-            return out
-        if split:
-            mine = comm.data_reduce_scatter(torch.cat([
-                col_grads[i].narrow(leaves[i].data_dim,
-                                    j * leaves[i].block[leaves[i].data_dim],
-                                    leaves[i].block[leaves[i].data_dim])
-                .reshape(-1) for j in range(D) for i in split]), mesh)
-            at = 0
-            for i in split:
-                n = col_grads[i].numel() // D
-                out[i] = mine[at:at + n].view(leaves[i].block)
-                at += n
+    def reduce_step_long(col_grads) -> Dict[int, torch.Tensor]:
+        out = {}
+        if entry:
+            out.update(zip(entry, _cut(
+                comm.data_reduce_scatter(_row_chunks(
+                    [col_grads[i] for i in entry],
+                    [leaves[i] for i in entry], D), mesh),
+                [leaves[i].block for i in entry])))
         if whole:
-            flat = comm.data_sum(torch.cat([col_grads[i].reshape(-1)
-                                            for i in whole]), mesh)
-            at = 0
-            for i in whole:
-                n = col_grads[i].numel()
-                out[i] = flat[at:at + n].view(leaves[i].block)
-                at += n
+            out.update(zip(whole, _cut(
+                comm.data_sum(torch.cat([col_grads[i].reshape(-1)
+                                         for i in whole]), mesh),
+                [leaves[i].block for i in whole])))
         return out
 
     def loss_and_grads(params, batch):
@@ -246,9 +429,15 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
         bl = b_mb // D
         if cfg.n_experts and D > 1:
             _check_groups(cfg, b_mb, batch["tokens"].shape[1], D)
-        col = [c.detach().requires_grad_(True)
-               for c in gather([p.detach() for p in blocks])]
+        GAUGE.reset()
+        col = [None] * len(blocks)
+        for i, c in zip(entry, entry_columns([p.detach() for p in blocks])):
+            col[i] = c.requires_grad_(True)
+        for i in whole:
+            col[i] = blocks[i].detach().requires_grad_(True)
+        layer_grads = [torch.zeros_like(blocks[i]) for i in split]
         tree = unflatten(params, col)
+        template = unflatten(params["layers"], list(range(len(layer))))
         rows = (rules.DataSplit(size=D, index=d, slots=(d * bl, bl),
                                 blocks=(0, 1), n_slots=b_mb, n_blocks=1)
                 if D > 1 else None)
@@ -259,14 +448,23 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
             mb = {k: v[lo:lo + bl] for k, v in batch.items()}
             with comm.serving(mesh, rows, mode="train"), \
                     torch.enable_grad():
-                loss_i = fsdp_loss(tree, mb, cfg, mesh, tc.remat_policy)
+                layers = _Layers(template, split_mask,
+                                 [blocks[j].detach() for j in split],
+                                 [col[j] for j in layer_whole], layer_grads,
+                                 one_layer, cdt, mesh)
+                tree["layers"] = layers
+                with torch.autograd.graph.saved_tensors_hooks(
+                        layers.pack, layers.unpack):
+                    loss_i = fsdp_loss(tree, mb, cfg, mesh, tc.remat_policy)
                 loss_i.backward()
             l_sum = l_sum + loss_i.detach()
-        col_grads = [torch.zeros_like(c) if c.grad is None else c.grad
-                     for c in col]
-        del col, tree
-        grads = scatter(col_grads)
-        del col_grads
+        del tree, layers
+        reduced = reduce_step_long(
+            [None if c is None else torch.zeros_like(c) if c.grad is None
+             else c.grad for c in col])
+        del col
+        reduced.update(zip(split, layer_grads))
+        grads = [reduced[i] for i in range(len(blocks))]
         if nmb > 1:
             grads = [g / nmb for g in grads]
         return l_sum / nmb, unflatten(params, grads)
@@ -280,8 +478,9 @@ def make_fsdp_train_step(cfg: ModelConfig, tc: TrainConfig, mesh):
     opt_state are the rank's blocks (``shard_train_state``; f32 masters),
     batch the global batch on the mesh's device (every rank passes the
     same), metrics as the module note says. The collectives are
-    ``comm``'s, counted in ``comm.STATS`` by axis. ``tc.zero_stage`` is not
-    read (the reference reads it nowhere either)."""
+    ``comm``'s, counted in ``comm.STATS`` by axis; ``GAUGE`` holds the
+    step's layer gathers. ``tc.zero_stage`` is not read (the reference
+    reads it nowhere either)."""
     loss_and_grads = make_fsdp_grads(cfg, tc, mesh)
     counted = [l.counted for l in _layout(cfg, mesh)]
     world = mesh.shape["data"] * mesh.shape["model"]

@@ -263,6 +263,7 @@ def _reference_grads(cfg, params, batch, nmb, remat):
 
 
 GRAD_CASES = [("tiny-relu", (2, 2), "minimal"), ("tiny-relu", (2, 2), "full"),
+              ("tiny-relu", (2, 2), "none"), ("tiny-relu", (2, 2), "save_ars"),
               ("tiny-opt", (2, 2), "minimal"), ("tiny-moe", (2, 2), "minimal"),
               ("tiny-relu", (1, 4), "minimal")]
 

@@ -340,6 +340,39 @@ def fsdp_grads(rank: int, world: int, data: int, cases) -> list:
     return out
 
 
+def fsdp_schedule(rank: int, world: int, data: int, cases) -> list:
+    """For each case, the FSDP step's per-layer gather on this rank:
+    ``make_fsdp_grads``' loss and mean gradient on ``case["batches"][0]``
+    (in full on rank 0; None elsewhere), then one train step on that
+    batch with what it issued read from ``comm.STATS`` (the data axis'
+    count and payload bytes) and ``fsdp.GAUGE`` (each layer gather's
+    payload, the layer reductions, the peak and what is left alive), and
+    ``fsdp.layer_column_bytes``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import comm
+    from repro_torch.train import fsdp
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(data, world // data, strict=True, device="cpu")
+    out = []
+    for case in cases:
+        cfg, tc, params, opt = fsdp_case_state(case, mesh)
+        batch = {k: torch.as_tensor(v) for k, v in case["batches"][0].items()}
+        loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(params, batch)
+        full = _full(grads, fsdp.state_shardings(cfg, mesh)[0])
+        step = fsdp.make_fsdp_train_step(cfg, tc, mesh)
+        comm.STATS.reset()
+        _, _, metrics = step(params, opt, batch)
+        g = fsdp.GAUGE
+        out.append(dict(loss=float(loss), grads=full if rank == 0 else None,
+                        step_loss=float(metrics["loss"]),
+                        data_count=comm.STATS.data_count,
+                        data_bytes=comm.STATS.data_bytes,
+                        gathers=list(g.gathers), reductions=g.reductions,
+                        peak=g.peak, live=g.live,
+                        column_bytes=fsdp.layer_column_bytes(cfg, mesh)))
+    return out
+
+
 def collective_grads(rank: int, world: int, ops, seed: int) -> dict:
     """{op: ``collective_grad``} for each of ``ops``, on meshes (1, world)
     and (world, 1) of this rank."""
