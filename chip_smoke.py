@@ -176,7 +176,33 @@ their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
             down-projections (T = 4, the top tiles at 0.25): timed per
             call and on the card against its bound, the plain version and
             x @ w.
-9. train    relufication training and the forward statistics, with the
+9. zoo      the five assigned configs (Qwen3-4B, Qwen2-7B, StarCoder2-15B,
+            DeepSeek-67B, Phi-3.5-MoE) relufied to stage 2 (ReLU FFN, ReLU
+            after every norm), one model on the card at a time, with the
+            launch counts set to 0 before each run and read after it.
+            Kernels 1-3 at each config's shapes, f32 and bf16, against
+            their plain versions (kernel 2 at the served head layout,
+            decode W = 1 and a 16-token chunk, and at Qwen2-7B's real
+            ratio g = 7 beside its padded g = 8; kernel 1 at T = 8 with
+            the config's GLU or MLP and a unit mask, full and half-density
+            lists; kernel 3 at 8 slots x 16 rows over (d_ff, d_model); the
+            MoE config kernel 2 only), the bf16 rows timed per call and on
+            the card beside the bound, the plain version and the library
+            call. f32 parity at full width, 2 layers (DeepSeek-67B and
+            Phi-3.5-MoE 1), the vocabulary cut to 4096, constant leaves
+            (norms, biases) moved off their constants: 3 requests of 24 /
+            17 / 9 tokens x 6 new, γ = 2, 16-token chunks, card (kernels)
+            against CPU (plain versions) on the same params: tokens
+            exactly, logprobs within 1e-4. bf16 serving at full width,
+            random weights: Qwen3-4B at 36 layers, Qwen2-7B at 28,
+            StarCoder2-15B, DeepSeek-67B and Phi-3.5-MoE at 8 (capacity
+            1.25 as registered), the serve phase's 8 requests with γ = 4
+            on every other one, 8 slots, blocks of 16, 16-token chunks: a
+            dense config must launch kernels 1, 2 and 3, the MoE kernel 2,
+            and nothing else; tokens in the vocabulary, logprobs finite;
+            step ms, tokens/s, peak GiB, weight bytes a step, launches,
+            and Phi's moe_drop_frac over the prompts' whole-prompt forward.
+10. train   relufication training and the forward statistics, with the
             launch counts set to 0 before and read after (the path runs
             none of the ten kernels: its forward is dense and the
             reference has no backward kernel, so every count must stay
@@ -197,7 +223,7 @@ their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
             sparse), calibrate_shift(0.9) and the shifted model's down
             sparsity. Prints the step's and the host data's median ms,
             tokens/s, peak GiB and MFU (model_flops over 989 TFLOP/s).
-10. sharded tensor-parallel serving, ranks sharing the card: each group of
+11. sharded tensor-parallel serving, ranks sharing the card: each group of
             ranks (sharding/comm.py spawn, one timeout for the group; the
             backend rule picks gloo, since NCCL refuses two ranks on one
             device) builds nothing (the build phase did). f32 parity: the
@@ -223,7 +249,7 @@ their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
             peak GiB, modeled per-device FFN bytes and all-reduces a
             step (count and host ms); kernels 1-3 against their plain
             versions at the rank's shapes on its layer 0.
-11. data    the data axis, ranks sharing the card over gloo. Kernel 2's
+12. data    the data axis, ranks sharing the card over gloo. Kernel 2's
             partial mode (each data row's pages of a split pool, the
             partial softmax (acc, m, l) instead of o) and its fold: bf16
             at OPT-6.7B decode (8 slots, 32 kv heads x 128, 1536 to 2048
@@ -260,7 +286,7 @@ their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
             same function), then 3 with int8 error feedback (finite,
             falling losses); step ms, collective ms, peak GiB and the
             bytes a rank puts on the wire a step.
-12. fsdp    the FSDP + TP train step (train/fsdp.py) and the
+13. fsdp    the FSDP + TP train step (train/fsdp.py) and the
             sequence-sharded decode attention, ranks sharing the card over
             gloo, with the launch counts set to 0 before and read after in
             each rank. llama-7b relufied to stage 2, 2 of 32 layers, full
@@ -323,7 +349,7 @@ TOL_F32 = 1e-5
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
 PHASES = ("kernels", "parity", "api", "serve", "examples", "families",
-          "train", "sharded", "data", "fsdp")  # device and build always run
+          "zoo", "train", "sharded", "data", "fsdp")  # device, build always
 
 
 def log(msg: str) -> None:
@@ -454,6 +480,78 @@ def bound(n_bytes: float, flops: float, dtype) -> tuple:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def attn_row(q, kp, vp, table, pos, window) -> dict:
+    """paged_window_attention's bound (bytes: each needed page of K and V
+    once, q, the output, table and pos; operations: 4 hd per valid (row,
+    key)), and the kernel's, the plain version's and SDPA's times (SDPA
+    over the gathered cache, K and V expanded to the query heads before
+    timing, a boolean mask), with the kernel's page runs S."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models.common import paged_gather
+
+    b, W, kvp, g, hd = q.shape
+    bs, nb = kp.shape[2], table.shape[1]
+    pos_np = pos.cpu().numpy()
+    pages, valid = 0, 0
+    for t_ in range(b):
+        lo, hi = kpa.needed_pages(pos_np[t_].tolist(), window, bs, nb)
+        pages += max(0, hi - lo + 1)
+        for p in pos_np[t_]:
+            valid += max(0, min(p + 1, window) if window else p + 1)
+    n_bytes = (pages * kvp * bs * hd * 2 * 2 + q.numel() * 2 * 2
+               + table.numel() * 4 + pos.numel() * 4)
+    b_ms, b_by = bound(n_bytes, 4.0 * valid * g * kvp * hd, torch.bfloat16)
+    kg = paged_gather(kp, table).repeat_interleave(g, dim=1)
+    vg = paged_gather(vp, table).repeat_interleave(g, dim=1)
+    keys = torch.arange(kg.shape[2], device=q.device)[None, None, :]
+    am = keys <= pos[:, :, None]
+    if window:
+        am &= keys > pos[:, :, None] - window
+    am = am[:, None]                                         # (b, 1, W, S)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvp * g, W, hd)
+
+    def lib_attn():  # SDPA over the gathered cache, the yardstick
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kg, vg, attn_mask=am)
+
+    return dict(**timings(
+        lambda: kpa.paged_window_attention(q, kp, vp, table, pos,
+                                           window=window),
+        lambda: kpa.paged_window_attention_plain(q, kp, vp, table, pos,
+                                                 window=window),
+        lib_attn), bound_ms=b_ms, bound_by=b_by,
+        splits=kpa.attention_splits(b, kvp, nb, W * g, hd, bs,
+                                    kpa._sm_count(q.device)))
+
+
+def ffn_bound(x, F: int, idx, nvalid, n_proj: int) -> tuple:
+    """fused_sparse_ffn's bound in bf16 at tile 128 (bytes: the distinct
+    listed tiles of its n_proj matrices once, x, the (T, F) f32 unit mask,
+    the lists, y and the compact h; operations: the valid slots')."""
+    from repro_torch.predictor import predictors as preds
+    T, d = x.shape
+    nv = nvalid.cpu().numpy()
+    distinct = int(preds.covered_tiles(idx, nvalid, F // 128).any(0).sum())
+    io = (T * d * 2 + T * F * 4 + idx.numel() * 4 + T * 4 + T * d * 4
+          + T * idx.shape[1] * 128 * 4)
+    return bound(distinct * 128 * d * 2 * n_proj + io,
+                 float(nv.sum()) * 128 * 2 * d * n_proj, torch.bfloat16)
+
+
+def gather_bound(x, w, idx, nvalid) -> tuple:
+    """sparse_matmul_tokens' bound in bf16 at tile 128 (bytes: x, the
+    distinct listed tiles of w once, the lists and the (T, D) f32 output;
+    operations: the valid slots')."""
+    from repro_torch.predictor import predictors as preds
+    T, F = x.shape
+    D = w.shape[1]
+    nv = nvalid.cpu().numpy()
+    distinct = int(preds.covered_tiles(idx, nvalid, F // 128).any(0).sum())
+    return bound(x.numel() * 2 + distinct * 128 * D * 2 + idx.numel() * 4
+                 + nv.size * 4 + T * D * 4, float(nv.sum()) * 128 * D * 2,
+                 torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels
 
@@ -524,7 +622,6 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels import runtime as rt
     from repro_torch.kernels import sparse_matmul as ksm
     from repro_torch.models import common as cm
-    from repro_torch.models.common import paged_gather
     from repro_torch.predictor import predictors as preds
 
     rng = np.random.RandomState(0)
@@ -603,13 +700,7 @@ def kernel_phase(dev) -> dict:
     x, wg, wu, wd, idx, nvalid, mask, kw = args  # bf16, the main path's type
     same_bits("fused_sparse_ffn OPT-6.7B T=8 MLP+mask bf16",
               lambda: kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw)[0])
-    T, d, F = 8, 4096, 16384
-    nv = nvalid.cpu().numpy()
-    n_tiles_distinct = int(preds.covered_tiles(idx, nvalid, F // 128).any(0).sum())
-    w_bytes = n_tiles_distinct * 128 * d * 2 * 2  # gate + down tiles, bf16
-    io = T * d * 2 + T * F * 4 + idx.numel() * 4 + T * 4 + T * d * 4 + T * 128 * 128 * 4
-    flops = float(nv.sum()) * 128 * (2 * d + 2 * d)
-    b_ms, b_by = bound(w_bytes + io, flops, torch.bfloat16)
+    b_ms, b_by = ffn_bound(x, 16384, idx, nvalid, 2)  # gate + down tiles
     maskb = mask.to(torch.bfloat16)
 
     def lib_ffn():  # dense chain at full density, the yardstick
@@ -631,7 +722,7 @@ def kernel_phase(dev) -> dict:
         want=kfd.fused_sparse_ffn_plain(x, wg, wd, idx, nvalid, **kw)))
     # the GLU at OPT width: gate, up and down tiles
     gx, gwg, gwu, gwd, gidx, gnv, gmask, gkw = glu_args
-    g_ms, g_by = bound(w_bytes * 3 // 2 + io, flops * 3 / 2, torch.bfloat16)
+    g_ms, g_by = ffn_bound(gx, 16384, gidx, gnv, 3)
     results["fused_sparse_ffn"]["at T=8 GLU+mask"] = dict(
         max_abs_err=err_glu, bound_ms=g_ms, bound_by=g_by,
         **timings(lambda: kfd.fused_sparse_ffn(gx, gwg, gwd, gidx, gnv, **gkw),
@@ -722,51 +813,10 @@ def kernel_phase(dev) -> dict:
                   lambda: kpa.paged_window_attention(q, kp, vp, table, pos,
                                                      window=window))
 
-    def attn_row(q, kp, vp, table, pos, end, window):
-        """bound (bytes: each needed page of K and V once, q, the output,
-        table and pos; operations: 4 hd per valid (row, key)), and the
-        kernel's, the plain version's and SDPA's times (SDPA over the
-        gathered cache, K and V expanded to the query heads before
-        timing, a boolean mask)"""
-        b, W, kvp, g, hd = q.shape
-        bs, nb = kp.shape[2], table.shape[1]
-        pos_np = pos.cpu().numpy()
-        pages, valid = 0, 0
-        for t_ in range(b):
-            lo, hi = kpa.needed_pages(pos_np[t_].tolist(), window, bs, nb)
-            pages += max(0, hi - lo + 1)
-            for p in pos_np[t_]:
-                valid += max(0, min(p + 1, window) if window else p + 1)
-        n_bytes = (pages * kvp * bs * hd * 2 * 2 + q.numel() * 2 * 2
-                   + table.numel() * 4 + pos.numel() * 4)
-        b_ms, b_by = bound(n_bytes, 4.0 * valid * g * kvp * hd,
-                           torch.bfloat16)
-        kg = paged_gather(kp, table).repeat_interleave(g, dim=1)
-        vg = paged_gather(vp, table).repeat_interleave(g, dim=1)
-        keys = torch.arange(kg.shape[2], device=dev)[None, None, :]
-        am = keys <= pos[:, :, None]
-        if window:
-            am &= keys > pos[:, :, None] - window
-        am = am[:, None]                                     # (b, 1, W, S)
-        qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvp * g, W, hd)
-
-        def lib_attn():  # SDPA over the gathered cache, the yardstick
-            return torch.nn.functional.scaled_dot_product_attention(
-                qh, kg, vg, attn_mask=am)
-
-        return dict(**timings(
-            lambda: kpa.paged_window_attention(q, kp, vp, table, pos,
-                                               window=window),
-            lambda: kpa.paged_window_attention_plain(q, kp, vp, table, pos,
-                                                     window=window),
-            lib_attn), bound_ms=b_ms, bound_by=b_by,
-            splits=kpa.attention_splits(b, kvp, nb, W * g, hd, bs,
-                                        kpa._sm_count(dev)))
-
     attn_at = {}
     for name, (a_, window) in attn_timed.items():
         attn_at[name] = dict(max_abs_err=errs.get(name, errs[torch.bfloat16]),
-                             **attn_row(*a_, window))
+                             **attn_row(*a_[:5], window))
     del attn_timed
     results["paged_window_attention"] = dict(
         name="paged_window_attention", route="cuda",
@@ -840,20 +890,10 @@ def kernel_phase(dev) -> dict:
             [ksm.sparse_matmul_tokens_plain(xf, w, idx, nvalid)], torch.float32)
     same_bits("sparse_matmul_tokens T=128", lambda: ksm.sparse_matmul_tokens(
         x, w, idx, nvalid))
-    nv = nvalid.cpu().numpy()
-    distinct = int(preds.covered_tiles(idx, nvalid, 128).any(0).sum())
-    n_bytes = (x.numel() * 2 + distinct * 128 * 4096 * 2 + idx.numel() * 4
-               + nv.size * 4 + 128 * 4096 * 4)
-    flops = float(nv.sum()) * 128 * 4096 * 2
-    b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
+    b_ms, b_by = gather_bound(x, w, idx, nvalid)
     at = {}
     for name, (err, (xa, wa, ia, na)) in extra.items():
-        na_np = na.cpu().numpy()
-        Fa, Da = wa.shape
-        da = int(preds.covered_tiles(ia, na, Fa // 128).any(0).sum())
-        ba = bound(xa.numel() * 2 + da * 128 * Da * 2 + ia.numel() * 4
-                   + na_np.size * 4 + xa.shape[0] * Da * 4,
-                   float(na_np.sum()) * 128 * Da * 2, torch.bfloat16)
+        ba = gather_bound(xa, wa, ia, na)
         plain = None
         if "verify" in name or "draft" in name:
             plain = lambda: ksm.sparse_matmul_tokens_plain(  # noqa: E731
@@ -1507,14 +1547,14 @@ def parity_sampling(n: int):
     return [kinds[i % 4] for i in range(n)]
 
 
-def same_streams(what: str, got, want) -> float:
+def same_streams(what: str, got, want, tol: float = 1e-5) -> float:
     """Fails unless the (streams, logprobs) pairs agree (the card's against
     the CPU's, or two paths on the card): tokens exactly, logprobs within
-    1e-5; returns the largest logprob difference."""
+    ``tol``; returns the largest logprob difference."""
     if got[0] != want[0]:
         fail(f"{what}: streams {got[0]} != {want[0]}")
     d = float(np.max(np.abs(got[1] - want[1])))
-    if d > 1e-5:
+    if d > tol:
         fail(f"{what}: logprobs differ by {d:.3e}")
     return d
 
@@ -2256,28 +2296,33 @@ def serve_prompts(cfg, seed: int) -> list:
             for n in rng.randint(16, 65, size=8)]
 
 
-def submit_requests(eng, cfg, seed: int, sampling=None, order=None):
+def submit_requests(eng, cfg, seed: int, sampling=None, order=None,
+                    reuse=None):
     """The serve phase's 8 requests (``serve_prompts``, 16 new tokens each,
     γ = 4) submitted to ``eng``. ``sampling`` gives each request its
     SamplingParams (None: greedy); ``order`` permutes the order of
-    submission. Returns (prompt lengths, sampling, {request: uid})."""
+    submission; ``reuse`` gives each request its γ (None: 4 for all).
+    Returns (prompt lengths, sampling, {request: uid})."""
     prompts = serve_prompts(cfg, seed)
     lens = np.array([len(p) for p in prompts])
     sampling = sampling or [None] * 8
+    reuse = reuse or [4] * 8
     uids = {}
     for i in (order if order is not None else range(8)):
-        uids[i] = eng.submit(prompts[i], 16, reuse_window=4,
+        uids[i] = eng.submit(prompts[i], 16, reuse_window=reuse[i],
                              sampling=sampling[i])
     return lens, sampling, uids
 
 
-def serve_run(eng, cfg, seed: int, sampling=None, order=None) -> dict:
+def serve_run(eng, cfg, seed: int, sampling=None, order=None,
+              reuse=None) -> dict:
     """``submit_requests``' requests through ``eng`` to completion, with
     step timings and peak memory. The streams, by request, come back under
     "_streams". In speculative mode every step after admission is a spec
     step, and the decode tokens/s counts the tokens the steps emitted."""
     dev = eng.device
-    lens, sampling, uids = submit_requests(eng, cfg, seed, sampling, order)
+    lens, sampling, uids = submit_requests(eng, cfg, seed, sampling, order,
+                                           reuse)
     torch.cuda.reset_peak_memory_stats(dev)
     phases = phase_capture(eng)
     steps = timed_steps(eng)
@@ -3780,6 +3825,332 @@ def families_phase(dev, counters) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the assigned model zoo relufied, through the paged engine
+
+
+ZOO_ARCHS = ("qwen3-4b", "qwen2-7b", "starcoder2-15b", "deepseek-67b",
+             "phi3.5-moe-42b-a6.6b")
+# layers of the bf16 full-width serve: the whole model where the phase's
+# time allows, else 8 (DeepSeek-67B's 95 layers, 134 GB, cannot fit)
+ZOO_SERVE_LAYERS = {"qwen3-4b": 36, "qwen2-7b": 28, "starcoder2-15b": 8,
+                    "deepseek-67b": 8, "phi3.5-moe-42b-a6.6b": 8}
+# layers of the f32 card = CPU parity (its vocabulary cut to ZOO_VOCAB)
+ZOO_PARITY_LAYERS = {"qwen3-4b": 2, "qwen2-7b": 2, "starcoder2-15b": 2,
+                     "deepseek-67b": 1, "phi3.5-moe-42b-a6.6b": 1}
+ZOO_VOCAB = 4096
+ZOO_PARITY_TOL = 1e-4  # f32 logprobs, card against CPU, at full width
+ZOO_PARITY_BUDGET_S = 25.0
+# the engine's geometry for both runs: 16-token prefill chunks (kernel 3),
+# W = 1 decode (kernels 1 and 2)
+ZOO_GEOM = dict(n_slots=8, block_size=16, max_blocks_per_seq=16,
+                prefill_chunk=16)
+ZOO_PARITY_GEOM = dict(n_slots=4, block_size=16, max_blocks_per_seq=4,
+                       prefill_chunk=16)
+ZOO_DENSE_KERNELS = ("fused_sparse_ffn", "paged_window_attention",
+                     "sparse_matmul_tokens")
+
+
+def zoo_config(arch: str, n_layers: int, dtype: str, vocab=None):
+    """The registered config relufied to stage 2 (ReLU FFN and ReLU after
+    every norm: the paper's Sec. 4 surgery) at ``n_layers`` and the compute
+    dtype, its vocabulary cut to ``vocab`` when given."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import relufication as rf
+    cfg = rf.relufy_stage2(get_config(arch)).replace(n_layers=n_layers,
+                                                     compute_dtype=dtype)
+    return cfg.replace(vocab_size=vocab) if vocab else cfg
+
+
+def zoo_kernel_rows(dev, cfg, seed: int = 0) -> dict:
+    """Kernels 1, 2 and 3 at ``cfg``'s own shapes (served geometry: q heads
+    padded as the model pads them), random inputs drawn on the card, each
+    against its plain version in f32 and bf16; the bf16 main rows timed
+    per call and on the card beside the bound, the plain version and the
+    library call. Kernel 1: T = 8 decode rows, the config's GLU or MLP
+    relufied (ReLU), a unit mask, all tiles and half-density lists.
+    Kernel 2: 8 slots, decode W = 1 and a 16-token chunk at (kvp, g, hd),
+    blocks of 16, 16 a slot, the config's sliding window; where the
+    padding changes the group (Qwen2: 28 heads over 4 kv heads, 7 real in
+    8 slots), also the real ratio. Kernel 3: a chunk's rows, 8 slots x 16
+    rows with a list a slot, at (F, d). An MoE config runs kernel 2 only.
+    Returns {kernel: {case: row}}."""
+    from repro_torch.kernels import fused_decode as kfd
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.models import common as cm
+    from repro_torch.predictor import predictors as preds
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    name = cfg.name
+    rows = {}
+    g = cm.HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    groups = [(g.kvp, g.group, "served")]
+    if g.real_per_group != g.group:
+        groups.append((g.kvp, g.real_per_group, "real ratio"))
+    window = cfg.sliding_window or 0
+    b, bs, nb, n_blocks = 8, 16, 16, 129
+    for kvp, grp, what in groups:
+        for W in (1, 16):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = randn(b, W, kvp, grp, g.head_dim, dtype=dtype)
+                kp = randn(n_blocks, kvp, bs, g.head_dim, dtype=dtype)
+                vp = randn(n_blocks, kvp, bs, g.head_dim, dtype=dtype)
+                perm = torch.randperm(n_blocks - 1, generator=gen,
+                                      device=dev)[:b * nb] + 1
+                end = torch.randint(W, nb * bs + 1, (b,), generator=gen,
+                                    device=dev)
+                table = torch.where(
+                    torch.arange(nb, device=dev)[None] * bs < end[:, None],
+                    perm.reshape(b, nb), 0).to(torch.int32)
+                pos = (end[:, None] - W + torch.arange(W, device=dev)[None]
+                       ).to(torch.int32)
+                args = (q, kp, vp, table, pos)
+                case = (f"{name} {what} W={W} kvp={kvp} g={grp} "
+                        f"hd={g.head_dim}")
+                err = compare(f"paged_window_attention {case} {dtype}",
+                              [kpa.paged_window_attention(*args,
+                                                          window=window)],
+                              [kpa.paged_window_attention_plain(
+                                  *args, window=window)], dtype)
+                if dtype == torch.bfloat16:
+                    rows.setdefault("paged_window_attention", {})[case] = \
+                        dict(max_abs_err=err, **attn_row(*args, window))
+                del q, kp, vp, args
+    if cfg.family != "dense":
+        return rows
+
+    d, F = cfg.d_model, cfg.d_ff
+    n_tiles, glu = F // 128, cfg.ffn_kind == "glu"
+    n_proj = 3 if glu else 2
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(8, d, dtype=dtype)
+        wg = randn(d, F, scale=d ** -0.5, dtype=dtype)
+        wu = randn(d, F, scale=d ** -0.5, dtype=dtype) if glu else None
+        wd = randn(F, d, scale=F ** -0.5, dtype=dtype)
+        mask = rand(8, F) < 0.5
+        for dens in (1.0, 0.5):
+            tm = (torch.ones((8, n_tiles), dtype=torch.bool, device=dev)
+                  if dens == 1.0 else rand(8, n_tiles) < dens)
+            idx, nvalid = preds.pack_tile_indices(tm, n_tiles)
+            kw = dict(w_up=wu, unit_mask=mask, activation=cfg.activation,
+                      tile=128)
+            case = (f"{name} T=8 d={d} F={F} {'GLU' if glu else 'MLP'}+mask "
+                    f"{dens:.0%} lists")
+            got = kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw)
+            err = compare(f"fused_sparse_ffn {case} {dtype}", got,
+                          kfd.fused_sparse_ffn_plain(x, wg, wd, idx, nvalid,
+                                                     **kw), dtype)
+            if dtype != torch.bfloat16:
+                continue
+            b_ms, b_by = ffn_bound(x, F, idx, nvalid, n_proj)
+            maskb = mask.to(torch.bfloat16)
+
+            def lib_ffn():  # the dense chain, the yardstick
+                h = torch.relu(x @ wg)
+                return ((h * (x @ wu) if glu else h) * maskb) @ wd
+
+            rows.setdefault("fused_sparse_ffn", {})[case] = dict(
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(
+                    lambda: kfd.fused_sparse_ffn(x, wg, wd, idx, nvalid, **kw),
+                    lambda: kfd.fused_sparse_ffn_plain(x, wg, wd, idx, nvalid,
+                                                       **kw), lib_ffn))
+        del x, wg, wu, wd
+    for dtype in (torch.float32, torch.bfloat16):
+        T = 8 * 16
+        x = (randn(T, F) * (rand(T, F) < 0.5)).to(dtype)
+        w = randn(F, d, scale=F ** -0.5, dtype=dtype)
+        idx, nvalid = preds.pack_tile_indices(rand(8, n_tiles) < 0.97, n_tiles)
+        idx = idx.repeat_interleave(16, 0).contiguous()
+        nvalid = nvalid.repeat_interleave(16).contiguous()
+        case = f"{name} chunk 8x16 rows F={F} D={d} 97% lists"
+        err = compare(f"sparse_matmul_tokens {case} {dtype}",
+                      [ksm.sparse_matmul_tokens(x, w, idx, nvalid)],
+                      [ksm.sparse_matmul_tokens_plain(x, w, idx, nvalid)],
+                      dtype)
+        if dtype == torch.bfloat16:
+            b_ms, b_by = gather_bound(x, w, idx, nvalid)
+            rows.setdefault("sparse_matmul_tokens", {})[case] = dict(
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(
+                    lambda: ksm.sparse_matmul_tokens(x, w, idx, nvalid),
+                    lambda: ksm.sparse_matmul_tokens_plain(x, w, idx, nvalid),
+                    lambda: x @ w))
+        del x, w
+    return rows
+
+
+def zoo_params(cfg, dev):
+    """Seeded params of ``cfg`` on ``dev``; every constant leaf (norm
+    scales and biases, QKV biases, qk-norm scales) then moved off its
+    constant by 0.1 N(0, 1), so the f32 parity reads them too."""
+    from repro_torch.models import registry
+    params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def perturb(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif v.is_floating_point() and v.numel() and bool(
+                    (v == v.reshape(-1)[0]).all()):
+                v.add_(0.1 * torch.randn(v.shape, generator=gen, device=dev,
+                                         dtype=v.dtype))
+    perturb(params)
+    return params
+
+
+def zoo_parity(dev, counters, add, arch: str) -> None:
+    """f32 greedy streams of ``arch`` relufied to stage 2 at full width,
+    shallow (ZOO_PARITY_LAYERS, the vocabulary cut to ZOO_VOCAB), card
+    (kernels, counted) against CPU (plain versions) on the same params
+    (made on the card, copied to the CPU): 3 requests of 24 / 17 / 9
+    tokens x 6 new, γ = 2, 16-token prefill chunks. Tokens exactly,
+    logprobs within ZOO_PARITY_TOL."""
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+
+    t0 = time.perf_counter()
+    n = ZOO_PARITY_LAYERS[arch]
+    cfg = zoo_config(arch, n, "float32", ZOO_VOCAB)
+    p_dev = zoo_params(cfg, dev)
+    p_cpu = _to(p_dev, "cpu")
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, cfg.vocab_size, m) for m in (24, 17, 9)]
+
+    def serve(params, device):
+        eng = ContinuousBatchingEngine(cfg, params,
+                                       EngineConfig(**ZOO_PARITY_GEOM),
+                                       device=device)
+        uids = [eng.submit(p, 6, reuse_window=2) for p in prompts]
+        res = eng.run()
+        return ([res[u].tokens.tolist() for u in uids],
+                np.concatenate([res[u].logprobs for u in uids]))
+
+    expect = (ZOO_DENSE_KERNELS if cfg.family == "dense"
+              else ("paged_window_attention",))
+    got, launches = counted(f"{arch} f32 parity ({n} layers)", counters,
+                            expect, lambda: serve(p_dev, dev))
+    add(launches)
+    del p_dev
+    want = serve(p_cpu, "cpu")
+    d = same_streams(f"{arch} f32 full width, {n} layers", got, want,
+                     ZOO_PARITY_TOL)
+    secs = time.perf_counter() - t0
+    log(f"  ok parity {arch} relufied stage 2, {n} layers, vocab "
+        f"{cfg.vocab_size}, f32: {sum(map(len, got[0]))} tokens identical, "
+        f"max|dlogprob| {d:.2e} ({secs:.1f} s"
+        f"{'' if secs <= ZOO_PARITY_BUDGET_S else ', over its 25 s budget'})")
+    del p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_serve(dev, counters, add, arch: str) -> dict:
+    """``arch`` relufied to stage 2 at full width, bf16, ZOO_SERVE_LAYERS
+    deep, random weights from a seed, through the engine: the serve
+    phase's 8 requests (16 new tokens each, γ = 4 on every other one)
+    with 16-token prefill chunks, counted. A dense config must launch
+    kernels 1, 2 and 3, an MoE kernel 2, and no other kernel; tokens in
+    the vocabulary, logprobs finite. Logs the step ms, tokens/s, peak,
+    weight bytes a step and launches; for an MoE the share of its routed
+    assignments the capacity drops (``moe_drop_frac``) over the 8 prompts'
+    whole-prompt forward. Returns the serve's figures."""
+    from repro_torch.models import registry
+    from repro_torch.models import common as cm
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.tree import flatten
+
+    n = ZOO_SERVE_LAYERS[arch]
+    cfg = zoo_config(arch, n, "bfloat16")
+    t0 = time.perf_counter()
+    params = registry.get_family(cfg).init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flatten(params))
+    log(f"  {arch} relufied stage 2, {n} layers: {n_params / 1e9:.3f} B "
+        f"params ({n_params * 2 / 2 ** 30:.2f} GiB bf16), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = ContinuousBatchingEngine(cfg, params, EngineConfig(**ZOO_GEOM),
+                                   device=dev)
+    expect = (ZOO_DENSE_KERNELS if cfg.family == "dense"
+              else ("paged_window_attention",))
+    out, launches = counted(f"{arch} bf16 serving ({n} layers)", counters,
+                            expect, lambda: serve_run(
+                                eng, cfg, seed=4, reuse=[4, 0] * 4))
+    add(launches)
+    extra = sorted(k for k, v in launches.items() if v and k not in expect)
+    if extra:
+        fail(f"{arch} serving launched other kernels: {extra}")
+    toks = np.concatenate([np.asarray(s) for s in out["_streams"]])
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{arch}: a token out of the vocabulary")
+    out.update(mode=f"{arch} zoo relufied stage 2", params_b=n_params / 1e9,
+               weight_io_bytes_per_step=eng.weight_io_bytes_per_step(),
+               launches=launches)
+    if cfg.family == "moe":
+        prompts = serve_prompts(cfg, seed=4)
+        stats = cm.StatsCollector(True)
+        with torch.inference_mode():
+            for p in prompts:
+                registry.get_family(cfg).model_forward(
+                    params, {"tokens": torch.as_tensor(p[None], device=dev)},
+                    cfg, stats=stats)
+        drops = [float(v) for k, v in stats.stats.items()
+                 if k.endswith("moe_drop_frac")]
+        out.update(moe_drop_frac=float(np.mean(drops)),
+                   moe_drop_frac_max=float(np.max(drops)),
+                   capacity_factor=cfg.capacity_factor,
+                   expert_io_fraction=eng.expert_io_fraction())
+    log_serve(out)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(dev, counters) -> dict:
+    """Phase 9: the five assigned configs (Qwen3-4B, Qwen2-7B,
+    StarCoder2-15B, DeepSeek-67B, Phi-3.5-MoE) relufied to stage 2: (a)
+    kernels 1-3 at each one's shapes (``zoo_kernel_rows``), (b) f32 card =
+    CPU streams at full width, shallow (``zoo_parity``), (c) bf16 serving
+    at full width (``zoo_serve``), one model on the card at a time.
+    Returns the launches summed over (b) and (c)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        cfg = zoo_config(arch, 1, "bfloat16")
+        for kernel, rows in zoo_kernel_rows(dev, cfg).items():
+            for case, row in rows.items():
+                log("  zoo kernel " + json.dumps(dict(
+                    kernel=kernel, case=case,
+                    card_over_bound=row["device_ms"] / row["bound_ms"],
+                    **row)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        zoo_parity(dev, counters, add, arch)
+        t2 = time.perf_counter()
+        zoo_serve(dev, counters, add, arch)
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s (kernels "
+            f"{t1 - t0:.1f}, parity {t2 - t1:.1f}, serve "
+            f"{time.perf_counter() - t2:.1f})")
+    log(f"  launches summed over the zoo's runs: {json.dumps(total)}")
+    return total
+
+
 def train_phase(dev, counters) -> dict:
     """Phase 8: f32 card = CPU parity of the train step, then the
     full-width relufication run. The path runs none of the ten kernels
@@ -5142,7 +5513,8 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in counters}
     for phase, run in (("api", api_phase), ("serve", serve_phase),
                        ("examples", examples_phase),
-                       ("families", families_phase), ("train", train_phase),
+                       ("families", families_phase), ("zoo", zoo_phase),
+                       ("train", train_phase),
                        ("sharded", sharded_phase), ("data", data_phase),
                        ("fsdp", fsdp_phase)):
         if phase in phases:
@@ -5152,7 +5524,7 @@ def main(argv=None) -> int:
                 launches[name] += n
             log(f"[{phase}] took {time.perf_counter() - t0:.1f} s")
     results.update(DATA_KERNEL_ROWS)
-    if {"api", "serve", "examples", "families", "sharded", "data",
+    if {"api", "serve", "examples", "families", "zoo", "sharded", "data",
             "fsdp"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]

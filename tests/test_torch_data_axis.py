@@ -20,7 +20,12 @@ traffic, tiny-moe at capacity 1.0 with routing groups of 3 tokens (it
 drops tokens, and a decode step's group spans both rows: the router
 logits are gathered), a tight pool under priority preemption (a resumed
 request lands in other blocks), an odd ``n_blocks`` (the pool replicated
-on every row) and an odd ``n_slots`` (every row computes every slot).
+on every row), an odd ``n_slots`` (every row computes every slot), the
+prefix cache with warm masks (prompts sharing a block), and cancels, one
+mid-stream and one in the queue; the last two with per-request sparsity
+trackers, whose curves, aggregated sparsities and used masks equal the
+reference's, as do every request's finish reason and cached prompt
+tokens.
 On (2, 2) and (2, 4), with the slots split, a model rank that samples
 other tokens than its data row's first rank makes every rank raise.
 
@@ -67,6 +72,10 @@ CASES = {
     "preempt": ("tiny-opt", dict(preempt=True, geom=TIGHT)),
     "odd-blocks": ("tiny-relu", dict(chunk=4, geom=dict(n_blocks=13))),
     "odd-slots": ("tiny-opt", dict(geom=dict(n_slots=3, n_blocks=20))),
+    "prefix-tracked": ("tiny-relu", dict(chunk=4, prefix=True, geom=dict(
+        prefix_cache=True, warm_masks=True, track_sparsity=True))),
+    "cancel-tracked": ("tiny-opt", dict(chunk=4, cancel=True, geom=dict(
+        track_sparsity=True))),
     "reference": ("tiny-relu", {}),
 }
 MESHES = {(2, 1): [c for c in CASES if c != "reference"],
@@ -102,7 +111,9 @@ def build(cid):
     case = {"cfg": jcfg.to_json(), "params": _np(jp),
             "chunk": jkw["prefill_chunk"], "geom": geom,
             "sampled": opts.get("sampled", False),
-            "preempt": opts.get("preempt", False)}
+            "preempt": opts.get("preempt", False),
+            "prefix": opts.get("prefix", False),
+            "cancel": opts.get("cancel", False)}
     if opts.get("spec"):
         dcfg = jcfg.replace(name=jcfg.name + "-draft", n_layers=1)
         dp = fam.init_params(jax.random.PRNGKey(2), dcfg)
@@ -132,12 +143,7 @@ def _reference_run(cid):
     case, jkw, jcfg, jp = build(cid)
     eng = JEngine(jcfg, jp, config=JConfig(**jkw))
     uids, res = tr.drive(eng, jcfg.vocab_size, case, JSamplingParams)
-    return dict(tokens=[res[u].tokens.tolist() for u in uids],
-                logprobs=[np.asarray(res[u].logprobs) for u in uids],
-                draft_accepted=[res[u].draft_accepted for u in uids],
-                pred_misses=[res[u].pred_misses for u in uids],
-                preemptions=[res[u].preemptions for u in uids],
-                metrics=eng.metrics_snapshot())
+    return tr.outcome(eng, uids, res)
 
 
 @pytest.fixture(scope="module")
@@ -216,6 +222,21 @@ def test_data_axis_engine_equals_single_device_reference(reference, ranks,
             assert gm[k] == pytest.approx(v, rel=1e-12, abs=1e-9), k
         assert got["draft_accepted"] == want["draft_accepted"]
         assert got["pred_misses"] == want["pred_misses"]
+        assert got["finish"] == want["finish"]
+        assert got["cached"] == want["cached"]
+        assert got["trackers"].keys() == want["trackers"].keys()
+        for u, (curve, agg, used) in want["trackers"].items():
+            g_curve, g_agg, g_used = got["trackers"][u]
+            assert g_curve == pytest.approx(curve, abs=1e-6), u
+            assert g_agg == pytest.approx(agg, abs=1e-6), u
+            np.testing.assert_array_equal(g_used, used)
+    if cid == "prefix-tracked":
+        assert want["metrics"]["prefix_hit_rate"] > 0
+        assert want["trackers"]
+    if cid == "cancel-tracked":
+        assert want["finish"][1] == want["finish"][3] == "cancelled"
+        assert want["tokens"][3] == []  # withdrawn from the queue
+        assert len(want["tokens"][1]) >= 3  # cancelled mid-stream
 
 
 @pytest.mark.parametrize("mesh", [(2, 2), (2, 4)])

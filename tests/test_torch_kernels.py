@@ -196,6 +196,40 @@ def test_paged_decode_attention_matches_pallas():
     _close(got, want)
 
 
+# the assigned configs' (kv heads, group) as the served layout pads their
+# q heads (to a multiple of 16): Qwen2-7B's 28 heads over 4 kv heads take
+# groups of 8 with 7 real; its real ratio g = 7 is a case of its own
+ZOO_HEADS = {"qwen3-4b": (8, 4), "qwen2-7b": (4, 8), "qwen2-7b real": (4, 7),
+             "starcoder2-15b": (4, 12), "deepseek-67b": (8, 8),
+             "phi3.5-moe-42b-a6.6b": (8, 4)}
+
+
+@pytest.mark.parametrize("name", [n for n in ZOO_HEADS if " " not in n])
+def test_zoo_head_layouts_are_the_served_ones(name):
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import HeadGeometry
+    cfg = get_config(name)
+    g = HeadGeometry(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    assert (g.kvp, g.group) == ZOO_HEADS[name]
+    assert g.real_per_group == cfg.n_heads // cfg.n_kv_heads
+
+
+@pytest.mark.parametrize("W", [1, 16])
+@pytest.mark.parametrize("name", sorted(set(ZOO_HEADS) - {"phi3.5-moe-42b-a6.6b"}))
+def test_paged_window_attention_at_zoo_head_ratios(name, W):
+    """Decode (W = 1) and a 16-token chunk at each assigned config's (kvp,
+    g) (Phi-3.5-MoE's is Qwen3-4B's), blocks of 8, a slot ending inside a
+    block, against the Pallas kernel."""
+    kvp, g = ZOO_HEADS[name]
+    q, kp, vp, table, pos = _attn_case(W, kvp=kvp, g=g, n_blocks=13, nb=4)
+    want = jpa.paged_window_attention(*map(jnp.asarray,
+                                           (q, kp, vp, table, pos)))
+    got = tpa.paged_window_attention(*map(torch.as_tensor,
+                                          (q, kp, vp, table, pos)))
+    assert got.shape == q.shape
+    _close(got, want)
+
+
 # ---------------------------------------------------------------------------
 # sparse_matmul_tokens
 

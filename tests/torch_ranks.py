@@ -39,8 +39,15 @@ def drive(eng, vocab: int, case, sampling_cls):
     first and last sampled (``sampling_cls``, the engine's package's
     SamplingParams). ``case["preempt"]``: two priority-0 requests decode,
     then a priority-2 one arrives that the pool cannot hold beside them,
-    so one is preempted and resumes later, into other blocks."""
+    so one is preempted and resumes later, into other blocks.
+    ``case["prefix"]``: every prompt starts with the same 8 tokens (one
+    full block: prefix-cache hits). ``case["cancel"]``: a fourth request
+    queues behind the three; after three steps the second is cancelled
+    mid-stream and the fourth in the queue."""
     ps = prompts(vocab)
+    if case.get("prefix"):
+        head = np.random.RandomState(8).randint(0, vocab, 8).astype(np.int32)
+        ps = [np.concatenate([head, p]) for p in ps]
     if case.get("preempt"):
         uids = [eng.submit(p, 12, reuse_window=4, priority=0, slo_ms=1e6)
                 for p in ps[:2]]
@@ -58,7 +65,33 @@ def drive(eng, vocab: int, case, sampling_cls):
         sampling[-1] = sampling_cls(temperature=1.1, top_p=0.9, seed=5)
     uids = [eng.submit(p, MAX_NEW, reuse_window=r, sampling=s)
             for p, r, s in zip(ps, REUSE, sampling)]
+    if case.get("cancel"):
+        uids.append(eng.submit(ps[0][::-1].copy(), MAX_NEW, reuse_window=2))
+        for _ in range(3):
+            eng.step()
+        assert eng.cancel(uids[1])  # mid-stream
+        assert eng.cancel(uids[3])  # still queued
     return uids, eng.run()
+
+
+def outcome(eng, uids, res) -> dict:
+    """The per-request values the data-axis tests compare, from either
+    package's engine (a request withdrawn from the queue has an empty
+    "cancelled" result), and each tracker's curve, aggregated sparsity
+    and used mask."""
+    rs = [res[u] for u in uids]
+    return dict(
+        tokens=[np.asarray(r.tokens).tolist() for r in rs],
+        logprobs=[np.asarray(r.logprobs) for r in rs],
+        finish=[r.finish_reason for r in rs],
+        draft_accepted=[r.draft_accepted for r in rs],
+        pred_misses=[r.pred_misses for r in rs],
+        preemptions=[r.preemptions for r in rs],
+        cached=[r.cached_prompt_tokens for r in rs],
+        trackers={int(u): (list(t.curve), float(t.aggregated_sparsity()),
+                           np.asarray(t.used))
+                  for u, t in sorted(eng.trackers.items())},
+        metrics=eng.metrics_snapshot())
 
 
 def engine_kwargs(case) -> dict:
@@ -90,13 +123,8 @@ def serve(cfg, params, kw, mesh=None, case=None) -> dict:
                                    device="cpu")
     uids, res = drive(eng, cfg.vocab_size, case or {}, SamplingParams)
     return dict(
+        outcome(eng, uids, res),
         pool_blocks=eng.pages["k"].shape[1],
-        preemptions=[res[u].preemptions for u in uids],
-        tokens=[res[u].tokens.tolist() for u in uids],
-        logprobs=[np.asarray(res[u].logprobs) for u in uids],
-        draft_accepted=[res[u].draft_accepted for u in uids],
-        pred_misses=[res[u].pred_misses for u in uids],
-        metrics=eng.metrics_snapshot(),
         bytes_per_device=eng.weight_io_bytes_per_step(),
         bytes_total=eng.weight_io_bytes_per_step(per_device=False),
         tp=eng.tp, ffn_tp=eng.ffn_tp,
