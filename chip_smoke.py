@@ -18,7 +18,10 @@ families 43.0, train 83.9, sharded 51.9, data 106.9, fsdp 153.9. With the
 gate's no-reuse AR serve and the examples' kernel calls held against
 their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
 32.9, serve 159.1, examples 12.9, families 49.4, train 82.7, sharded
-54.6, data 110.8, fsdp 133.3.
+54.6, data 110.8, fsdp 133.3. With the zoo and plan phases (984.6 s):
+build 17.2, kernels 161.1, parity 20.5, api 42.1, serve 172.9, examples
+15.8, families 54.8, zoo 31.7, train 78.6, sharded 65.7, data 110.2,
+fsdp 164.8, plan 49.2.
 
 1. device   the card's name and power limit (nvidia-smi) and CUDA version;
             TF32 off for f32 matmuls and convolutions.
@@ -320,6 +323,31 @@ their plain versions (832 s): build 17.5, kernels 150.0, parity 18.4, api
             boundary): within one bf16 ulp of the unsharded call (the
             ulp of each head's output vector's largest |value|), kernel
             2f (the fold) launched; its ms against the unsharded call's.
+14. plan    the production cell plan (launch/dryrun.py: one rank of the
+            production world runs the cell's step on "meta" tensors)
+            held against the card. After (a)'s step on the card its four
+            dry runs run side by side, each in a process of its own
+            (``launch.dryrun.run_subprocess``):
+            (a) qwen3-4b decode_32k, relufied at the sparse cell's 0.60
+            FFN tile density, full width and all 36 layers, global batch
+            4, mesh (1, 1): on the card the same step (random bf16 weights
+            from a seed, a zero cache of 32768 positions) — the weight +
+            cache + input bytes the plan holds against
+            torch.cuda.memory_allocated after set-up (equal), its planned
+            peak against max_memory_allocated over a step (within
+            TOL_PLAN_PEAK), the step's temporaries (that peak over the
+            held bytes) against the plan's temp_bytes (within
+            TOL_PLAN_TEMP of them), the step's ms (CUDA events) against the
+            plan's largest t-term (the fraction printed), kernel 5
+            counted on the path and its first call held against its
+            plain version; (b) the fsdp phase's own cell (llama-7b stage
+            2, 2 layers, (2, 2), 8 x 1024 tokens in 2 microbatches): the
+            collective counts and payload bytes by axis equal to what
+            that phase's rank 0 counted in its step 1 (without the fsdp
+            phase, its data axis against PR 28's 17 collectives and
+            4043390992 bytes); (c) the rows of qwen3-4b train_4k and
+            decode_32k (sparse 0.60) on (16, 16) (launch/roofline.py's
+            dry-run table).
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -349,7 +377,8 @@ TOL_F32 = 1e-5
 # can fall on either side when the f32 sums differ in their last bits
 TOL_BF16 = 1e-2
 PHASES = ("kernels", "parity", "api", "serve", "examples", "families",
-          "zoo", "train", "sharded", "data", "fsdp")  # device, build always
+          "zoo", "train", "sharded", "data", "fsdp",
+          "plan")  # device, build always
 
 
 def log(msg: str) -> None:
@@ -5410,6 +5439,7 @@ def fsdp_full_width(dev, cfg=None, dc=None) -> list:
     finally:
         for d in (ckpt, ref):
             shutil.rmtree(d, ignore_errors=True)
+    PLAN_INPUTS["fsdp_step1"] = ranks[0]["collectives"][0]
     step3 = ranks[0]["metrics"][2]
     for r, got in enumerate(ranks + resumed):
         first = got["metrics"][0]
@@ -5473,6 +5503,171 @@ def fsdp_phase(dev, counters) -> dict:
     return total
 
 
+# what the plan phase holds its dry runs against, from earlier phases
+PLAN_INPUTS = {}
+TOL_PLAN_PEAK = 0.10
+# (a)'s temporaries (peak over held bytes) against the plan's temp_bytes
+# (PR 30's card: 17408 B apart in 587767296 B)
+TOL_PLAN_TEMP = 0.05
+# the fsdp phase's data collectives a step, as PR 28 recorded them
+PR28_DATA_STEP = (17, 4043390992)
+# (a): the arch, its sparse cell's FFN tile density, the global batch,
+# the cache's positions and the layers (0: all)
+PLAN_A = dict(arch="qwen3-4b", sparse=0.6, batch=4, seq=32768, layers=0)
+# each dry run: (the cell, ``launch.dryrun``'s arguments beyond it)
+PLAN_CELLS = {
+    "a": (dict(arch=PLAN_A["arch"], shape="decode_32k",
+               sparse=PLAN_A["sparse"]),
+          ["--mesh", "1,1", "--batch", str(PLAN_A["batch"]), "--seq",
+           str(PLAN_A["seq"]), "--layers", str(PLAN_A["layers"])]),
+    "b": (dict(arch="llama-7b", shape="train_4k", microbatches=2,
+               remat="minimal"),
+          ["--relufy-stage", "2", "--layers", "2", "--mesh", "2,2",
+           "--batch", "8", "--seq", "1024"]),
+    "c_train": (dict(arch="qwen3-4b", shape="train_4k", microbatches=8), []),
+    "c_decode": (dict(arch="qwen3-4b", shape="decode_32k", sparse=0.6), []),
+}
+
+
+def dry_run_records(timeout: float = 240.0) -> dict:
+    """Every ``PLAN_CELLS`` dry run, each in a process of its own on the
+    CPU (a fake world), all at once: {name: record}; fails when one fails
+    or outlasts ``timeout``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch import dryrun
+    with ThreadPoolExecutor(len(PLAN_CELLS)) as pool:
+        futs = {name: pool.submit(dryrun.run_subprocess, cell, extra,
+                                  timeout)
+                for name, (cell, extra) in PLAN_CELLS.items()}
+        out = {name: f.result() for name, f in futs.items()}
+    for name, rec in out.items():
+        if "error" in rec:
+            fail(f"the dry run of plan cell {name} failed:\n{rec['error']}")
+    return out
+
+
+def plan_card(dev, counters):
+    """(a)'s step on the card: returns its measured figures and the
+    path's launches (kernel 5 counted, its first call then held against
+    its plain version)."""
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.models import transformer as T
+    cfg = cell_config(PLAN_A["arch"], sparse=PLAN_A["sparse"],
+                      layers=PLAN_A["layers"])
+    B, S = PLAN_A["batch"], PLAN_A["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    # cuBLAS's workspace comes from the caching allocator on a process's
+    # first matmul: the library's, outside the plan, so it is made before
+    # the base reading (without earlier phases it is the step's 32 MiB)
+    before = torch.cuda.memory_allocated(dev)
+    x = torch.ones((16, 16), device=dev, dtype=torch.bfloat16)
+    (torch.nn.functional.linear(x, x, x[0]) + x @ x).sum().item()
+    del x
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    workspace = base - before
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    cache = T.init_cache(cfg, B, S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    token = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    pos = torch.full((B,), S // 2, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated(dev) - base
+
+    def step():
+        with torch.inference_mode():
+            return T.decode_step(params, cache, token, pos, cfg)[0]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, launches = counted("plan (a) qwen3-4b decode", counters,
+                               ["sparse_matmul"], step)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    if not torch.isfinite(logits[:, :cfg.vocab_size].float()).all():
+        fail("plan (a): non-finite logits")
+    del logits
+    ms = time_ms(step, reps=5, warmup=1)
+    with first_calls((("sparse_matmul", "sparse_matmul"),)) as calls:
+        step()
+    held_calls = check_first_calls(calls)
+    out = dict(held_bytes=held, peak_bytes=peak, step_ms=ms,
+               setup_s=setup_s, kernel5_vs_plain=held_calls,
+               workspace_bytes=workspace)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def plan_phase(dev, counters) -> dict:
+    """Phase 14: the production cell plan against the card (module note).
+    Returns the launches of (a)'s counted step."""
+    from repro_torch.launch.roofline import table
+    card, launches = plan_card(dev, counters)
+    t0 = time.perf_counter()
+    recs = dry_run_records()
+    log(f"  plan dry runs: {time.perf_counter() - t0:.1f} s, side by side")
+    a = recs["a"]
+    log("  plan (a) " + json.dumps(dict(card, planned_arg_bytes=a[
+        "arg_bytes"], planned_peak_bytes=a["peak_bytes_per_chip"],
+        planned_temp_bytes=a["temp_bytes"], t_compute=a["t_compute"],
+        t_memory=a["t_memory"], t_collective=a["t_collective"],
+        dry_run_host_s=a["host_s"])))
+    if card["held_bytes"] != a["arg_bytes"]:
+        fail(f"plan (a): the card holds {card['held_bytes']} B of weights, "
+             f"cache and inputs after set-up, the plan {a['arg_bytes']} B")
+    peak_ratio = card["peak_bytes"] / a["peak_bytes_per_chip"]
+    if abs(peak_ratio - 1.0) > TOL_PLAN_PEAK:
+        fail(f"plan (a): the step's peak {card['peak_bytes']} B is "
+             f"{peak_ratio:.4f} x the planned {a['peak_bytes_per_chip']} B")
+    temp = card["peak_bytes"] - card["held_bytes"]
+    temp_err = abs(temp - a["temp_bytes"]) / a["temp_bytes"]
+    if temp_err > TOL_PLAN_TEMP:
+        fail(f"plan (a): the step's temporaries {temp} B (peak over held) "
+             f"are {temp_err:.4f} off the planned {a['temp_bytes']} B")
+    t_max = max(a["t_compute"], a["t_memory"], a["t_collective"])
+    log(f"  plan (a) memory: held {card['held_bytes']} B = planned "
+        f"{a['arg_bytes']} B; peak {card['peak_bytes']} B vs planned "
+        f"{a['peak_bytes_per_chip']} B (ratio {peak_ratio:.4f}, tol "
+        f"{TOL_PLAN_PEAK}); temporaries {temp} B vs planned "
+        f"{a['temp_bytes']} B ({temp - a['temp_bytes']:+d} B, "
+        f"{temp_err:.6f} of the plan, tol {TOL_PLAN_TEMP}); "
+        f"step {card['step_ms']:.3f} ms vs the plan's "
+        f"largest term ({a['bottleneck']}) {t_max * 1e3:.3f} ms: the plan "
+        f"is {t_max * 1e3 / card['step_ms']:.4f} of the measured step")
+    b = recs["b"]["collectives_by_axis"]
+    got = PLAN_INPUTS.get("fsdp_step1")
+    if got is None:
+        want = {"data": dict(count=PR28_DATA_STEP[0],
+                             payload_bytes=PR28_DATA_STEP[1])}
+        log("  plan (b): the fsdp phase did not run; its data axis is held "
+            "against PR 28's recorded 17 collectives and 4043390992 B")
+    else:
+        want = {ax: dict(count=got[ax]["count"],
+                         payload_bytes=got[ax]["payload_bytes"])
+                for ax in ("model", "data", "world")}
+    for ax, w in want.items():
+        if b[ax] != w:
+            fail(f"plan (b): the dry run counts {b[ax]} over {ax}, the "
+                 f"fsdp phase's rank 0 {w}")
+    log("  plan (b) collectives a step by axis, dry run "
+        f"{json.dumps(b)} = the card's rank 0 {json.dumps(want)}")
+    for name in ("c_train", "c_decode"):
+        r = recs[name]
+        if "error" in r or not r.get("fits"):
+            fail(f"plan (c) {name}: {r.get('error') or 'does not fit'}")
+    log("  plan (c) rows on (16, 16), modeled from the H100 constants:\n"
+        + table([recs["c_train"], recs["c_decode"]]))
+    for name in ("c_train", "c_decode"):
+        log(f"  plan (c) {name} " + json.dumps(
+            {k: v for k, v in recs[name].items() if k != "profile"}))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5516,7 +5711,7 @@ def main(argv=None) -> int:
                        ("families", families_phase), ("zoo", zoo_phase),
                        ("train", train_phase),
                        ("sharded", sharded_phase), ("data", data_phase),
-                       ("fsdp", fsdp_phase)):
+                       ("fsdp", fsdp_phase), ("plan", plan_phase)):
         if phase in phases:
             log(f"[{phase}]")
             t0 = time.perf_counter()
@@ -5525,7 +5720,7 @@ def main(argv=None) -> int:
             log(f"[{phase}] took {time.perf_counter() - t0:.1f} s")
     results.update(DATA_KERNEL_ROWS)
     if {"api", "serve", "examples", "families", "zoo", "sharded", "data",
-            "fsdp"} & set(phases):
+            "fsdp", "plan"} & set(phases):
         for r in results.values():
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -128,11 +128,13 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
-    """True when every given tensor lies on the CPU (take the plain
-    version); False when all are CUDA tensors of one device (launch).
-    Anything else raises: a CUDA call never falls back."""
+    """True when every given tensor lies on the CPU, or every one on
+    "meta" (the dry run's shapes: take the plain version); False when all
+    are CUDA tensors of one device (launch). Anything else raises: a CUDA
+    call never falls back."""
     devs = {t.device for t in tensors if t is not None}
-    if all(d.type == "cpu" for d in devs):
+    if all(d.type == "cpu" for d in devs) or all(d.type == "meta"
+                                                 for d in devs):
         return True
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"kernel inputs must all lie on one CUDA device or "

@@ -1,5 +1,13 @@
-"""The serving bytes-per-step roofline gate (the reference's
-``launch/roofline.py --serving``).
+"""Roofline reports (the reference's ``launch/roofline.py``): the dry-run
+table and the serving bytes-per-step gate.
+
+    python -m repro_torch.launch.roofline build/dryrun_results.jsonl [--md]
+        The dry-run table over ``launch/dryrun.py``'s records: per cell
+        the three terms (modeled from the H100 constants of
+        ``launch/dryrun.py``, not measured), the bottleneck, the model
+        FLOPs over the counted FLOPs, the peak GB a chip and whether it
+        fits in 80 GB. A record with an error shows as ERROR. A sparse
+        cell's density is marked as counted from plain ops (``table``).
 
     python -m repro_torch.launch.roofline --serving [--check [--tol 0.15]]
         [--config tiny-relu] [--device cpu]
@@ -24,16 +32,15 @@ bytes one decode step reads:
             projections: the anchor for what a dense step reads, where the
             reference counts the dots of its compiled HLO.
 
-``--check`` turns the report into a gate: modeled / measured within
+``--serving --check`` turns the report into a gate: modeled / measured within
 ``--tol`` (default 15%) and counted / measured within ``--tol``; exits 1
 on a violation. ``t_mem(H100)`` is the modeled bytes over the H100 SXM's
-HBM3 rate (``H100_HBM_BYTES_PER_S``, its datasheet figure). The
-reference's dry-run table form (a path of XLA dry-run records) has no
-counterpart: the port makes no such records.
+HBM3 rate (``H100_HBM_BYTES_PER_S``, its datasheet figure).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Dict, List
 
@@ -58,6 +65,68 @@ def fmt_t(x: float) -> str:
     if x >= 1e-3:
         return f"{x * 1e3:8.2f}ms"
     return f"{x * 1e6:8.1f}us"
+
+
+HBM_GB = 80.0  # H100 80GB
+
+
+def load(path: str) -> List[Dict]:
+    """The JSON records of a ``launch/dryrun.py`` results file."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out
+
+
+# beside a sparse cell's density: its counts are the plain ops of the
+# static tile capacities (kernel 5's plain gather on "meta"), not the
+# kernel's own bytes and FLOPs
+PLAIN_MARK = "(plain-op)"
+
+
+def table(recs: List[Dict], md: bool = False) -> str:
+    """The dry-run table (module note); ``md`` as a markdown table. A
+    sparse cell's density reads ``PLAIN_MARK`` beside it, and a legend
+    line under the table says what that means."""
+    hdr = ("cell", "mesh", "sparse", "t_compute", "t_memory", "t_coll",
+           "bound", "MF/counted", "peak_GB", "fit", "step_est")
+    rows = [hdr]
+
+    def density(r):
+        s = r.get("sparse", 0)
+        return f"{s}{PLAIN_MARK}" if s else "-"
+
+    for r in recs:
+        cell = f"{r['arch']}/{r['shape']}"
+        mesh = r.get("mesh", "2x16x16" if r.get("multi_pod") else "16x16")
+        if "error" in r:
+            rows.append((cell, mesh, density(r),
+                         "ERROR", "", "", "", "", "", "", ""))
+            continue
+        peak = r["peak_bytes_per_chip"] / 1e9
+        step = max(r["t_compute"], r["t_memory"], r["t_collective"])
+        rows.append((
+            cell, mesh, density(r),
+            fmt_t(r["t_compute"]), fmt_t(r["t_memory"]),
+            fmt_t(r["t_collective"]), r["bottleneck"][:4],
+            f"{r.get('useful_flops_ratio', 0):.2f}",
+            f"{peak:.1f}", "Y" if peak <= HBM_GB else "OVER", fmt_t(step)))
+    widths = [max(len(str(row[i])) for row in rows) for i in range(len(hdr))]
+    sep = " | " if md else "  "
+    lines = []
+    for j, row in enumerate(rows):
+        line = sep.join(str(c).ljust(w) for c, w in zip(row, widths))
+        lines.append(("| " + line + " |") if md else line)
+        if md and j == 0:
+            lines.append("|" + "|".join("-" * (w + 2) for w in widths) + "|")
+    if any(r.get("sparse") for r in recs):
+        lines.append(f"{PLAIN_MARK}: a sparse cell counts the plain ops of "
+                     "its static tile capacities (kernel 5's plain gather), "
+                     "not the kernel's own bytes")
+    return "\n".join(lines)
 
 
 def _itemsize(cfg) -> int:
@@ -268,7 +337,10 @@ def check_serving(recs: List[Dict], tol: float = 0.15) -> List[str]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("path", nargs="?", default=None,
-                    help="the reference's dry-run records (not supported)")
+                    help="launch/dryrun.py's records: print the dry-run "
+                         "table")
+    ap.add_argument("--md", action="store_true",
+                    help="the dry-run table in markdown")
     ap.add_argument("--serving", action="store_true",
                     help="serving decode bytes-per-step roofline "
                          "(kernel path)")
@@ -280,11 +352,11 @@ def main(argv=None) -> int:
     ap.add_argument("--config", default="tiny-relu")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.path is not None or not (args.serving or args.check):
-        print("roofline: the dry-run table reads the XLA dry-run records "
-              "of the reference's launch/dryrun.py, which the port does "
-              "not make; use --serving [--check]", file=sys.stderr)
-        return 2
+    if args.path is not None:
+        print(table(load(args.path), md=args.md))
+        return 0
+    if not (args.serving or args.check):
+        ap.error("a dry-run records path, or --serving [--check]")
     recs = serving_records(args.config, device=args.device)
     print(serving_table(recs))
     if args.check:

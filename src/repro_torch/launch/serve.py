@@ -31,9 +31,20 @@ under a torch.distributed launcher (``WORLD_SIZE`` set) the command joins
 that world, whose size must hold the mesh (``make_host_mesh(strict=True)``
 raises otherwise); launched alone it spawns the ranks itself
 (``sharding.comm.spawn``, NCCL when each rank has a card of its own, gloo
-when they share one or run on the CPU). Rank 0 prints the report. Not
-ported, raising
-NotImplementedError: the pod-mesh compile path (no ``--smoke``). The
+when they share one or run on the CPU). Rank 0 prints the report.
+
+Without ``--smoke`` the reference compiles the serving step for its pod
+mesh. The port builds it as a dry run, asked for with ``--dry-run``: the
+legacy prefill or decode step of the arch at full size (``--shape``,
+default decode_32k; ``--sparse-density`` its relufied static-capacity
+variant) on rank 0 of the 256-rank (16, 16) world (512-rank (2, 16, 16)
+with ``--multi-pod``), on "meta" tensors (``launch/dryrun.py``), and
+prints the rank's memory account and the cell's record:
+
+  python -m repro_torch.launch.serve --arch qwen3-4b --dry-run \
+      --sparse-density 0.6
+
+The
 mamba, hybrid, encdec and vlm archs (falcon-mamba-7b, zamba2-7b, whisper-small, internvl2-1b) serve
 on the legacy engine only, with zero stub patches / frames in the compute
 dtype; the continuous engine raises for them, as the reference's does.
@@ -92,6 +103,15 @@ def _parser() -> argparse.ArgumentParser:
                          "'data' (implies --continuous; raises when the "
                          "world cannot hold the shape)")
     ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--dry-run", action="store_true",
+                    help="without --smoke: build the production serving "
+                         "step on 'meta' tensors and print its memory "
+                         "account")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["prefill_32k", "decode_32k", "long_500k"],
+                    help="the dry run's cell")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the dry run on the (2, 16, 16) mesh")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when CUDA is absent) or cpu")
     return ap
@@ -119,12 +139,29 @@ def main(argv=None) -> None:
             ap.error(f"--mesh expects DATA,MODEL (two positive ints), "
                      f"got {args.mesh!r}")
     if not args.smoke:
-        raise NotImplementedError("the pod-mesh compile path (no --smoke) "
-                                  "is not ported to PyTorch (ROADMAP.md)")
+        _pod_dry_run(args)
+        return
     if mesh_shape is not None:
         _serve_on_mesh(args, mesh_shape)
         return
     _serve(args)
+
+
+def _pod_dry_run(args) -> None:
+    """The production serving step as a dry run (module note)."""
+    import json
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import memory_line
+    if not args.dry_run:
+        raise NotImplementedError(
+            "the pod-mesh path (no --smoke) runs on a pod of 256 (or 512) "
+            "cards, which the port does not drive (ROADMAP.md); it builds "
+            "the step as a dry run on 'meta' tensors with --dry-run")
+    rec = dryrun.run_cell(args.arch, args.shape, args.multi_pod,
+                          sparse=args.sparse_density)
+    print(memory_line(f"{args.shape} step", rec))
+    print(json.dumps(rec))
 
 
 def _serve_on_mesh(args, mesh_shape) -> None:

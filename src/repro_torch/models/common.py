@@ -15,9 +15,11 @@ card and must never be copied per token.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -370,6 +372,73 @@ def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def reduce_partial(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The ranks' f32 partials ``y`` summed and cast once to ``dtype``."""
     return comm.all_reduce_sum(y).to(dtype)
+
+
+def sublayer_sum(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A sublayer's output from the ranks' f32 partials ``y`` (..., d),
+    cast once to ``dtype``: their sum (``reduce_partial``), or under
+    Megatron-SP residuals (``comm.sp_on``) this rank's d_model chunk of it
+    (``comm.reduce_scatter_last``)."""
+    if comm.sp_on():
+        return comm.reduce_scatter_last(y).to(dtype)
+    return reduce_partial(y, dtype)
+
+
+def sublayer_whole(y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output computed whole on every rank: under Megatron-SP
+    residuals this rank's d_model chunk (``comm.split_last``), else y."""
+    return comm.split_last(y) if comm.sp_on() else y
+
+
+def sublayer_in(x: torch.Tensor) -> torch.Tensor:
+    """A sublayer's input: under Megatron-SP residuals the whole residual
+    put together from the ranks' d_model chunks (``comm.all_gather_last``;
+    its backward takes this rank's chunk, since the sublayer's
+    ``copy_to_model`` has summed the ranks' partial gradients already),
+    else x."""
+    return comm.all_gather_last(x, whole_grad=True) if comm.sp_on() else x
+
+
+def sp_fits(cfg: ModelConfig) -> bool:
+    """Whether ``cfg.sp_residuals`` splits the residual here: a model axis
+    of more than one rank is active and divides d_model."""
+    mesh = comm.active()
+    return (cfg.sp_residuals and mesh is not None
+            and cfg.d_model % mesh.shape["model"] == 0)
+
+
+_CACHE = threading.local()
+
+
+@contextlib.contextmanager
+def cache_rows(s0: int, length: int):
+    """Run a full-sequence forward whose returned K/V are the legacy
+    contiguous cache's rows of this rank of a model axis (positions s0 ..
+    s0 + length - 1, zero past the prompt) with every kv head: the
+    sequence-sharded layout of ``rules.cache_pspec`` (``transformer.
+    prefill`` under a mesh)."""
+    prev = getattr(_CACHE, "rows", None)
+    _CACHE.rows = (s0, length)
+    try:
+        yield
+    finally:
+        _CACHE.rows = prev
+
+
+def cache_rows_active():
+    """(s0, length) of ``cache_rows``, or None."""
+    return getattr(_CACHE, "rows", None)
+
+
+def take_rows(t: torch.Tensor, rows) -> torch.Tensor:
+    """t (b, s, ...)'s positions rows = (s0, length), zero-padded past s."""
+    s0, length = rows
+    part = t[:, s0:s0 + length]
+    pad = length - part.shape[1]
+    if pad > 0:
+        part = torch.cat([part, part.new_zeros((t.shape[0], pad)
+                                               + tuple(t.shape[2:]))], 1)
+    return part
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:

@@ -208,9 +208,10 @@ def _combine(cfg: ModelConfig, combine, ye, x):
     whatever rank holds each (x + 0 = x exactly)."""
     lay = cm.shard_layout(cfg)
     if lay is None or not (lay.experts[1] < cfg.n_experts or lay.ffn_split):
-        return torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+        return cm.sublayer_whole(
+            torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye))
     y = torch.einsum("gtec,gecd->gtd", combine, ye.float())
-    return cm.reduce_partial(y, x.dtype)
+    return cm.sublayer_sum(y, x.dtype)
 
 
 def _expert_hidden(p, xe, cfg: ModelConfig,
@@ -241,7 +242,7 @@ def apply_moe(p, x, cfg: ModelConfig,
     h = _expert_hidden(p, xe, cfg, stats)
     stats.add_sparsity("down_in", h)
     ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
-    return _combine(cfg, combine, ye, x).reshape(x.shape)
+    return _combine(cfg, combine, ye, x).reshape(x.shape[:-1] + (-1,))
 
 
 def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
@@ -291,12 +292,14 @@ def apply_moe_gathered(p, x, cfg: ModelConfig) -> torch.Tensor:
 def moe_sublayer(p, x, cfg: ModelConfig,
                  stats: cm.StatsCollector = cm.NO_STATS):
     """The MoE half of a block: norm, (stage-2 ReLU), the MoE FFN over the
-    b * s tokens. Returns the residual update (b, s, d)."""
-    h = T.post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
+    b * s tokens. Returns the residual update (b, s, d) (the rank's
+    d_model chunks under Megatron-SP residuals, as
+    ``transformer.attn_sublayer``)."""
+    h = T.post_norm(cm.apply_norm(p["ln2"], cm.sublayer_in(x), cfg), cfg)
     b, s, d = h.shape
     h = h.reshape(b * s, d)
     stats.add_raw("ffn_x", h)
-    return apply_moe(p["moe"], h, cfg, stats).reshape(b, s, d)
+    return apply_moe(p["moe"], h, cfg, stats).reshape(b, s, -1)
 
 
 def apply_block(p, x, cfg: ModelConfig, positions,

@@ -37,7 +37,10 @@ the paged steps and the whole-prompt forward run on one rank's blocks
 ``_attn_out``), its d_ff slice with tile lists in its own tile ids
 (``_down_proj``, ``_ffn_out``, ``_pack_predicted``) and its vocabulary
 rows (``embed_tokens``, ``logits_from``), with an all-reduce where the
-split products meet — the same kernels at the rank's shapes.
+split products meet — the same kernels at the rank's shapes. The legacy
+contiguous-cache prefill and decode run under a mesh too, their cache
+split over the model axis by sequence (``apply_attn_decode``), and the
+full forward takes Megatron-SP residuals (``forward``).
 """
 from __future__ import annotations
 
@@ -165,7 +168,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
 
 def _qkv(p, x, cfg: ModelConfig, positions, *,
-         stats: cm.StatsCollector = cm.NO_STATS, decode: bool = False):
+         stats: cm.StatsCollector = cm.NO_STATS, decode: bool = False,
+         whole_kv: bool = False):
     """x (b, s, d) -> q (b, s, hp, hd), k/v (b, s, kvp, hd); RoPE applied.
     ``decode`` applies the static input tile capacity (``densities``): one
     selection of the input's top d_model tiles for the three products.
@@ -183,7 +187,12 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
     the rank's q slots read part of a K/V computed whole (kv heads not
     split), K/V pass ``copy_to_model`` before the slice, and so do the
     qk-norm scales applied to split heads: every weight replicated over
-    the ranks gets the whole gradient on each."""
+    the ranks gets the whole gradient on each.
+
+    ``whole_kv`` (serving under a mesh, no autograd): k/v hold every kv
+    head, the heads of column-split ``wk``/``wv`` put together over the
+    ranks (``comm.all_gather_last``): what the legacy contiguous cache
+    keeps."""
     g = attn_geometry(cfg)
     stats.add_sparsity("qkv_in", x)
     b, s, d = x.shape
@@ -233,6 +242,11 @@ def _qkv(p, x, cfg: ModelConfig, positions, *,
     if cfg.use_rope:
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
+    if lay is not None and whole_kv:
+        if lay.kv_split == "heads":
+            k, v = (comm.all_gather_last(y.reshape(b, s, -1)).reshape(
+                b, s, -1, hd) for y in (k, v))
+        return q, k, v
     if lay is not None and lay.kv_split != "heads":
         # every kv head is here; keep those the rank's q slots read
         if lay.q_split:
@@ -253,8 +267,8 @@ def _attn_out(p, o, cfg: ModelConfig):
     w = p["wo"].reshape(g.hp * g.head_dim, -1)
     lay = cm.shard_layout(cfg)
     if lay is None or not lay.q_split:
-        return o2 @ w
-    return cm.reduce_partial(cm.partial_matmul(o2, w), o.dtype)
+        return cm.sublayer_whole(o2 @ w)
+    return cm.sublayer_sum(cm.partial_matmul(o2, w), o.dtype)
 
 
 def _down_proj(h, wd, cfg: ModelConfig, density: float):
@@ -269,9 +283,9 @@ def _down_proj(h, wd, cfg: ModelConfig, density: float):
     5 on the card."""
     lay = cm.shard_layout(cfg)
     if lay is None or not lay.ffn_split:
-        return cm.maybe_sparse_matmul(h, wd, cfg, density)
+        return cm.sublayer_whole(cm.maybe_sparse_matmul(h, wd, cfg, density))
     if density >= 1.0:
-        return cm.reduce_partial(cm.partial_matmul(h, wd), h.dtype)
+        return cm.sublayer_sum(cm.partial_matmul(h, wd), h.dtype)
     f0, fl = lay.ffn
     tile, groups = cm.static_plan(cfg.d_ff, cfg)
     if groups % lay.tp == 0:
@@ -284,7 +298,7 @@ def _down_proj(h, wd, cfg: ModelConfig, density: float):
     y = cm.gathered_matmul(h, wd, *cm.rank_tiles(idx, mask, tile, f0, fl,
                                                  cfg.sparsity.tile_size),
                            out_dtype=torch.float32)
-    return cm.reduce_partial(y, h.dtype)
+    return cm.sublayer_sum(y, h.dtype)
 
 
 def _ffn_out(y32, x, cfg: ModelConfig):
@@ -344,11 +358,20 @@ def apply_attn_full(p, x, cfg: ModelConfig, positions, *,
     (the encoder's is bidirectional). Returns (out (b, s, d), (k, v)
     (b, s, kvp, hd) for the cache). GQA K/V are replicated to 16 heads as
     the reference does (not under a serving mesh, where each rank groups
-    its q slots by the kv heads it holds)."""
+    its q slots by the kv heads it holds). Under ``common.cache_rows`` and
+    a mesh the returned K/V are the rank's cache rows of every kv head."""
     g = cm.local_heads(cfg)
     b, s = x.shape[:2]
-    q, k, v = _qkv(p, x, cfg, positions, stats=stats)
-    kv = (k, v)
+    rows = cm.cache_rows_active()
+    lay = cm.shard_layout(cfg)
+    if rows is None or lay is None:
+        q, k, v = _qkv(p, x, cfg, positions, stats=stats)
+        kv = (k, v)
+    else:  # the cache's rows of every kv head; the attention reads its own
+        q, k, v = _qkv(p, x, cfg, positions, stats=stats, whole_kv=True)
+        kv = (cm.take_rows(k, rows), cm.take_rows(v, rows))
+        kv0, nkv = lay.kv
+        k, v = k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv]
     r = (1 if g.kvp % cm.TP == 0 or cm.shard_layout(cfg) is not None
          else cm.TP // g.kvp)
     if r > 1:
@@ -364,8 +387,10 @@ def attn_sublayer(p, x, cfg: ModelConfig, positions,
                   stats: cm.StatsCollector = cm.NO_STATS,
                   causal: bool = True):
     """The attention half of a block: norm, (stage-2 ReLU), attention.
-    Returns (the residual update (b, s, d), (k, v))."""
-    h = post_norm(cm.apply_norm(p["ln1"], x, cfg), cfg)
+    Returns (the residual update (b, s, d), (k, v)). Under Megatron-SP
+    residuals x and the update are the rank's d_model chunks
+    (``common.sublayer_in`` / ``sublayer_sum``)."""
+    h = post_norm(cm.apply_norm(p["ln1"], cm.sublayer_in(x), cfg), cfg)
     return apply_attn_full(p["attn"], h, cfg, positions, stats=stats,
                            causal=causal)
 
@@ -373,11 +398,12 @@ def attn_sublayer(p, x, cfg: ModelConfig, positions,
 def ffn_sublayer(p, x, cfg: ModelConfig,
                  stats: cm.StatsCollector = cm.NO_STATS):
     """The FFN half of a block: norm, (stage-2 ReLU), the dense FFN over
-    the b * s tokens. Returns the residual update (b, s, d)."""
-    h = post_norm(cm.apply_norm(p["ln2"], x, cfg), cfg)
+    the b * s tokens. Returns the residual update (b, s, d) (the rank's
+    d_model chunks under Megatron-SP residuals, as ``attn_sublayer``)."""
+    h = post_norm(cm.apply_norm(p["ln2"], cm.sublayer_in(x), cfg), cfg)
     b, s, d = h.shape
     return apply_ffn(p["ffn"], h.reshape(b * s, d), cfg,
-                     stats=stats).reshape(b, s, d)
+                     stats=stats).reshape(b, s, -1)
 
 
 def apply_block(p, x, cfg: ModelConfig, positions,
@@ -402,18 +428,45 @@ def apply_attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
     (``ServeEngine.generate`` checks the bound on the host before it
     starts). The attention is plain
     torch ops, as the reference's ``decode_attention`` is XLA. Returns (out
-    (b, d), k_cache, v_cache)."""
+    (b, d), k_cache, v_cache).
+
+    Under a serving mesh the cache is sequence-sharded as
+    ``rules.cache_pspec`` lays it out: every kv head, this rank's S / M
+    positions s0 .. s0 + S / M - 1 (s0 = model index x S / M). The rank
+    computes its q slots and every kv head (``_qkv(whole_kv=True)``: where
+    ``wk``/``wv`` are split over d_model, the GQA case of fewer kv heads
+    than ranks, the ranks' partial products summed), puts the q slots of
+    every rank together (one all-gather), writes the new K/V where pos
+    falls in its rows (a select, no host branch on the position), runs
+    ``common.decode_attention`` over its rows (partials, one gather, the
+    fold) and projects its own slots through its rows of ``wo``."""
+    lay = cm.shard_layout(cfg)
     g = attn_geometry(cfg)
     b = x.shape[0]
     q, k, v = _qkv(p, x[:, None, :], cfg, pos[:, None], stats=stats,
-                   decode=True)
+                   decode=True, whole_kv=lay is not None)
+    if lay is not None and lay.q_split:
+        q = comm.all_gather_last(q.reshape(b, -1))
     q = q.reshape(b, g.kvp, g.group, g.head_dim)
     kl, vl = k_cache[layer], v_cache[layer]
     at = pos[:1].long()
-    kl.index_copy_(2, at, k.transpose(1, 2).to(kl.dtype))  # (b, kvp, 1, hd)
-    vl.index_copy_(2, at, v.transpose(1, 2).to(vl.dtype))
+    if lay is None:
+        kl.index_copy_(2, at, k.transpose(1, 2).to(kl.dtype))  # (b, kvp, 1, hd)
+        vl.index_copy_(2, at, v.transpose(1, 2).to(vl.dtype))
+    else:
+        rows = kl.shape[2]
+        at = at - comm.active().coords["model"] * rows
+        mine = (at >= 0) & (at < rows)
+        at = at.clamp(0, rows - 1)
+        for cache, new in ((kl, k), (vl, v)):
+            cache.index_copy_(2, at, torch.where(
+                mine, new.transpose(1, 2).to(cache.dtype),
+                cache.index_select(2, at)))
     o = cm.decode_attention(q, kl, vl, pos, window=cfg.sliding_window)
-    out = _attn_out(p, o.reshape(b, 1, g.hp, g.head_dim), cfg)[:, 0]
+    if lay is not None:
+        q0, hq = lay.q
+        o = o.reshape(b, g.hp, g.head_dim)[:, q0:q0 + hq]
+    out = _attn_out(p, o.reshape(b, 1, -1, g.head_dim), cfg)[:, 0]
     return out, k_cache, v_cache
 
 
@@ -499,7 +552,18 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
     through the forward stacks each leaf's gradient once. A
     ``common.LayerSource`` in ``params["layers"]`` makes each layer's tree
     just before its block and releases it after (the FSDP step's per-layer
-    gather)."""
+    gather).
+
+    ``cfg.sp_residuals`` under a mesh whose model axis divides d_model
+    (``common.sp_fits``): Megatron-SP residuals, the reference's residual
+    constrained to "model" on d_model. The residual between blocks is
+    this rank's d_model chunk (``comm.split_last`` after the embedding);
+    each sublayer puts the whole residual together before its norm and
+    hands back its chunk of the sum of the ranks' partials (one
+    reduce-scatter where the unsplit step all-reduces,
+    ``common.sublayer_sum``); the chunks are put together once more
+    before the final norm. The function and its gradients are the
+    unsplit step's; a remat block saves the chunk."""
     block = block or apply_block
     params = cm.cast_params(params, cfg)
     b, s = tokens.shape
@@ -511,17 +575,24 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     ks, vs = [], []
     layers = cm.unstack_layers(params["layers"], cfg.n_layers)
-    for i in range(cfg.n_layers):
-        sub = cm.StatsCollector(True, raw=stats.raw) if stats.active else stats
-        x, (k, v) = block(layers[i], x, cfg, positions, stats=sub)
-        if isinstance(layers, cm.LayerSource):
-            layers.release(i)
-        if stats.active:
-            for key, val in sub.stats.items():
-                stats.stats[f"layer{i}/{key}"] = val
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
+    sp = cm.sp_fits(cfg)
+    with comm.sequence_parallel(sp):
+        if sp:  # the residual between blocks: this rank's d_model chunk
+            x = comm.split_last(x)
+        for i in range(cfg.n_layers):
+            sub = (cm.StatsCollector(True, raw=stats.raw) if stats.active
+                   else stats)
+            x, (k, v) = block(layers[i], x, cfg, positions, stats=sub)
+            if isinstance(layers, cm.LayerSource):
+                layers.release(i)
+            if stats.active:
+                for key, val in sub.stats.items():
+                    stats.stats[f"layer{i}/{key}"] = val
+            if return_kv:
+                ks.append(k)
+                vs.append(v)
+        if sp:
+            x = comm.all_gather_last(x, whole_grad=True)
     x = cm.apply_norm(params["final_norm"], x, cfg)
     if return_kv:
         li = s - 1 if last_index is None else int(last_index)
@@ -561,12 +632,26 @@ def finalize_prefill_cache(k, v, max_len: int):
 
 def prefill(params, tokens, cfg: ModelConfig, max_len: int,
             stats: cm.StatsCollector = cm.NO_STATS,
-            block: Optional[Callable] = None):
-    """Run the whole prompt (dense); returns (last-token logits
-    (b, vocab_p), the cache at ``max_len``)."""
-    logits, kv = forward(params, tokens, cfg, stats=stats, return_kv=True,
-                         block=block)
-    return logits[:, -1], finalize_prefill_cache(*kv, max_len)
+            block: Optional[Callable] = None,
+            extra_embeds: Optional[torch.Tensor] = None):
+    """Run the whole prompt (dense; ``extra_embeds`` prepended as in
+    ``forward``); returns (last-token logits (b, vocab_p), the cache at
+    ``max_len``). Under a serving mesh the cache is this rank's rows of it
+    (``apply_attn_decode``'s layout): max_len / M positions of every kv
+    head."""
+    mesh = comm.active()
+    kw = dict(stats=stats, return_kv=True, block=block,
+              extra_embeds=extra_embeds)
+    if mesh is None:
+        logits, kv = forward(params, tokens, cfg, **kw)
+        return logits[:, -1], finalize_prefill_cache(*kv, max_len)
+    M = mesh.shape["model"]
+    if max_len % M:
+        raise ValueError(f"max_len {max_len} does not split over the "
+                         f"{M} ranks of the model axis")
+    with cm.cache_rows(mesh.coords["model"] * (max_len // M), max_len // M):
+        logits, kv = forward(params, tokens, cfg, **kw)
+    return logits[:, -1], finalize_prefill_cache(*kv, max_len // M)
 
 
 def decode_core(params, cache, token, pos, cfg: ModelConfig,

@@ -38,9 +38,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 def model_prefill(params, batch, cfg: ModelConfig, max_len: int,
                   stats=cm.NO_STATS):
     """Prompt = vision patches ++ tokens; the cache covers both."""
-    logits, kv = T.forward(params, batch["tokens"], cfg, stats=stats,
-                           extra_embeds=batch["patches"], return_kv=True)
-    return logits[:, -1], T.finalize_prefill_cache(*kv, max_len)
+    return T.prefill(params, batch["tokens"], cfg, max_len, stats=stats,
+                     extra_embeds=batch["patches"])
 
 
 def model_decode(params, cache, token, pos, cfg: ModelConfig,

@@ -969,16 +969,34 @@ class ServeEngine:
     params live on ``device`` ("cuda" by default; with no CUDA and no
     ``device="cpu"`` construction raises). Static tile capacities (a
     config from ``enable_sparse_serving``) gather through kernel 5 on the
-    card. A decode step writes the cache in place."""
+    card. A decode step writes the cache in place.
+
+    ``mesh`` (a (1, M) ``launch.mesh.Mesh`` on ``device``): the whole
+    ``params`` are cut to this rank's blocks by the serve rules, and every
+    model call runs under the mesh (``comm.serving``), the cache split
+    over the model axis by sequence (``transformer.apply_attn_decode``);
+    every rank returns the same result. ``max_len`` must divide over M;
+    statistics steps (``track_sparsity``, ``reuse_window``) and a data
+    axis above one are not supported there (ValueError)."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 256,
-                 track_sparsity: bool = False, device="cuda"):
+                 track_sparsity: bool = False, device="cuda", mesh=None):
         self.device = cm.resolve_device(device)
         off = {str(t.device) for t in _leaves(params)
                if t.device != self.device}
         if off:
             raise ValueError(f"params must lie on {self.device}; found "
                              f"{sorted(off)}")
+        if mesh is not None and (mesh.shape["data"] > 1 or track_sparsity
+                                 or max_len % mesh.shape["model"]):
+            raise ValueError(
+                "the legacy engine on a mesh takes a data axis of one, no "
+                "track_sparsity and a max_len that divides over the model "
+                f"axis (mesh {mesh.shape}, max_len {max_len})")
+        self.mesh = mesh if rules.tp_size(mesh) > 1 else None
+        if self.mesh is not None:
+            params = rules.shard_params(params, self.mesh, "serve",
+                                        device=self.device)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -993,16 +1011,18 @@ class ServeEngine:
     def prefill(self, batch):
         """The whole prompt batch (dense) -> (last logits (b, vocab_p),
         the cache at max_len)."""
-        return self.fam.model_prefill(self.params, self._batch(batch),
-                                      self.cfg, self.max_len)
+        with comm.serving(self.mesh):
+            return self.fam.model_prefill(self.params, self._batch(batch),
+                                          self.cfg, self.max_len)
 
     def decode(self, cache, token, pos, ffn_masks=None, stats=cm.NO_STATS):
         """One step: token (b,), pos (b,) (rows written at pos[0]);
         ffn_masks (L, d_ff) γ-window masks, stats a StatsCollector.
         Returns (logits (b, vocab_p), cache)."""
         kw = {} if ffn_masks is None else {"ffn_masks": ffn_masks}
-        return self.fam.model_decode(self.params, cache, token, pos,
-                                     self.cfg, stats=stats, **kw)
+        with comm.serving(self.mesh):
+            return self.fam.model_decode(self.params, cache, token, pos,
+                                         self.cfg, stats=stats, **kw)
 
     # -- generation with the paper's machinery ------------------------------
     @torch.inference_mode()
@@ -1020,6 +1040,9 @@ class ServeEngine:
         logprobs, the stats steps' site values and masks stay on the
         device and come back in one fetch at the end."""
         cfg = self.cfg
+        if self.mesh is not None and reuse_window > 0:
+            raise ValueError("reuse_window on a mesh: the γ-window masks "
+                             "are per rank's d_ff slice (not supported)")
         batch = self._batch(batch)
         b, s = batch["tokens"].shape
         offset = sp.prompt_token_offset(self.fam, cfg)

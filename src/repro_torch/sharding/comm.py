@@ -77,8 +77,20 @@ tensors of every rank of the model row together (the sequence-sharded decode
 attention's partial softmaxes); ``gather_to_first`` a tensor of every
 rank of the mesh on its rank 0 (the sharded checkpoint's save).
 
+Megatron-SP residuals (``models/transformer.py::forward`` under
+``cfg.sp_residuals``, ``sequence_parallel`` / ``sp_on``) split the
+residual's last axis over "model": ``reduce_scatter_last`` (a sublayer's
+partial sums, this rank's chunk; backward the all-gather) and
+``all_gather_last`` (the chunks put together; backward the
+reduce-scatter, or with ``whole_grad`` the rank's chunk of a gradient
+that is whole on every rank) are each the other's backward;
+``split_last`` takes a replicated tensor's chunk (backward the
+all-gather).
+
 ``STATS`` counts the collectives of each axis and the host time spent in
-them.
+them, and each kind's wire bytes (``WIRE_MULT``): what the dry run
+(``launch/dryrun.py``) reads on its "fake" world, where the collectives
+move nothing.
 """
 from __future__ import annotations
 
@@ -105,7 +117,11 @@ class _Stats:
     reach the call) and their payload bytes (what the rank hands the call:
     the reduced tensor, or the gathered pieces of every rank):
     ``count`` / ``seconds`` / ``bytes`` over the model axis, ``data_*``
-    over the data axis, ``world_*`` over the whole mesh."""
+    over the data axis, ``world_*`` over the whole mesh. ``kinds`` counts
+    them by kind ("all-reduce", "all-gather", "reduce-scatter", "gather")
+    and ``wire`` sums each kind's wire bytes a rank: the result's bytes
+    times the kind's ring multiplier (``WIRE_MULT``, the reference's
+    ``dryrun._COLL_MULT``)."""
 
     def __init__(self):
         self.reset()
@@ -115,13 +131,31 @@ class _Stats:
             setattr(self, prefix + "count", 0)
             setattr(self, prefix + "seconds", 0.0)
             setattr(self, prefix + "bytes", 0)
+        self.kinds = {}
+        self.wire = {}
 
-    def add(self, axis: str, seconds: float, nbytes: int = 0) -> None:
+    def add(self, axis: str, seconds: float, nbytes: int = 0,
+            kind: str = "all-reduce", result_bytes: int = 0) -> None:
         prefix = "" if axis == "model" else axis + "_"
         for key, value in (("count", 1), ("seconds", seconds),
                            ("bytes", nbytes)):
             setattr(self, prefix + key, getattr(self, prefix + key) + value)
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+        self.wire[kind] = (self.wire.get(kind, 0)
+                           + WIRE_MULT[kind] * result_bytes)
 
+    def by_axis(self) -> dict:
+        """{axis: {"count", "payload_bytes"}} for "model", "data" and
+        "world"."""
+        return {axis: {"count": getattr(self, p + "count"),
+                       "payload_bytes": getattr(self, p + "bytes")}
+                for axis, p in (("model", ""), ("data", "data_"),
+                                ("world", "world_"))}
+
+
+# wire bytes a rank per result byte, by collective kind (ring algorithms)
+WIRE_MULT = {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1,
+             "gather": 1}
 
 STATS = _Stats()
 
@@ -254,14 +288,15 @@ def serving(mesh, data=None, mode: str = "serve"):
     if mode not in ("serve", "train"):
         raise ValueError(f"mode {mode!r}: 'serve' or 'train'")
     with restored((mesh if tp_size(mesh) > 1 else None,
-                   None if data is None else (data, mesh), mode)):
+                   None if data is None else (data, mesh), mode, False)):
         yield
 
 
 def snapshot() -> tuple:
-    """The active state of this thread (mesh, data split, mode)."""
+    """The active state of this thread (mesh, data split, mode, sequence
+    parallel)."""
     return (getattr(_LOCAL, "mesh", None), getattr(_LOCAL, "data", None),
-            getattr(_LOCAL, "mode", "serve"))
+            getattr(_LOCAL, "mode", "serve"), getattr(_LOCAL, "sp", False))
 
 
 @contextlib.contextmanager
@@ -269,11 +304,27 @@ def restored(state: tuple):
     """Run the block under ``state`` (a ``snapshot``), on any thread; the
     previous state comes back on exit."""
     prev = snapshot()
-    _LOCAL.mesh, _LOCAL.data, _LOCAL.mode = state
+    _LOCAL.mesh, _LOCAL.data, _LOCAL.mode, _LOCAL.sp = state
     try:
         yield
     finally:
-        _LOCAL.mesh, _LOCAL.data, _LOCAL.mode = prev
+        _LOCAL.mesh, _LOCAL.data, _LOCAL.mode, _LOCAL.sp = prev
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool = True):
+    """Run the block with Megatron-SP residuals (``sp_on``) when ``on`` and
+    a model axis is active; the previous setting comes back on exit."""
+    mesh, data, mode, _ = snapshot()
+    with restored((mesh, data, mode, bool(on) and mesh is not None)):
+        yield
+
+
+def sp_on() -> bool:
+    """Whether the full-sequence blocks keep their residual split over the
+    model axis on d_model (``models/transformer.py::forward`` under
+    ``cfg.sp_residuals``)."""
+    return getattr(_LOCAL, "sp", False)
 
 
 def active():
@@ -297,10 +348,13 @@ def _all_reduce(t: torch.Tensor, mesh, op=None, axis: str = "model"
                 ) -> torch.Tensor:
     import torch.distributed as dist
     group = {"model": mesh.group, "data": mesh.data_group,
-             "world": mesh.world_group}[axis]
+             "world": mesh.world_group,
+             "pod": getattr(mesh, "pod_group", None)}[axis]
     t0 = time.perf_counter()
     dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
-    STATS.add(axis, time.perf_counter() - t0, t.numel() * t.element_size())
+    n = t.numel() * t.element_size()
+    STATS.add("data" if axis == "pod" else axis, time.perf_counter() - t0,
+              n, "all-reduce", n)
     return t
 
 
@@ -396,6 +450,130 @@ def gather_last(x: torch.Tensor, total: int, offset: int,
     return x if mesh is None else _GatherLast.apply(x, total, offset, mesh)
 
 
+def _all_gather_into(out, src, group) -> None:
+    """The ranks' ``src`` along dim 0 of ``out`` (``all_gather_single``
+    where torch has it, else ``all_gather_into_tensor``)."""
+    import torch.distributed as dist
+    fn = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    fn(out, src, group=group)
+
+
+def _reduce_scatter_into(out, src, group) -> None:
+    """The sum of the ranks' ``src``, this rank's dim-0 chunk into ``out``
+    (``reduce_scatter_single`` where torch has it, else
+    ``reduce_scatter_tensor``)."""
+    import torch.distributed as dist
+    fn = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    fn(out, src, group=group)
+
+
+def _reduce_scatter_last(x: torch.Tensor, mesh) -> torch.Tensor:
+    import torch.distributed as dist
+    n = mesh.shape["model"]
+    src = x.movedim(-1, 0).contiguous()  # rank r's chunk: rows r·D/n ..
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    t0 = time.perf_counter()
+    _reduce_scatter_into(out, src, group=mesh.group)
+    STATS.add("model", time.perf_counter() - t0,
+              src.numel() * src.element_size(), "reduce-scatter",
+              out.numel() * out.element_size())
+    return out.movedim(0, -1)
+
+
+def _all_gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
+    import torch.distributed as dist
+    n = mesh.shape["model"]
+    src = x.movedim(-1, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    t0 = time.perf_counter()
+    _all_gather_into(out, src, group=mesh.group)
+    nbytes = out.numel() * out.element_size()
+    STATS.add("model", time.perf_counter() - t0, nbytes, "all-gather",
+              nbytes)
+    return out.movedim(0, -1)
+
+
+def _slice_last(x: torch.Tensor, mesh) -> torch.Tensor:
+    width = x.shape[-1] // mesh.shape["model"]
+    return x.narrow(-1, mesh.coords["model"] * width, width)
+
+
+class _ReduceScatterLast(torch.autograd.Function):
+    """Forward: the sum over the model axis of each rank's x (..., D), this
+    rank's D / M chunk of the last axis. Backward: the all-gather of the
+    chunks' gradients (every rank's partial enters the sum once)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _reduce_scatter_last(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_last(g, ctx.mesh), None
+
+
+class _AllGatherLast(torch.autograd.Function):
+    """Forward: every rank's chunk of the last axis put together, in rank
+    order. Backward: with ``whole`` False the reduce-scatter of the
+    gradient (each rank's use of the whole tensor gave a partial of it);
+    with ``whole`` True this rank's chunk of it (the consumers summed
+    their partials already, e.g. through ``copy_to_model``, so every rank
+    holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, whole):
+        ctx.mesh, ctx.whole = mesh, whole
+        return _all_gather_last(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.whole:
+            return _slice_last(g, ctx.mesh), None, None
+        return _reduce_scatter_last(g, ctx.mesh), None, None
+
+
+class _SplitLast(torch.autograd.Function):
+    """Forward: this rank's chunk of the last axis of a replicated x.
+    Backward: the all-gather of the chunks' gradients (the whole gradient
+    on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _slice_last(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_last(g, ctx.mesh), None
+
+
+def reduce_scatter_last(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum over the model axis of each rank's partial ``x`` (..., D),
+    this rank's chunk of D (the Megatron-SP sublayer output: half an
+    all-reduce). Backward: ``all_gather_last`` of the gradient. Without
+    a mesh, x."""
+    mesh = mesh or active()
+    return x if mesh is None else _ReduceScatterLast.apply(x, mesh)
+
+
+def all_gather_last(x: torch.Tensor, mesh=None,
+                    whole_grad: bool = False) -> torch.Tensor:
+    """Every rank's chunk of the last axis put together (the other half of
+    an all-reduce). Backward: ``reduce_scatter_last`` of the gradient, or
+    with ``whole_grad`` (every rank's gradient of the result is already
+    the whole one) this rank's chunk of it. Without a mesh, x."""
+    mesh = mesh or active()
+    return x if mesh is None else _AllGatherLast.apply(x, mesh, whole_grad)
+
+
+def split_last(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """This rank's chunk of the last axis of a replicated ``x`` (a view).
+    Backward: the all-gather of the gradient. Without a mesh, x."""
+    mesh = mesh or active()
+    return x if mesh is None else _SplitLast.apply(x, mesh)
+
+
 def _pieces(tensors):
     """Each tensor's bytes, padded to a multiple of 8 so that every piece
     of the packed buffer starts aligned for any dtype."""
@@ -418,7 +596,8 @@ def _gather(tensors, n: int, group, axis: str) -> list:
     parts = [torch.empty_like(buf) for _ in range(n)]
     t0 = time.perf_counter()
     dist.all_gather(parts, buf, group=group)
-    STATS.add(axis, time.perf_counter() - t0, n * buf.numel())
+    STATS.add(axis, time.perf_counter() - t0, n * buf.numel(), "all-gather",
+              n * buf.numel())
     every = torch.stack(parts)
     out, at = [], 0
     for t, piece in zip(tensors, pieces):
@@ -458,14 +637,21 @@ def gather_to_first(t: torch.Tensor, mesh):
     t0 = time.perf_counter()
     dist.gather(t, None if out is None else list(out.unbind(0)), dst=0,
                 group=mesh.world_group)
-    STATS.add("world", time.perf_counter() - t0,
-              t.numel() * t.element_size() * (world if out is not None else 1))
+    n = t.numel() * t.element_size() * (world if out is not None else 1)
+    STATS.add("world", time.perf_counter() - t0, n, "gather", n)
     return out
 
 
+def _shard_group(mesh):
+    """The group "data"-split params are gathered over: the data column
+    within the rank's pod on a pod mesh, else the data column."""
+    return getattr(mesh, "shard_group", None) or mesh.data_group
+
+
 def data_all_gather(flat: torch.Tensor, mesh) -> torch.Tensor:
-    """Every row's 1-D ``flat`` of this rank's data column, in data-index
-    order: (D, n), one all_gather into one buffer."""
+    """Every row's 1-D ``flat`` of this rank's data column (within its pod
+    on a pod mesh), in data-index order: (D, n), one all_gather into one
+    buffer."""
     import torch.distributed as dist
     n = mesh.shape["data"]
     if n == 1:
@@ -473,25 +659,35 @@ def data_all_gather(flat: torch.Tensor, mesh) -> torch.Tensor:
     out = flat.new_empty((n,) + tuple(flat.shape))
     t0 = time.perf_counter()
     dist.all_gather(list(out.unbind(0)), flat.contiguous(),
-                    group=mesh.data_group)
-    STATS.add("data", time.perf_counter() - t0,
-              out.numel() * out.element_size())
+                    group=_shard_group(mesh))
+    n = out.numel() * out.element_size()
+    STATS.add("data", time.perf_counter() - t0, n, "all-gather", n)
     return out
 
 
 def data_reduce_scatter(flat: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum over the data column of every row's 1-D ``flat`` (D equal
-    chunks, chunk j for row j): this row's chunk, one reduce_scatter."""
+    """The sum over the data column (within the rank's pod on a pod mesh)
+    of every row's 1-D ``flat`` (D equal chunks, chunk j for row j): this
+    row's chunk, one reduce_scatter."""
     import torch.distributed as dist
     n = mesh.shape["data"]
     if n == 1:
         return flat
     out = flat.new_empty(flat.numel() // n)
     t0 = time.perf_counter()
-    dist.reduce_scatter_tensor(out, flat.contiguous(), group=mesh.data_group)
+    _reduce_scatter_into(out, flat.contiguous(), group=_shard_group(mesh))
     STATS.add("data", time.perf_counter() - t0,
-              flat.numel() * flat.element_size())
+              flat.numel() * flat.element_size(), "reduce-scatter",
+              out.numel() * out.element_size())
     return out
+
+
+def pod_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the pods (in place; counted on the data axis),
+    or x on a mesh without a "pod" axis above one."""
+    if "pod" not in mesh.axis_names or mesh.shape["pod"] == 1:
+        return x
+    return _all_reduce(x, mesh, axis="pod")
 
 
 def data_max(x: torch.Tensor) -> torch.Tensor:

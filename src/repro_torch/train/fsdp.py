@@ -62,7 +62,8 @@ A step (``make_fsdp_train_step``):
 Metrics {"loss", "grad_norm", "lr", "step_ok"} are 0-d f32 tensors on the
 mesh's device, equal on every rank. The step runs none of the ten
 kernels, as the reference's runs none. It trains the families whose
-forward the serving path splits over "model" (dense, MoE); an MoE
+forward the serving path splits over "model" (dense, MoE, and the VLM's
+dense backbone); an MoE
 routing group that would span data rows raises.
 """
 from __future__ import annotations
@@ -81,7 +82,7 @@ from repro_torch.optim import adamw, schedules
 from repro_torch.sharding import comm, rules
 from repro_torch.tree import flatten, tree_map, unflatten
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def param_shapes(cfg: ModelConfig):
@@ -131,7 +132,7 @@ class _Leaf:
 
 def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
     D, M = mesh.shape["data"], mesh.shape["model"]
-    first = {a: mesh.coords[a] == 0 for a in ("data", "model")}
+    first = {a: mesh.coords[a] == 0 for a in mesh.axis_names}
     shapes = param_shapes(cfg)
     in_layers = flatten({k: tree_map(lambda _, k=k: k == "layers", v)
                          for k, v in shapes.items()})
@@ -288,8 +289,9 @@ class _Layers(cm.LayerSource):
         return cols
 
     def reduce(self, i: int, grads: List[torch.Tensor]) -> None:
-        mine = comm.data_reduce_scatter(_row_chunks(
-            grads, self.leaves, self.mesh.shape["data"]).float(), self.mesh)
+        mine = comm.pod_sum(comm.data_reduce_scatter(_row_chunks(
+            grads, self.leaves, self.mesh.shape["data"]).float(), self.mesh),
+            self.mesh)
         for g, piece in zip(self.grads,
                             _cut(mine, [l.block for l in self.leaves])):
             g[i] += piece
@@ -378,7 +380,15 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
         raise NotImplementedError(
             f"the FSDP step trains the {FAMILIES} families, not "
             f"{cfg.family!r}: their forward has no split over 'model'")
-    D, d = mesh.shape["data"], mesh.coords["data"]
+    if "pod" in mesh.axis_names and cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name} on a pod mesh: the train rules split the experts' "
+            "d_model over ('pod', 'data'), which the step's gathers over "
+            "one pod's data column do not cover")
+    D = mesh.shape["data"]
+    # the batch rows: over pod x data (rules.dp_axes); the params' blocks
+    # over "data" within a pod, replicated over "pod"
+    rows_n, row = rules.axis_block(mesh, rules.dp_axes(mesh))[::-1]
     leaves = _layout(cfg, mesh)
     entry = [i for i, l in enumerate(leaves)
              if not l.layer and l.data_dim is not None]
@@ -401,9 +411,9 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
         out = {}
         if entry:
             out.update(zip(entry, _cut(
-                comm.data_reduce_scatter(_row_chunks(
+                comm.pod_sum(comm.data_reduce_scatter(_row_chunks(
                     [col_grads[i] for i in entry],
-                    [leaves[i] for i in entry], D), mesh),
+                    [leaves[i] for i in entry], D), mesh), mesh),
                 [leaves[i].block for i in entry])))
         if whole:
             out.update(zip(whole, _cut(
@@ -422,11 +432,11 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
                     "(shard_train_state)")
         b = batch["tokens"].shape[0]
         nmb = max(1, tc.num_microbatches)
-        if b % nmb or (b // nmb) % D:
+        if b % nmb or (b // nmb) % rows_n:
             raise ValueError(f"batch {b} does not cut into {nmb} "
-                             f"microbatches split over {D} data rows")
+                             f"microbatches split over {rows_n} data rows")
         b_mb = b // nmb
-        bl = b_mb // D
+        bl = b_mb // rows_n
         if cfg.n_experts and D > 1:
             _check_groups(cfg, b_mb, batch["tokens"].shape[1], D)
         GAUGE.reset()
@@ -438,13 +448,14 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
         layer_grads = [torch.zeros_like(blocks[i]) for i in split]
         tree = unflatten(params, col)
         template = unflatten(params["layers"], list(range(len(layer))))
-        rows = (rules.DataSplit(size=D, index=d, slots=(d * bl, bl),
-                                blocks=(0, 1), n_slots=b_mb, n_blocks=1)
-                if D > 1 else None)
+        rows = (rules.DataSplit(size=rows_n, index=row,
+                                slots=(row * bl, bl), blocks=(0, 1),
+                                n_slots=b_mb, n_blocks=1)
+                if rows_n > 1 else None)
         l_sum = torch.zeros((), dtype=torch.float32,
                             device=batch["tokens"].device)
         for i in range(nmb):
-            lo = i * b_mb + d * bl
+            lo = i * b_mb + row * bl
             mb = {k: v[lo:lo + bl] for k, v in batch.items()}
             with comm.serving(mesh, rows, mode="train"), \
                     torch.enable_grad():
@@ -483,7 +494,7 @@ def make_fsdp_train_step(cfg: ModelConfig, tc: TrainConfig, mesh):
     reads it nowhere either)."""
     loss_and_grads = make_fsdp_grads(cfg, tc, mesh)
     counted = [l.counted for l in _layout(cfg, mesh)]
-    world = mesh.shape["data"] * mesh.shape["model"]
+    world = mesh.size
 
     def global_norm(grads) -> torch.Tensor:
         total = torch.zeros(1, dtype=torch.float32, device=grads[0].device)

@@ -13,11 +13,13 @@ through numpy), the same requests and calibration tokens.
 * ``counted_decode_ffn_bytes`` scales with ``n_layers``, also at OPT-6.7B's
   width, with no memory and no card;
 * ``main(["--serving", "--check", "--device", "cpu"])`` exits 0, and the
-  dry-run table form exits 2 with its message.
+  dry-run table form reads ``launch/dryrun.py``'s records (a tiny cell's
+  and an errored one's) into its table.
 
 The reference's records take ~15 s a config here, so they are made once
 per config for the module."""
 import copy
+import json
 
 import jax
 import numpy as np
@@ -108,10 +110,30 @@ def test_counted_bytes_scale_with_layers(name):
         assert troof.counted_decode_ffn_bytes(cfg, 3) == 3 * n * per_layer
 
 
-def test_main_gate_exits_zero_and_dry_run_form_exits_two(capsys):
+def test_main_gate_exits_zero_and_dry_run_form_exits_two(capsys, tmp_path):
     assert troof.main(["--serving", "--check", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "counted" in out and "t_mem(H100)" in out
     assert "roofline check OK (tol 0.15)" in out
-    assert troof.main(["experiments/dryrun_results.jsonl"]) == 2
-    assert "dry-run records" in capsys.readouterr().err
+    # the dry-run form reads launch/dryrun.py's records: a tiny cell's
+    # record and an errored cell's, in the table
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell("tiny-relu", "decode_32k", mesh_shape=(2, 2),
+                          batch=4, seq=32)
+    path = tmp_path / "dryrun.jsonl"
+    path.write_text(json.dumps(rec) + "\n" + json.dumps(
+        {"arch": "zamba2-7b", "shape": "train_4k", "error": "x"}) + "\n")
+    assert troof.load(str(path))[0] == rec
+    assert troof.main([str(path)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split()[:3] == ["cell", "mesh", "sparse"]
+    row = lines[1].split()
+    assert row[:2] == ["tiny-relu/decode_32k", "2x2"]
+    assert row[6] == rec["bottleneck"][:4]
+    assert float(row[8]) == pytest.approx(rec["peak_bytes_per_chip"] / 1e9,
+                                          abs=0.05)
+    assert row[9] == "Y"
+    assert lines[2].split()[:3] == ["zamba2-7b/train_4k", "16x16", "-"]
+    assert "ERROR" in lines[2]
+    assert troof.main([str(path), "--md"]) == 0
+    assert capsys.readouterr().out.startswith("| cell")

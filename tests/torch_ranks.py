@@ -520,3 +520,167 @@ def seq_decode(rank: int, world: int, data: int, cases) -> list:
                 rules.local_block(torch.as_tensor(pos), spec[:1], mesh),
                 window).numpy())
     return out
+
+
+# -- the production cell plan (tests/test_torch_plan.py) ----------------------
+
+
+def plan_cells(rank: int, world: int, cells) -> list:
+    """Each cell (cfg json, shape name, batch, seq, microbatches) run for
+    real on this rank of a (2, world / 2) mesh: ``launch.specs``'s step on
+    zero-filled CPU arguments. Returns per cell the step's FLOPs
+    (FlopCounterMode), the collectives by axis (``comm.STATS``) and the
+    rank's state bytes (its arguments, counted as the dry run counts
+    them)."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import SHAPES, TrainConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.sharding import comm
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(2, world // 2, strict=True, device="cpu")
+    out = []
+    for cfg_json, shape_name, batch, seq, mb in cells:
+        cfg = ModelConfig.from_json(cfg_json)
+        shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch,
+                                    seq_len=seq, num_microbatches=mb)
+        step, args = specs.build_cell(cfg, shape, mesh, TrainConfig(
+            num_microbatches=mb, remat_policy="minimal"), device="cpu")
+        state = OpCost().hold(args)
+        comm.STATS.reset()
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        out.append(dict(flops=fc.get_total_flops(), state=state,
+                        axes=comm.STATS.by_axis()))
+    return out
+
+
+def legacy_generate(rank: int, world: int, case) -> tuple:
+    """The legacy ``ServeEngine.generate`` of ``case`` (cfg json, numpy
+    params, tokens, max_new) on a (1, world) mesh: (tokens, logprobs)."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.engine import ServeEngine
+    torch.set_num_threads(1)
+    cfg_json, params, toks, max_new = case
+    mesh = make_host_mesh(1, world, strict=True, device="cpu")
+    eng = ServeEngine(ModelConfig.from_json(cfg_json), to_torch(params),
+                      max_len=32, device="cpu", mesh=mesh)
+    r = eng.generate({"tokens": toks}, max_new)
+    return r.tokens, r.logprobs
+
+
+def grad_blocks(grads, cfg, mesh) -> dict:
+    """This rank's gradient blocks as numpy, in flatten order, with each
+    leaf's train spec and the rank's mesh geometry (what a test needs to
+    cut the same block out of a whole gradient)."""
+    from repro_torch.train import fsdp
+    from repro_torch.tree import flatten
+    return dict(grads=[g.detach().numpy().copy() for g in flatten(grads)],
+                specs=[s.spec for s in flatten(
+                    fsdp.state_shardings(cfg, mesh)[0])],
+                shape=dict(mesh.shape), coords=dict(mesh.coords),
+                axes=tuple(mesh.axis_names))
+
+
+def sp_grads(rank: int, world: int, cases) -> list:
+    """For each (cfg json, the reference's numpy params, tokens, remat) the
+    FSDP step's loss and mean gradient on a (2, world / 2) mesh without and
+    with ``sp_residuals``: [(loss, grad_blocks, loss_sp, grad_blocks_sp,
+    model collectives by kind with SP)]."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import comm
+    from repro_torch.train import fsdp
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(2, world // 2, strict=True, device="cpu")
+    out = []
+    for cfg_json, params, toks, remat in cases:
+        base = ModelConfig.from_json(cfg_json)
+        tc = TrainConfig(num_microbatches=2, remat_policy=remat)
+        row = []
+        for sp in (False, True):
+            cfg = base.replace(sp_residuals=sp)
+            blocks, _ = fsdp.shard_train_state(params_from_jax(
+                params, cfg, device="cpu", dtype=torch.float32), mesh)
+            comm.STATS.reset()
+            loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(
+                blocks, {"tokens": torch.from_numpy(toks)})
+            row += [float(loss), grad_blocks(grads, cfg, mesh)]
+        row.append(dict(comm.STATS.kinds))
+        out.append(tuple(row))
+    return out
+
+
+def pod_step(rank: int, world: int, case, pods: int) -> dict:
+    """``case`` (cfg json, the reference's numpy params, tokens) on a
+    (pods, world / (2·pods), 2) pod mesh: the FSDP step's loss and mean
+    gradient (``grad_blocks``), then one train step's metrics and its
+    data-axis collectives."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.sharding import comm
+    from repro_torch.train import fsdp
+    torch.set_num_threads(1)
+    cfg_json, params, toks = case
+    cfg = ModelConfig.from_json(cfg_json)
+    mesh = make_pod_mesh(pods, world // (2 * pods), 2, device="cpu")
+    tc = TrainConfig(num_microbatches=2, remat_policy="minimal")
+    blocks, opt = fsdp.shard_train_state(params_from_jax(
+        params, cfg, device="cpu", dtype=torch.float32), mesh)
+    batch = {"tokens": torch.from_numpy(toks)}
+    loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(blocks, batch)
+    out = dict(grad_loss=float(loss), **grad_blocks(grads, cfg, mesh))
+    comm.STATS.reset()
+    _, _, m = fsdp.make_fsdp_train_step(cfg, tc, mesh)(blocks, opt, batch)
+    return dict(out, data=comm.STATS.data_count,
+                **{k: float(v) for k, v in m.items()})
+
+
+def sp_collectives(rank: int, world: int, seed: int) -> dict:
+    """The model-axis last-axis collectives of Megatron-SP on a (1, world)
+    mesh, from inputs every rank draws alike from ``seed``: {op: (y, the
+    gradient of this rank's objective sum(y * c) summed over the ranks,
+    with respect to its input)}. xs (world, 3, 2·world): each rank's
+    input; cs (world, 3, 2·world): each rank's weights."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import comm
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(1, world, strict=True, device="cpu")
+    rng = np.random.RandomState(seed)
+    n = 2 * world
+    xs = torch.as_tensor(rng.randn(world, 3, n).astype(np.float32))
+    cs = torch.as_tensor(rng.randn(world, 3, n).astype(np.float32))
+    out = {}
+    for op in ("reduce_scatter_last", "all_gather_last", "all_gather_whole",
+               "split_last"):
+        x = (xs[rank] if op in ("reduce_scatter_last", "split_last")
+             else xs[rank][:, 2 * rank:2 * rank + 2])
+        x = x.clone().requires_grad_(True)
+        with comm.serving(mesh, mode="train"):
+            if op == "reduce_scatter_last":
+                y = comm.reduce_scatter_last(x)
+                c = cs[0][:, 2 * rank:2 * rank + 2]
+            elif op == "split_last":
+                y = comm.split_last(x)
+                c = cs[0][:, 2 * rank:2 * rank + 2]
+            else:
+                y = comm.all_gather_last(x, whole_grad=op.endswith("whole"))
+                c = cs[0] if op.endswith("whole") else cs[rank]
+            (y * c).sum().backward()
+        out[op] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def legacy_generates(rank: int, world: int, cases) -> list:
+    """``legacy_generate`` of each case on this rank."""
+    return [legacy_generate(rank, world, case) for case in cases]
