@@ -115,7 +115,10 @@ fsdp 164.8, plan 49.2.
             engine in plain mode (chunked prefill, γ-window reuse) and in
             predictor mode (sign predictor, bf16 probe), 8 requests each,
             then 8 more through each engine under torch.profiler (device
-            time by kernel, and the busy share of that run's wall time).
+            time by kernel, and the busy share of that run's wall time),
+            of ``PROFILE_NEW`` = 4 new tokens a request: a run mostly of
+            prefill steps, whose busy share does not compare with one
+            taken at 16 new tokens a request.
             The serving roofline gate (launch/roofline.py): its AR
             record from a new plain engine that serves the reference's
             three prompts with no reuse window (counted), its predictor
@@ -217,11 +220,11 @@ fsdp 164.8, plan 49.2.
             relufied to stage 2, 2 of its 32 layers (0.67 B params; cut
             from 4 for the whole script's time), f32
             masters and bf16 compute, 8 x 1024 tokens of the synthetic
-            corpus (vocab 32000), 8 Trainer steps (cut from 12) with
-            async checkpoints every 4: finite losses, none skipped, the
-            last 3 below the first; a second Trainer on a copy holding
-            only the step-4 checkpoint restores that step's state (eval
-            loss equal) and runs to 8, its losses within 1e-2 of the
+            corpus (vocab 32000), 6 Trainer steps (cut from 12, then 8)
+            with async checkpoints every 3: finite losses, none skipped,
+            the last 3 below the first; a second Trainer on a copy
+            holding only the step-3 checkpoint restores that step's state
+            (eval loss equal) and runs to 6, its losses within 1e-2 of the
             first run's; measure_site_sparsity before and after (qkv and up
             sparse), calibrate_shift(0.9) and the shifted model's down
             sparsity. Prints the step's and the host data's median ms,
@@ -251,7 +254,25 @@ fsdp 164.8, plan 49.2.
             launches (added to the kernels line), step ms, tokens/s,
             peak GiB, modeled per-device FFN bytes and all-reduces a
             step (count and host ms); kernels 1-3 against their plain
-            versions at the rank's shapes on its layer 0.
+            versions at the rank's shapes on its layer 0. The Mamba-1,
+            Zamba-2 and Whisper smoke configs split over "model" through
+            the legacy ServeEngine (dense and at static capacities 0.25 /
+            0.75, tile 16; f32): the one-card streams against the CPU's
+            and the 2 ranks' against the one-card's (tokens exactly,
+            logprobs within 1e-5; kernel 5 on every rank in the static
+            cases). In the same group of 2 ranks, falcon-mamba-7b (2
+            layers), zamba2-7b (6 layers and one shared-block
+            application) and whisper-small (2 encoder and 2 decoder
+            layers) at full width, bf16, dense and at 0.25 / 0.75
+            (``SPLIT_FULL``): 4 prompts of 32 tokens, 16 new; the ranks'
+            streams identical, the first prefill's logits and those of
+            one decode step after it within TOL_SHARD_LOGITS of one
+            card's engine on the same seeded tree, kernel 5 launched 16 x
+            ``kernel5_per_step`` times on each rank in the static run
+            (kernel 2f, the sequence-sharded attention's fold, 16 x
+            ``fold_per_step``) and its first call of each shape held
+            against its plain version there; per rank the decode step ms, peak GiB and
+            kernel 5's launches.
 12. data    the data axis, ranks sharing the card over gloo. Kernel 2's
             partial mode (each data row's pages of a split pool, the
             partial softmax (acc, m, l) instead of o) and its fold: bf16
@@ -283,10 +304,10 @@ fsdp 164.8, plan 49.2.
             TOL_SHARD_LOGITS of one card's; per rank step ms, tokens/s, peak GiB, the pool blocks it holds
             (65), collectives a step by axis with their host ms, launches.
             DDP: llama-7b relufied to stage 2, 2 of 32 layers, 8 x 1024
-            tokens a step cut 4 x 1024 a rank, 3 steps uncompressed (step
+            tokens a step cut 4 x 1024 a rank, 2 steps uncompressed (step
             1's loss and grad norm within TOL_DDP of one card's
             make_train_step over the same batch in 2 microbatches, the
-            same function), then 3 with int8 error feedback (finite,
+            same function), then 2 with int8 error feedback (finite,
             falling losses); step ms, collective ms, peak GiB and the
             bytes a rank puts on the wire a step.
 13. fsdp    the FSDP + TP train step (train/fsdp.py) and the
@@ -340,7 +361,11 @@ fsdp 164.8, plan 49.2.
             TOL_PLAN_TEMP of them), the step's ms (CUDA events) against the
             plan's largest t-term (the fraction printed), kernel 5
             counted on the path and its first call held against its
-            plain version; (b) the fsdp phase's own cell (llama-7b stage
+            plain version, and the bytes its 36 launches must move
+            (``launch.op_cost.sparse_matmul_cost`` of each call,
+            nvalid read off the card) equal to the bytes the dry run
+            charges kernel 5 (its record's ``kernels``); (b) the fsdp
+            phase's own cell (llama-7b stage
             2, 2 layers, (2, 2), 8 x 1024 tokens in 2 microbatches): the
             collective counts and payload bytes by axis equal to what
             that phase's rank 0 counted in its step 1 (without the fsdp
@@ -3071,10 +3096,20 @@ def device_times(prof):
     return busy, by_name
 
 
+# new tokens a request of the profiled batch (cut from 16, where parsing
+# the profiler's events made most of the serve phase: 197.8 s with 16,
+# 109.3 s with 4 on an H100). Its busy share and device time by kernel
+# are those of a run mostly of prefill steps, not comparable with
+# readings taken at 16
+PROFILE_NEW = 4
+
+
 def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
-    """A second batch of 8 requests through the same engine under
-    torch.profiler (device activity only): device time by kernel, and the
-    device's busy share of the wall time of THAT run — busy time is the
+    """A second batch of 8 requests (``PROFILE_NEW`` new tokens each, so
+    mostly prefill steps: the share does not compare with a batch of 16
+    new tokens a request) through the same engine under torch.profiler
+    (device activity only):
+    device time by kernel, and the device's busy share of the wall time of THAT run — busy time is the
     union of the device intervals the profiler recorded, wall time the
     host clock around the same steps. The profiler slows the host, so this
     share is a lower bound of the unprofiled run's; the profiled step
@@ -3087,7 +3122,8 @@ def profile_run(eng, cfg, dev, unprofiled: dict, mode: str) -> None:
         torch.cuda.synchronize(dev)
     rng = np.random.RandomState(1)
     for n in rng.randint(16, 65, size=8):
-        eng.submit(rng.randint(0, cfg.vocab_size, n), 16, reuse_window=4)
+        eng.submit(rng.randint(0, cfg.vocab_size, n), PROFILE_NEW,
+                   reuse_window=4)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         steps = timed_steps(eng)
     wall_ms = sum(steps["prefill"]) + sum(steps["decode"])
@@ -3182,6 +3218,16 @@ class _Keeping:
 
     def __setattr__(self, name, value):
         setattr(self._own[0], name, value)
+
+
+class _Recording(_Keeping):
+    """A kernel wrapper that appends every call's (args, kwargs) to its
+    list (the tensors themselves, not copies), then calls the wrapper."""
+
+    def __call__(self, *args, **kwargs):
+        fn, _, calls = self._own
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
 
 
 @contextlib.contextmanager
@@ -3372,8 +3418,8 @@ def site_line(sp: dict) -> str:
                                                   "mean/down") if k in sp)
 
 
-def train_full_width(dev, cfg=None, dc=None, steps: int = 8,
-                     ckpt_every: int = 4) -> None:
+def train_full_width(dev, cfg=None, dc=None, steps: int = 6,
+                     ckpt_every: int = 3) -> None:
     """llama-7b relufied to stage 2 at 2 of its 32 layers (d 4096, 32
     heads x 128, d_ff 11008, vocab 32000 padded to 32768, untied): f32
     masters, bf16 compute, ``steps`` steps of the Trainer with async
@@ -4216,6 +4262,14 @@ SHARD_WORLDS = ((2, SHARD_CASES), (4, (("tiny-relu", "plain", 0),)))
 # max |diff| over max |single-device logit| (PERF.md states it before the
 # run that tests it)
 TOL_SHARD_LOGITS = 3e-2
+# the split families at full width, TP = 2 against one card in f32: the
+# first prefill's and one decode step's logits, max |diff| over max
+# |logit|. In bf16 a static capacity's selection can flip between two
+# tiles whose scores one ulp apart round the other way on the ranks
+# (zamba2-7b's shared FFN, 2 layers on the CPU: tiles 78 and 89 at a
+# margin of 0.0156), which moves the logits by a few percent; in f32 no
+# such tie was seen, so there every mode is held
+TOL_SPLIT_F32 = 1e-4
 SHARD_GEOM = dict(n_slots=8, block_size=16, max_blocks_per_seq=16,
                   prefill_chunk=16)
 
@@ -4294,6 +4348,43 @@ def shard_streams(case, device, mesh=None) -> dict:
                 total=eng.weight_io_bytes_per_step(per_device=False))
 
 
+# (arch, mode) of the legacy f32 parity cases split over "model": the
+# Mamba-1, Zamba-2 and Whisper smoke configs, dense and relufied to stage
+# 2 at static capacities 0.25 / 0.75 (tile 16: the smoke d_model 64 is
+# under the default 128)
+SPLIT_ARCHS = ("falcon-mamba-7b", "zamba2-7b", "whisper-small")
+SPLIT_LEGACY = tuple((a, m) for a in SPLIT_ARCHS for m in ("dense",
+                                                           "static"))
+# the full-width legacy runs on 2 ranks: each arch's depth (zamba2-7b's 6
+# layers hold one application of its shared block, attn_every = 6)
+SPLIT_FULL = {"falcon-mamba-7b": dict(n_layers=2),
+              "zamba2-7b": dict(n_layers=6),
+              "whisper-small": dict(n_layers=2, n_encoder_layers=2)}
+
+
+def split_legacy_stream(case, device, mesh=None) -> dict:
+    """A ``SPLIT_LEGACY`` case through the legacy ServeEngine on ``device``
+    (on ``mesh`` when given): numpy-seeded f32 weights, 2 prompts of 8
+    tokens (Whisper's frames beside them), 8 new tokens; the streams,
+    logprobs and kernel 5's launches in the run."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import relufication as rf
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.serving import ServeEngine
+    arch, mode = case
+    cfg = smoke_config(arch).replace(compute_dtype="float32")
+    if mode == "static":
+        cfg = rf.enable_sparse_serving(
+            rf.relufy_stage2(cfg).replace_sparsity(tile_size=16), 0.25, 0.75)
+    eng = ServeEngine(cfg, _to(numpy_params(cfg, seed=0), device),
+                      max_len=32, device=device, mesh=mesh)
+    batch = family_batch(cfg, 2, 8, seed=5, dev=device)
+    k0 = ksm.sparse_matmul.launches
+    r = eng.generate(batch, max_new=8)
+    return dict(kernel5=ksm.sparse_matmul.launches - k0,
+                tokens=r.tokens.tolist(), logprobs=r.logprobs)
+
+
 def rank_mesh(world: int, device_type: str):
     """This rank's (1, world) mesh, on its card (or the CPU, rehearsing)."""
     from repro_torch.launch.mesh import make_host_mesh
@@ -4302,11 +4393,17 @@ def rank_mesh(world: int, device_type: str):
 
 
 def sharded_parity_rank(rank: int, world: int, device_type: str,
-                        cases) -> dict:
-    """One rank of the f32 parity group: ``cases`` on a (1, world) mesh."""
+                        cases, legacy=()) -> dict:
+    """One rank of the f32 parity group: ``cases`` through the continuous
+    engine and ``legacy`` (``SPLIT_LEGACY`` cases) through the legacy
+    one, on a (1, world) mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = rank_mesh(world, device_type)
-    return {case: shard_streams(case, mesh.device, mesh) for case in cases}
+    out = {case: shard_streams(case, mesh.device, mesh) for case in cases}
+    out.update({("legacy",) + case: split_legacy_stream(case, mesh.device,
+                                                        mesh)
+                for case in legacy})
+    return out
 
 
 def sharded_parity(dev) -> None:
@@ -4325,11 +4422,27 @@ def sharded_parity(dev) -> None:
         same_streams(f"{case} card vs CPU", (one["tokens"], one["logprobs"]),
                      (cpu["tokens"], cpu["logprobs"]))
         want[case] = one
+    for case in SPLIT_LEGACY:
+        one = split_legacy_stream(case, dev)
+        cpu = split_legacy_stream(case, torch.device("cpu"))
+        same_streams(f"{case} legacy card vs CPU",
+                     (one["tokens"], one["logprobs"]),
+                     (cpu["tokens"], cpu["logprobs"]))
+        want[("legacy",) + case] = one
     for world, cases in SHARD_WORLDS:
         t0 = time.perf_counter()
+        legacy = SPLIT_LEGACY if world == 2 else ()
         ranks = comm.spawn(sharded_parity_rank, world, timeout=420,
-                           args=(dev.type, cases), device=dev.type)
+                           args=(dev.type, cases, legacy), device=dev.type)
         for rank, got in enumerate(ranks):
+            for case in legacy:
+                key = ("legacy",) + case
+                g = got[key]
+                what = f"{case} legacy TP={world} rank {rank}"
+                d = same_streams(what, (g["tokens"], g["logprobs"]),
+                                 (want[key]["tokens"], want[key]["logprobs"]))
+                if case[1] == "static" and g["kernel5"] <= 0:
+                    fail(f"{what}: kernel 5 was not launched on the rank")
             for case in cases:
                 g, w = got[case], want[case]
                 what = f"{case} TP={world} rank {rank}"
@@ -4350,9 +4463,10 @@ def sharded_parity(dev) -> None:
                 if (g["accepted"], g["misses"]) != (w["accepted"],
                                                     w["misses"]):
                     fail(f"{what}: acceptance / misses differ")
-        log(f"  ok sharded f32 parity TP={world}: {len(cases)} cases x "
-            f"{world} ranks equal the one-card engine and the CPU (last max"
-            f"|dlogprob| {d:.2e}); {time.perf_counter() - t0:.1f} s")
+        log(f"  ok sharded f32 parity TP={world}: {len(cases)} cases and "
+            f"{len(legacy)} legacy split-family cases x {world} ranks equal "
+            f"the one-card engine and the CPU (last max|dlogprob| {d:.2e}); "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def first_prefill_logits(eng, cfg, prompt) -> torch.Tensor:
@@ -4470,18 +4584,196 @@ def shard_kernel_checks(eng, cfg, dev) -> None:
             [ksm.sparse_matmul_tokens_plain(*args, tile=tile)], bf)
 
 
-def sharded_full_rank(rank: int, world: int, cases,
-                      device_type: str) -> list:
+def sharded_full_rank(rank: int, world: int, cases, device_type: str,
+                      legacy=()) -> dict:
     """One rank of full-width bf16 models on a (1, world) mesh sharing the
     card, one (cfg, seed) case after the other in one rank group: the
     ranks build the seeded tree one after the other (at most one whole
     tree on the card), each keeping its blocks; then the first prefill's
     logits, the serve run of ``serve_run`` with every kernel counted from
     0 and the all-reduces counted, and kernels 1 to 3 at this rank's
-    shapes; the engine is freed before the next case."""
+    shapes; the engine is freed before the next case. Then each config
+    of ``legacy`` through the legacy engine (``split_full_case``).
+    Returns {"engine": [...], "legacy": [...]}."""
     mesh = rank_mesh(world, device_type)
-    return [sharded_full_case(rank, world, mesh, cfg, seed)
-            for cfg, seed in cases]
+    return dict(engine=[sharded_full_case(rank, world, mesh, cfg, seed)
+                        for cfg, seed in cases],
+                legacy=[split_full_case(rank, world, mesh, cfg)
+                        for cfg in legacy])
+
+
+def fold_per_step(cfg) -> int:
+    """Kernel 2f's launches in one legacy decode step under a model axis:
+    each self-attention over the sequence-sharded cache folds the ranks'
+    partials once (``common.decode_attention``); the hybrid's shared block
+    at each application, the enc-dec decoder's self-attention a layer (its
+    cross-attention reads its own heads' whole cache: no fold), none in
+    Mamba-1."""
+    from repro_torch.models import hybrid
+    return {"mamba": 0, "hybrid": hybrid.n_attn_applications(cfg),
+            "encdec": cfg.n_layers}[cfg.family]
+
+
+def split_first_logits(eng, c, dev, hold: bool = False):
+    """Through the legacy engine ``eng`` (its mesh, if any): the whole
+    prefill of ``split_full_case``'s 4 prompts of 32 tokens, then one
+    decode step of their last tokens at position 32. Returns (the last
+    logits of each over the real vocabulary, f32, on the host, as a pair;
+    with ``hold``, kernel 5's first calls in the decode step as
+    ``first_calls`` keeps them, else {})."""
+    batch = family_batch(c, 4, 32, seed=8, dev=dev)
+    pos = torch.full((4,), 32, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        last, cache = eng.prefill(batch)
+        with (first_calls((("sparse_matmul", "sparse_matmul"),)) if hold
+              else contextlib.nullcontext({})) as calls:
+            step, _ = eng.decode(cache, batch["tokens"][:, -1], pos)
+    V = c.vocab_size
+    return (last[:, :V].float().cpu().numpy(),
+            step[:, :V].float().cpu().numpy()), calls
+
+
+def split_engines(cfg, dev, mesh=None, rank: int = 0,
+                  world: int = 1) -> list:
+    """[(mode, config, legacy engine)] of the seeded ``cfg`` tree, dense
+    and relufied to stage 2 at static capacities 0.25 / 0.75, on ``mesh``
+    when given: its ranks build the tree one after the other (at most one
+    whole tree on the card), each engine keeping the rank's blocks."""
+    from repro_torch.core import relufication as rf
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sharding import comm
+    static = rf.enable_sparse_serving(rf.relufy_stage2(cfg), 0.25, 0.75)
+    engines = []
+    for r in range(world):
+        if r == rank:
+            params = registry.get_family(cfg).init_params(cfg, seed=0,
+                                                          device=dev)
+            engines = [(what, c, ServeEngine(c, params, max_len=64,
+                                             device=dev, mesh=mesh))
+                       for what, c in (("dense", cfg),
+                                       ("static 0.25 / 0.75", static))]
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        if mesh is not None:
+            comm.barrier(mesh)
+    return engines
+
+
+def split_logits(cfg, dev, mesh=None, rank: int = 0, world: int = 1):
+    """``split_first_logits`` of each of ``split_engines``' engines, in
+    the config's bf16 and in f32: {dtype name: [(prefill, decode) a
+    mode]}. The engines are freed before it returns."""
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        engines = split_engines(cfg.replace(compute_dtype=dt), dev, mesh,
+                                rank, world)
+        out[dt] = [split_first_logits(eng, c, dev)[0]
+                   for _, c, eng in engines]
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_full_case(rank: int, world: int, mesh, cfg) -> list:
+    """One split-family config at full width through the legacy engine on
+    this rank's mesh, dense and at static capacities 0.25 / 0.75 (stage
+    2): the ranks build the seeded tree one after the other, each engine
+    keeping its blocks; 4 prompts of 32 tokens and 16 new, warmed once,
+    then counted (kernel 5 16 x ``kernel5_per_step`` times in the static
+    run, never in the dense one; kernel 2f 16 x ``fold_per_step``; no
+    other kernel) and timed as
+    ``family_serve`` times one card; kernel 5's first call of each shape
+    in a static decode step (``split_first_logits``) held against its
+    plain version. Then the logits of ``split_logits`` in bf16 and f32,
+    on the first row. Returns a row per mode."""
+    from repro_torch.sharding import comm
+    dev = mesh.device
+    engines = split_engines(cfg, dev, mesh, rank, world)
+    counters = kernel_counters()
+    rows = []
+    for what, c, eng in engines:
+        batch = family_batch(c, 4, 32, seed=8, dev=dev)
+        expect = 16 * kernel5_per_step(c) if c.sparsity.enabled else 0
+        folds = 16 * fold_per_step(c)
+
+        def gen():
+            return eng.generate(batch, max_new=16)
+
+        gen()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = time.perf_counter()
+        res, launches = counted(
+            f"rank {rank} sharded legacy {cfg.name} {what}", counters,
+            (("sparse_matmul",) if expect else ())
+            + (("paged_attention_fold",) if folds else ()), gen)
+        gen_ms = (time.perf_counter() - a) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        want = dict.fromkeys(launches, 0)
+        want.update(sparse_matmul=expect, paged_attention_fold=folds)
+        if launches != want:
+            fail(f"rank {rank} {cfg.name} {what}: launches {launches}, "
+                 f"expected kernel 5 x {expect}, kernel 2f x {folds} and "
+                 "no other kernel")
+        a = time.perf_counter()
+        with torch.inference_mode():
+            _, cache = eng.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - a) * 1e3
+        del cache
+        held = {}
+        if expect:
+            held = check_first_calls(split_first_logits(eng, c, dev,
+                                                        hold=True)[1])
+        if (res.tokens.shape != (4, 16) or res.tokens.min() < 0
+                or res.tokens.max() >= c.vocab_size
+                or not np.isfinite(res.logprobs).all()):
+            fail(f"rank {rank} {cfg.name} {what}: bad tokens or logprobs")
+        rows.append(dict(
+            rank=rank, model=cfg.name, mode=what, layers=cfg.n_layers,
+            tokens=res.tokens.tolist(), launches=launches,
+            generate_ms=gen_ms, prefill_ms=prefill_ms,
+            decode_step_ms=(gen_ms - prefill_ms) / 16, peak_gib=peak,
+            kernel5_launches=launches["sparse_matmul"],
+            fold_launches=launches["paged_attention_fold"],
+            kernel5_vs_plain=held))
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows[0]["logits"] = split_logits(cfg, dev, mesh, rank, world)
+    comm.barrier(mesh)
+    return rows
+
+
+def split_logits_check(cfg, rank: int, got: dict, want: dict) -> None:
+    """A rank's ``split_logits`` against one card's, each as max |diff|
+    over max |one card's logit|: in f32 every mode's prefill and decode
+    within TOL_SPLIT_F32; in bf16 within TOL_SHARD_LOGITS but for the
+    static decode, which is printed (``TOL_SPLIT_F32``'s note)."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        for what, g2, w2 in zip(("dense", "static"), got[dt], want[dt]):
+            for step, g, w in zip(("prefill", "decode"), g2, w2):
+                err = float(np.abs(g - w).max())
+                scale = float(np.abs(w).max())
+                tol = (TOL_SPLIT_F32 if dt == "float32" else
+                       None if (what, step) == ("static", "decode")
+                       else TOL_SHARD_LOGITS)
+                name = f"{cfg.name} {dt} {what} {step} rank {rank}"
+                if not np.isfinite(g).all():
+                    fail(f"{name}: logits not finite")
+                if tol is not None and err > tol * scale:
+                    fail(f"{name}: first logits max|diff| {err:.3e} > "
+                         f"{tol} x {scale:.3e}")
+                out[f"{dt} {what} {step}"] = dict(
+                    max_abs_diff=err, rel=err / scale,
+                    argmax_equal=bool((g.argmax(-1) == w.argmax(-1)).all()),
+                    held=tol)
+    log("  sharded legacy logits " + json.dumps(dict(
+        model=cfg.name, rank=rank, tp=2, against_one_card=out)))
 
 
 def sharded_full_case(rank: int, world: int, mesh, cfg, seed: int) -> dict:
@@ -4530,7 +4822,7 @@ def sharded_full_case(rank: int, world: int, mesh, cfg, seed: int) -> dict:
     return res
 
 
-def sharded_full_width(dev, counters, add, cases) -> None:
+def sharded_full_width(dev, counters, add, cases, legacy=()) -> None:
     """Each (cfg, seed) of ``cases`` (full width, bf16), plain greedy with
     the serve phase's 8 requests, on 2 ranks sharing the card, the cases
     one after the other in one rank group: the ranks agree on every
@@ -4551,14 +4843,36 @@ def sharded_full_width(dev, counters, add, cases) -> None:
         del eng, params
         gc.collect()
         torch.cuda.empty_cache()
+    legacy_wants = [split_logits(cfg, dev) for cfg in legacy]
     t0 = time.perf_counter()
     per_rank = comm.spawn(sharded_full_rank, 2, timeout=900,
-                          args=(list(cases), dev.type), device=dev.type)
-    log(f"  the {len(cases)} full-width cases at TP=2 took "
+                          args=(list(cases), dev.type, list(legacy)),
+                          device=dev.type)
+    log(f"  the {len(cases)} full-width cases and {len(legacy)} legacy "
+        f"split-family configs at TP=2 took "
         f"{time.perf_counter() - t0:.1f} s in one group of 2 ranks")
+    for i, cfg in enumerate(legacy):
+        for j in range(2):  # dense, static
+            ranks = [rr["legacy"][i][j] for rr in per_rank]
+            if any(r["tokens"] != ranks[0]["tokens"] for r in ranks):
+                fail(f"{cfg.name} {ranks[0]['mode']}: the ranks' streams "
+                     "differ")
+            for r in ranks:
+                add(r["launches"])
+                log("  sharded legacy " + json.dumps(dict(
+                    {k: v for k, v in r.items()
+                     if k not in ("tokens", "launches", "logits")}, tp=2,
+                    backend=comm.backend_for(dev, 2))))
+        for rr in per_rank:
+            split_logits_check(cfg, rr["legacy"][i][0]["rank"],
+                               rr["legacy"][i][0]["logits"], legacy_wants[i])
+        log(f"  {cfg.name} ({cfg.n_layers} layers) legacy at TP=2: streams "
+            f"of the 2 ranks identical; first prefill and decode logits "
+            f"within {TOL_SPLIT_F32} of one card's in f32, and within "
+            f"{TOL_SHARD_LOGITS} in bf16 (the static decode printed)")
     for i, ((cfg, _), want) in enumerate(zip(cases, wants)):
         arch = cfg.name
-        ranks = [rr[i] for rr in per_rank]
+        ranks = [rr["engine"][i] for rr in per_rank]
         for r in ranks[1:]:
             if r["streams"] != ranks[0]["streams"]:
                 fail(f"{arch}: rank {r['rank']}'s streams differ from rank "
@@ -4596,12 +4910,14 @@ def sharded_phase(dev, counters) -> dict:
     """Phase 9: tensor-parallel serving with ranks sharing the one card
     (``comm.backend_for``: gloo, since NCCL refuses two ranks on one
     device). f32 parity at TP = 2, and at TP = 4 in one case
-    (``sharded_parity``), then, in one group of 2 ranks
-    (``sharded_full_width``), OPT-6.7B (4 layers) and Mixtral-8x22B (4 of
-    56 layers) at full width and TP = 2, and OPT-6.7B (4 layers) at the
-    legacy phase's static capacities 0.25 (FFN) / 0.75 (inputs), where
-    every rank must launch kernel 5. Returns the ranks' launches,
-    summed."""
+    (``sharded_parity``; at TP = 2 also the Mamba-1, Zamba-2 and Whisper
+    smoke configs through the legacy engine), then, in one group of 2
+    ranks (``sharded_full_width``), OPT-6.7B (4 layers) and Mixtral-8x22B
+    (4 of 56 layers) at full width and TP = 2, and OPT-6.7B (4 layers) at
+    the legacy phase's static capacities 0.25 (FFN) / 0.75 (inputs),
+    where every rank must launch kernel 5; then the three split families
+    at full width through the legacy engine (``SPLIT_FULL``). Returns the
+    ranks' launches, summed."""
     from repro_torch.sharding import comm
     gc.collect()
     torch.cuda.empty_cache()
@@ -4623,7 +4939,9 @@ def sharded_phase(dev, counters) -> dict:
         (opt, 0),
         (get_config("mixtral-8x22b").replace(n_layers=4,
                                              compute_dtype="bfloat16"), 4),
-        (rf.enable_sparse_serving(opt, 0.25, 0.75), 0)])
+        (rf.enable_sparse_serving(opt, 0.25, 0.75), 0)],
+        [get_config(a).replace(compute_dtype="bfloat16", **kw)
+         for a, kw in SPLIT_FULL.items()])
     for name in ("fused_sparse_ffn", "paged_window_attention",
                  "sparse_matmul_tokens", "sparse_matmul"):
         if total[name] <= 0:
@@ -5079,7 +5397,7 @@ def one_card_step1(dev, cfg, tc, batch) -> tuple:
 
 
 def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
-    """One rank of the DDP run: 3 uncompressed steps, then 3 with int8
+    """One rank of the DDP run: 2 uncompressed steps, then 2 with int8
     error feedback from the same initial params, each timed with the card
     synchronised; the collectives and their host time (``comm.STATS``,
     data axis) and the peak memory."""
@@ -5108,7 +5426,7 @@ def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
         step = make_ddp_train_step(cfg, tc, mesh)
         torch.cuda.reset_peak_memory_stats(dev)
         rows, ms, coll, n_coll = [], [], [], []
-        for _ in range(3):
+        for _ in range(2):
             comm.STATS.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5285,7 +5603,7 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
     else:
         whole = T.init_params(cfg, seed=tc.seed, device=dev,
                               dtype=torch.float32)
-        params, opt = fsdp.shard_train_state(whole, mesh)
+        params, opt = fsdp.shard_train_state(whole, mesh, cfg)
         del whole
     gc.collect()
     torch.cuda.empty_cache()
@@ -5546,6 +5864,26 @@ def dry_run_records(timeout: float = 240.0) -> dict:
     return out
 
 
+def kernel5_bound_bytes(step) -> tuple:
+    """``step()`` with kernel 5's wrapper recording each call: (its calls,
+    the bytes they must move by ``sparse_matmul_cost``, nvalid read off
+    the card after the step)."""
+    from repro_torch.kernels import sparse_matmul as ksm
+    from repro_torch.launch.op_cost import sparse_matmul_cost
+    fn, seen = ksm.sparse_matmul, []
+    ksm.sparse_matmul = _Recording(fn, (), seen)
+    try:
+        step()
+    finally:
+        ksm.sparse_matmul = fn
+    total = 0
+    for (x, w, idx, nvalid), kw in seen:
+        total += sparse_matmul_cost(
+            x.shape[0], w.shape[1], idx.shape[0], int(nvalid),
+            kw.get("tile", 128), x.element_size(), w.element_size())[0]
+    return len(seen), total
+
+
 def plan_card(dev, counters):
     """(a)'s step on the card: returns its measured figures and the
     path's launches (kernel 5 counted, its first call then held against
@@ -5594,9 +5932,11 @@ def plan_card(dev, counters):
     with first_calls((("sparse_matmul", "sparse_matmul"),)) as calls:
         step()
     held_calls = check_first_calls(calls)
+    k5_calls, k5_bytes = kernel5_bound_bytes(step)
     out = dict(held_bytes=held, peak_bytes=peak, step_ms=ms,
                setup_s=setup_s, kernel5_vs_plain=held_calls,
-               workspace_bytes=workspace)
+               workspace_bytes=workspace, kernel5_calls=k5_calls,
+               kernel5_bound_bytes=k5_bytes)
     del params, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -5629,6 +5969,15 @@ def plan_phase(dev, counters) -> dict:
     if temp_err > TOL_PLAN_TEMP:
         fail(f"plan (a): the step's temporaries {temp} B (peak over held) "
              f"are {temp_err:.4f} off the planned {a['temp_bytes']} B")
+    k5 = a["kernels"]["sparse_matmul"]
+    log(f"  plan (a) kernel 5: the dry run charges {k5['bytes']:.0f} B over "
+        f"{k5['launches']:.0f} launches; the card's {card['kernel5_calls']} "
+        f"calls must move {card['kernel5_bound_bytes']} B by the bound's "
+        "formula")
+    if (k5["bytes"] != card["kernel5_bound_bytes"]
+            or k5["launches"] != card["kernel5_calls"]):
+        fail("plan (a): the dry run's kernel 5 bytes differ from its "
+             "bound's bytes on the card")
     t_max = max(a["t_compute"], a["t_memory"], a["t_collective"])
     log(f"  plan (a) memory: held {card['held_bytes']} B = planned "
         f"{a['arg_bytes']} B; peak {card['peak_bytes']} B vs planned "

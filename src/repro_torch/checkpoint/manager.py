@@ -37,7 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.sharding import comm, rules
+from repro_torch.sharding import comm
 from repro_torch.tree import flatten, unflatten
 
 Tree = Any
@@ -61,8 +61,7 @@ def _whole(leaf, sharding) -> Optional[np.ndarray]:
         blocks = comm.gather_to_first(t, mesh)
         if blocks is None:
             return None
-        t = rules.full_from_blocks(blocks, sharding.spec, mesh,
-                                   sharding.full_shape(t.shape))
+        t = sharding.full(blocks)
     return _host(t) if mesh.rank == 0 else None
 
 

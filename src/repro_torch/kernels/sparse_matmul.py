@@ -223,6 +223,21 @@ def shared_list_columns(T: int) -> int:
     return 32 if T <= TG_M else 64
 
 
+@torch.library.custom_op("repro_torch::sparse_matmul", mutates_args=())
+def sparse_matmul_op(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                     nvalid: torch.Tensor, tile: int) -> torch.Tensor:
+    """``sparse_matmul`` as one operator of torch's dispatcher, so that a
+    dispatch mode sees kernel 5 whole: on "meta" tensors its fake makes
+    the empty (T, D) f32 output, and the dry run's ``launch/op_cost.py``
+    counts the call by the kernel's own bytes and FLOPs."""
+    return sparse_matmul(x, w, idx, nvalid, tile=tile)
+
+
+@sparse_matmul_op.register_fake
+def _(x, w, idx, nvalid, tile):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.float32)
+
+
 def sparse_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     """One tile list shared by every row: x (T, F), w (F, D), idx (K,) int32
     tile ids in any order, nvalid () int32. Returns (T, D) f32, the sum over
@@ -230,8 +245,12 @@ def sparse_matmul(x, w, idx, nvalid, *, tile: int = 128) -> torch.Tensor:
     tensors launch the kernel (``sparse_matmul.launches`` counts them): for
     bf16 weights the shared-list mode of the tile-grouped tensor-core
     routine (an f32 x multiplied unrounded, as three bf16 terms), for f32
-    weights and x the CUDA-core row gather."""
+    weights and x the CUDA-core row gather. On "meta" tensors (the dry
+    run) it is the operator ``sparse_matmul_op``, which a dispatch mode
+    sees as one call."""
     if rt.on_cpu(x, w, idx, nvalid):
+        if x.is_meta:
+            return sparse_matmul_op(x, w, idx, nvalid, tile)
         return sparse_matmul_plain(x, w, idx, nvalid, tile=tile)
     T, F = x.shape
     D, K = w.shape[1], idx.shape[0]

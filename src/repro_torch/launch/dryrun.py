@@ -24,8 +24,11 @@ How a cell runs (``run_cell``):
    by kind with the ring multipliers).
 
 No kernel runs: on meta tensors every kernel wrapper takes its plain
-version, so a sparse cell is counted as the plain ops of its static tile
-capacities, as the reference's HLO counts XLA's ops and not its kernels.
+version, as the reference's HLO counts XLA's ops and not its kernels;
+but kernel 5, the static tile capacities' gather, is counted by its own
+bytes and FLOPs (``op_cost``), so a sparse cell counts the weight tiles
+it reads. The record's ``kernels`` holds each such kernel's calls, bytes
+and FLOPs.
 
 Hardware model, per H100 SXM (each with its source): 989.4e12 bf16 dense
 FLOP/s (NVIDIA H100 datasheet, SXM), 3.35e12 B/s HBM3 (datasheet, SXM),
@@ -106,6 +109,10 @@ def _counts(stats, cost, arg_bytes: int) -> dict:
     for axis, d in stats.by_axis().items():
         for k, v in d.items():
             out[f"axis/{axis}/{k}"] = v
+    for name, (calls, nbytes, flops) in cost.kernels.items():
+        for k, v in (("launches", calls), ("bytes", nbytes),
+                     ("flops", flops)):
+            out[f"kernel/{name}/{k}"] = v
     return out
 
 
@@ -142,7 +149,7 @@ def _measure(cfg, shape, mesh_fn, n_chips: int, remat: str, profile: int,
     return counts, cost.profile(profile) if profile else []
 
 
-def _fit(runs: dict, L: int, m: int) -> dict:
+def _fit(runs: dict, L: int, m: int, every: int = 0) -> dict:
     """The counts at L layers and m microbatches from runs at L in {1, 2}
     and, for a train cell of 3 or more microbatches, m in {2, 3} (from two
     on the step also divides its gradients by m): every count but the
@@ -150,15 +157,24 @@ def _fit(runs: dict, L: int, m: int) -> dict:
     microbatches run the same ops on the same shapes (the trip-count
     scaling of the reference's HLO cost model); the peak, reached inside
     one microbatch, and the temporaries above the arguments, linear in L
-    from the runs at the largest m."""
+    from the runs at the largest m. ``every`` (Zamba-2's ``attn_every``):
+    a block applied after each full ``every`` layers adds its own counts
+    (S0 + m·S1) L // every times, read off runs at L = ``every`` too."""
     ms = sorted({k[1] for k in runs})
     out = {}
-    for key in runs[(1, ms[0])]:
+    for key in sorted({key for run in runs.values() for key in run}):
         def q(l, mm):
             return runs[(l, mm)].get(key, 0)
+
+        def extra(mm):  # one application of the every-th block
+            if not every:
+                return 0
+            return q(every, mm) - (q(1, mm) + (every - 1) * (q(2, mm)
+                                                             - q(1, mm)))
         if key in ("peak", "temp") or len(ms) == 1:
             mm = ms[-1]
-            out[key] = q(1, mm) + (L - 1) * (q(2, mm) - q(1, mm))
+            out[key] = (q(1, mm) + (L - 1) * (q(2, mm) - q(1, mm))
+                        + (L // every if every else 0) * extra(mm))
             continue
         m0, m1 = ms
         per_m = [(q(1, m1) - q(1, m0)) / (m1 - m0),
@@ -169,6 +185,9 @@ def _fit(runs: dict, L: int, m: int) -> dict:
         a1 = fixed[1] - fixed[0]
         a0 = fixed[0] - a1
         out[key] = a0 + a1 * L + m * (b0 + b1 * L)
+        if every:
+            s1 = (extra(m1) - extra(m0)) / (m1 - m0)
+            out[key] += (L // every) * (extra(m0) + (m - m0) * s1)
     return out
 
 
@@ -233,13 +252,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         raise ValueError(f"batch {shape.global_batch} does not cut into {m} "
                          f"microbatches split over {rows} data rows")
     t0 = time.time()
-    fit = extrapolate and (L > 2 or (train and m > 2))
+    every = cfg.attn_every if cfg.family == "hybrid" else 0
+    # a shared block every 1 or 2 layers is in the runs at 1 and 2 layers
+    fit = (extrapolate and not 0 < every <= 2
+           and (L > max(2, every) or (train and m > 2)))
     if not fit:
         counts, prof = _measure(cfg, shape, mesh_fn, n_chips, remat, profile)
     else:
         runs, ms = {}, (2, 3) if train and m > 2 else (m,)
+        layers_run = (1, 2) + ((every,) if every else ())
         for mm in ms:
-            for ll in (1, 2):
+            for ll in layers_run:
                 sh = dataclasses.replace(
                     shape, num_microbatches=mm,
                     global_batch=shape.global_batch // m * mm)
@@ -248,14 +271,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                     profile)
                 runs[(ll, mm)]["temp"] = (runs[(ll, mm)]["peak"]
                                           - runs[(ll, mm)]["arg"])
-        counts = _fit(runs, L, m)
+        counts = _fit(runs, L, m, every)
         # the arguments at full size are built and counted, not fitted
         # (each leaf's bytes round up to the allocator's blocks)
         counts["arg"] = _measure(cfg, shape, mesh_fn, n_chips, remat, 0,
                                  run=False)[0]["arg"]
         counts["peak"] = counts["arg"] + counts.pop("temp")
-        rec["extrapolated_from"] = {"layers": [1, 2], "microbatches":
-                                    list(ms)}
+        rec["extrapolated_from"] = {"layers": list(layers_run),
+                                    "microbatches": list(ms)}
     wire = sum(v for k, v in counts.items() if k.startswith("wire/"))
     flops, nbytes, peak = counts["flops"], counts["bytes"], counts["peak"]
     rec.update(
@@ -270,6 +293,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             axis: {k: int(counts.get(f"axis/{axis}/{k}", 0))
                    for k in ("count", "payload_bytes")}
             for axis in ("model", "data", "world")},
+        kernels={name: {k: counts.get(f"kernel/{name}/{k}", 0)
+                        for k in ("launches", "bytes", "flops")}
+                 for name in sorted({k.split("/")[1] for k in counts
+                                     if k.startswith("kernel/")})},
         peak_bytes_per_chip=int(peak),
         arg_bytes=int(counts["arg"]),
         temp_bytes=int(peak - counts["arg"]),

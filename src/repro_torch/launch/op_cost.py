@@ -28,9 +28,18 @@ real ones, and it records:
   reference dies. ``live`` is the bytes alive now;
 * the top-N op profile (``profile``): each op's calls, bytes and FLOPs.
 
-Each kernel wrapper on a meta tensor takes its plain version, so a step
-on meta tensors is counted as the plain PyTorch ops, as the reference's
-HLO counts XLA's ops and not its Pallas kernels.
+A kernel wrapper on meta tensors takes its plain version, so a step on
+meta tensors is counted as the plain PyTorch ops, as the reference's HLO
+counts XLA's ops and not its Pallas kernels; except kernel 5
+(``kernels/sparse_matmul.py::sparse_matmul``, the static tile capacities'
+gather), which reaches the dispatcher as one operator
+(``repro_torch::sparse_matmul``). ``KERNEL_COSTS`` counts such an operator
+by the kernel's own bytes and FLOPs, the formula of its bound
+(``sparse_matmul_cost``), so a sparse cell counts the weight tiles the
+kernel reads and not a plain gather's copy of them. That is a model at
+the bound, not a measurement: the kernel on the card takes longer than
+its bound. ``OpCost.kernels`` holds each such kernel's calls, bytes and
+FLOPs.
 """
 from __future__ import annotations
 
@@ -55,6 +64,29 @@ _SLICE_WRITES = {"index_copy_", "index_put_", "_index_put_impl_",
 _GATHERS = {"index", "embedding", "index_select", "gather"}
 
 
+def sparse_matmul_cost(T: int, D: int, K: int, nvalid: int, tile: int,
+                       x_itemsize: int, w_itemsize: int) -> tuple:
+    """Kernel 5's own work, its bound's formula: (HBM bytes, FLOPs). Bytes:
+    the nvalid listed tiles of w (tile x D each) once, x's selected
+    columns (T x nvalid x tile), the list (K int32) and nvalid, the (T, D)
+    f32 output; FLOPs: 2·T·nvalid·tile·D."""
+    return (nvalid * tile * D * w_itemsize + T * nvalid * tile * x_itemsize
+            + K * 4 + 4 + T * D * 4, 2.0 * T * nvalid * tile * D)
+
+
+def _sparse_matmul_op_cost(x, w, idx, nvalid, tile) -> tuple:
+    # every listed slot counted valid (nvalid = K): a static capacity
+    # lists the tiles whose score is above 0, which no meta tensor can say
+    K = idx.shape[0]
+    return sparse_matmul_cost(x.shape[0], w.shape[1], K, K, tile,
+                              x.element_size(), w.element_size())
+
+
+# a kernel's operator (its schema name) -> (HBM bytes, FLOPs) of a call
+# from its arguments
+KERNEL_COSTS = {"repro_torch::sparse_matmul": _sparse_matmul_op_cost}
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -73,7 +105,20 @@ class OpCost(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.ops: Dict[str, list] = defaultdict(lambda: [0, 0.0, 0.0])
+        self.kernels: Dict[str, list] = {}
         self._seen = WeakIdKeyDictionary()
+
+    def _charge(self, name: str, nbytes: float, flops: float) -> None:
+        """Count one call of kernel ``name`` at its own ``nbytes`` HBM
+        bytes and ``flops`` (in the totals, the op profile and
+        ``kernels``)."""
+        self.flops += flops
+        self.bytes += nbytes
+        for table in (self.ops, self.kernels):
+            rec = table.setdefault(name, [0, 0.0, 0.0])
+            rec[0] += 1
+            rec[1] += nbytes
+            rec[2] += flops
 
     # -- storage tracking ---------------------------------------------------
     @staticmethod
@@ -135,6 +180,13 @@ class OpCost(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         packet = func.overloadpacket
+        cost = KERNEL_COSTS.get(func.name())
+        if cost is not None:
+            out = func(*args, **kwargs)
+            self._charge(packet.__name__, *cost(*args, **kwargs))
+            for t in _tensors(out):
+                self._track(t)
+            return out
         if func is not torch.ops.prim.device.default:
             # a composite op (matmul, einsum under inference_mode) is
             # counted as the ops it decomposes into, as FlopCounterMode
@@ -164,4 +216,3 @@ class OpCost(TorchDispatchMode):
         top = sorted(self.ops.items(), key=lambda kv: -kv[1][1])[:n]
         return [f"{b / 1e6:10.1f} MB {f / 1e9:9.2f} GF {c:7d}x  {name}"
                 for name, (c, b, f) in top]
-

@@ -7,7 +7,7 @@ table and the serving bytes-per-step gate.
         ``launch/dryrun.py``, not measured), the bottleneck, the model
         FLOPs over the counted FLOPs, the peak GB a chip and whether it
         fits in 80 GB. A record with an error shows as ERROR. A sparse
-        cell's density is marked as counted from plain ops (``table``).
+        cell's bytes are kernel 5's own (``launch/op_cost.py``).
 
     python -m repro_torch.launch.roofline --serving [--check [--tol 0.15]]
         [--config tiny-relu] [--device cpu]
@@ -81,23 +81,15 @@ def load(path: str) -> List[Dict]:
     return out
 
 
-# beside a sparse cell's density: its counts are the plain ops of the
-# static tile capacities (kernel 5's plain gather on "meta"), not the
-# kernel's own bytes and FLOPs
-PLAIN_MARK = "(plain-op)"
-
-
 def table(recs: List[Dict], md: bool = False) -> str:
     """The dry-run table (module note); ``md`` as a markdown table. A
-    sparse cell's density reads ``PLAIN_MARK`` beside it, and a legend
-    line under the table says what that means."""
+    sparse cell's bytes count kernel 5's own (``launch/op_cost.py``)."""
     hdr = ("cell", "mesh", "sparse", "t_compute", "t_memory", "t_coll",
            "bound", "MF/counted", "peak_GB", "fit", "step_est")
     rows = [hdr]
 
     def density(r):
-        s = r.get("sparse", 0)
-        return f"{s}{PLAIN_MARK}" if s else "-"
+        return str(r.get("sparse") or "-")
 
     for r in recs:
         cell = f"{r['arch']}/{r['shape']}"
@@ -122,10 +114,6 @@ def table(recs: List[Dict], md: bool = False) -> str:
         lines.append(("| " + line + " |") if md else line)
         if md and j == 0:
             lines.append("|" + "|".join("-" * (w + 2) for w in widths) + "|")
-    if any(r.get("sparse") for r in recs):
-        lines.append(f"{PLAIN_MARK}: a sparse cell counts the plain ops of "
-                     "its static tile capacities (kernel 5's plain gather), "
-                     "not the kernel's own bytes")
     return "\n".join(lines)
 
 

@@ -15,10 +15,14 @@ training.
 
 Layouts: the train step's state is ``train/fsdp.py``'s (the rules' train
 mode); serving weights are the serving engine's (the rules' serve mode on
-the mesh's model row: split over "model", whole over the data axes); the
-legacy cache is ``rules.cache_pspec``'s (batch over the data axes,
-sequence over "model", ``transformer.apply_attn_decode``); batches and
-tokens split over the data axes by ``rules.batch_pspec``.
+the mesh's model row: split over "model", whole over the data axes; the
+SSM leaves by the family's blocks, ``models/common.py::leaf_sharding``);
+the legacy cache is the family's own ``init_cache`` under the mesh, of the
+rank's rows of the batch (its K/V sequence-sharded as
+``rules.cache_pspec`` lays it out, its SSM states and conv tails the
+rank's d_inner units or heads, Whisper's cross K/V its kv heads, as
+``model_prefill`` makes them); batches and tokens split over the data
+axes by ``rules.batch_pspec``.
 
 Each ``build_*`` returns (step, args): ``step(*args)`` runs the rank's
 step. ``device`` (default "meta") puts the rank's arguments on a real
@@ -27,18 +31,16 @@ a dry run against a gloo run of the same cell).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.models import common as cm
 from repro_torch.models import registry
 from repro_torch.sharding import comm, rules
-from repro_torch.tree import tree_map
 
 META = torch.device("meta")
-# the families whose serving steps split over "model" (ShardLayout)
-MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
@@ -85,17 +87,6 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
         cfg, shape.global_batch, shape.seq_len, device="meta")
 
 
-def cache_shardings(cache, mesh) -> Any:
-    """``rules.Sharding`` of each cache leaf: a KV cache (5-d, (L, b, kvp,
-    S, hd)) by ``rules.cache_pspec``, an SSM state by
-    ``rules.ssm_cache_pspec``."""
-    def spec(t):
-        return rules.Sharding(mesh, rules.cache_pspec(tuple(t.shape), mesh)
-                              if t.dim() == 5 else
-                              rules.ssm_cache_pspec(tuple(t.shape), mesh))
-    return tree_map(spec, cache)
-
-
 def local(t: torch.Tensor, sharding: rules.Sharding,
           device=META) -> torch.Tensor:
     """A fresh tensor of this rank's block of ``t`` (its own storage,
@@ -114,14 +105,10 @@ def _local_tree(tree, shardings, device=META):
 
 def _serving_params(cfg: ModelConfig, mesh, device=META) -> Dict:
     """This rank's serving blocks (the engine's layout: serve rules on
-    the model row)."""
-    if rules.tp_size(mesh) > 1 and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's serving steps split the "
-            f"{MESH_FAMILIES} families over 'model', not {cfg.family!r}")
+    the model row, the family's SSM blocks)."""
     whole = params_spec(cfg)
-    return _local_tree(whole, rules.params_shardings(whole, mesh.model_row(),
-                                                     "serve"), device)
+    return _local_tree(whole, cm.params_shardings(
+        cfg, whole, mesh.model_row(), "serve"), device)
 
 
 def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, tc: TrainConfig,
@@ -155,13 +142,15 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh, device=META):
 
 def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh, device=META):
     """One legacy decode step on this rank: its rows of the batch against
-    its block of the cache (``cache_shardings``), written in place."""
+    its block of the cache (the family's ``init_cache`` under the mesh, of
+    those rows), written in place."""
     params = _serving_params(cfg, mesh, device)
-    cache = cache_specs(cfg, shape)
-    cache = _local_tree(cache, cache_shardings(cache, mesh), device)
     inp = _local_tree(input_specs(cfg, shape),
                       batch_shardings(cfg, shape, mesh), device)
     fam = registry.get_family(cfg)
+    with comm.serving(mesh):
+        cache = fam.init_cache(cfg, inp["token"].shape[0], shape.seq_len,
+                               device=device)
 
     def step(params, cache, token, pos):
         with torch.inference_mode(), comm.serving(mesh):

@@ -249,7 +249,10 @@ class ShardLayout:
     kv heads do not divide M they are whole ("none"; their d_model rows go
     to "data"). d: d_model rows of row-split ``wk``/``wv``. vocab:
     embedding rows. ffn: d_ff units (``wu``/``wg`` columns, ``wd`` rows,
-    the γ-masks). experts: MoE experts."""
+    the γ-masks). experts: MoE experts. inner: the SSM's d_inner units
+    (Mamba-1's, or the units of Mamba-2's heads); ssm_heads: Mamba-2's
+    heads. These two come from the family's blocks (``leaf_sharding``),
+    not the rules: every SSM leaf is cut by the rank's units or heads."""
 
     tp: int
     q: tuple
@@ -262,6 +265,8 @@ class ShardLayout:
     d_ff: int
     vocab_size: int
     heads: LocalHeads = dataclasses.field(compare=False)
+    inner: tuple = (0, 0)
+    ssm_heads: tuple = (0, 0)
 
     @property
     def q_split(self) -> bool:
@@ -310,6 +315,7 @@ def _layout(cfg: ModelConfig, tp: int, rank: int,
             f"{cfg.name} at TP={tp}: {hq} q slots a rank straddle its "
             f"groups of {g.group} slots per kv head")
     vp = padded_vocab(cfg.vocab_size)
+    inner, ssm_heads = _ssm_blocks(cfg, tp, rank)
     F = cfg.d_ff
     if cfg.n_experts:
         wshape = (L, cfg.n_experts, d, F)
@@ -323,7 +329,114 @@ def _layout(cfg: ModelConfig, tp: int, rank: int,
         d=block(d, kv_split == "embed"),
         vocab=block(vp, split("embed", (vp, d), 0)),
         ffn=ffn, experts=experts, d_ff=F, vocab_size=cfg.vocab_size,
-        heads=LocalHeads(g, q0, hq, kv[1], group))
+        heads=LocalHeads(g, q0, hq, kv[1], group), inner=inner,
+        ssm_heads=ssm_heads)
+
+
+def _ssm_blocks(cfg: ModelConfig, tp: int, rank: int):
+    """(inner, ssm_heads) of ``ShardLayout``: Mamba-1 splits its d_inner
+    units, Mamba-2 its heads (and their units) over the M ranks; a count
+    that M does not divide raises. Other families: (0, 0) each."""
+    if cfg.family == "mamba":
+        di = cfg.d_inner
+        if di % tp:
+            raise NotImplementedError(
+                f"{cfg.name} at TP={tp}: d_inner {di} does not split over "
+                "the 'model' axis")
+        return (rank * (di // tp), di // tp), (0, 0)
+    if cfg.family == "hybrid":
+        nh, hd = cfg.n_ssm_heads, cfg.ssm_head_dim
+        if nh % tp:
+            raise NotImplementedError(
+                f"{cfg.name} at TP={tp}: {nh} SSM heads do not split over "
+                "the 'model' axis")
+        h0, hl = rank * (nh // tp), nh // tp
+        return (h0 * hd, hl * hd), (h0, hl)
+    return (0, 0), (0, 0)
+
+
+# the SSM leaves a family splits apart from the rules: leaf name -> the
+# dim, counted from the end, that holds the rank's d_inner units or
+# Mamba-2 heads; an in_proj packs segments (``_packed_in_proj``)
+_SSM_DIMS = {
+    "mamba": {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2,
+              "dt_proj": -1, "dt_bias": -1, "A_log": -2, "D": -1,
+              "out_proj": -2},
+    "hybrid": {"in_proj": -1, "conv_w": -1, "conv_b": -1, "gnorm": -1,
+               "A_log": -1, "D": -1, "dt_bias": -1, "out_proj": -2},
+}
+
+
+def _packed_in_proj(cfg: ModelConfig):
+    """The (size, split) segments of an SSM ``in_proj``'s columns: Mamba-1
+    packs [x1 | z], each split by the rank's units; Mamba-2 packs [z | x |
+    B | C | dt], z, x and dt split by its heads, B and C whole on every
+    rank."""
+    di = cfg.d_inner
+    if cfg.family == "mamba":
+        return ((di, True), (di, True))
+    st, nh = cfg.ssm_state, cfg.n_ssm_heads
+    return ((di, True), (di, True), (st, False), (st, False), (nh, True))
+
+
+def leaf_sharding(cfg: ModelConfig, path: str, shape, mesh,
+                  mode: str) -> rules.Sharding:
+    """The ``rules.Sharding`` of ``cfg``'s leaf at ``path`` (whole
+    ``shape``) on ``mesh`` in the rules' ``mode``: the rules'
+    ``param_pspec``, except a ``layers/ssm/*`` leaf of the Mamba-1 and
+    Zamba-2 families, whose spec has "model" moved to the dim of the
+    rank's units or heads (``_SSM_DIMS``; the rules' other axes, "data" in
+    training, kept), ``in_proj`` packed. The rules stay the reference's:
+    where they split these leaves otherwise (``ssm/in_proj`` as one column
+    block, Mamba-1's ``A_log`` over its state dim) or not at all
+    (``x_proj``, ``dt_proj``, ``gnorm``), GSPMD reshards what a hand-split
+    forward cannot. A split that the model axis does not divide raises
+    (``_ssm_blocks``)."""
+    spec = rules.param_pspec(path, tuple(shape), mesh, mode)
+    parts = path.split("/")
+    dims = _SSM_DIMS.get(cfg.family, {})
+    if len(parts) < 2 or parts[-2] != "ssm" or parts[-1] not in dims:
+        return rules.Sharding(mesh, spec)
+    _ssm_blocks(cfg, rules.tp_size(mesh), 0)
+    spec = [None if a == "model" else a for a in spec]
+    dim = len(shape) + dims[parts[-1]]
+    assert spec[dim] is None, (path, spec)
+    spec[dim] = "model"
+    packed = (dim, _packed_in_proj(cfg)) if parts[-1] == "in_proj" else None
+    return rules.Sharding(mesh, tuple(spec), packed)
+
+
+def _map_paths(fn: Callable, tree, prefix: str = ""):
+    """``fn(path, leaf)`` of each leaf of a dict tree, in its structure and
+    order (``path``: the keys joined by "/")."""
+    out = {}
+    for key, leaf in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out[key] = (_map_paths(fn, leaf, path) if isinstance(leaf, dict)
+                    else fn(path, leaf))
+    return out
+
+
+def params_shardings(cfg: ModelConfig, params, mesh, mode: str):
+    """A tree of ``rules.Sharding`` in ``params``' structure: each leaf's
+    ``leaf_sharding`` by its path and whole shape (the reference's
+    ``rules.params_shardings``)."""
+    return _map_paths(lambda path, leaf: leaf_sharding(
+        cfg, path, leaf.shape, mesh, mode), params)
+
+
+def shard_params(cfg: ModelConfig, params, mesh, mode: str = "serve",
+                 device=None):
+    """This rank's blocks of ``cfg``'s parameter tree (``leaf_sharding``),
+    on ``device`` (default: each leaf's own). Leaf by leaf: a leaf's block
+    is copied out (contiguous, on ``device``) before the next leaf is
+    touched, so a tree held on the host reaches the card one block at a
+    time, and the caller can free the full tree as the blocks come."""
+    def block(path, leaf):
+        out = leaf_sharding(cfg, path, leaf.shape, mesh, mode).block(leaf)
+        return out.to(device or leaf.device, copy=True).contiguous()
+
+    return _map_paths(block, params)
 
 
 def shard_layout(cfg: ModelConfig) -> Optional[ShardLayout]:
@@ -374,6 +487,41 @@ def reduce_partial(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return comm.all_reduce_sum(y).to(dtype)
 
 
+def model_sum(y: torch.Tensor) -> torch.Tensor:
+    """The f32 sum over the model axis of the ranks' partials ``y``, read
+    by computations split over the ranks (each rank's own units or heads
+    use all of it): under autograd its gradient is summed over the ranks
+    too (``comm.copy_to_model`` after ``comm.all_reduce_sum``)."""
+    return comm.copy_to_model(comm.all_reduce_sum(y))
+
+
+def rows_partial(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+                 density: float, start: int, total: int,
+                 tp: int) -> torch.Tensor:
+    """This rank's f32 partial of a product whose ``total`` contracted
+    units are split over the ``tp`` ranks: x (t, n) and w (n, D) hold the
+    units [start, start + n). At density 1 ``partial_matmul``; below it
+    the static capacity's selection is one device's (``static_plan`` over
+    all ``total`` units): each rank selects alone when every group lies in
+    one rank's slice, else from the tile scores put together over the
+    ranks (``rank_tile_scores``); then it runs its part of the list
+    (``rank_tiles``) through ``gathered_matmul``, kernel 5 on the card."""
+    if density >= 1.0:
+        return partial_matmul(x, w)
+    tile, groups = static_plan(total, cfg)
+    if groups % tp == 0:
+        idx, mask = select_active_tiles(batch_tile_scores(x, tile), density,
+                                        groups // tp)
+        start = 0  # the list is over this rank's units already
+    else:
+        idx, mask = select_active_tiles(
+            rank_tile_scores(x, tile, start, total), density, groups)
+    return gathered_matmul(x, w, *rank_tiles(idx, mask, tile, start,
+                                             x.shape[1],
+                                             cfg.sparsity.tile_size),
+                           out_dtype=torch.float32)
+
+
 def sublayer_sum(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A sublayer's output from the ranks' f32 partials ``y`` (..., d),
     cast once to ``dtype``: their sum (``reduce_partial``), or under
@@ -410,15 +558,32 @@ def sp_fits(cfg: ModelConfig) -> bool:
 _CACHE = threading.local()
 
 
+def rank_cache_rows(max_len: int):
+    """This rank's rows (s0, length) of a legacy contiguous K/V cache of
+    ``max_len`` positions under the active mesh: length = max_len / M
+    positions from s0 = model index x length (``rules.cache_pspec``'s
+    sequence split); None without a mesh. Raises where M does not divide
+    max_len."""
+    mesh = comm.active()
+    if mesh is None:
+        return None
+    n = mesh.shape["model"]
+    if max_len % n:
+        raise ValueError(f"max_len {max_len} does not split over the {n} "
+                         "ranks of the model axis")
+    return mesh.coords["model"] * (max_len // n), max_len // n
+
+
 @contextlib.contextmanager
-def cache_rows(s0: int, length: int):
+def cache_rows(rows):
     """Run a full-sequence forward whose returned K/V are the legacy
-    contiguous cache's rows of this rank of a model axis (positions s0 ..
-    s0 + length - 1, zero past the prompt) with every kv head: the
-    sequence-sharded layout of ``rules.cache_pspec`` (``transformer.
-    prefill`` under a mesh)."""
+    contiguous cache's rows ``rows`` = (s0, length) of this rank of a
+    model axis (positions s0 .. s0 + length - 1, zero past the prompt)
+    with every kv head: the sequence-sharded layout of
+    ``rules.cache_pspec`` (``rank_cache_rows``; ``transformer.prefill``
+    under a mesh). None: the forward runs as it would."""
     prev = getattr(_CACHE, "rows", None)
-    _CACHE.rows = (s0, length)
+    _CACHE.rows = rows
     try:
         yield
     finally:
@@ -812,9 +977,11 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     On CUDA tensors it is kernel 5 (``kernels.sparse_matmul.sparse_matmul``)
     with nvalid = mask.sum() kept on the device: ``select_active_tiles``
     lists the tiles with a score above 0 first, and a masked tile's x is all
-    zero, so the kernel's sum over idx[:nvalid] is the reference's. On CPU
-    tensors it is the reference's gather-and-matmul."""
-    if x.is_cuda:
+    zero, so the kernel's sum over idx[:nvalid] is the reference's. On
+    "meta" tensors (the dry run) it is kernel 5's wrapper too, one
+    operator that the dry run counts at the kernel's own cost. On CPU tensors it is the reference's
+    gather-and-matmul."""
+    if x.is_cuda or x.is_meta:
         # imported here: the kernel module's own imports reach this module
         from repro_torch.kernels import sparse_matmul as ksm
         nvalid = mask.sum(dtype=torch.int32)
@@ -894,10 +1061,10 @@ def grouped_matmuls(x: torch.Tensor, ws, idx: torch.Tensor,
     cut to tiles of at most ``most`` (``rank_tiles`` over all F units;
     cfg.sparsity.tile_size caps a group tile of thousands), the valid
     entries first: a masked tile's x is all zero, so the sum over the
-    valid entries is the reference's. On CPU tensors it is the
-    reference's gather and einsum over (group, tile)."""
+    valid entries is the reference's (on "meta" tensors too). On CPU
+    tensors it is the reference's gather and einsum over (group, tile)."""
     t, F = x.shape
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         sel = rank_tiles(idx, mask, tile, 0, F, most)
         return [gathered_matmul(x, w, *sel) for w in ws]
     il = idx.long().reshape(n_groups, -1)  # (G, k_g)
@@ -1004,6 +1171,13 @@ def unstack_layers(layers, n_layers: int):
         subs = {k: unstack_layers(v, n_layers) for k, v in layers.items()}
         return [{k: subs[k][i] for k in subs} for i in range(n_layers)]
     return layers.unbind(0)
+
+
+def release_layer(layers, i: int) -> None:
+    """``layers.release(i)`` when ``layers`` is a ``LayerSource`` (the
+    family's forward is done with layer i), else nothing."""
+    if isinstance(layers, LayerSource):
+        layers.release(i)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ projections stay dense, as in the reference.
 The frames are cast to the compute dtype at the encoder's entry (the
 reference computes in the frames' own dtype; its callers pass the
 compute dtype).
+
+Under a mesh (``sharding.comm.serving``) the encoder blocks and the
+decoder's self-attention and FFN are the transformer's, split as the
+dense family's (padded q slots and kv heads, d_ff, the vocabulary); the
+cross-attention takes the rank's heads (``common.local_heads``): its
+query and K/V over the rank's columns, ``wo`` over its rows summed
+(``transformer._attn_out``). The legacy cache's self-attention K/V are
+sequence-sharded (``transformer.apply_attn_decode``), its cross K/V hold
+the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as T
+from repro_torch.sharding import comm
 
 
 def sinusoid(n: int, d: int) -> np.ndarray:
@@ -73,7 +83,8 @@ def encode(params, frames, cfg: ModelConfig, *,
            stats: cm.StatsCollector = cm.NO_STATS, remat_policy: str = "none"):
     """frames (b, n_frames, d) stub embeddings -> the encoder output
     (b, n_frames, d) after ``enc_norm``. ``stats`` is shared by the layers
-    (no prefix), as in the reference."""
+    (no prefix), as in the reference. A ``common.LayerSource`` in
+    ``params["enc_layers"]`` gives each layer just before its block."""
     b, nf, d = frames.shape
     x = frames.to(T.compute_dtype(cfg))
     x = x + _sinusoid_on(nf, d, x.device).to(x.dtype)
@@ -81,18 +92,28 @@ def encode(params, frames, cfg: ModelConfig, *,
     block = cm.wrap_block(remat_policy,
                           functools.partial(T.apply_block, causal=False))
     n = cfg.n_encoder_layers
-    for p_i in cm.unstack_layers(params["enc_layers"], n):
-        x, _ = block(p_i, x, cfg, positions, stats)
+    layers = cm.unstack_layers(params["enc_layers"], n)
+    for i in range(n):
+        x, _ = block(layers[i], x, cfg, positions, stats)
+        cm.release_layer(layers, i)
     return cm.apply_norm(params["enc_norm"], x, cfg)
+
+
+def _split_in(x, split: bool):
+    """x entering products split over "model" (``comm.copy_to_model``: its
+    gradient summed over the ranks) when ``split``."""
+    return comm.copy_to_model(x) if split else x
 
 
 def _cross_kv(p, enc_out, cfg: ModelConfig):
     """K/V (b, se, kvp, hd) from the encoder output with the cross-attention
-    projections."""
+    projections; under a mesh the rank's kv heads."""
     b, se, d = enc_out.shape
-    g = T.attn_geometry(cfg)
-    k = (enc_out @ p["wk"].reshape(d, -1)).reshape(b, se, g.kvp, g.head_dim)
-    v = (enc_out @ p["wv"].reshape(d, -1)).reshape(b, se, g.kvp, g.head_dim)
+    g = cm.local_heads(cfg)
+    lay = cm.shard_layout(cfg)
+    x = _split_in(enc_out, lay is not None and lay.kv_split == "heads")
+    k = (x @ p["wk"].reshape(d, -1)).reshape(b, se, g.kvp, g.head_dim)
+    v = (x @ p["wv"].reshape(d, -1)).reshape(b, se, g.kvp, g.head_dim)
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     return k, v
@@ -100,9 +121,12 @@ def _cross_kv(p, enc_out, cfg: ModelConfig):
 
 def _cross_q(p, h, cfg: ModelConfig):
     """The cross-attention query (..., hp, hd) of decoder states h (..., d):
-    a dense product, recording no statistics."""
-    g = T.attn_geometry(cfg)
-    q = (h @ p["wq"].reshape(h.shape[-1], -1)).reshape(
+    a dense product, recording no statistics; under a mesh the rank's q
+    slots."""
+    g = cm.local_heads(cfg)
+    lay = cm.shard_layout(cfg)
+    x = _split_in(h, lay is not None and lay.q_split)
+    q = (x @ p["wq"].reshape(h.shape[-1], -1)).reshape(
         h.shape[:-1] + (g.hp, g.head_dim))
     return q + p["bq"] if cfg.qkv_bias else q
 
@@ -110,7 +134,7 @@ def _cross_q(p, h, cfg: ModelConfig):
 def _cross_attend(p, h, kx, vx, cfg: ModelConfig):
     """h (b, s, d) decoder states; kx/vx (b, se, kvp, hd). Every query
     attends every frame."""
-    g = T.attn_geometry(cfg)
+    g = cm.local_heads(cfg)
     b, s, _ = h.shape
     qg = _cross_q(p, h, cfg).reshape(b, s, g.kvp, g.group, g.head_dim)
     o = cm.flash_attention(qg, kx, vx, causal=False)
@@ -136,9 +160,11 @@ def apply_dec_block(p, x, cfg: ModelConfig, enc_out, positions,
     return x, kv
 
 
-def _embed_dec(params, tokens, positions, dtype):
-    x = params["embed"][tokens.long()] + params["pos_embed"][positions.long()]
-    return x.to(dtype)
+def _embed_dec(params, tokens, positions, dtype, cfg: ModelConfig):
+    """Token plus learned position embeddings, in ``dtype`` (the token
+    rows of a vocabulary split over "model": ``transformer.token_rows``)."""
+    x = T.token_rows(params["embed"], tokens, cfg)
+    return (x + params["pos_embed"][positions.long()]).to(dtype)
 
 
 def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
@@ -153,7 +179,7 @@ def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed_dec(params, tokens, positions, enc_out.dtype)
+    x = _embed_dec(params, tokens, positions, enc_out.dtype, cfg)
 
     def dec(p, x_, cfg_, positions_, stats_, sublayer=cm.call):
         # the whole block is one sublayer: the reference names nothing in
@@ -162,8 +188,10 @@ def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
                         stats_)
 
     block = cm.wrap_block(remat_policy, dec)
-    for p_i in cm.unstack_layers(params["dec_layers"], cfg.n_layers):
-        x, _ = block(p_i, x, cfg, positions, stats)
+    layers = cm.unstack_layers(params["dec_layers"], cfg.n_layers)
+    for i in range(cfg.n_layers):
+        x, _ = block(layers[i], x, cfg, positions, stats)
+        cm.release_layer(layers, i)
     x = cm.apply_norm(params["final_norm"], x, cfg)
     return T.logits_from(params, x, cfg)
 
@@ -171,43 +199,53 @@ def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero {"k"/"v" (L, batch, kvp, max_len, hd), "xk"/"xv"
-    (L, batch, kvp, n_audio_frames, hd)}, head-major."""
+    (L, batch, kvp, n_audio_frames, hd)}, head-major. Under a mesh the
+    rank's blocks, as ``model_prefill`` makes them: max_len / M positions
+    of every kv head, the cross K/V of its kv heads."""
     device = cm.resolve_device(device)
     dtype = dtype or T.compute_dtype(cfg)
-    g = T.attn_geometry(cfg)
+    g, gx = T.attn_geometry(cfg), cm.local_heads(cfg)
     L = cfg.n_layers
+    rows = cm.rank_cache_rows(max_len)
+    max_len = max_len if rows is None else rows[1]
 
-    def zeros(s):
-        return torch.zeros((L, batch, g.kvp, s, g.head_dim), dtype=dtype,
+    def zeros(kvp, s):
+        return torch.zeros((L, batch, kvp, s, g.head_dim), dtype=dtype,
                            device=device)
 
-    return {"k": zeros(max_len), "v": zeros(max_len),
-            "xk": zeros(cfg.n_audio_frames), "xv": zeros(cfg.n_audio_frames)}
+    return {"k": zeros(g.kvp, max_len), "v": zeros(g.kvp, max_len),
+            "xk": zeros(gx.kvp, cfg.n_audio_frames),
+            "xv": zeros(gx.kvp, cfg.n_audio_frames)}
 
 
 def model_prefill(params, batch, cfg: ModelConfig, max_len: int,
                   stats=cm.NO_STATS):
     """Encode the frames, run the prompt through the decoder; the cache
     holds the self-attention K/V (padded to max_len) and the cross K/V of
-    every layer. Returns (last logits (b, vocab_p), cache)."""
+    every layer. Returns (last logits (b, vocab_p), cache). Under a mesh
+    the rank's blocks (``init_cache``): the self-attention K/V its
+    max_len / M positions of every kv head (``common.cache_rows``)."""
     params = cm.cast_params(params, cfg)
     enc_out = encode(params, batch["frames"], cfg, stats=stats)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed_dec(params, tokens, positions, enc_out.dtype)
+    x = _embed_dec(params, tokens, positions, enc_out.dtype, cfg)
+    rows = cm.rank_cache_rows(max_len)
     ks, vs, xks, xvs = [], [], [], []
-    for p_i in cm.unstack_layers(params["dec_layers"], cfg.n_layers):
-        kx, vx = _cross_kv(p_i["xattn"], enc_out, cfg)
-        x, (k, v) = apply_dec_block(p_i, x, cfg, enc_out, positions, stats,
-                                    cross_kv=(kx, vx))
-        ks.append(k)
-        vs.append(v)
-        xks.append(kx)
-        xvs.append(vx)
+    with cm.cache_rows(rows):
+        for p_i in cm.unstack_layers(params["dec_layers"], cfg.n_layers):
+            kx, vx = _cross_kv(p_i["xattn"], enc_out, cfg)
+            x, (k, v) = apply_dec_block(p_i, x, cfg, enc_out, positions,
+                                        stats, cross_kv=(kx, vx))
+            ks.append(k)
+            vs.append(v)
+            xks.append(kx)
+            xvs.append(vx)
     x = cm.apply_norm(params["final_norm"], x, cfg)
     logits = T.logits_from(params, x[:, -1:], cfg)
-    cache = T.finalize_prefill_cache(torch.stack(ks), torch.stack(vs), max_len)
+    cache = T.finalize_prefill_cache(torch.stack(ks), torch.stack(vs),
+                                     max_len if rows is None else rows[1])
     cache["xk"] = torch.stack(xks).permute(0, 1, 3, 2, 4).contiguous()
     cache["xv"] = torch.stack(xvs).permute(0, 1, 3, 2, 4).contiguous()
     return logits[:, -1], cache
@@ -218,18 +256,20 @@ def apply_dec_block_decode(p, x, cfg: ModelConfig, kc, vc, xk, xv, pos, *,
     """One-token decoder block of ``layer``: self-attention against the
     contiguous cache (written in place), cross-attention over every frame
     (``decode_attention`` at position se - 1), the FFN at the static tile
-    capacities. Returns (x, kc, vc)."""
+    capacities. Returns (x, kc, vc). Under a mesh the cross-attention
+    runs the rank's heads over its cross K/V (whole over the frames: the
+    unsharded ``window_attention``)."""
     h = T.post_norm(cm.apply_norm(p["ln1"], x[:, None], cfg)[:, 0], cfg)
     a, kc, vc = T.apply_attn_decode(p["attn"], h, cfg, kc, vc, pos,
                                     stats=stats, layer=layer)
     x = x + a
     h = T.post_norm(cm.apply_norm(p["lnx"], x[:, None], cfg)[:, 0], cfg)
-    g = T.attn_geometry(cfg)
+    g = cm.local_heads(cfg)
     q = _cross_q(p["xattn"], h, cfg)
     se = xk.shape[3]  # head-major (L, b, kvp, se, hd)
-    last = torch.full((x.shape[0],), se - 1, dtype=torch.int32,
+    last = torch.full((x.shape[0], 1), se - 1, dtype=torch.int32,
                       device=x.device)
-    o = cm.decode_attention(q.reshape(-1, g.kvp, g.group, g.head_dim),
+    o = cm.window_attention(q.reshape(-1, 1, g.kvp, g.group, g.head_dim),
                             xk[layer], xv[layer], last)
     x = x + T._attn_out(p["xattn"], o.reshape(o.shape[0], 1, g.hp,
                                                 g.head_dim), cfg)[:, 0]
@@ -244,7 +284,7 @@ def model_decode(params, cache, token, pos, cfg: ModelConfig,
     active ``stats`` is shared by every layer with no ``layer{i}/``
     prefix, as in the reference. Returns (logits (b, vocab_p), cache)."""
     params = cm.cast_params(params, cfg)
-    x = _embed_dec(params, token, pos, T.compute_dtype(cfg))
+    x = _embed_dec(params, token, pos, T.compute_dtype(cfg), cfg)
     kc, vc = cache["k"], cache["v"]
     for i in range(cfg.n_layers):
         p_i = cm.layer_params({"layers": params["dec_layers"]}, i)

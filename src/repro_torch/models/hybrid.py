@@ -20,6 +20,21 @@ falcon-mamba's, sparsifying the out_proj input after the gated RMSNorm.
 At static tile capacities the decode step's out_proj and the shared
 block's q/k/v and FFN products gather their inputs' top tiles
 (``common.maybe_sparse_matmul``, kernel 5 on the card).
+
+Under a mesh (``sharding.comm.serving``) each rank holds the Mamba-2
+heads ``common.ShardLayout.ssm_heads`` and their d_inner units
+(``common.leaf_sharding``: ``in_proj``'s z, x and dt columns of its heads and
+B, C whole; ``conv_*``, ``gnorm``, ``A_log``, ``D``, ``dt_bias`` and
+``out_proj``'s rows of its heads). The SSD scan is per head, so it runs
+on the rank's heads alone. B and C are computed whole on every rank,
+their gradient summed over the ranks (``comm.copy_to_model``). The gated
+RMSNorm's sum of squares over all of d_inner is one all-reduce of a
+(tokens, 1) f32 partial (``common.model_sum``); ``out_proj`` over the
+rank's rows is summed as the transformer's output projections are
+(``common.sublayer_sum``). The shared block is the transformer's, split
+as the dense family's; its legacy K/V cache is sequence-sharded
+(``transformer.apply_attn_decode``), the SSM caches hold the rank's
+heads.
 """
 from __future__ import annotations
 
@@ -33,6 +48,7 @@ from repro_torch.core import activations as acts
 from repro_torch.models import common as cm
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
+from repro_torch.sharding import comm
 
 
 def init_mamba2(cfg: ModelConfig, ini: cm.ParamInit, n: Optional[int] = None):
@@ -56,26 +72,59 @@ def init_mamba2(cfg: ModelConfig, ini: cm.ParamInit, n: Optional[int] = None):
     }
 
 
+def _local(cfg: ModelConfig):
+    """(d_inner units, heads) this rank holds: all of them without a
+    mesh."""
+    lay = cm.shard_layout(cfg)
+    if lay is None:
+        return cfg.d_inner, cfg.n_ssm_heads
+    return lay.inner[1], lay.ssm_heads[1]
+
+
 def _split_in_proj(p, h_in, cfg: ModelConfig):
-    """in_proj -> (z, x, B, C, dt)."""
-    di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    return (h_in @ p["in_proj"]).split([di, di, st, st, nh], dim=-1)
+    """in_proj -> (z, x, B, C, dt). Under a mesh z, x and dt are the rank's
+    heads (its in_proj block packs [z | x | B | C | dt]) and B, C whole: a
+    product of its own (no ``copy_to_model`` of h_in), whose gradient is
+    summed over the ranks, since each rank's heads read all of it."""
+    st = cfg.ssm_state
+    di, nh = _local(cfg)
+    w = p["in_proj"]
+    if cm.shard_layout(cfg) is None:
+        return (h_in @ w).split([di, di, st, st, nh], dim=-1)
+    xs = comm.copy_to_model(h_in)
+    z, x = (xs @ w[..., :2 * di]).split([di, di], dim=-1)
+    B, C = comm.copy_to_model(h_in @ w[..., 2 * di:2 * di + 2 * st]).split(
+        [st, st], dim=-1)
+    return z, x, B, C, xs @ w[..., 2 * di + 2 * st:]
 
 
 def _gated_out(p, y, z, cfg: ModelConfig, act, stats):
     """y, z (..., di): y * act(z), RMS-normalised (eps 1e-6) and scaled by
     gnorm, then the out_proj — at the static FFN tile capacity only at
-    decode (2-D y), as the reference's."""
+    decode (2-D y), as the reference's. Under a mesh y and z are the
+    rank's units: the mean square is the sum over the ranks' squares
+    (one all-reduce of a (tokens, 1) f32 partial) over d_inner, and the
+    ranks' out_proj partials are summed (``common.rows_partial``: one
+    device's selection at the static capacity)."""
     stats.add_preact("gate_pre", z)
     g = y * act(z)
     gf = g.float()
-    var = gf.square().mean(-1, keepdim=True)
+    lay = cm.shard_layout(cfg)
+    if lay is None:
+        var = gf.square().mean(-1, keepdim=True)
+    else:
+        var = cm.model_sum(gf.square().sum(-1, keepdim=True)) / cfg.d_inner
     g = (gf * torch.rsqrt(var + 1e-6)).to(y.dtype) * p["gnorm"]
     stats.add_sparsity("down_in", g)
     dens = T.densities(cfg)[1] if g.dim() == 2 else 1.0
-    out = cm.maybe_sparse_matmul(g.reshape(-1, g.shape[-1]), p["out_proj"],
-                                 cfg, dens)
-    return out.reshape(g.shape[:-1] + (p["out_proj"].shape[-1],))
+    g2 = g.reshape(-1, g.shape[-1])
+    if lay is None:
+        out = cm.maybe_sparse_matmul(g2, p["out_proj"], cfg, dens)
+    else:
+        out = cm.sublayer_sum(cm.rows_partial(
+            g2, p["out_proj"], cfg, dens, lay.inner[0], cfg.d_inner,
+            lay.tp), g.dtype)
+    return out.reshape(g.shape[:-1] + (-1,))
 
 
 def _ssd(p, x, cfg: ModelConfig, stats: cm.StatsCollector, record_in: bool):
@@ -83,13 +132,14 @@ def _ssd(p, x, cfg: ModelConfig, stats: cm.StatsCollector, record_in: bool):
     state (b, nh, st, hd) f32, the pre-conv inputs (b, s, di)).
     ``record_in`` records the ``qkv_in`` site (the forward; prefill does
     not, as the reference's)."""
-    b, s, d = x.shape
-    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    b, s = x.shape[:2]
+    st, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di, nh = _local(cfg)
     act = acts.get(cfg.activation, shift=cfg.sparsity.shift)
     Q = cm._largest_divisor_leq(s, cfg.ssm_chunk)
     nc = s // Q
     ps = p["ssm"]
-    h_in = M._norm_in(p, x, cfg)
+    h_in = M._norm_in(p, cm.sublayer_in(x), cfg)
     if record_in:
         stats.add_sparsity("qkv_in", h_in)
     z, xs_raw, B, C, dt = _split_in_proj(ps, h_in, cfg)
@@ -151,7 +201,8 @@ def apply_mamba2_decode(p, x, cfg: ModelConfig, ssm_state, conv_state, *,
     """One-token SSD step of ``layer``. x (b, d); ssm_state
     (L, b, nh, st, hd); conv_state (L, b, k - 1, di), both written in
     place. Returns (x, ssm_state, conv_state)."""
-    di, nh, hd = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_head_dim
+    hd = cfg.ssm_head_dim
+    di, nh = _local(cfg)
     act = acts.get(cfg.activation, shift=cfg.sparsity.shift)
     ps = p["ssm"]
     h_in = M._norm_in(p, x[:, None], cfg)[:, 0]
@@ -210,17 +261,33 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
                   remat_policy: str = "none"):
     """Logits (b, s, vocab_p). An active ``stats`` is shared by every layer
-    (no ``layer{i}/`` prefix), as in the reference."""
+    (no ``layer{i}/`` prefix), as in the reference. ``common.LayerSource``
+    trees (the FSDP step's gathers) give each Mamba-2 layer just before
+    its block (``params["layers"]``) and the shared block at each of its
+    applications (``params["shared"]``, a source of one layer);
+    ``cfg.sp_residuals`` under a mesh keeps the residual split over
+    "model" between the blocks, as ``transformer.forward``."""
     params = cm.cast_params(params, cfg)
     x, positions = M._embed(params, batch["tokens"], cfg)
     mblock = cm.wrap_block(remat_policy, apply_mamba2_block)
     ablock = cm.wrap_block(remat_policy, T.apply_block)
     layers = cm.unstack_layers(params["layers"], cfg.n_layers)
-    for (i0, i1, attn_after) in _segments(cfg):
-        for p_i in layers[i0:i1]:
-            x, _ = mblock(p_i, x, cfg, positions, stats)
-        if attn_after:
-            x, _ = ablock(params["shared"], x, cfg, positions, stats)
+    shared = params["shared"]
+    sp = cm.sp_fits(cfg)
+    with comm.sequence_parallel(sp):
+        if sp:
+            x = comm.split_last(x)
+        for (i0, i1, attn_after) in _segments(cfg):
+            for i in range(i0, i1):
+                x, _ = mblock(layers[i], x, cfg, positions, stats)
+                cm.release_layer(layers, i)
+            if attn_after:
+                p_sh = shared[0] if isinstance(shared, cm.LayerSource) \
+                    else shared
+                x, _ = ablock(p_sh, x, cfg, positions, stats)
+                cm.release_layer(shared, 0)
+        if sp:
+            x = comm.all_gather_last(x, whole_grad=True)
     x = cm.apply_norm(params["final_norm"], x, cfg)
     return T.logits_from(params, x, cfg)
 
@@ -228,13 +295,18 @@ def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero {"ssm" (L, batch, nh, st, hd), "conv" (L, batch, k - 1, di),
-    "k"/"v" (n_attn_applications, batch, kvp, max_len, hd) head-major}."""
+    "k"/"v" (n_attn_applications, batch, kvp, max_len, hd) head-major}.
+    Under a mesh the rank's blocks, as ``model_prefill`` makes them: its
+    heads and their units, and max_len / M positions of the K/V."""
     device = cm.resolve_device(device)
     dtype = dtype or T.compute_dtype(cfg)
-    L, di, st, k = cfg.n_layers, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    nh, hd = cfg.n_ssm_heads, cfg.ssm_head_dim
+    L, st, k = cfg.n_layers, cfg.ssm_state, cfg.ssm_conv
+    di, nh = _local(cfg)
+    hd = cfg.ssm_head_dim
     g = T.attn_geometry(cfg)
     na = n_attn_applications(cfg)
+    rows = cm.rank_cache_rows(max_len)
+    max_len = max_len if rows is None else rows[1]
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -249,27 +321,34 @@ def model_prefill(params, batch, cfg: ModelConfig, max_len: int,
                   stats=cm.NO_STATS):
     """The prompt through the SSD scans and the shared block; the cache
     holds each Mamba-2 layer's final state and conv tail and each
-    application's K/V. Returns (last logits (b, vocab_p), cache)."""
+    application's K/V. Returns (last logits (b, vocab_p), cache). Under a
+    mesh the rank's blocks (``init_cache``): the shared block's K/V are
+    its max_len / M positions of every kv head (``common.cache_rows``),
+    as ``transformer.apply_attn_decode`` reads them."""
     params = cm.cast_params(params, cfg)
     cdt = T.compute_dtype(cfg)
     x, positions = M._embed(params, batch["tokens"], cfg)
     layers = cm.unstack_layers(params["layers"], cfg.n_layers)
+    rows = cm.rank_cache_rows(max_len)
     hs, tails, ks, vs = [], [], [], []
     for (i0, i1, attn_after) in _segments(cfg):
         for p_i in layers[i0:i1]:
             x, h_last, xs_raw = _ssd(p_i, x, cfg, stats, record_in=False)
             hs.append(h_last.to(cdt))
             tails.append(M.conv_tail(xs_raw, cfg.ssm_conv).to(cdt))
+            del xs_raw  # freed before the next layer's scan
         if attn_after:
-            x, (k, v) = T.apply_block(params["shared"], x, cfg, positions,
-                                      stats)
+            with cm.cache_rows(rows):
+                x, (k, v) = T.apply_block(params["shared"], x, cfg,
+                                          positions, stats)
             ks.append(k)
             vs.append(v)
     x = cm.apply_norm(params["final_norm"], x, cfg)
     logits = T.logits_from(params, x[:, -1:], cfg)
     cache = {"ssm": torch.stack(hs), "conv": torch.stack(tails)}
     if ks:
-        kv = T.finalize_prefill_cache(torch.stack(ks), torch.stack(vs), max_len)
+        kv = T.finalize_prefill_cache(torch.stack(ks), torch.stack(vs),
+                                      max_len if rows is None else rows[1])
         cache.update(k=kv["k"].to(cdt), v=kv["v"].to(cdt))
     else:
         empty = torch.zeros((0,), dtype=cdt, device=x.device)

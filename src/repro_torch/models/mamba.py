@@ -21,6 +21,20 @@ Parameters: per layer ``norm`` and ``ssm`` = {``in_proj`` (d, 2 di),
 ``conv_w`` (k, di), ``conv_b``, ``x_proj`` (di, dt_rank + 2 st),
 ``dt_proj`` (dt_rank, di), ``dt_bias``, ``A_log`` (di, st), ``D``,
 ``out_proj`` (di, d)}, stacked on a leading layer axis.
+
+Under a mesh (``sharding.comm.serving``: the legacy engine's ``mesh=``,
+the FSDP step's train mode) each rank holds the d_inner units
+``common.ShardLayout.inner`` of every SSM leaf (``common.leaf_sharding``:
+``in_proj``'s x1 and z columns, ``conv_*``, ``x_proj``'s rows,
+``dt_proj``'s columns, ``dt_bias``, ``A_log``'s rows, ``D``,
+``out_proj``'s rows) and computes the conv and the selective scan, which
+are elementwise in d_inner, on its units alone. ``x_proj`` over its rows
+gives f32 partials of (dt_rank + 2 st) columns, summed over "model" once
+a layer (``common.model_sum``: their gradient summed too, since every
+rank's units read all of it); ``out_proj`` over its rows is a partial
+sum too (``common.sublayer_sum``, Megatron-SP residuals included: the
+block input is put together before the norm, ``common.sublayer_in``).
+The caches hold the rank's units.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import activations as acts
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as T
+from repro_torch.sharding import comm
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -72,9 +87,12 @@ def _causal_conv(x, w, b):
 
 
 def _ssm_inputs(p, h_in, cfg: ModelConfig):
-    """in_proj, split into the conv branch x1 and the gate z; the gate's
-    activation."""
+    """in_proj, split into the conv branch x1 and the gate z (under a mesh
+    the rank's units of each: its in_proj block packs [x1 | z]); the
+    gate's activation."""
     act = acts.get(cfg.activation, shift=cfg.sparsity.shift)
+    if cm.shard_layout(cfg) is not None:
+        h_in = comm.copy_to_model(h_in)
     x1, z = (h_in @ p["in_proj"]).chunk(2, dim=-1)
     return x1, z, act
 
@@ -85,11 +103,29 @@ def _norm_in(p, x, cfg: ModelConfig):
 
 
 def _dt_B_C(p, x1, cfg: ModelConfig):
-    """x_proj -> (dt (softplus over dt_proj), B, C) and A = -exp(A_log)."""
+    """x_proj -> (dt (softplus over dt_proj), B, C) and A = -exp(A_log).
+    Under a mesh x1 and x_proj's rows are the rank's units: the product is
+    summed over the ranks in f32 and cast once (``common.model_sum``)."""
     dr, st = dt_rank(cfg), cfg.ssm_state
-    dtr, B, C = (x1 @ p["x_proj"]).split([dr, st, st], dim=-1)
+    if cm.shard_layout(cfg) is None:
+        u = x1 @ p["x_proj"]
+    else:
+        u = cm.model_sum(cm.partial_matmul(x1, p["x_proj"])).to(x1.dtype)
+    dtr, B, C = u.split([dr, st, st], dim=-1)
     dt = nnf.softplus(dtr @ p["dt_proj"] + p["dt_bias"])
     return dt, B, C, -torch.exp(p["A_log"].float())
+
+
+def _out_proj(y, w, cfg: ModelConfig, density: float = 1.0):
+    """y (t, di) @ out_proj at the static capacity ``density``
+    (``common.maybe_sparse_matmul``); under a mesh the ranks' f32 partials
+    over their units (``common.rows_partial``: one device's selection)
+    summed (``common.sublayer_sum``)."""
+    lay = cm.shard_layout(cfg)
+    if lay is None:
+        return cm.maybe_sparse_matmul(y, w, cfg, density)
+    return cm.sublayer_sum(cm.rows_partial(y, w, cfg, density, lay.inner[0],
+                                           cfg.d_inner, lay.tp), y.dtype)
 
 
 def selective_scan(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
@@ -112,10 +148,9 @@ def _scan_block(p, x, cfg: ModelConfig, stats: cm.StatsCollector,
     (b, s, di, st) f32, x1 (b, s, di) the pre-activation conv inputs).
     ``record``: the forward's statistics (qkv_in, gate_pre, down_in);
     prefill records none, as the reference's."""
-    b, s, d = x.shape
-    di = cfg.d_inner
+    b, s = x.shape[:2]
     ps = p["ssm"]
-    h_in = _norm_in(p, x, cfg)
+    h_in = _norm_in(p, cm.sublayer_in(x), cfg)
     if record:
         stats.add_sparsity("qkv_in", h_in)
     x1, z, act = _ssm_inputs(ps, h_in, cfg)
@@ -131,8 +166,8 @@ def _scan_block(p, x, cfg: ModelConfig, stats: cm.StatsCollector,
     y = y * g
     if record:
         stats.add_sparsity("down_in", y)
-    out = (y.reshape(b * s, di) @ ps["out_proj"]).reshape(b, s, d)
-    return x + out, hs, x1
+    out = _out_proj(y.reshape(b * s, -1), ps["out_proj"], cfg)
+    return x + out.reshape(b, s, -1), hs, x1
 
 
 def _block(p, x, cfg: ModelConfig, positions, stats):
@@ -169,8 +204,7 @@ def apply_block_decode(p, x, cfg: ModelConfig, ssm_state, conv_state, *,
     stats.add_preact("gate_pre", z)
     y = y * act(z)
     stats.add_sparsity("down_in", y)
-    dens = T.densities(cfg)[1]
-    out = cm.maybe_sparse_matmul(y, ps["out_proj"], cfg, dens)
+    out = _out_proj(y, ps["out_proj"], cfg, T.densities(cfg)[1])
     return x + out, ssm_state, conv_state
 
 
@@ -202,16 +236,28 @@ def _embed(params, tokens, cfg: ModelConfig):
 def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
                   remat_policy: str = "none"):
     """Logits (b, s, vocab_p). An active ``stats`` collects each layer's
-    sites under ``layer{i}/``."""
+    sites under ``layer{i}/``. A ``common.LayerSource`` in
+    ``params["layers"]`` gives each layer just before its block (the FSDP
+    step's gather); ``cfg.sp_residuals`` under a mesh keeps the residual
+    split over "model" between the blocks, as ``transformer.forward``."""
     params = cm.cast_params(params, cfg)
     x, positions = _embed(params, batch["tokens"], cfg)
     block = cm.wrap_block(remat_policy, apply_block)
-    for i, p_i in enumerate(cm.unstack_layers(params["layers"], cfg.n_layers)):
-        sub = cm.StatsCollector(True, raw=stats.raw) if stats.active else stats
-        x, _ = block(p_i, x, cfg, positions, sub)
-        if stats.active:
-            for key, val in sub.stats.items():
-                stats.stats[f"layer{i}/{key}"] = val
+    layers = cm.unstack_layers(params["layers"], cfg.n_layers)
+    sp = cm.sp_fits(cfg)
+    with comm.sequence_parallel(sp):
+        if sp:
+            x = comm.split_last(x)
+        for i in range(cfg.n_layers):
+            sub = (cm.StatsCollector(True, raw=stats.raw) if stats.active
+                   else stats)
+            x, _ = block(layers[i], x, cfg, positions, sub)
+            cm.release_layer(layers, i)
+            if stats.active:
+                for key, val in sub.stats.items():
+                    stats.stats[f"layer{i}/{key}"] = val
+        if sp:
+            x = comm.all_gather_last(x, whole_grad=True)
     x = cm.apply_norm(params["final_norm"], x, cfg)
     return T.logits_from(params, x, cfg)
 
@@ -219,10 +265,13 @@ def model_forward(params, batch, cfg: ModelConfig, *, stats=cm.NO_STATS,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero {"ssm" (L, batch, di, st), "conv" (L, batch, k - 1, di)}: the
-    recurrent state needs no max_len."""
+    recurrent state needs no max_len. Under a mesh di is the rank's
+    units."""
     device = cm.resolve_device(device)
     dtype = dtype or T.compute_dtype(cfg)
-    L, di, st, k = cfg.n_layers, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    lay = cm.shard_layout(cfg)
+    di = cfg.d_inner if lay is None else lay.inner[1]
+    L, st, k = cfg.n_layers, cfg.ssm_state, cfg.ssm_conv
     return {"ssm": torch.zeros((L, batch, di, st), dtype=dtype, device=device),
             "conv": torch.zeros((L, batch, k - 1, di), dtype=dtype,
                                 device=device)}
@@ -256,6 +305,7 @@ def model_prefill(params, batch, cfg: ModelConfig, max_len: int,
         # (b, s, di, st) f32 scan alive
         hs.append(h[:, -1].to(cdt, copy=True))
         convs.append(conv_tail(x1, cfg.ssm_conv).to(cdt))
+        del h, x1  # freed before the next layer's scan, not after it
     x = cm.apply_norm(params["final_norm"], x, cfg)
     logits = T.logits_from(params, x[:, -1:], cfg)
     return logits[:, -1], {"ssm": torch.stack(hs), "conv": torch.stack(convs)}

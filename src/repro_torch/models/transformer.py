@@ -275,30 +275,13 @@ def _down_proj(h, wd, cfg: ModelConfig, density: float):
     """The FFN's down-projection h (t, F) @ wd at the static capacity
     ``density`` (``common.maybe_sparse_matmul``). Where a serving mesh
     splits d_ff, h and wd hold the rank's units and the ranks' f32
-    partials are summed, then cast once. Below density 1 the selection is
-    one device's (``common.static_plan`` over all of d_ff): each rank
-    selects alone when every group lies in one rank's slice, else from
-    the tile scores put together over the ranks; then it runs its part of
-    the list (``common.rank_tiles``) through ``gathered_matmul``, kernel
-    5 on the card."""
+    partials (``common.rows_partial``: below density 1 one device's
+    selection, kernel 5 on the card) are summed, then cast once."""
     lay = cm.shard_layout(cfg)
     if lay is None or not lay.ffn_split:
         return cm.sublayer_whole(cm.maybe_sparse_matmul(h, wd, cfg, density))
-    if density >= 1.0:
-        return cm.sublayer_sum(cm.partial_matmul(h, wd), h.dtype)
-    f0, fl = lay.ffn
-    tile, groups = cm.static_plan(cfg.d_ff, cfg)
-    if groups % lay.tp == 0:
-        idx, mask = cm.select_active_tiles(cm.batch_tile_scores(h, tile),
-                                           density, groups // lay.tp)
-        f0 = 0  # the list is over this rank's units already
-    else:
-        idx, mask = cm.select_active_tiles(
-            cm.rank_tile_scores(h, tile, f0, cfg.d_ff), density, groups)
-    y = cm.gathered_matmul(h, wd, *cm.rank_tiles(idx, mask, tile, f0, fl,
-                                                 cfg.sparsity.tile_size),
-                           out_dtype=torch.float32)
-    return cm.sublayer_sum(y, h.dtype)
+    return cm.sublayer_sum(cm.rows_partial(h, wd, cfg, density, lay.ffn[0],
+                                           cfg.d_ff, lay.tp), h.dtype)
 
 
 def _ffn_out(y32, x, cfg: ModelConfig):
@@ -487,20 +470,25 @@ def apply_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, pos, *,
 # whole model
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig, positions):
-    """Token (and learned position) embeddings. Under a serving mesh the
-    embedding holds the rank's vocabulary rows: each token's row comes
-    from the rank that holds it, summed with the others' zeros (exact)."""
+def token_rows(emb, tokens, cfg: ModelConfig):
+    """The embedding rows (..., d) of ``tokens``, in the embedding's dtype.
+    Under a serving mesh the embedding holds the rank's vocabulary rows:
+    each token's row comes from the rank that holds it, summed with the
+    others' zeros (exact)."""
     lay = cm.shard_layout(cfg)
-    emb = params["embed"]
     if lay is None or not lay.vocab_split:
-        x = emb[tokens.long()].to(compute_dtype(cfg))
-    else:
-        v0, vl = lay.vocab
-        local = tokens.long() - v0
-        mine = (local >= 0) & (local < vl)
-        rows = torch.where(mine[..., None], emb[local.clamp(0, vl - 1)], 0.0)
-        x = comm.all_reduce_sum(rows).to(compute_dtype(cfg))
+        return emb[tokens.long()]
+    v0, vl = lay.vocab
+    local = tokens.long() - v0
+    mine = (local >= 0) & (local < vl)
+    rows = torch.where(mine[..., None], emb[local.clamp(0, vl - 1)], 0.0)
+    return comm.all_reduce_sum(rows).to(emb.dtype)
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig, positions):
+    """Token (and learned position) embeddings in the compute dtype
+    (``token_rows``)."""
+    x = token_rows(params["embed"], tokens, cfg).to(compute_dtype(cfg))
     if not cfg.use_rope:
         x = x + params["pos_embed"][positions.long()].to(x.dtype)
     return x
@@ -608,11 +596,15 @@ def forward(params, tokens, cfg: ModelConfig, *, return_kv: bool = False,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero cache {"k", "v"} each (L, batch, kvp, max_len, hd), head-major
-    (the decode attention reads it untransposed)."""
+    (the decode attention reads it untransposed). Under a mesh the rank's
+    rows, as ``prefill`` makes them: max_len / M positions of every kv
+    head."""
     device = cm.resolve_device(device)
     g = attn_geometry(cfg)
     dtype = dtype or compute_dtype(cfg)
-    shape = (cfg.n_layers, batch, g.kvp, max_len, g.head_dim)
+    rows = cm.rank_cache_rows(max_len)
+    shape = (cfg.n_layers, batch, g.kvp,
+             max_len if rows is None else rows[1], g.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -639,19 +631,13 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int,
     ``max_len``). Under a serving mesh the cache is this rank's rows of it
     (``apply_attn_decode``'s layout): max_len / M positions of every kv
     head."""
-    mesh = comm.active()
-    kw = dict(stats=stats, return_kv=True, block=block,
-              extra_embeds=extra_embeds)
-    if mesh is None:
-        logits, kv = forward(params, tokens, cfg, **kw)
-        return logits[:, -1], finalize_prefill_cache(*kv, max_len)
-    M = mesh.shape["model"]
-    if max_len % M:
-        raise ValueError(f"max_len {max_len} does not split over the "
-                         f"{M} ranks of the model axis")
-    with cm.cache_rows(mesh.coords["model"] * (max_len // M), max_len // M):
-        logits, kv = forward(params, tokens, cfg, **kw)
-    return logits[:, -1], finalize_prefill_cache(*kv, max_len // M)
+    rows = cm.rank_cache_rows(max_len)
+    with cm.cache_rows(rows):
+        logits, kv = forward(params, tokens, cfg, stats=stats,
+                             return_kv=True, block=block,
+                             extra_embeds=extra_embeds)
+    return logits[:, -1], finalize_prefill_cache(
+        *kv, max_len if rows is None else rows[1])
 
 
 def decode_core(params, cache, token, pos, cfg: ModelConfig,

@@ -231,8 +231,8 @@ class ContinuousBatchingEngine:
         if mesh is None:
             self._require_on_device(params, "params")
         else:
-            params = rules.shard_params(params, mesh.model_row(),
-                                        device=self.device)
+            params = cm.shard_params(cfg, params, mesh.model_row(),
+                                     device=self.device)
         self.predictor = predictor = config.predictor
         self.predictor_telemetry = config.predictor_telemetry
         if predictor is not None:
@@ -308,8 +308,8 @@ class ContinuousBatchingEngine:
             if mesh is None:
                 self._require_on_device(dparams, "draft params")
             else:
-                dparams = rules.shard_params(dparams, mesh.model_row(),
-                                             device=self.device)
+                dparams = cm.shard_params(dcfg, dparams, mesh.model_row(),
+                                          device=self.device)
             self.draft_cfg = dcfg
             self.draft_params = dparams
             self.dfam = registry.get_family(dcfg)
@@ -995,8 +995,8 @@ class ServeEngine:
                 f"axis (mesh {mesh.shape}, max_len {max_len})")
         self.mesh = mesh if rules.tp_size(mesh) > 1 else None
         if self.mesh is not None:
-            params = rules.shard_params(params, self.mesh, "serve",
-                                        device=self.device)
+            params = cm.shard_params(cfg, params, self.mesh, "serve",
+                                     device=self.device)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

@@ -12,17 +12,16 @@ reference's PartitionSpec writes it). The functions take any mesh with
 ``shape`` (axis name -> size) and ``axis_names``:
 ``repro_torch.launch.mesh.Mesh``, or a stand-in in tests.
 
-``shard_params`` cuts a parameter tree to one rank's blocks by
-``param_pspec``, leaf by leaf. The serving engine (``mesh=``) holds only
-those blocks and runs the model steps on them, with the collectives of
-``sharding/comm.py`` where the sharded products meet.
-
 ``Sharding(mesh, spec)`` is the port's ``NamedSharding``: where a leaf
 lies on a mesh, which ``local_block`` cuts and ``full_from_blocks`` puts
-back together. ``params_shardings`` gives a tree of them (the reference's
-name); the checkpoint manager saves and restores sharded trees by them
-(``checkpoint/manager.py``), and the FSDP train step lays its state out by
-the train mode's (``train/fsdp.py``).
+back together. A model's trees are cut by ``models/common.py``
+(``leaf_sharding``, ``params_shardings``, ``shard_params``: ``param_pspec``
+of each leaf, the SSM leaves by their family's blocks). The serving engine
+(``mesh=``) holds only a rank's blocks and runs the model steps on them,
+with the collectives of ``sharding/comm.py`` where the sharded products
+meet; the checkpoint manager saves and restores sharded trees by their
+``Sharding`` trees (``checkpoint/manager.py``), and the FSDP train step
+lays its state out by the train mode's (``train/fsdp.py``).
 
 Not ported, by design: ``constrain``, ``use_mesh``, ``set_mesh``,
 ``get_mesh``, ``constrain_params_tree`` and ``predictor_shardings``. They
@@ -312,22 +311,42 @@ def logits_pspec(batch_size: int, mesh, with_seq: bool) -> Spec:
 def axis_block(mesh, axis) -> Tuple[int, int]:
     """(index, count): this rank's block along a spec entry ``axis`` (an
     axis name or a tuple of them, major first) and the number of blocks."""
-    index, count = 0, 1
-    for a in (axis if isinstance(axis, tuple) else (axis,)):
-        index = index * mesh.shape[a] + mesh.coords[a]
-        count *= mesh.shape[a]
-    return index, count
+    return _index(axis, mesh.shape, mesh.coords)
 
 
-def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def local_block(t: torch.Tensor, spec: Spec, mesh,
+                packed=None) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec``: every split dim narrowed
-    to the rank's equal share (a view)."""
+    to the rank's equal share (a view). ``packed`` (dim, ((size, split),
+    ...)): dim ``dim`` is a concatenation of segments of those sizes, and
+    the rank's block of it is each split segment's share and each other
+    segment whole, concatenated in order (a copy)."""
+    if packed is not None:
+        dim, segs = packed
+        index, count = axis_block(mesh, spec[dim])
+        parts, at = [], 0
+        for size, split in segs:
+            n = size // count if split else size
+            parts.append(t.narrow(dim, at + (index * n if split else 0), n))
+            at += size
+        t = torch.cat(parts, dim)
+        spec = spec[:dim] + (None,) + spec[dim + 1:]
     for dim, axis in enumerate(spec):
         if axis is not None:
             index, count = axis_block(mesh, axis)
             size = t.shape[dim] // count
             t = t.narrow(dim, index * size, size)
     return t
+
+
+def _index(axis, mesh_shape, coords) -> Tuple[int, int]:
+    """(index, count) of the block at ``coords`` along a spec entry
+    ``axis`` (an axis name or a tuple of them, major first)."""
+    index, count = 0, 1
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        index = index * mesh_shape[a] + coords[a]
+        count *= mesh_shape[a]
+    return index, count
 
 
 def block_slices(spec: Spec, shape: Tuple[int, ...], mesh_shape,
@@ -340,26 +359,38 @@ def block_slices(spec: Spec, shape: Tuple[int, ...], mesh_shape,
         if axis is None:
             out.append(slice(None))
             continue
-        index, count = 0, 1
-        for a in (axis if isinstance(axis, tuple) else (axis,)):
-            index = index * mesh_shape[a] + coords[a]
-            count *= mesh_shape[a]
+        index, count = _index(axis, mesh_shape, coords)
         size = shape[dim] // count
         out.append(slice(index * size, (index + 1) * size))
     return tuple(out)
 
 
 def full_from_blocks(blocks: torch.Tensor, spec: Spec, mesh,
-                     shape: Tuple[int, ...]) -> torch.Tensor:
+                     shape: Tuple[int, ...], packed=None) -> torch.Tensor:
     """The whole ``shape`` leaf from every rank's block under ``spec``,
     ``blocks`` (world, *block shape) in rank order (rank r at data index
     r // model, model index r % model): each block placed at its index
-    (a block replicated over an axis is the same on every rank of it)."""
+    (a block replicated over an axis is the same on every rank of it);
+    a ``packed`` dim (``local_block``) segment by segment, in the leaf's
+    own order."""
     out = blocks.new_empty(shape)
     M = mesh.shape["model"]
     for r in range(blocks.shape[0]):
-        out[block_slices(spec, shape, mesh.shape,
-                         {"data": r // M, "model": r % M})] = blocks[r]
+        coords = {"data": r // M, "model": r % M}
+        if packed is None:
+            out[block_slices(spec, shape, mesh.shape, coords)] = blocks[r]
+            continue
+        dim, segs = packed
+        where = list(block_slices(spec[:dim] + (None,) + spec[dim + 1:],
+                                  shape, mesh.shape, coords))
+        index, count = _index(spec[dim], mesh.shape, coords)
+        at = local = 0
+        for size, split in segs:
+            n = size // count if split else size
+            g0 = at + (index * n if split else 0)
+            where[dim] = slice(g0, g0 + n)
+            out[tuple(where)] = blocks[r].narrow(dim, local, n)
+            at, local = at + size, local + n
     return out
 
 
@@ -367,58 +398,52 @@ def full_from_blocks(blocks: torch.Tensor, spec: Spec, mesh,
 class Sharding:
     """Where a leaf lies on ``mesh``: ``spec`` (one entry a dim, as
     ``param_pspec`` gives it; () for a 0-d leaf). The port's
-    ``NamedSharding``: a rank holds ``local_block(leaf, spec, mesh)``."""
+    ``NamedSharding``: a rank holds ``local_block(leaf, spec, mesh,
+    packed)``. ``packed`` (dim, ((size, split), ...)): a leaf whose dim
+    ``dim`` packs segments that split apart (an SSM ``in_proj``,
+    ``models/common.py::leaf_sharding``)."""
 
     mesh: Any = dataclasses.field(compare=False)
     spec: Spec = ()
+    packed: Optional[tuple] = None
 
     def block(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole leaf ``t`` (a view)."""
-        return local_block(t, self.spec, self.mesh)
+        """This rank's block of the whole leaf ``t`` (a view, or a copy
+        of a packed leaf)."""
+        return local_block(t, self.spec, self.mesh, self.packed)
+
+    def block_shape(self, shape) -> Tuple[int, ...]:
+        """The shape of a rank's block of a whole ``shape`` leaf."""
+        out = list(shape)
+        for dim, axis in enumerate(self.spec):
+            if axis is None:
+                continue
+            count = axis_block(self.mesh, axis)[1]
+            if self.packed is not None and dim == self.packed[0]:
+                out[dim] = sum(n // count if split else n
+                               for n, split in self.packed[1])
+            else:
+                out[dim] //= count
+        return tuple(out)
 
     def full_shape(self, block_shape) -> Tuple[int, ...]:
         """The whole leaf's shape of a rank's ``block_shape``."""
         shape = list(block_shape)
         for dim, axis in enumerate(self.spec):
-            if axis is not None:
+            if axis is None:
+                continue
+            if self.packed is not None and dim == self.packed[0]:
+                shape[dim] = sum(n for n, _ in self.packed[1])
+            else:
                 shape[dim] *= axis_block(self.mesh, axis)[1]
         return tuple(shape)
 
-
-def params_shardings(params, mesh, mode: str):
-    """A tree of ``Sharding`` in ``params``' structure, by ``param_pspec``
-    of each leaf's path and (whole) shape."""
-    def walk(tree, prefix):
-        out = {}
-        for key, leaf in tree.items():
-            path = f"{prefix}/{key}" if prefix else key
-            out[key] = (walk(leaf, path) if isinstance(leaf, dict) else
-                        Sharding(mesh, param_pspec(path, tuple(leaf.shape),
-                                                   mesh, mode)))
-        return out
-    return walk(params, "")
-
-
-def shard_params(params, mesh, mode: str = "serve", device=None):
-    """This rank's blocks of a parameter tree, by ``param_pspec`` of each
-    leaf's path and shape, on ``device`` (default: each leaf's own).
-    Leaf by leaf: a leaf's block is copied out (contiguous, on ``device``)
-    before the next leaf is touched, so a tree held on the host reaches the
-    card one block at a time, and the caller can free the full tree as the
-    blocks come."""
-    def walk(tree, prefix):
-        out = {}
-        for key, leaf in tree.items():
-            path = f"{prefix}/{key}" if prefix else key
-            if isinstance(leaf, dict):
-                out[key] = walk(leaf, path)
-            else:
-                spec = param_pspec(path, tuple(leaf.shape), mesh, mode)
-                block = local_block(leaf, spec, mesh)
-                out[key] = block.to(device or leaf.device,
-                                    copy=True).contiguous()
-        return out
-    return walk(params, "")
+    def full(self, blocks: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's block (``full_from_blocks``;
+        ``blocks`` (world, *block shape) in rank order)."""
+        return full_from_blocks(blocks, self.spec, self.mesh,
+                                self.full_shape(blocks.shape[1:]),
+                                self.packed)
 
 
 def shard_predictor_params(params, mesh, device=None):

@@ -6,7 +6,10 @@ ranks (``sharding/comm.py``).
 Layout. Every leaf of the params and of both AdamW moments is the rank's
 block under ``rules.param_pspec(path, shape, mesh, "train")``: "embed"
 over "data" (FSDP), ffn, heads, kv_heads and vocab over "model"; where a
-dim does not divide its axis, the leaf is replicated over that axis.
+dim does not divide its axis, the leaf is replicated over that axis. The
+SSM leaves of the Mamba-1 and Zamba-2 families take the family's blocks
+over "model" instead (``common.leaf_sharding``: the rank's d_inner
+units or heads; the rules' "data" entries kept).
 ``OptState.step`` is replicated. ``shard_train_state`` cuts whole params
 to these blocks and starts the moments at their size; ``state_shardings``
 says where each leaf lies (the checkpoint manager's ``shardings=``).
@@ -34,10 +37,14 @@ A step (``make_fsdp_train_step``):
    order. No rank holds the whole (b, s, vocab) logits;
 4. gathers each layer's leaves split over "data" where the layer runs,
    as the reference's compiled step does (its forward and its backward
-   layer loops each gather the layer's leaves in their body):
-   ``transformer.forward`` takes layer i from ``_Layers`` just before its
-   block (one all_gather of the layer's blocks in the compute dtype,
-   ``_GatherLayer``) and releases it when the block returns. The slice's
+   layer loops each gather the layer's leaves in their body): the
+   family's forward (``transformer.forward``, and the Mamba, hybrid and
+   enc-dec ``model_forward``s) takes layer i of each stack (``STACKS``:
+   the layers, Whisper's encoder and decoder stacks, and Zamba-2's
+   shared block, a stack of one that each of its applications takes)
+   from that stack's ``_Layers`` just before its block (one all_gather
+   of the layer's blocks in the compute dtype, ``_GatherLayer``) and
+   releases it when the block returns. The slice's
    saved-tensor hooks keep a token in the graph where a gathered weight
    would be saved (a remat policy's checkpoint saves its inputs there
    too), so the backward gathers the layer again at its first use; the
@@ -50,9 +57,9 @@ A step (``make_fsdp_train_step``):
    gradients are reduced to the rank's blocks (one reduce_scatter), those
    of the leaves replicated over "data" summed (one all-reduce), and all
    are divided by the slice count as the reference's mean divides. With
-   L layers, nmb slices and a data axis of more than one rank, a step
-   issues 1 + 2·L·nmb all_gathers and L·nmb + 1 reduce_scatters over
-   "data";
+   L layers (layer applications, over every stack), nmb slices and a
+   data axis of more than one rank, a step issues 1 + 2·L·nmb
+   all_gathers and L·nmb + 1 reduce_scatters over "data";
 5. clips by the global norm with each element counted once: a rank adds
    a leaf's squares only where it is the leaf's first holder along each
    axis the spec replicates it over, then one sum over the mesh;
@@ -61,9 +68,7 @@ A step (``make_fsdp_train_step``):
 
 Metrics {"loss", "grad_norm", "lr", "step_ok"} are 0-d f32 tensors on the
 mesh's device, equal on every rank. The step runs none of the ten
-kernels, as the reference's runs none. It trains the families whose
-forward the serving path splits over "model" (dense, MoE, and the VLM's
-dense backbone); an MoE
+kernels, as the reference's runs none. It trains every family; an MoE
 routing group that would span data rows raises.
 """
 from __future__ import annotations
@@ -82,7 +87,10 @@ from repro_torch.optim import adamw, schedules
 from repro_torch.sharding import comm, rules
 from repro_torch.tree import flatten, tree_map, unflatten
 
-FAMILIES = ("dense", "moe", "vlm")
+# the subtrees of layers a forward takes one at a time: stacked on a
+# leading layer axis, except "shared" (Zamba-2's one shared block, taken
+# at each of its applications)
+STACKS = ("layers", "enc_layers", "dec_layers", "shared")
 
 
 def param_shapes(cfg: ModelConfig):
@@ -95,17 +103,19 @@ def param_shapes(cfg: ModelConfig):
 def state_shardings(cfg: ModelConfig, mesh) -> Tuple[Dict, adamw.OptState]:
     """(params, OptState) trees of ``rules.Sharding``: the train mode's
     spec of every leaf, the optimizer step replicated."""
-    ps = rules.params_shardings(param_shapes(cfg), mesh, "train")
+    ps = cm.params_shardings(cfg, param_shapes(cfg), mesh, "train")
     return ps, adamw.OptState(step=rules.Sharding(mesh, ()), m=ps, v=ps)
 
 
-def shard_train_state(params, mesh) -> Tuple[Dict, adamw.OptState]:
-    """This rank's blocks of whole ``params`` under the train mode's specs,
-    on the mesh's device (leaf by leaf: a block is copied out before the
-    next leaf is touched), and a fresh optimizer state of the blocks' size.
-    A trained state moves between meshes through the checkpoint
-    (``CheckpointManager.save`` / ``restore`` with ``shardings=``)."""
-    blocks = rules.shard_params(params, mesh, "train", device=mesh.device)
+def shard_train_state(params, mesh, cfg: ModelConfig
+                      ) -> Tuple[Dict, adamw.OptState]:
+    """This rank's blocks of ``cfg``'s whole ``params`` under the train
+    mode's specs (``common.shard_params``), on the mesh's device (leaf by
+    leaf: a block is copied out before the next leaf is touched), and a
+    fresh optimizer state of the blocks' size. A trained state moves
+    between meshes through the checkpoint (``CheckpointManager.save`` /
+    ``restore`` with ``shardings=``)."""
+    blocks = cm.shard_params(cfg, params, mesh, "train", device=mesh.device)
     return blocks, adamw.init_opt_state(blocks)
 
 
@@ -113,56 +123,61 @@ def shard_train_state(params, mesh) -> Tuple[Dict, adamw.OptState]:
 class _Leaf:
     """One leaf's layout on this rank: the shape of its block, the dim
     split over "data" (None: replicated over it, or a data axis of one
-    rank), whether it is a layer leaf (under ``params["layers"]``, stacked
-    on dim 0: the step gathers it layer by layer, the other split leaves
-    once a step), and whether this rank counts the leaf's squares in the
-    global norm (it is the leaf's first holder along each axis the spec
-    replicates it over)."""
+    rank), the stack it belongs to (``STACKS``, None outside them: the
+    step gathers a stack's leaves layer by layer, the other split leaves
+    once a step), whether that stack is stacked on dim 0, and whether
+    this rank counts the leaf's squares in the global norm (it is the
+    leaf's first holder along each axis the spec replicates it over)."""
 
     block: tuple
     data_dim: Optional[int]
     counted: bool
-    layer: bool
+    layer: Optional[str]
+    stacked: bool = True
 
     def one_layer(self) -> "_Leaf":
         """A layer leaf's layout at one layer (its stacked dim 0 taken)."""
+        if not self.stacked:
+            return self
         return dataclasses.replace(self, block=self.block[1:],
                                    data_dim=self.data_dim - 1)
 
 
 def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
-    D, M = mesh.shape["data"], mesh.shape["model"]
+    D = mesh.shape["data"]
     first = {a: mesh.coords[a] == 0 for a in mesh.axis_names}
     shapes = param_shapes(cfg)
-    in_layers = flatten({k: tree_map(lambda _, k=k: k == "layers", v)
-                         for k, v in shapes.items()})
+    stack_of = flatten({k: tree_map(lambda _, k=k: k if k in STACKS
+                                    else "", v)
+                        for k, v in shapes.items()})
     out = []
-    for shape, sh, layer in zip(flatten(shapes),
+    for shape, sh, stack in zip(flatten(shapes),
                                 flatten(state_shardings(cfg, mesh)[0]),
-                                in_layers):
+                                stack_of):
         if any(a not in (None, "data", "model") for a in sh.spec):
             raise NotImplementedError(f"spec {sh.spec}: the step takes "
                                       "'data' and 'model' entries only")
-        column = [n // M if a == "model" else n
-                  for n, a in zip(shape.shape, sh.spec)]
-        block = [n // D if a == "data" else n
-                 for n, a in zip(column, sh.spec)]
-        out.append(_Leaf(tuple(block), sh.spec.index("data")
+        out.append(_Leaf(sh.block_shape(shape.shape),
+                         sh.spec.index("data")
                          if "data" in sh.spec and D > 1 else None,
                          all(a in sh.spec or first[a] for a in first),
-                         layer))
+                         stack or None, stack != "shared"))
     return out
 
 
 def layer_column_bytes(cfg: ModelConfig, mesh) -> int:
     """The bytes of one layer's gathered column on a rank of ``mesh``: its
     leaves split over "data", whole along it, in the compute dtype (0 on a
-    data axis of one rank: nothing is gathered)."""
+    data axis of one rank: nothing is gathered); the largest over the
+    stacks (``STACKS``)."""
     size = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                        ).element_size()
-    return sum(math.prod(l.block[1:]) * mesh.shape["data"] * size
-               for l in _layout(cfg, mesh)
-               if l.layer and l.data_dim is not None)
+    per = {}
+    for l in _layout(cfg, mesh):
+        if l.layer and l.data_dim is not None:
+            per[l.layer] = per.get(l.layer, 0) + math.prod(
+                l.one_layer().block) * mesh.shape["data"] * size
+    return max(per.values(), default=0)
 
 
 def _columns(every: torch.Tensor, leaves: List[_Leaf]) -> List[torch.Tensor]:
@@ -249,12 +264,12 @@ class _GatherLayer(torch.autograd.Function):
 
 
 class _Layers(cm.LayerSource):
-    """One slice's layers for ``transformer.forward`` (step 4 of the module
-    note): layer i's tree in the compute dtype, its leaves split over
-    "data" gathered (``_GatherLayer``), the others the rank's f32 blocks
-    (``whole``, requiring grad) cast. ``pack`` / ``unpack`` are the
-    slice's saved-tensor hooks; the gathered columns are held in ``live``
-    from their gather to ``release`` and nowhere else in the step."""
+    """One slice's stack of layers for the family's forward (step 4 of the
+    module note): layer i's tree in the compute dtype, its leaves split
+    over "data" gathered (``_GatherLayer``), the others the rank's f32
+    blocks (``whole``, requiring grad) cast. ``_hooks`` are the slice's
+    saved-tensor hooks; the gathered columns are held in ``live`` from
+    their gather to ``release`` and nowhere else in the step."""
 
     def __init__(self, template, split_mask: List[bool], blocks, whole,
                  grads, leaves: List[_Leaf], cdt, mesh):
@@ -302,17 +317,28 @@ class _Layers(cm.LayerSource):
         for c in self.live.pop(i, ()):
             self.where.pop(_address(c), None)
 
-    def pack(self, t: torch.Tensor):
-        at = self.where.get(_address(t))
-        return t if at is None else (at, t.size(), t.stride(),
-                                     t.storage_offset())
 
-    def unpack(self, saved):
+
+def _hooks(sources: List[_Layers]):
+    """The slice's saved-tensor hooks over its stacks' ``_Layers``: a
+    gathered column is saved as a token (its stack, layer, leaf and view),
+    which the backward gathers again at its first use."""
+    def pack(t: torch.Tensor):
+        for n, src in enumerate(sources):
+            at = src.where.get(_address(t))
+            if at is not None:
+                return (n, at, t.size(), t.stride(), t.storage_offset())
+        return t
+
+    def unpack(saved):
         if isinstance(saved, torch.Tensor):
             return saved
-        (i, k), size, stride, offset = saved
-        cols = self.live.get(i) or self.gather(i)
+        n, (i, k), size, stride, offset = saved
+        src = sources[n]
+        cols = src.live.get(i) or src.gather(i)
         return cols[k].as_strided(size, stride, offset)
+
+    return pack, unpack
 
 
 def _check_groups(cfg: ModelConfig, rows: int, seq: int, D: int) -> None:
@@ -367,6 +393,12 @@ def fsdp_loss(params, batch, cfg: ModelConfig, mesh,
     return tot[0] / torch.clamp(tot[1], min=1.0)
 
 
+def _stacked(t: torch.Tensor, stack: str) -> torch.Tensor:
+    """A stack's leaf with its layer axis: the unstacked "shared" block's
+    leaves as a stack of one (a view)."""
+    return t.unsqueeze(0) if stack == "shared" else t
+
+
 def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
     """Returns grads(params, batch) -> (loss, grads): steps 1 to 4 of the
     module note on this rank of ``mesh``: the mean of the microbatches'
@@ -376,10 +408,6 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
     backward (``_Layers``); ``GAUGE`` is reset at the start. params: the
     rank's f32 blocks (``shard_train_state``); batch: the global batch
     (every rank passes the same)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the FSDP step trains the {FAMILIES} families, not "
-            f"{cfg.family!r}: their forward has no split over 'model'")
     if "pod" in mesh.axis_names and cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name} on a pod mesh: the train rules split the experts' "
@@ -392,12 +420,13 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
     leaves = _layout(cfg, mesh)
     entry = [i for i, l in enumerate(leaves)
              if not l.layer and l.data_dim is not None]
-    layer = [i for i, l in enumerate(leaves) if l.layer]
-    split = [i for i in layer if leaves[i].data_dim is not None]
     whole = [i for i, l in enumerate(leaves) if l.data_dim is None]
-    layer_whole = [i for i in layer if i not in split]
-    split_mask = [leaves[i].data_dim is not None for i in layer]
-    one_layer = [leaves[i].one_layer() for i in split]
+    stacks = {}  # name -> (its leaves, those split over "data")
+    for i, l in enumerate(leaves):
+        if l.layer:
+            stacks.setdefault(l.layer, ([], []))[0].append(i)
+            if l.data_dim is not None:
+                stacks[l.layer][1].append(i)
     cdt = getattr(torch, cfg.compute_dtype)
 
     def entry_columns(blocks) -> List[torch.Tensor]:
@@ -445,9 +474,10 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
             col[i] = c.requires_grad_(True)
         for i in whole:
             col[i] = blocks[i].detach().requires_grad_(True)
-        layer_grads = [torch.zeros_like(blocks[i]) for i in split]
+        layer_grads = {name: [torch.zeros_like(_stacked(blocks[i], name))
+                              for i in split]
+                       for name, (_, split) in stacks.items()}
         tree = unflatten(params, col)
-        template = unflatten(params["layers"], list(range(len(layer))))
         rows = (rules.DataSplit(size=rows_n, index=row,
                                 slots=(row * bl, bl), blocks=(0, 1),
                                 n_slots=b_mb, n_blocks=1)
@@ -459,22 +489,31 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
             mb = {k: v[lo:lo + bl] for k, v in batch.items()}
             with comm.serving(mesh, rows, mode="train"), \
                     torch.enable_grad():
-                layers = _Layers(template, split_mask,
-                                 [blocks[j].detach() for j in split],
-                                 [col[j] for j in layer_whole], layer_grads,
-                                 one_layer, cdt, mesh)
-                tree["layers"] = layers
+                sources = []
+                for name, (layer, split) in stacks.items():
+                    src = _Layers(
+                        unflatten(params[name], list(range(len(layer)))),
+                        [j in split for j in layer],
+                        [_stacked(blocks[j].detach(), name) for j in split],
+                        [_stacked(col[j], name) for j in layer
+                         if j not in split],
+                        layer_grads[name],
+                        [leaves[j].one_layer() for j in split], cdt, mesh)
+                    tree[name] = src
+                    sources.append(src)
                 with torch.autograd.graph.saved_tensors_hooks(
-                        layers.pack, layers.unpack):
+                        *_hooks(sources)):
                     loss_i = fsdp_loss(tree, mb, cfg, mesh, tc.remat_policy)
                 loss_i.backward()
             l_sum = l_sum + loss_i.detach()
-        del tree, layers
+        del tree, sources
         reduced = reduce_step_long(
             [None if c is None else torch.zeros_like(c) if c.grad is None
              else c.grad for c in col])
         del col
-        reduced.update(zip(split, layer_grads))
+        for name, (_, split) in stacks.items():
+            reduced.update(zip(split, [g if name != "shared" else g[0]
+                                       for g in layer_grads[name]]))
         grads = [reduced[i] for i in range(len(blocks))]
         if nmb > 1:
             grads = [g / nmb for g in grads]

@@ -333,19 +333,6 @@ def test_extrapolated_counts_equal_a_full_run(shape):
         full["peak_bytes_per_chip"], rel=0.1)
 
 
-def test_table_marks_sparse_rows_as_plain_op_counts():
-    from repro_torch.launch import roofline
-    rec = dict(arch="qwen3-4b", shape="decode_32k", mesh="16x16",
-               t_compute=1e-5, t_memory=5e-3, t_collective=2e-3,
-               bottleneck="memory", useful_flops_ratio=1.0,
-               peak_bytes_per_chip=3e9)
-    lines = roofline.table([rec, dict(rec, sparse=0.6)]).splitlines()
-    assert lines[1].split()[2] == "-"
-    assert lines[2].split()[2] == "0.6" + roofline.PLAIN_MARK
-    assert lines[3].startswith(roofline.PLAIN_MARK)
-    assert roofline.PLAIN_MARK not in roofline.table([rec])
-
-
 def _block_bytes(shape, spec, mesh, itemsize):
     n = itemsize
     for d, a in zip(shape, spec):

@@ -148,7 +148,7 @@ def test_shard_params_blocks_reassemble(arch, shape):
     for d in range(data):
         for m in range(model):
             mesh = _rank_mesh(data, model, d, m)
-            for path, block in _flat(rules.shard_params(tree, mesh)):
+            for path, block in _flat(cm.shard_params(cfg, tree, mesh)):
                 spec = rules.param_pspec(path, tuple(full[path].shape), mesh,
                                          "serve")
                 assert block.is_contiguous()

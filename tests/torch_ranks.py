@@ -258,14 +258,13 @@ def _full(tree, shardings) -> list:
     """Every leaf of a tree of rank blocks put together in full on rank 0
     (one gather a split leaf), as numpy, in flatten order (on the other
     ranks the split leaves are None)."""
-    from repro_torch.sharding import comm, rules
+    from repro_torch.sharding import comm
     from repro_torch.tree import flatten
     out = []
     for leaf, s in zip(flatten(tree), flatten(shardings)):
         if any(a is not None for a in s.spec):
             blocks = comm.gather_to_first(leaf, s.mesh)
-            leaf = None if blocks is None else rules.full_from_blocks(
-                blocks, s.spec, s.mesh, s.full_shape(leaf.shape))
+            leaf = None if blocks is None else s.full(blocks)
         out.append(None if leaf is None else leaf.detach().numpy().copy())
     return out
 
@@ -280,9 +279,9 @@ def fsdp_case_state(case, mesh, state=None):
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs.base import ModelConfig, TrainConfig
     from repro_torch.convert import params_from_jax
+    from repro_torch.models import common as cm
     from repro_torch.models import registry
     from repro_torch.optim import adamw
-    from repro_torch.sharding import rules
     from repro_torch.train import fsdp
     cfg = ModelConfig.from_json(case["cfg"])
     tc = TrainConfig(**case["tc"])
@@ -298,15 +297,15 @@ def fsdp_case_state(case, mesh, state=None):
 
     if state is not None:
         p, (t, m, v) = state
-        pb, _ = fsdp.shard_train_state(whole(p), mesh)
+        pb, _ = fsdp.shard_train_state(whole(p), mesh, cfg)
         ob = adamw.OptState(step=torch.as_tensor(np.array(t)),
-                            m=rules.shard_params(whole(m), mesh, "train"),
-                            v=rules.shard_params(whole(v), mesh, "train"))
+                            m=cm.shard_params(cfg, whole(m), mesh, "train"),
+                            v=cm.shard_params(cfg, whole(v), mesh, "train"))
         return cfg, tc, pb, ob
     params = (whole(case["params"]) if "params" in case else
               registry.get_family(cfg).init_params(
                   cfg, seed=0, device="cpu", dtype=torch.float32))
-    pb, ob = fsdp.shard_train_state(params, mesh)
+    pb, ob = fsdp.shard_train_state(params, mesh, cfg)
     return cfg, tc, pb, ob
 
 
@@ -562,7 +561,8 @@ def plan_cells(rank: int, world: int, cells) -> list:
 
 def legacy_generate(rank: int, world: int, case) -> tuple:
     """The legacy ``ServeEngine.generate`` of ``case`` (cfg json, numpy
-    params, tokens, max_new) on a (1, world) mesh: (tokens, logprobs)."""
+    params, tokens or a numpy batch dict (Whisper's frames beside the
+    tokens), max_new) on a (1, world) mesh: (tokens, logprobs)."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serving.engine import ServeEngine
@@ -571,7 +571,8 @@ def legacy_generate(rank: int, world: int, case) -> tuple:
     mesh = make_host_mesh(1, world, strict=True, device="cpu")
     eng = ServeEngine(ModelConfig.from_json(cfg_json), to_torch(params),
                       max_len=32, device="cpu", mesh=mesh)
-    r = eng.generate({"tokens": toks}, max_new)
+    r = eng.generate(toks if isinstance(toks, dict) else {"tokens": toks},
+                     max_new)
     return r.tokens, r.logprobs
 
 
@@ -581,9 +582,10 @@ def grad_blocks(grads, cfg, mesh) -> dict:
     cut the same block out of a whole gradient)."""
     from repro_torch.train import fsdp
     from repro_torch.tree import flatten
+    shardings = flatten(fsdp.state_shardings(cfg, mesh)[0])
     return dict(grads=[g.detach().numpy().copy() for g in flatten(grads)],
-                specs=[s.spec for s in flatten(
-                    fsdp.state_shardings(cfg, mesh)[0])],
+                specs=[s.spec for s in shardings],
+                packed=[s.packed for s in shardings],
                 shape=dict(mesh.shape), coords=dict(mesh.coords),
                 axes=tuple(mesh.axis_names))
 
@@ -609,7 +611,7 @@ def sp_grads(rank: int, world: int, cases) -> list:
         for sp in (False, True):
             cfg = base.replace(sp_residuals=sp)
             blocks, _ = fsdp.shard_train_state(params_from_jax(
-                params, cfg, device="cpu", dtype=torch.float32), mesh)
+                params, cfg, device="cpu", dtype=torch.float32), mesh, cfg)
             comm.STATS.reset()
             loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(
                 blocks, {"tokens": torch.from_numpy(toks)})
@@ -636,7 +638,7 @@ def pod_step(rank: int, world: int, case, pods: int) -> dict:
     mesh = make_pod_mesh(pods, world // (2 * pods), 2, device="cpu")
     tc = TrainConfig(num_microbatches=2, remat_policy="minimal")
     blocks, opt = fsdp.shard_train_state(params_from_jax(
-        params, cfg, device="cpu", dtype=torch.float32), mesh)
+        params, cfg, device="cpu", dtype=torch.float32), mesh, cfg)
     batch = {"tokens": torch.from_numpy(toks)}
     loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(blocks, batch)
     out = dict(grad_loss=float(loss), **grad_blocks(grads, cfg, mesh))
@@ -684,3 +686,65 @@ def sp_collectives(rank: int, world: int, seed: int) -> dict:
 def legacy_generates(rank: int, world: int, cases) -> list:
     """``legacy_generate`` of each case on this rank."""
     return [legacy_generate(rank, world, case) for case in cases]
+
+
+def split_grads(rank: int, world: int, data: int, cases) -> list:
+    """For each (cfg json, the reference's numpy params, a numpy batch,
+    remat) the FSDP step's loss and mean gradient over 2 microbatches on
+    a (data, world / data) mesh: [(loss, ``grad_blocks``)]."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import fsdp
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(data, world // data, strict=True, device="cpu")
+    out = []
+    for cfg_json, params, batch, remat in cases:
+        cfg = ModelConfig.from_json(cfg_json)
+        blocks, _ = fsdp.shard_train_state(params_from_jax(
+            params, cfg, device="cpu", dtype=torch.float32), mesh, cfg)
+        loss, grads = fsdp.make_fsdp_grads(
+            cfg, TrainConfig(num_microbatches=2, remat_policy=remat), mesh)(
+            blocks, {k: torch.from_numpy(v) for k, v in batch.items()})
+        out.append((float(loss), grad_blocks(grads, cfg, mesh)))
+    return out
+
+
+def split_family_checks(rank: int, world: int, legacy, grads) -> dict:
+    """One rank group for a family test file: ``legacy_generate`` of each
+    of ``legacy`` on (1, world), then ``split_grads`` of ``grads`` on (2,
+    world / 2) (None: skipped)."""
+    out = dict(legacy=[legacy_generate(rank, world, c) for c in legacy])
+    if grads:
+        out["grads"] = split_grads(rank, world, 2, grads)
+    return out
+
+
+def group(fn, world: int, args, timeout: float = 240.0):
+    """Start ``comm.spawn(fn, world, args=args)`` on the CPU in a thread;
+    returns a getter of its result (or raises what the group raised), so
+    a test module's fixture starts its rank group and computes the
+    reference's side while the ranks run."""
+    import threading
+
+    from repro_torch.sharding import comm
+    box, done = {}, threading.Event()
+
+    def run():
+        try:
+            box["out"] = comm.spawn(fn, world, timeout=timeout, args=args,
+                                    device="cpu")
+        except Exception as e:  # noqa: BLE001 — raised in the tests
+            box["out"] = e
+        done.set()
+
+    threading.Thread(target=run, daemon=True).start()
+
+    def get():
+        assert done.wait(timeout=2 * timeout)
+        if isinstance(box["out"], Exception):
+            raise box["out"]
+        return box["out"]
+    return get
+
