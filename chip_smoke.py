@@ -336,7 +336,26 @@ fsdp 164.8, plan 49.2.
             collectives a step by axis (count, host ms, payload bytes),
             the layer gathers and reductions a step, the gauge's peak
             beside one layer's column, the state's GiB (params + m + v
-            blocks) and the peak GiB. Then, in the
+            blocks) and the peak GiB. The same 4 ranks then build two pod
+            meshes (no new rank group) and take one step on each from
+            seeded params (FSDP_POD_ROWS, FSDP_POD_MOE): (b) llama-7b as
+            above on (2, 2, 1) ("pod", "data", "model"), the same batch
+            in 4 microbatches of 2 rows, fewer than the 4 data rows of
+            pod × data (the rows split over "data", both pods computing
+            them): loss and grad norm within TOL_DDP of one card's step
+            at 4 microbatches;
+            (a) Phi-3.5-MoE at 1 of its 32 layers, full width (d_model
+            4096, 16 experts, d_ff 6400, vocab 32064), f32 masters and
+            bf16 compute, on (2, 1, 2): its experts' d_model split over
+            pod × data (2 ranks), 4 x 1024 tokens in 2 microbatches of
+            2 rows, one a data row; loss within TOL_DDP of one card's
+            step, its grad norm and its blocks after the step against
+            one card's as above within TOL_FSDP_MOE (bf16 routing ties;
+            saved whole under build/fsdp_pod_one_card/, deleted after),
+            no kernel launched, the gauge within two layers' columns;
+            collectives a step by axis (the pod sums apart), the
+            gauge's peak and the peak GiB a rank logged.
+            One card's references run before the ranks start. Then, in the
             (1, 2) group, common.decode_attention over a cache whose
             sequence is split over its 2 model ranks, at OPT-6.7B decode
             (8 rows, 32 heads x
@@ -370,7 +389,11 @@ fsdp 164.8, plan 49.2.
             collective counts and payload bytes by axis equal to what
             that phase's rank 0 counted in its step 1 (without the fsdp
             phase, its data axis against PR 28's 17 collectives and
-            4043390992 bytes); (c) the rows of qwen3-4b train_4k and
+            4043390992 bytes); (pod) the fsdp phase's Phi-3.5-MoE cell
+            on (2, 1, 2): its data- and pod-axis collective counts and
+            payload bytes equal to what that phase's rank 0 counted in
+            its step (without the fsdp phase, against POD_MOE_STEP, the
+            first card reading); (c) the rows of qwen3-4b train_4k and
             decode_32k (sparse 0.60) on (16, 16) (launch/roofline.py's
             dry-run table).
 
@@ -4979,6 +5002,16 @@ TOL_DDP = 1e-4
 # 1 - 1/||g|| (0.96 there).
 TOL_FSDP_FLIPS = 1e-3
 TOL_FSDP_M = 1e-2
+# The fsdp phase's pod MoE case (Phi-3.5-MoE, 1 layer, (2, 1, 2), bf16
+# compute) against one card's step: the grad norm (relative), the flip
+# share and m_rel. bf16 rounds the ranks' router inputs otherwise than
+# one card's (the attention's sums over "model" in another order), so a
+# token near a tie between two experts goes to another one, whose whole
+# weight gradient then moves; read on an H100 80GB HBM3 at 700 W (the
+# case's first run, rank 0): 1.2e-4, 1.36e-3, 9.0e-3, the limits about
+# 3x. The same case at narrow widths on the CPU reads 0, 0 and 4e-7 in
+# f32 and 2.7e-6, 7e-4 and 7e-3 in bf16: the split itself is exact.
+TOL_FSDP_MOE = dict(grad_norm=5e-4, flips=4e-3, m_rel=3e-2)
 
 
 def partial_parts_check(name, got, want, dtype) -> float:
@@ -5369,20 +5402,20 @@ def data_full_width(dev, add, cases) -> None:
 _ONE_CARD_STEP1 = {}  # (config, batch) -> one card's step 1
 
 
-def one_card_step1(dev, cfg, tc, batch) -> tuple:
+def one_card_step1(dev, cfg, tc, batch, keep: bool = True) -> tuple:
     """One card's make_train_step over ``batch`` from params of seed
     ``tc.seed``: the reference the DDP and FSDP steps are held to (the
     same config, TrainConfig and batch in both phases, so it is computed
-    once). Returns (step 1's loss and grad norm, the params and the first
-    moment after it, on the host)."""
-    from repro_torch.models import transformer as T
+    once; without ``keep`` it is not kept). Returns (step 1's loss and
+    grad norm, the params and the first moment after it, on the host)."""
+    from repro_torch.models import registry
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import tree_map
     key = (cfg.to_json(), repr(tc), batch["tokens"].tobytes())
     if key not in _ONE_CARD_STEP1:
-        params = T.init_params(cfg, seed=tc.seed, device=dev,
-                               dtype=torch.float32)
+        params = registry.get_family(cfg).init_params(
+            cfg, seed=tc.seed, device=dev, dtype=torch.float32)
         params, opt, one = make_train_step(cfg, tc)(
             params, adamw.init_opt_state(params),
             {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
@@ -5393,7 +5426,7 @@ def one_card_step1(dev, cfg, tc, batch) -> tuple:
         del params, opt, one
         gc.collect()
         torch.cuda.empty_cache()
-    return _ONE_CARD_STEP1[key]
+    return _ONE_CARD_STEP1[key] if keep else _ONE_CARD_STEP1.pop(key)
 
 
 def ddp_rank(rank: int, world: int, cfg, batch, device_type: str) -> dict:
@@ -5536,7 +5569,7 @@ def _stats() -> dict:
                        host_ms=getattr(st, p + "seconds") * 1e3,
                        payload_bytes=getattr(st, p + "bytes"))
             for axis, p in (("model", ""), ("data", "data_"),
-                            ("world", "world_"))}
+                            ("pod", "pod_"), ("world", "world_"))}
 
 
 def step1_vs_one_card(params, opt, lr: float, ref: str, shardings) -> dict:
@@ -5569,7 +5602,8 @@ def step1_vs_one_card(params, opt, lr: float, ref: str, shardings) -> dict:
 
 
 def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
-              device_type: str, ckpt: str, resume: bool, ref=None) -> dict:
+              device_type: str, ckpt: str, resume: bool, ref=None,
+              pod=()) -> dict:
     """One rank of the FSDP run on a (data, world / data) mesh: from seeded
     params (or, with ``resume``, the step-2 checkpoint in ``ckpt``), one
     step per batch, each timed with the card synchronised, its
@@ -5578,7 +5612,8 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
     its blocks after step 1 are held against one card's
     (``step1_vs_one_card``). The kernels' launch counts are set to 0
     first and returned. With ``resume`` (a (1, M) mesh) the rank then
-    frees the state and runs ``seq_decode_rank`` ("decode")."""
+    frees the state and runs ``seq_decode_rank`` ("decode"); with ``pod``
+    it frees the state and runs ``fsdp_pod_case`` of each ("pod")."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import TrainConfig
     from repro_torch.launch.mesh import make_host_mesh
@@ -5593,8 +5628,7 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
-    tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
-                     warmup_steps=2, num_microbatches=2)
+    tc = TrainConfig(**FSDP_TC, num_microbatches=2)
     shardings = fsdp.state_shardings(cfg, mesh)
     t0 = time.perf_counter()
     if resume:
@@ -5642,19 +5676,84 @@ def fsdp_rank(rank: int, world: int, data: int, cfg, batches,
             save_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
-    decode = None
-    if resume:
+    decode, pods = None, []
+    if resume or pod:
         del params, opt
         gc.collect()
         torch.cuda.empty_cache()
+    if resume:
         decode = seq_decode_rank(rank, world, device_type, mesh)
+    for case in pod:
+        pods.append(fsdp_pod_case(case, device_type))
     return dict(mesh=[data, world // data], metrics=rows, step_ms=ms,
                 proc_start=os.stat(f"/proc/{os.getpid()}").st_ctime,
-                started=started, ended=time.time(), decode=decode,
+                started=started, ended=time.time(), decode=decode, pod=pods,
                 collectives=coll, setup_s=setup_s, save_s=save_s,
                 state_gib=state_gib, peak_gib=peak, launches=launches,
                 step1_vs_one_card=vs_one, gauge=gauge,
                 column_bytes=fsdp.layer_column_bytes(cfg, mesh))
+
+
+def fsdp_pod_case(case: dict, device_type: str) -> dict:
+    """One FSDP step of ``case`` (``fsdp_pod_inputs``) on a pod mesh of
+    this group's ranks (every rank builds its groups), from params of seed
+    ``FSDP_TC``'s: its metrics, ms (the card synchronised), collectives by
+    axis, peak GiB, state GiB, the gauge against one layer's column, the
+    kernels' launches in the step and, with ``case["ref"]``, its blocks
+    after the step against one card's (``step1_vs_one_card``)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import registry
+    from repro_torch.sharding import comm
+    from repro_torch.train import fsdp
+    from repro_torch.tree import flatten
+    cfg = case["cfg"]
+    mesh = make_pod_mesh(*case["mesh"],
+                         device=None if device_type == "cuda" else "cpu")
+    dev = mesh.device
+    tc = TrainConfig(**FSDP_TC, num_microbatches=case["microbatches"])
+    t0 = time.perf_counter()
+    whole = registry.get_family(cfg).init_params(cfg, seed=tc.seed,
+                                                 device=dev,
+                                                 dtype=torch.float32)
+    params, opt = fsdp.shard_train_state(whole, mesh, cfg)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    state_gib = sum(x.numel() * x.element_size() for x in
+                    flatten((params, opt.m, opt.v))) / 2 ** 30
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in case["batch"].items()}
+    step = fsdp.make_fsdp_train_step(cfg, tc, mesh)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    comm.STATS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = dict(name=case["name"], mesh=list(case["mesh"]),
+               microbatches=case["microbatches"],
+               metrics={k: float(v) for k, v in m.items()}, step_ms=ms,
+               collectives=_stats(), setup_s=setup_s, state_gib=state_gib,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               launches={n: c.launches for n, c in counters.items()},
+               gauge_peak=fsdp.GAUGE.peak,
+               layer_gathers=len(fsdp.GAUGE.gathers),
+               layer_gather_bytes=sum(fsdp.GAUGE.gathers),
+               column_bytes=fsdp.layer_column_bytes(cfg, mesh))
+    if case.get("ref"):
+        out["step1_vs_one_card"] = step1_vs_one_card(
+            params, opt, out["metrics"]["lr"], case["ref"],
+            fsdp.state_shardings(cfg, mesh)[0])
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def seq_decode_rank(rank: int, world: int, device_type: str, mesh,
@@ -5705,13 +5804,102 @@ def seq_decode_rank(rank: int, world: int, device_type: str, mesh,
                 unsharded_ms=whole_ms, shape=[b, heads, S, hd])
 
 
-def fsdp_full_width(dev, cfg=None, dc=None) -> list:
+# the fsdp phase's train settings (every case; the microbatches its own)
+FSDP_TC = dict(remat_policy="minimal", learning_rate=1e-4, warmup_steps=2)
+# its pod cases on the (2, 2) group's 4 ranks (the module note's fsdp
+# phase): (a) an MoE config at full width, its experts split over pod x
+# data; (b) the phase's llama-7b with microbatches of fewer rows than the
+# data rows of pod x data. mesh: (pod, data, model)
+FSDP_POD_MOE = dict(name="moe", arch="phi3.5-moe-42b-a6.6b", layers=1,
+                    mesh=(2, 1, 2), batch=4, seq=1024, microbatches=2)
+FSDP_POD_ROWS = dict(name="rows", mesh=(2, 2, 1), microbatches=4)
+
+
+def fsdp_pod_inputs(dev, cfg, batch, moe_cfg=None) -> tuple:
+    """The fsdp phase's pod cases for ``fsdp_pod_case``: (b) ``cfg`` on
+    FSDP_POD_ROWS's mesh over ``batch`` in its microbatches; (a)
+    FSDP_POD_MOE's config (``moe_cfg`` replaces it) over a batch of the
+    synthetic corpus. One card's step of each first (``one_card_step1``,
+    not kept). Returns (the cases, {name: one card's loss and grad norm},
+    {name: one card's params and first moment on the host}: (a)'s, which
+    the caller saves where the case's ``ref`` says)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, PackedIterator
+    a = FSDP_POD_MOE
+    moe_cfg = moe_cfg or get_config(a["arch"]).replace(
+        n_layers=a["layers"], compute_dtype="bfloat16")
+    moe_batch = next(PackedIterator(DataConfig(
+        vocab_size=moe_cfg.vocab_size, seq_len=a["seq"],
+        batch_size=a["batch"])))
+    cases, want, states = [], {}, {}
+    for case, c, b, ref in (
+            (FSDP_POD_ROWS, cfg, batch, None),
+            (a, moe_cfg, moe_batch,
+             str(ROOT / "build" / "fsdp_pod_one_card"))):
+        tc = TrainConfig(**FSDP_TC, num_microbatches=case["microbatches"])
+        t0 = time.perf_counter()
+        want[case["name"]], state = one_card_step1(dev, c, tc, b,
+                                                   keep=False)
+        log(f"  pod case {case['name']}: one card's step took "
+            f"{time.perf_counter() - t0:.1f} s")
+        if ref:
+            states[case["name"]] = state
+        del state
+        cases.append(dict(name=case["name"], cfg=c, batch=b,
+                          mesh=case["mesh"],
+                          microbatches=case["microbatches"], ref=ref))
+    return cases, want, states
+
+
+def fsdp_pod_check(r: int, got: dict, want: dict) -> None:
+    """Rank ``r``'s pod case (``fsdp_pod_case``) against one card's step:
+    logged first, then loss and grad norm within TOL_DDP (the MoE case's
+    grad norm within TOL_FSDP_MOE), no kernel launched, the gauge within
+    two layers' columns and, where the blocks were held, within
+    TOL_FSDP_MOE's flips and m_rel."""
+    name = got["name"]
+    c = got["collectives"]
+    log(f"  fsdp pod {name} rank {r} on {tuple(got['mesh'])} in "
+        f"{got['microbatches']} microbatches: peak {got['peak_gib']:.3f} "
+        f"GiB (state {got['state_gib']:.3f}), gauge peak "
+        f"{got['gauge_peak'] / 2 ** 30:.3f} GiB (one layer's column "
+        f"{got['column_bytes'] / 2 ** 30:.3f} GiB), step "
+        f"{got['step_ms']:.1f} ms, collectives (count, host ms, bytes) "
+        + ", ".join(f"{ax} ({c[ax]['count']}, {c[ax]['host_ms']:.1f}, "
+                    f"{c[ax]['payload_bytes']})"
+                    for ax in ("model", "data", "pod", "world")))
+    log("  fsdp pod " + json.dumps(dict(got, rank=r, one_card_step1=want)))
+    if any(got["launches"].values()):
+        fail(f"FSDP pod {name} rank {r} launched kernels: {got['launches']}")
+    first = got["metrics"]
+    if not np.isfinite([first["loss"], first["grad_norm"]]).all():
+        fail(f"FSDP pod {name} rank {r}: non-finite metrics {first}")
+    moe = name == FSDP_POD_MOE["name"]
+    for k, v in want.items():
+        tol = TOL_FSDP_MOE[k] if moe and k == "grad_norm" else TOL_DDP
+        if abs(first[k] - v) > tol * max(1.0, abs(v)):
+            fail(f"FSDP pod {name} rank {r} step 1 {k} {first[k]} != one "
+                 f"card's {v} (tolerance {tol})")
+    if got["gauge_peak"] > 2 * got["column_bytes"]:
+        fail(f"FSDP pod {name} rank {r}: {got['gauge_peak']} bytes of "
+             "gathered layers alive at once, over two layers' columns "
+             f"({got['column_bytes']} bytes each)")
+    vs = got.get("step1_vs_one_card")
+    if vs is not None and (vs["flip_share"] > TOL_FSDP_MOE["flips"]
+                           or vs["param_max_over_lr"] > 2.0 + 1e-3
+                           or vs["m_rel"] > TOL_FSDP_MOE["m_rel"]):
+        fail(f"FSDP pod {name} rank {r}: its blocks after step 1 are not "
+             f"one card's: {vs}")
+
+
+def fsdp_full_width(dev, cfg=None, dc=None, moe_cfg=None) -> list:
     """llama-7b relufied to stage 2 at 2 of its 32 layers on a (2, 2) mesh
     of ranks sharing the card: one card's make_train_step for step 1's
-    loss and grad norm, then 3 FSDP steps, saved after step 2, then step 3
-    again on a (1, 2) mesh restored from that save. The train steps must
-    launch no kernel. Returns the (1, 2) ranks' decode results
-    (``seq_decode_rank``)."""
+    loss and grad norm, then 3 FSDP steps, saved after step 2, then the
+    pod cases (``fsdp_pod_inputs``; ``moe_cfg`` replaces (a)'s config) on
+    the same ranks, then step 3 again on a (1, 2) mesh restored from that
+    save. The train steps must launch no kernel. Returns the (1, 2)
+    ranks' decode results (``seq_decode_rank``)."""
     import shutil
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import TrainConfig, get_config
@@ -5724,19 +5912,22 @@ def fsdp_full_width(dev, cfg=None, dc=None) -> list:
                           batch_size=8)
     it = PackedIterator(dc)
     batches = [next(it) for _ in range(3)]
-    tc = TrainConfig(remat_policy="minimal", learning_rate=1e-4,
-                     warmup_steps=2, num_microbatches=2)
+    tc = TrainConfig(**FSDP_TC, num_microbatches=2)
     want, one_state = one_card_step1(dev, cfg, tc, batches[0])
     ckpt = str(ROOT / "build" / "fsdp_ckpt")
     ref = str(ROOT / "build" / "fsdp_one_card")
-    for d in (ckpt, ref):
+    pod_cases, pod_want, pod_states = fsdp_pod_inputs(dev, cfg, batches[0],
+                                                      moe_cfg)
+    refs = [ckpt, ref] + [c["ref"] for c in pod_cases if c["ref"]]
+    for d in refs:
         shutil.rmtree(d, ignore_errors=True)
 
     def group(world, data, batches, resume):
         t0 = time.time()
-        out = comm.spawn(fsdp_rank, world, timeout=400,
+        out = comm.spawn(fsdp_rank, world, timeout=600,
                          args=(data, cfg, batches, dev.type, ckpt, resume,
-                               None if resume else ref),
+                               None if resume else ref,
+                               () if resume else pod_cases),
                          device=dev.type)
         t1 = time.time()
         log(f"  ({data}, {world // data}) took {t1 - t0:.1f} s: the "
@@ -5750,14 +5941,21 @@ def fsdp_full_width(dev, cfg=None, dc=None) -> list:
     try:
         t0 = time.perf_counter()
         CheckpointManager(ref).save(1, one_state)
-        log(f"  one card's step-1 params and first moment saved in "
+        for c in pod_cases:
+            if c["ref"]:
+                CheckpointManager(c["ref"]).save(1, pod_states.pop(c["name"]))
+        log(f"  one card's step-1 params and first moments saved in "
             f"{time.perf_counter() - t0:.1f} s")
         ranks = group(4, 2, batches, False)
         resumed = group(2, 1, batches[2:], True)
     finally:
-        for d in (ckpt, ref):
+        for d in refs:
             shutil.rmtree(d, ignore_errors=True)
     PLAN_INPUTS["fsdp_step1"] = ranks[0]["collectives"][0]
+    PLAN_INPUTS["fsdp_pod_moe"] = next(
+        p["collectives"] for p in ranks[0]["pod"]
+        if p["name"] == FSDP_POD_MOE["name"])
+    pods = [got.pop("pod") for got in ranks]
     step3 = ranks[0]["metrics"][2]
     for r, got in enumerate(ranks + resumed):
         first = got["metrics"][0]
@@ -5795,6 +5993,9 @@ def fsdp_full_width(dev, cfg=None, dc=None) -> list:
                  f"{first['loss']} != the (2, 2) run's {step3['loss']}")
         log("  fsdp " + json.dumps(dict(got, rank=r % 4, layers=cfg.n_layers,
                                         one_card_step1=want)))
+    for r, cases in enumerate(pods):
+        for p in cases:
+            fsdp_pod_check(r, p, pod_want[p["name"]])
     return [r["decode"] for r in resumed]
 
 
@@ -5829,6 +6030,9 @@ TOL_PLAN_PEAK = 0.10
 TOL_PLAN_TEMP = 0.05
 # the fsdp phase's data collectives a step, as PR 28 recorded them
 PR28_DATA_STEP = (17, 4043390992)
+# its pod MoE case's (FSDP_POD_MOE) data- and pod-axis collectives a step
+# on the card: {axis: (count, payload bytes)}, as first read there
+POD_MOE_STEP = {"data": (9, 10687447056), "pod": (0, 0)}
 # (a): the arch, its sparse cell's FFN tile density, the global batch,
 # the cache's positions and the layers (0: all)
 PLAN_A = dict(arch="qwen3-4b", sparse=0.6, batch=4, seq=32768, layers=0)
@@ -5842,6 +6046,11 @@ PLAN_CELLS = {
                remat="minimal"),
           ["--relufy-stage", "2", "--layers", "2", "--mesh", "2,2",
            "--batch", "8", "--seq", "1024"]),
+    "pod": (dict(arch=FSDP_POD_MOE["arch"], shape="train_4k",
+                 microbatches=FSDP_POD_MOE["microbatches"], remat="minimal"),
+            ["--layers", str(FSDP_POD_MOE["layers"]), "--mesh",
+             ",".join(map(str, FSDP_POD_MOE["mesh"])), "--batch",
+             str(FSDP_POD_MOE["batch"]), "--seq", str(FSDP_POD_MOE["seq"])]),
     "c_train": (dict(arch="qwen3-4b", shape="train_4k", microbatches=8), []),
     "c_decode": (dict(arch="qwen3-4b", shape="decode_32k", sparse=0.6), []),
 }
@@ -6005,6 +6214,24 @@ def plan_phase(dev, counters) -> dict:
                  f"fsdp phase's rank 0 {w}")
     log("  plan (b) collectives a step by axis, dry run "
         f"{json.dumps(b)} = the card's rank 0 {json.dumps(want)}")
+    pod = recs["pod"]["collectives_by_axis"]
+    got = PLAN_INPUTS.get("fsdp_pod_moe")
+    if got is None:
+        want = {ax: dict(count=n, payload_bytes=nb)
+                for ax, (n, nb) in POD_MOE_STEP.items()}
+        log("  plan (pod): the fsdp phase did not run; held against its "
+            f"first card reading {json.dumps(want)}")
+    else:
+        want = {ax: dict(count=got[ax]["count"],
+                         payload_bytes=got[ax]["payload_bytes"])
+                for ax in ("data", "pod")}
+    for ax, w in want.items():
+        if pod[ax] != w:
+            fail(f"plan (pod): the dry run counts {pod[ax]} over {ax}, the "
+                 f"fsdp phase's pod MoE case on rank 0 {w}")
+    log(f"  plan (pod) {FSDP_POD_MOE['arch']} train_4k on "
+        f"{FSDP_POD_MOE['mesh']}, collectives a step by axis: dry run "
+        f"{json.dumps(pod)}; the card's rank 0 {json.dumps(want)}")
     for name in ("c_train", "c_decode"):
         r = recs[name]
         if "error" in r or not r.get("fits"):

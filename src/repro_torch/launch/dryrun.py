@@ -15,13 +15,21 @@ How a cell runs (``run_cell``):
    16)) under torch's "fake" backend (``FakeStore``): this process is
    rank 0, and its collectives return at once, moving nothing;
 2. ``launch.mesh.make_production_mesh`` over it (``--mesh D,M`` takes
-   another (data, model) grid, e.g. 1,1 for one card);
+   another (data, model) grid, e.g. 1,1 for one card, and ``--mesh
+   P,D,M`` a (pod, data, model) one, named ``PxDxM``);
 3. ``launch.specs.build_cell``: rank 0's step and its arguments on
    "meta", the deployed dtypes and layouts;
 4. the step runs once under ``launch.op_cost.OpCost`` (FLOPs, HBM bytes,
    peak live storage, the op profile), its collectives counted by
    ``sharding.comm.STATS`` (counts and payload bytes by axis, wire bytes
    by kind with the ring multipliers).
+
+A train cell's microbatch of fewer rows than the data rows over pod ×
+data (DeepSeek-67B's and zamba2-7b's train_4k on (2, 16, 16): 16 rows a
+microbatch against 32) is counted in the layout the step takes there and
+the reference's compiled step takes too (``train/fsdp.py`` module note,
+step 2): its rows split over "data" within each pod, every pod computing
+the same rows, their reductions summed within the pod.
 
 No kernel runs: on meta tensors every kernel wrapper takes its plain
 version, as the reference's HLO counts XLA's ops and not its kernels;
@@ -48,6 +56,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -197,8 +206,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              mesh_shape=None, batch: int = 0, layers: int = 0,
              cfg=None, extrapolate: bool = True, seq: int = 0,
              relufy_stage: int = 0) -> dict:
-    """One cell's record (module note). ``mesh_shape`` (data, model) takes
-    another grid than the production one; ``batch`` and ``layers`` cut the
+    """One cell's record (module note). ``mesh_shape`` (data, model), or
+    (pod, data, model), takes another grid than the production one;
+    ``batch`` and ``layers`` cut the
     global batch and the depth, ``seq`` sets the sequence length;
     ``relufy_stage`` relufies the arch (``cell_config``), and ``cfg``
     replaces the arch's config (the launchers' relufied one).
@@ -213,6 +223,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     from repro_torch.configs import SHAPES
     from repro_torch.core import flops as flops_lib
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train.fsdp import microbatch_rows
 
     if cfg is None:
         cfg = cell_config(arch, sparse, sp, ngroups, layers, relufy_stage)
@@ -224,19 +235,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     if batch:
         shape = dataclasses.replace(shape, global_batch=batch)
     if mesh_shape is None:
-        n_chips = 512 if multi_pod else 256
-        mesh_name = "2x16x16" if multi_pod else "16x16"
+        mesh_shape = (2, 16, 16) if multi_pod else (16, 16)
 
         def mesh_fn():
             return mesh_lib.make_production_mesh(multi_pod=multi_pod,
                                                  device="meta")
+    elif len(mesh_shape) == 3:
+        def mesh_fn():
+            return mesh_lib.make_pod_mesh(*mesh_shape, device="meta")
     else:
-        n_chips = mesh_shape[0] * mesh_shape[1]
-        mesh_name = f"{mesh_shape[0]}x{mesh_shape[1]}"
-
         def mesh_fn():
             return mesh_lib.make_host_mesh(*mesh_shape, strict=True,
                                            device="meta")
+    n_chips = math.prod(mesh_shape)
+    mesh_name = "x".join(str(n) for n in mesh_shape)
     L, m = cfg.n_layers, shape.num_microbatches
     train = shape.kind == "train"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
@@ -245,12 +257,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
            "global_batch": shape.global_batch, "seq_len": shape.seq_len,
            "n_layers": L,
            "dtype_scale": 1.0}
-    rows = mesh_shape[0] if mesh_shape else (32 if multi_pod else 16)
-    if train and (shape.global_batch % m or (shape.global_batch // m) % rows):
-        # the step's own check, in the cell's numbers (a fitted run's
+    if train:
+        # the step's own rule, in the cell's numbers (a fitted run's
         # batch is cut to its microbatches)
-        raise ValueError(f"batch {shape.global_batch} does not cut into {m} "
-                         f"microbatches split over {rows} data rows")
+        microbatch_rows(shape.global_batch, m, dict(zip(
+            ("pod", "data", "model")[-len(mesh_shape):], mesh_shape)))
     t0 = time.time()
     every = cfg.attn_every if cfg.family == "hybrid" else 0
     # a shared block every 1 or 2 layers is in the runs at 1 and 2 layers
@@ -292,7 +303,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         collectives_by_axis={
             axis: {k: int(counts.get(f"axis/{axis}/{k}", 0))
                    for k in ("count", "payload_bytes")}
-            for axis in ("model", "data", "world")},
+            for axis in ("model", "data", "pod", "world")},
         kernels={name: {k: counts.get(f"kernel/{name}/{k}", 0)
                         for k in ("launches", "bytes", "flops")}
                  for name in sorted({k.split("/")[1] for k in counts
@@ -381,9 +392,9 @@ def main(argv=None) -> int:
                     help="shard-local grouped sparse selection")
     ap.add_argument("--remat", default="minimal",
                     choices=["none", "minimal", "full", "save_ars"])
-    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="another (data, model) grid than the production "
-                         "mesh, e.g. 1,1 for one card")
+    ap.add_argument("--mesh", default=None, metavar="[POD,]DATA,MODEL",
+                    help="another (data, model) or (pod, data, model) grid "
+                         "than the production mesh, e.g. 1,1 for one card")
     ap.add_argument("--batch", type=int, default=0,
                     help="cut the global batch to this")
     ap.add_argument("--layers", type=int, default=0,

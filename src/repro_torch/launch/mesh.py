@@ -15,11 +15,15 @@ initialised world of 256 ranks, (16, 16) ("data", "model"), or 512,
 builds it on rank 0 of a ``"fake"`` world, whose collectives move
 nothing. On a pod mesh rank r sits at pod r // (data·model), data index
 (r // model) mod data and model index r mod model; its data group is the
-ranks of its model index over pod × data (``rules.dp_axes``: the batch
-splits over both), its model group the model row of its (pod, data), its
-shard group the data column of its model index within its pod (the FSDP
-step gathers and reduce-scatters its blocks there) and its pod group its
-peers of the same (data, model) index in the other pods.
+ranks of its model index over pod × data in (pod, data) order
+(``rules.dp_axes``: the batch splits over both, and the train rules
+split the MoE experts' d_model over both, so the FSDP step gathers and
+reduce-scatters those leaves there), its model group the model row of its
+(pod, data), its shard group the data column of its model index within
+its pod (the FSDP step gathers and reduce-scatters the leaves split over
+"data" there) and its pod group its peers of the same (data, model)
+index in the other pods. Every rank builds every group, in the same
+order.
 """
 from __future__ import annotations
 

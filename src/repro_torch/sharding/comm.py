@@ -70,9 +70,13 @@ The FSDP step's data-axis collectives each take one flat buffer, for
 the leaves outside the layers once a step and for each layer where it
 runs (``train/fsdp.py``): ``data_all_gather`` (every row's buffer, in
 data-index order) and ``data_reduce_scatter`` (the sum over the data
-column, this row's equal chunk); ``all_reduce_sum(x, mesh, "data")`` is
-the loss's masked sum and count over the data column, in the graph
-autograd differentiates (backward the identity). ``model_gather`` puts
+column, this row's equal chunk), over the data column within the pod
+("shard") or, for a leaf split over pod × data, over the whole data
+column ("data"); ``pod_sum`` sums over the pods;
+``all_reduce_sum(x, mesh, "data")`` is the loss's masked sum and count
+over the data column (or "shard", where every pod computes the same
+rows), in the graph autograd differentiates (backward the identity).
+``axis_size`` gives each group's ranks. ``model_gather`` puts
 tensors of every rank of the model row together (the sequence-sharded decode
 attention's partial softmaxes); ``gather_to_first`` a tensor of every
 rank of the mesh on its rank 0 (the sharded checkpoint's save).
@@ -96,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
 import queue as queue_mod
 import shutil
@@ -117,7 +122,9 @@ class _Stats:
     reach the call) and their payload bytes (what the rank hands the call:
     the reduced tensor, or the gathered pieces of every rank):
     ``count`` / ``seconds`` / ``bytes`` over the model axis, ``data_*``
-    over the data axis, ``world_*`` over the whole mesh. ``kinds`` counts
+    over the data axis (any of its groups: within the pod, over pod ×
+    data, or over the pods), ``pod_*`` those of them over the pod group
+    alone (``pod_sum``), ``world_*`` over the whole mesh. ``kinds`` counts
     them by kind ("all-reduce", "all-gather", "reduce-scatter", "gather")
     and ``wire`` sums each kind's wire bytes a rank: the result's bytes
     times the kind's ring multiplier (``WIRE_MULT``, the reference's
@@ -127,7 +134,7 @@ class _Stats:
         self.reset()
 
     def reset(self) -> None:
-        for prefix in ("", "data_", "world_"):
+        for prefix in ("", "data_", "pod_", "world_"):
             setattr(self, prefix + "count", 0)
             setattr(self, prefix + "seconds", 0.0)
             setattr(self, prefix + "bytes", 0)
@@ -136,21 +143,24 @@ class _Stats:
 
     def add(self, axis: str, seconds: float, nbytes: int = 0,
             kind: str = "all-reduce", result_bytes: int = 0) -> None:
-        prefix = "" if axis == "model" else axis + "_"
-        for key, value in (("count", 1), ("seconds", seconds),
-                           ("bytes", nbytes)):
-            setattr(self, prefix + key, getattr(self, prefix + key) + value)
+        prefixes = {"model": ("",), "world": ("world_",),
+                    "pod": ("data_", "pod_")}.get(axis, ("data_",))
+        for prefix in prefixes:
+            for key, value in (("count", 1), ("seconds", seconds),
+                               ("bytes", nbytes)):
+                setattr(self, prefix + key,
+                        getattr(self, prefix + key) + value)
         self.kinds[kind] = self.kinds.get(kind, 0) + 1
         self.wire[kind] = (self.wire.get(kind, 0)
                            + WIRE_MULT[kind] * result_bytes)
 
     def by_axis(self) -> dict:
-        """{axis: {"count", "payload_bytes"}} for "model", "data" and
-        "world"."""
+        """{axis: {"count", "payload_bytes"}} for "model", "data", "pod"
+        (a part of "data") and "world"."""
         return {axis: {"count": getattr(self, p + "count"),
                        "payload_bytes": getattr(self, p + "bytes")}
                 for axis, p in (("model", ""), ("data", "data_"),
-                                ("world", "world_"))}
+                                ("pod", "pod_"), ("world", "world_"))}
 
 
 # wire bytes a rank per result byte, by collective kind (ring algorithms)
@@ -344,17 +354,34 @@ def data_split():
     return None if d is None else d[0]
 
 
+def axis_size(mesh, axis: str) -> int:
+    """The ranks of this rank's group ``axis`` of ``mesh``: "model" (its
+    model row), "data" (its data column: over pod × data on a pod mesh,
+    ``rules.dp_axes``), "shard" (the data column within its pod: the
+    data column on a mesh without pods), "pod" (its peers in the other
+    pods) or "world"."""
+    pods = mesh.shape.get("pod", 1)
+    return {"model": mesh.shape["model"], "data": pods * mesh.shape["data"],
+            "shard": mesh.shape["data"], "pod": pods,
+            "world": math.prod(mesh.shape.values())}[axis]
+
+
+def _group(mesh, axis: str):
+    """The process group of ``axis`` (``axis_size``) on ``mesh``; "shard"
+    is the data group on a mesh without pods."""
+    return {"model": mesh.group, "data": mesh.data_group,
+            "shard": getattr(mesh, "shard_group", None) or mesh.data_group,
+            "world": mesh.world_group,
+            "pod": getattr(mesh, "pod_group", None)}[axis]
+
+
 def _all_reduce(t: torch.Tensor, mesh, op=None, axis: str = "model"
                 ) -> torch.Tensor:
     import torch.distributed as dist
-    group = {"model": mesh.group, "data": mesh.data_group,
-             "world": mesh.world_group,
-             "pod": getattr(mesh, "pod_group", None)}[axis]
     t0 = time.perf_counter()
-    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=_group(mesh, axis))
     n = t.numel() * t.element_size()
-    STATS.add("data" if axis == "pod" else axis, time.perf_counter() - t0,
-              n, "all-reduce", n)
+    STATS.add(axis, time.perf_counter() - t0, n, "all-reduce", n)
     return t
 
 
@@ -406,12 +433,13 @@ class _GatherLast(torch.autograd.Function):
 
 def all_reduce_sum(x: torch.Tensor, mesh=None,
                    axis: str = "model") -> torch.Tensor:
-    """The sum over ``mesh``'s ``axis`` ("model", or "data") of each rank's
-    partial ``x``, in f32 (a new tensor; ``x`` is not changed); the mesh
-    defaults to the active one. Without a mesh, or with an axis of one: x
-    in f32. Under autograd its backward is the identity."""
+    """The sum over ``mesh``'s group ``axis`` ("model", "data" or "shard":
+    ``axis_size``) of each rank's partial ``x``, in f32 (a new tensor;
+    ``x`` is not changed); the mesh defaults to the active one. Without a
+    mesh, or with a group of one rank: x in f32. Under autograd its
+    backward is the identity."""
     mesh = mesh or active()
-    if mesh is None or mesh.shape[axis] == 1:
+    if mesh is None or axis_size(mesh, axis) == 1:
         return x.to(torch.float32, copy=True)
     return _ReduceSum.apply(x, mesh, axis)
 
@@ -629,7 +657,7 @@ def gather_to_first(t: torch.Tensor, mesh):
     """``t`` from every rank of ``mesh`` on its rank 0, in rank order:
     (world, *shape) there, None on the others. One gather, exact."""
     import torch.distributed as dist
-    world = mesh.shape["data"] * mesh.shape["model"]
+    world = axis_size(mesh, "world")
     if world == 1:
         return t[None]
     t = t.contiguous()
@@ -642,40 +670,37 @@ def gather_to_first(t: torch.Tensor, mesh):
     return out
 
 
-def _shard_group(mesh):
-    """The group "data"-split params are gathered over: the data column
-    within the rank's pod on a pod mesh, else the data column."""
-    return getattr(mesh, "shard_group", None) or mesh.data_group
-
-
-def data_all_gather(flat: torch.Tensor, mesh) -> torch.Tensor:
-    """Every row's 1-D ``flat`` of this rank's data column (within its pod
-    on a pod mesh), in data-index order: (D, n), one all_gather into one
+def data_all_gather(flat: torch.Tensor, mesh, axis: str = "shard"
+                    ) -> torch.Tensor:
+    """Every row's 1-D ``flat`` of this rank's data column within its pod
+    (``axis`` "shard"), or over pod × data ("data": the rows in
+    (pod, data) order), in that order: (n, len), one all_gather into one
     buffer."""
     import torch.distributed as dist
-    n = mesh.shape["data"]
+    n = axis_size(mesh, axis)
     if n == 1:
         return flat[None]
     out = flat.new_empty((n,) + tuple(flat.shape))
     t0 = time.perf_counter()
     dist.all_gather(list(out.unbind(0)), flat.contiguous(),
-                    group=_shard_group(mesh))
+                    group=_group(mesh, axis))
     n = out.numel() * out.element_size()
     STATS.add("data", time.perf_counter() - t0, n, "all-gather", n)
     return out
 
 
-def data_reduce_scatter(flat: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum over the data column (within the rank's pod on a pod mesh)
-    of every row's 1-D ``flat`` (D equal chunks, chunk j for row j): this
+def data_reduce_scatter(flat: torch.Tensor, mesh, axis: str = "shard"
+                        ) -> torch.Tensor:
+    """The sum over the data column within the rank's pod (``axis``
+    "shard"), or over pod × data ("data"), of every row's 1-D ``flat`` (n
+    equal chunks, chunk j for row j in ``data_all_gather``'s order): this
     row's chunk, one reduce_scatter."""
-    import torch.distributed as dist
-    n = mesh.shape["data"]
+    n = axis_size(mesh, axis)
     if n == 1:
         return flat
     out = flat.new_empty(flat.numel() // n)
     t0 = time.perf_counter()
-    _reduce_scatter_into(out, flat.contiguous(), group=_shard_group(mesh))
+    _reduce_scatter_into(out, flat.contiguous(), group=_group(mesh, axis))
     STATS.add("data", time.perf_counter() - t0,
               flat.numel() * flat.element_size(), "reduce-scatter",
               out.numel() * out.element_size())
@@ -700,10 +725,12 @@ def data_max(x: torch.Tensor) -> torch.Tensor:
     return data_gather([x])[0].amax(0)
 
 
-def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``x`` over the rows of ``mesh``'s data axis (in
-    place)."""
-    return x if mesh.shape["data"] == 1 else _all_reduce(x, mesh, axis="data")
+def data_sum(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """The sum of ``x`` over the rows of ``mesh``'s data column (over pod ×
+    data on a pod mesh; ``axis`` "shard": within the rank's pod), in
+    place."""
+    return x if axis_size(mesh, axis) == 1 else _all_reduce(x, mesh,
+                                                            axis=axis)
 
 
 def world_sum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -719,7 +746,7 @@ def token_checksum(tokens) -> int:
 
 
 def _one_rank(mesh) -> bool:
-    return mesh is None or mesh.shape["model"] * mesh.shape["data"] == 1
+    return mesh is None or axis_size(mesh, "world") == 1
 
 
 def check_same(value: int, mesh, what: str = "sampled tokens") -> None:

@@ -368,15 +368,17 @@ def block_slices(spec: Spec, shape: Tuple[int, ...], mesh_shape,
 def full_from_blocks(blocks: torch.Tensor, spec: Spec, mesh,
                      shape: Tuple[int, ...], packed=None) -> torch.Tensor:
     """The whole ``shape`` leaf from every rank's block under ``spec``,
-    ``blocks`` (world, *block shape) in rank order (rank r at data index
-    r // model, model index r % model): each block placed at its index
-    (a block replicated over an axis is the same on every rank of it);
-    a ``packed`` dim (``local_block``) segment by segment, in the leaf's
-    own order."""
+    ``blocks`` (world, *block shape) in rank order (the mesh's axes major
+    first: on a (data, model) mesh rank r at data index r // model, model
+    index r % model): each block placed at its index (a block replicated
+    over an axis is the same on every rank of it); a ``packed`` dim
+    (``local_block``) segment by segment, in the leaf's own order."""
     out = blocks.new_empty(shape)
-    M = mesh.shape["model"]
+    names = tuple(getattr(mesh, "axis_names", ("data", "model")))
     for r in range(blocks.shape[0]):
-        coords = {"data": r // M, "model": r % M}
+        coords, rest = {}, r
+        for a in reversed(names):
+            coords[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
         if packed is None:
             out[block_slices(spec, shape, mesh.shape, coords)] = blocks[r]
             continue

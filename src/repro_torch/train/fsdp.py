@@ -1,12 +1,18 @@
-"""The FSDP + TP train step on a (data, model) mesh: the reference's
-``launch/specs.py::build_train`` (``make_train_step`` under the rules'
-train-mode shardings), in explicit collectives over ``torch.distributed``
-ranks (``sharding/comm.py``).
+"""The FSDP + TP train step on a (data, model) or (pod, data, model) mesh:
+the reference's ``launch/specs.py::build_train`` (``make_train_step``
+under the rules' train-mode shardings), in explicit collectives over
+``torch.distributed`` ranks (``sharding/comm.py``).
 
 Layout. Every leaf of the params and of both AdamW moments is the rank's
 block under ``rules.param_pspec(path, shape, mesh, "train")``: "embed"
-over "data" (FSDP), ffn, heads, kv_heads and vocab over "model"; where a
-dim does not divide its axis, the leaf is replicated over that axis. The
+over "data" (FSDP; on a pod mesh within the pod, replicated over "pod"),
+the MoE experts' d_model ("embed_heavy") over ("pod", "data") on a pod
+mesh, ffn, heads, kv_heads and vocab over "model"; where a dim does not
+divide its axis, the leaf is replicated over that axis. A leaf's data
+group is the data column of its split: within the rank's pod for "data"
+(the mesh's ``shard_group``: D ranks), over pod × data for ("pod",
+"data") (its ``data_group``: P·D ranks, (pod, data) order); a group of
+one rank splits nothing. The
 SSM leaves of the Mamba-1 and Zamba-2 families take the family's blocks
 over "model" instead (``common.leaf_sharding``: the rank's d_inner
 units or heads; the rules' "data" entries kept).
@@ -18,18 +24,33 @@ A step (``make_fsdp_train_step``):
 
 1. gathers the leaves outside the layers (the embedding, the head, the
    final norm) that are split over "data" into the rank's model column,
-   once a step: one all_gather of one flat buffer over the data column,
-   in the compute dtype (the forward casts the f32 masters to it at its
-   entry, so it computes with the same values), the column then held in
-   f32 so that its gradients come back in f32;
+   once a step: one all_gather of one flat buffer over each data group
+   (module note, Layout) that has such leaves, in the compute dtype (the
+   forward casts the f32 masters to it at its entry, so it computes with
+   the same values), the column then held in f32 so that its gradients
+   come back in f32;
 2. cuts the global batch into ``tc.num_microbatches`` slices as
-   ``train/step.py`` does; the data rows split each slice's rows;
+   ``train/step.py`` does (``microbatch_rows``). The data rows, over pod ×
+   data, split each slice's rows where they divide them. A slice of fewer
+   rows than that, which "data" divides, splits over "data" within each
+   pod, and every pod computes the same rows: the layout the reference's
+   compiled step takes there (its ``build_train`` on 8 forced CPU devices
+   at (2, 2, 2), 2 rows a slice: the scan's slice all-gathers the batch
+   over "pod", each device holding one row, the pods' copies alike; the
+   loss's masked sum and the layer gradients' sums then run over "data"
+   within the pod, GSPMD using "pod" for other dims of the products).
+   Such a slice's reductions count its rows once: the loss's sum and
+   count run over the pod's data column, the gradients of the leaves
+   split over "data" or replicated are summed within the pod and not
+   over the pods, and those of the leaves split over pod × data, whose
+   reduce-scatter sums the pods' alike copies, are divided by the pod
+   count;
 3. runs each slice's forward and backward under the mesh's model axis in
    the train mode (``comm.serving(mesh, rows, "train")``: the serving
    path's tensor parallelism, whose collectives autograd differentiates).
    The loss (``fsdp_loss``) is the masked mean over the whole slice: the
-   masked sum and the count are summed over "data" before the division,
-   in the graph. The logits stay split over the vocabulary, and the
+   masked sum and the count are summed over the slice's data rows before
+   the division, in the graph. The logits stay split over the vocabulary, and the
    log-sum-exp runs over the model ranks (the maximum, then the sum of
    exp and the target logit in one all-reduce): the function of
    ``train/step.py::lm_loss`` with its per-element roundings (the maximum
@@ -43,23 +64,34 @@ A step (``make_fsdp_train_step``):
    the layers, Whisper's encoder and decoder stacks, and Zamba-2's
    shared block, a stack of one that each of its applications takes)
    from that stack's ``_Layers`` just before its block (one all_gather
-   of the layer's blocks in the compute dtype, ``_GatherLayer``) and
-   releases it when the block returns. The slice's
+   of the layer's blocks in the compute dtype over each of its data
+   groups, ``_GatherLayer``) and releases it when the block returns. The
+   slice's
    saved-tensor hooks keep a token in the graph where a gathered weight
    would be saved (a remat policy's checkpoint saves its inputs there
    too), so the backward gathers the layer again at its first use; the
    backward of ``_GatherLayer``, which runs once the layer's gradients
-   are all in, reduces them over the data column (one reduce_scatter, in
-   f32), adds them into the rank's f32 block gradients, which persist
-   over the slices as the reference's scan adds sharded gradients, and
-   drops the layer. No more than a layer's column is gathered at a time
-   (``GAUGE``). After the last slice, the step-long columns' f32
-   gradients are reduced to the rank's blocks (one reduce_scatter), those
-   of the leaves replicated over "data" summed (one all-reduce), and all
-   are divided by the slice count as the reference's mean divides. With
-   L layers (layer applications, over every stack), nmb slices and a
-   data axis of more than one rank, a step issues 1 + 2·L·nmb
-   all_gathers and L·nmb + 1 reduce_scatters over "data";
+   are all in, reduces them over each data group (one reduce_scatter a
+   group, in f32; the pod's column's sum then summed over the pods, one
+   all-reduce, ``comm.pod_sum``; the pod × data reduce-scatter sums over
+   the pods itself), adds them into the rank's f32 block gradients, which
+   persist over the slices as the reference's scan adds sharded
+   gradients, and drops the layer. No more than a layer's column is
+   gathered at a time (``GAUGE``). After the last slice, the step-long
+   columns' f32 gradients are reduced to the rank's blocks as a layer's
+   are, those of the leaves replicated over "data" summed (one
+   all-reduce), and all are divided by the slice count as the
+   reference's mean divides. With L layers (layer applications, over
+   every stack), nmb slices and a data axis of more than one rank, with
+   g the data groups among each layer's split leaves (2 for an MoE layer
+   on a pod mesh, else 1), a step issues, counted on the data axis of
+   ``comm.STATS``: 1 + 2·g·L·nmb all_gathers, g·L·nmb + 1
+   reduce_scatters, nmb all-reduces of the loss's sum and count, one of
+   the replicated leaves and, on a pod mesh whose slices split over pod
+   × data, L·nmb + 1 pod sums (``STATS.pod_count``; none where every pod
+   computes the same rows). On a pod mesh of one data row a pod only the
+   experts' pod × data column is gathered (2·L·nmb all_gathers, L·nmb
+   reduce_scatters, no pod sum);
 5. clips by the global norm with each element counted once: a rank adds
    a leaf's squares only where it is the leaf's first holder along each
    axis the spec replicates it over, then one sum over the mesh;
@@ -69,7 +101,7 @@ A step (``make_fsdp_train_step``):
 Metrics {"loss", "grad_norm", "lr", "step_ok"} are 0-d f32 tensors on the
 mesh's device, equal on every rank. The step runs none of the ten
 kernels, as the reference's runs none. It trains every family; an MoE
-routing group that would span data rows raises.
+routing group that would span the rows a rank holds raises.
 """
 from __future__ import annotations
 
@@ -122,18 +154,21 @@ def shard_train_state(params, mesh, cfg: ModelConfig
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     """One leaf's layout on this rank: the shape of its block, the dim
-    split over "data" (None: replicated over it, or a data axis of one
-    rank), the stack it belongs to (``STACKS``, None outside them: the
-    step gathers a stack's leaves layer by layer, the other split leaves
-    once a step), whether that stack is stacked on dim 0, and whether
+    split over its data group (None: replicated over "data", or a group
+    of one rank), the stack it belongs to (``STACKS``, None outside them:
+    the step gathers a stack's leaves layer by layer, the other split
+    leaves once a step), whether that stack is stacked on dim 0, whether
     this rank counts the leaf's squares in the global norm (it is the
-    leaf's first holder along each axis the spec replicates it over)."""
+    leaf's first holder along each axis the spec replicates it over), and
+    its data group (``comm.axis_size``'s "shard": over "data" within the
+    pod; "data": over pod × data)."""
 
     block: tuple
     data_dim: Optional[int]
     counted: bool
     layer: Optional[str]
     stacked: bool = True
+    group: str = "shard"
 
     def one_layer(self) -> "_Leaf":
         """A layer leaf's layout at one layer (its stacked dim 0 taken)."""
@@ -143,8 +178,11 @@ class _Leaf:
                                    data_dim=self.data_dim - 1)
 
 
+# a spec entry split over data -> its data group (``comm.axis_size``)
+_GROUPS = {"data": "shard", ("pod", "data"): "data"}
+
+
 def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
-    D = mesh.shape["data"]
     first = {a: mesh.coords[a] == 0 for a in mesh.axis_names}
     shapes = param_shapes(cfg)
     stack_of = flatten({k: tree_map(lambda _, k=k: k if k in STACKS
@@ -154,35 +192,41 @@ def _layout(cfg: ModelConfig, mesh) -> List[_Leaf]:
     for shape, sh, stack in zip(flatten(shapes),
                                 flatten(state_shardings(cfg, mesh)[0]),
                                 stack_of):
-        if any(a not in (None, "data", "model") for a in sh.spec):
-            raise NotImplementedError(f"spec {sh.spec}: the step takes "
-                                      "'data' and 'model' entries only")
+        dim, group = None, "shard"
+        for i, a in enumerate(sh.spec):
+            if a in _GROUPS:
+                dim, group = i, _GROUPS[a]
+            elif a not in (None, "model"):
+                raise NotImplementedError(
+                    f"spec {sh.spec}: the step takes 'data', ('pod', "
+                    "'data') and 'model' entries only")
+        held = {n for a in sh.spec if a
+                for n in (a if isinstance(a, tuple) else (a,))}
         out.append(_Leaf(sh.block_shape(shape.shape),
-                         sh.spec.index("data")
-                         if "data" in sh.spec and D > 1 else None,
-                         all(a in sh.spec or first[a] for a in first),
-                         stack or None, stack != "shared"))
+                         dim if comm.axis_size(mesh, group) > 1 else None,
+                         all(a in held or first[a] for a in first),
+                         stack or None, stack != "shared", group))
     return out
 
 
 def layer_column_bytes(cfg: ModelConfig, mesh) -> int:
     """The bytes of one layer's gathered column on a rank of ``mesh``: its
-    leaves split over "data", whole along it, in the compute dtype (0 on a
-    data axis of one rank: nothing is gathered); the largest over the
-    stacks (``STACKS``)."""
+    leaves split over a data group, whole along it, in the compute dtype
+    (0 where every data group is one rank: nothing is gathered); the
+    largest over the stacks (``STACKS``)."""
     size = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                        ).element_size()
     per = {}
     for l in _layout(cfg, mesh):
         if l.layer and l.data_dim is not None:
             per[l.layer] = per.get(l.layer, 0) + math.prod(
-                l.one_layer().block) * mesh.shape["data"] * size
+                l.one_layer().block) * comm.axis_size(mesh, l.group) * size
     return max(per.values(), default=0)
 
 
 def _columns(every: torch.Tensor, leaves: List[_Leaf]) -> List[torch.Tensor]:
     """The leaves' columns in one gathered buffer (``comm.data_all_gather``:
-    row j holds data row j's blocks, in ``leaves``' order)."""
+    row j holds the group's row j's blocks, in ``leaves``' order)."""
     out, at = [], 0
     for l in leaves:
         n = math.prod(l.block)
@@ -194,12 +238,57 @@ def _columns(every: torch.Tensor, leaves: List[_Leaf]) -> List[torch.Tensor]:
 
 def _row_chunks(cols: List[torch.Tensor], leaves: List[_Leaf], D: int
                 ) -> torch.Tensor:
-    """The columns laid out flat as D equal chunks, chunk j data row j's
-    blocks in ``leaves``' order (what ``comm.data_reduce_scatter`` hands
-    row j)."""
+    """The columns laid out flat as D equal chunks, chunk j the group's
+    row j's blocks in ``leaves``' order (what ``comm.data_reduce_scatter``
+    hands row j)."""
     return torch.cat([c.narrow(l.data_dim, j * l.block[l.data_dim],
                                l.block[l.data_dim]).reshape(-1)
                       for j in range(D) for c, l in zip(cols, leaves)])
+
+
+def _by_group(leaves: List[_Leaf]) -> Dict[str, List[int]]:
+    """The indices of ``leaves`` in each data group, in order."""
+    out: Dict[str, List[int]] = {}
+    for k, l in enumerate(leaves):
+        out.setdefault(l.group, []).append(k)
+    return out
+
+
+def _gather(blocks: List[torch.Tensor], leaves: List[_Leaf], cdt, mesh,
+            sizes: Optional[List[int]] = None) -> List[torch.Tensor]:
+    """The columns of the split ``leaves`` from this rank's ``blocks``: one
+    all_gather of a flat buffer in ``cdt`` over each data group, in
+    ``leaves``' order; each buffer's bytes appended to ``sizes``."""
+    out = [None] * len(leaves)
+    for group, ks in _by_group(leaves).items():
+        every = comm.data_all_gather(torch.cat(
+            [blocks[k].reshape(-1) for k in ks]).to(cdt), mesh, group)
+        if sizes is not None:
+            sizes.append(every.numel() * every.element_size())
+        for k, c in zip(ks, _columns(every, [leaves[k] for k in ks])):
+            out[k] = c
+    return out
+
+
+def _reduce(cols: List[torch.Tensor], leaves: List[_Leaf], mesh,
+            repeated: bool) -> List[torch.Tensor]:
+    """This rank's f32 blocks of the split ``leaves``' summed gradients
+    from its column gradients ``cols``: one reduce_scatter over each data
+    group; the pod's column's sum then summed over the pods, or, where
+    every pod computed the same rows (``repeated``), the pod × data sum
+    divided by the pod count (module note, step 2)."""
+    out = [None] * len(leaves)
+    for group, ks in _by_group(leaves).items():
+        mine = comm.data_reduce_scatter(_row_chunks(
+            [cols[k] for k in ks], [leaves[k] for k in ks],
+            comm.axis_size(mesh, group)).float(), mesh, group)
+        if group == "shard" and not repeated:
+            mine = comm.pod_sum(mine, mesh)
+        elif group == "data" and repeated:
+            mine = mine / comm.axis_size(mesh, "pod")
+        for k, piece in zip(ks, _cut(mine, [leaves[k].block for k in ks])):
+            out[k] = piece
+    return out
 
 
 def _cut(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
@@ -272,14 +361,14 @@ class _Layers(cm.LayerSource):
     their gather to ``release`` and nowhere else in the step."""
 
     def __init__(self, template, split_mask: List[bool], blocks, whole,
-                 grads, leaves: List[_Leaf], cdt, mesh):
+                 grads, leaves: List[_Leaf], cdt, mesh, repeated: bool):
         self.template = template  # the layer tree, leaves numbered
         self.split_mask = split_mask
         self.blocks = blocks  # the split leaves' f32 blocks (L, ...)
         self.whole = [w.unbind(0) for w in whole]
         self.grads = grads  # the split leaves' f32 block gradients (L, ...)
         self.leaves = leaves  # the split leaves at one layer
-        self.cdt, self.mesh = cdt, mesh
+        self.cdt, self.mesh, self.repeated = cdt, mesh, repeated
         self.live: Dict[int, List[torch.Tensor]] = {}
         self.where: Dict[int, Tuple[int, int]] = {}
         self.anchor = (torch.empty(0, device=blocks[0].device,
@@ -293,10 +382,8 @@ class _Layers(cm.LayerSource):
                                          for s in self.split_mask])
 
     def gather(self, i: int) -> List[torch.Tensor]:
-        every = comm.data_all_gather(torch.cat(
-            [b[i].reshape(-1) for b in self.blocks]).to(self.cdt), self.mesh)
-        GAUGE.gathers.append(every.numel() * every.element_size())
-        cols = _columns(every, self.leaves)
+        cols = _gather([b[i] for b in self.blocks], self.leaves, self.cdt,
+                       self.mesh, GAUGE.gathers)
         for k, c in enumerate(cols):
             self.where[_address(c)] = (i, k)
             GAUGE.hold(c)
@@ -304,11 +391,8 @@ class _Layers(cm.LayerSource):
         return cols
 
     def reduce(self, i: int, grads: List[torch.Tensor]) -> None:
-        mine = comm.pod_sum(comm.data_reduce_scatter(_row_chunks(
-            grads, self.leaves, self.mesh.shape["data"]).float(), self.mesh),
-            self.mesh)
-        for g, piece in zip(self.grads,
-                            _cut(mine, [l.block for l in self.leaves])):
+        for g, piece in zip(self.grads, _reduce(grads, self.leaves,
+                                                self.mesh, self.repeated)):
             g[i] += piece
         GAUGE.reductions += 1
         self.release(i)
@@ -341,26 +425,51 @@ def _hooks(sources: List[_Layers]):
     return pack, unpack
 
 
-def _check_groups(cfg: ModelConfig, rows: int, seq: int, D: int) -> None:
+def microbatch_rows(b: int, nmb: int, shape: Dict[str, int]
+                    ) -> Tuple[int, bool]:
+    """How the step lays out the slices of a global batch of ``b`` rows in
+    ``nmb`` microbatches on a mesh of ``shape`` (axis -> size; module
+    note, step 2): (the data rows a slice's rows split over, whether every
+    pod computes the same rows). Raises ValueError for any other cut."""
+    pods, D = shape.get("pod", 1), shape["data"]
+    b_mb = b // nmb
+    if b % nmb == 0 and b_mb % (pods * D) == 0:
+        return pods * D, False
+    if b % nmb == 0 and pods > 1 and b_mb < pods * D and b_mb % D == 0:
+        return D, True
+    if pods == 1:
+        raise ValueError(f"batch {b} does not cut into {nmb} microbatches "
+                         f"split over {D} data rows")
+    raise ValueError(
+        f"batch {b} in {nmb} microbatches: {b / nmb:g} rows a microbatch "
+        f"split over neither the {pods * D} data rows of ('pod', 'data') "
+        f"nor, fewer than those, the {D} rows of 'data' within each of "
+        f"the {pods} pods")
+
+
+def _check_groups(cfg: ModelConfig, rows: int, seq: int, mine: int) -> None:
     """An MoE slice's routing groups (``moe._route``: of the slice's whole
-    batch) must each lie in one data row's tokens."""
+    batch of ``rows`` rows) must each lie in the ``mine`` rows a rank
+    holds."""
     t_all = rows * seq
     G = max(1, t_all // cfg.moe_group_size)
     while t_all % G:
         G -= 1
-    if (t_all // D) % (t_all // G):
+    if (mine * seq) % (t_all // G):
         raise NotImplementedError(
             f"{cfg.name}: routing groups of {t_all // G} tokens span the "
-            f"data rows' {t_all // D} tokens; the FSDP step routes each "
-            "row's groups alone")
+            f"{mine * seq} tokens a rank holds; the FSDP step routes each "
+            "rank's groups alone")
 
 
 def fsdp_loss(params, batch, cfg: ModelConfig, mesh,
-              remat_policy: str = "none") -> torch.Tensor:
+              remat_policy: str = "none", rows: str = "data") -> torch.Tensor:
     """The next-token cross-entropy of the whole slice whose rows this
     rank holds (``batch``), under the active train-mode mesh: the masked
-    sum of the rows' nll over every data row divided by their count
-    (``batch["loss_mask"]`` (b, s), all ones without it). The logits of a
+    sum of the rows' nll over every data row of the group ``rows``
+    (``comm.axis_size``: "data", or "shard" where every pod computes the
+    same rows) divided by their count (``batch["loss_mask"]`` (b, s), all
+    ones without it). The logits of a
     vocabulary split over "model" stay split: the log-sum-exp takes the
     maximum over the ranks (no gradient: it cancels), then the sum of exp
     and the target logit (held by one rank) in one all-reduce."""
@@ -389,7 +498,7 @@ def fsdp_loss(params, batch, cfg: ModelConfig, mesh,
     mask = batch.get("loss_mask")
     w = mask[:, 1:].float() if mask is not None else torch.ones_like(nll)
     tot = comm.all_reduce_sum(torch.stack([(nll * w).sum(), w.sum()]), mesh,
-                              axis="data")
+                              axis=rows)
     return tot[0] / torch.clamp(tot[1], min=1.0)
 
 
@@ -408,15 +517,6 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
     backward (``_Layers``); ``GAUGE`` is reset at the start. params: the
     rank's f32 blocks (``shard_train_state``); batch: the global batch
     (every rank passes the same)."""
-    if "pod" in mesh.axis_names and cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name} on a pod mesh: the train rules split the experts' "
-            "d_model over ('pod', 'data'), which the step's gathers over "
-            "one pod's data column do not cover")
-    D = mesh.shape["data"]
-    # the batch rows: over pod x data (rules.dp_axes); the params' blocks
-    # over "data" within a pod, replicated over "pod"
-    rows_n, row = rules.axis_block(mesh, rules.dp_axes(mesh))[::-1]
     leaves = _layout(cfg, mesh)
     entry = [i for i, l in enumerate(leaves)
              if not l.layer and l.data_dim is not None]
@@ -430,24 +530,22 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
     cdt = getattr(torch, cfg.compute_dtype)
 
     def entry_columns(blocks) -> List[torch.Tensor]:
-        if not entry:
-            return []
-        return [c.float() for c in _columns(comm.data_all_gather(
-            torch.cat([blocks[i].reshape(-1) for i in entry]).to(cdt), mesh),
-            [leaves[i] for i in entry])]
+        return [c.float() for c in _gather(
+            [blocks[i] for i in entry], [leaves[i] for i in entry], cdt,
+            mesh)] if entry else []
 
-    def reduce_step_long(col_grads) -> Dict[int, torch.Tensor]:
+    def reduce_step_long(col_grads, repeated: bool
+                         ) -> Dict[int, torch.Tensor]:
         out = {}
         if entry:
-            out.update(zip(entry, _cut(
-                comm.pod_sum(comm.data_reduce_scatter(_row_chunks(
-                    [col_grads[i] for i in entry],
-                    [leaves[i] for i in entry], D), mesh), mesh),
-                [leaves[i].block for i in entry])))
+            out.update(zip(entry, _reduce(
+                [col_grads[i] for i in entry], [leaves[i] for i in entry],
+                mesh, repeated)))
         if whole:
             out.update(zip(whole, _cut(
                 comm.data_sum(torch.cat([col_grads[i].reshape(-1)
-                                         for i in whole]), mesh),
+                                         for i in whole]), mesh,
+                              "shard" if repeated else "data"),
                 [leaves[i].block for i in whole])))
         return out
 
@@ -461,13 +559,15 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
                     "(shard_train_state)")
         b = batch["tokens"].shape[0]
         nmb = max(1, tc.num_microbatches)
-        if b % nmb or (b // nmb) % rows_n:
-            raise ValueError(f"batch {b} does not cut into {nmb} "
-                             f"microbatches split over {rows_n} data rows")
+        rows_n, repeated = microbatch_rows(b, nmb, mesh.shape)
+        # this rank's row of a slice: its index over pod x data
+        # (rules.dp_axes), or over "data" alone where the pods repeat it
+        row = rules.axis_block(mesh, "data" if repeated
+                               else rules.dp_axes(mesh))[0]
         b_mb = b // nmb
         bl = b_mb // rows_n
-        if cfg.n_experts and D > 1:
-            _check_groups(cfg, b_mb, batch["tokens"].shape[1], D)
+        if cfg.n_experts and rows_n > 1:
+            _check_groups(cfg, b_mb, batch["tokens"].shape[1], bl)
         GAUGE.reset()
         col = [None] * len(blocks)
         for i, c in zip(entry, entry_columns([p.detach() for p in blocks])):
@@ -498,18 +598,20 @@ def make_fsdp_grads(cfg: ModelConfig, tc: TrainConfig, mesh):
                         [_stacked(col[j], name) for j in layer
                          if j not in split],
                         layer_grads[name],
-                        [leaves[j].one_layer() for j in split], cdt, mesh)
+                        [leaves[j].one_layer() for j in split], cdt, mesh,
+                        repeated)
                     tree[name] = src
                     sources.append(src)
                 with torch.autograd.graph.saved_tensors_hooks(
                         *_hooks(sources)):
-                    loss_i = fsdp_loss(tree, mb, cfg, mesh, tc.remat_policy)
+                    loss_i = fsdp_loss(tree, mb, cfg, mesh, tc.remat_policy,
+                                       "shard" if repeated else "data")
                 loss_i.backward()
             l_sum = l_sum + loss_i.detach()
         del tree, sources
         reduced = reduce_step_long(
             [None if c is None else torch.zeros_like(c) if c.grad is None
-             else c.grad for c in col])
+             else c.grad for c in col], repeated)
         del col
         for name, (_, split) in stacks.items():
             reduced.update(zip(split, [g if name != "shared" else g[0]

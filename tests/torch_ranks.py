@@ -623,9 +623,18 @@ def sp_grads(rank: int, world: int, cases) -> list:
 
 def pod_step(rank: int, world: int, case, pods: int) -> dict:
     """``case`` (cfg json, the reference's numpy params, tokens) on a
-    (pods, world / (2·pods), 2) pod mesh: the FSDP step's loss and mean
-    gradient (``grad_blocks``), then one train step's metrics and its
-    data-axis collectives."""
+    (pods, world / (2·pods), 2) pod mesh: ``pod_steps`` of it at 2
+    microbatches."""
+    cfg_json, params, toks = case
+    return pod_steps(rank, world, [(cfg_json, params, {"tokens": toks}, 2)],
+                     pods)[0]
+
+
+def pod_steps(rank: int, world: int, cases, pods: int) -> list:
+    """Each (cfg json, the reference's numpy params, a numpy batch,
+    microbatches) on one (pods, world / (2·pods), 2) pod mesh: the FSDP
+    step's loss and mean gradient (``grad_blocks``), then one train step's
+    metrics and its data- and pod-axis collectives."""
     from repro_torch.configs import TrainConfig
     from repro_torch.configs.base import ModelConfig
     from repro_torch.convert import params_from_jax
@@ -633,19 +642,23 @@ def pod_step(rank: int, world: int, case, pods: int) -> dict:
     from repro_torch.sharding import comm
     from repro_torch.train import fsdp
     torch.set_num_threads(1)
-    cfg_json, params, toks = case
-    cfg = ModelConfig.from_json(cfg_json)
     mesh = make_pod_mesh(pods, world // (2 * pods), 2, device="cpu")
-    tc = TrainConfig(num_microbatches=2, remat_policy="minimal")
-    blocks, opt = fsdp.shard_train_state(params_from_jax(
-        params, cfg, device="cpu", dtype=torch.float32), mesh, cfg)
-    batch = {"tokens": torch.from_numpy(toks)}
-    loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(blocks, batch)
-    out = dict(grad_loss=float(loss), **grad_blocks(grads, cfg, mesh))
-    comm.STATS.reset()
-    _, _, m = fsdp.make_fsdp_train_step(cfg, tc, mesh)(blocks, opt, batch)
-    return dict(out, data=comm.STATS.data_count,
-                **{k: float(v) for k, v in m.items()})
+    out = []
+    for cfg_json, params, batch, nmb in cases:
+        cfg = ModelConfig.from_json(cfg_json)
+        tc = TrainConfig(num_microbatches=nmb, remat_policy="minimal")
+        blocks, opt = fsdp.shard_train_state(params_from_jax(
+            params, cfg, device="cpu", dtype=torch.float32), mesh, cfg)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        loss, grads = fsdp.make_fsdp_grads(cfg, tc, mesh)(blocks, batch)
+        got = dict(grad_loss=float(loss), **grad_blocks(grads, cfg, mesh))
+        comm.STATS.reset()
+        _, _, m = fsdp.make_fsdp_train_step(cfg, tc, mesh)(blocks, opt,
+                                                            batch)
+        out.append(dict(got, data=comm.STATS.data_count,
+                        pod=comm.STATS.pod_count,
+                        **{k: float(v) for k, v in m.items()}))
+    return out
 
 
 def sp_collectives(rank: int, world: int, seed: int) -> dict:
